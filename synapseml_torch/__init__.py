@@ -1,0 +1,26 @@
+"""synapseml_torch — the PyTorch/CUDA port of ``synapseml_tpu``.
+
+The JAX package stays the reference; this package grows beside it slice by
+slice, mirroring its layout so each file names its counterpart:
+  core/        DataFrame, params, pipeline API, stage telemetry, bucketing
+  parallel/    token-sequence padding (the rest with the multi-GPU slice)
+  ops/         hand-written CUDA kernels (``csrc/``) with plain versions
+  models/      BERT nets, the Flax weight bridge, DeepTextModel scoring
+
+It imports torch and numpy, never JAX. Entry points run on the CUDA card
+unless the caller asks for the CPU.
+"""
+
+__version__ = "0.1.0"
+
+from .core import (  # noqa: F401
+    DataFrame,
+    Estimator,
+    GlobalParams,
+    Model,
+    Pipeline,
+    PipelineModel,
+    PipelineStage,
+    Transformer,
+    load_stage,
+)
