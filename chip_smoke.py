@@ -9,15 +9,27 @@ the kernels are built for sm_90a). Phases, each of which raises on failure:
    TF32 off for matmuls and convolutions;
 2. build: compiles every kernel under synapseml_torch/csrc/ with nvcc;
 3. kernels: holds each kernel against its plain PyTorch version on the
-   card (BERT-base shapes in bf16 and f32, with a padding mask, causal and
-   not; unaligned T and D; fully masked rows exactly 0);
-4. main path: DeepTextModel scoring with BERT-base (random weights from a
-   seed) through attn_impl='flash': the kernel must launch 12 times per
+   card: flash attention at BERT-base shapes in bf16 and f32, with a
+   padding mask, causal and not, unaligned T and D, fully masked rows
+   exactly 0;
+   and the GBDT histogram kernel at the Higgs shape (widths 1, 4 and 32,
+   256 and 64 bins, uint8 and int32 bins, rows outside the level, N not
+   tile-aligned; two launches bitwise equal) and as segment_histogram;
+4. main path 1: DeepTextModel scoring with BERT-base (random weights from
+   a seed) through attn_impl='flash': the kernel must launch 12 times per
    batch, every score must be finite and the scores must agree with the
    einsum path on the card and, on a small input, with the CPU path (the
    kernel's plain version) that the CPU tests hold to the JAX package;
    then a profile of one batch by kernel group;
-5. times: each kernel beside its bound, its plain version and the one
+5. main path 2: LightGBMClassifier(histogram_impl='pallas') fit on the
+   Higgs-1M shape (1e6 x 28, 100 iterations, 31 leaves, 255 bins) through
+   a DataFrame: the histogram kernel must launch once per level and once
+   per tree for the final level's totals, a second fit must give a
+   bitwise-identical forest, transform scores 100,000 held-out rows (AUC);
+   the 'segment' backend must grow the same first tree within 2e-3 AUC,
+   and a small fit on the CPU (the kernel's plain version) the same splits
+   as on the card; then a profile of one boosting iteration;
+6. times: each kernel beside its bound, its plain version and the one
    PyTorch call that computes the same function.
 
 The line before the last is a JSON object with the kernels' numbers; the
@@ -324,12 +336,325 @@ def phase_times(device, card: str, launches: int, max_err: float) -> list[dict]:
              "bound_by": bound_by, "library_ms": library_ms}]
 
 
+# ---------------- GBDT: LightGBM training and scoring ----------------
+
+# the repo's GBDT configuration: benchmarks/gbdt_higgs1m.py:16-21,54-58
+HIGGS_N, HIGGS_TEST, HIGGS_F = 1_000_000, 100_000, 28
+HIGGS_PARAMS = dict(objective="binary", num_iterations=100, learning_rate=0.1,
+                    num_leaves=31, max_bin=255)
+HIST_TOL = 1e-5  # relative to the channel's magnitude; the count channel exact
+
+
+def higgs_data(n: int, n_test: int, f: int, seed: int = 0):
+    """The Higgs-1M shape as gbdt_higgs1m.py makes it: float32 features from
+    a seed, labels from a sparse linear logit with noise."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n + n_test, f)).astype(np.float32)
+    w = rng.normal(size=f)
+    w[f // 2:] = 0
+    logits = X @ w * 0.5 + rng.normal(size=n + n_test) * 0.5
+    return X, (logits > 0).astype(np.float32)
+
+
+def auc(y: np.ndarray, p: np.ndarray) -> float:
+    """Mann-Whitney AUC with average tied ranks, as gbdt_higgs1m.py:74-77."""
+    from scipy.stats import rankdata
+
+    ranks = rankdata(p)
+    n1 = y.sum()
+    n0 = len(y) - n1
+    return float((ranks[y == 1].sum() - n1 * (n1 + 1) / 2) / (n1 * n0))
+
+
+def _hist_inputs(n, nf, width, num_bins, bin_dtype, device, seed, outside=True):
+    """Level-histogram inputs on the card: random bins, grad ~ N(0,1), hess in
+    (0, 0.25], presence 0/1 (1 for 90 %), and nodes of the level at base
+    width - 1; with ``outside``, a fifth of the rows sit in nodes outside it."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    bins = torch.randint(0, num_bins, (n, nf), generator=g, device=device).to(bin_dtype)
+    grad = torch.randn(n, generator=g, device=device)
+    hess = torch.rand(n, generator=g, device=device) * 0.25
+    presence = (torch.rand(n, generator=g, device=device) < 0.9).float()
+    hi = 2 * width + width // 2 if outside else 2 * width - 1
+    node = torch.randint(width - 1, hi, (n,), generator=g, device=device).to(torch.int32)
+    if outside:
+        node[: n // 10] = 0  # an ancestor: outside the level
+    return bins, grad, hess, presence, node
+
+
+def _hist_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
+    """(max |got - want|, the same relative to each channel's magnitude, at
+    least 1); raises unless within HIST_TOL and the count channel exact."""
+    err = rel = 0.0
+    for c in range(3):
+        d = (got[..., c] - want[..., c]).abs().max().item()
+        err = max(err, d)
+        rel = max(rel, d / max(1.0, want[..., c].abs().max().item()))
+    if not (rel <= HIST_TOL and torch.equal(got[..., 2], want[..., 2])):
+        raise AssertionError(f"gbdt_hist disagrees with its plain version: rel err {rel:.3e}")
+    return err, rel
+
+
+def phase_gbdt_kernels(device) -> float:
+    """The histogram kernel against its plain version, and against itself
+    (bitwise); returns the max |difference| at the main path's shapes."""
+    from synapseml_torch.gbdt import hist
+
+    cases = [  # name, N, F, width, num_bins, bin dtype
+        ("higgs width 1 u8", HIGGS_N, HIGGS_F, 1, 256, torch.uint8),
+        ("higgs width 4 u8", HIGGS_N, HIGGS_F, 4, 256, torch.uint8),
+        ("higgs width 32 u8", HIGGS_N, HIGGS_F, 32, 256, torch.uint8),
+        ("width 32, 64 bins u8, N not tile-aligned", 300_007, 28, 32, 64, torch.uint8),
+        ("width 4, 256 bins i32", 200_003, 13, 4, 256, torch.int32),
+        ("width 8, 1024 bins i32", 100_001, 5, 8, 1024, torch.int32),
+    ]
+    main_err = 0.0
+    for i, (name, n, nf, width, nb, dt) in enumerate(cases):
+        bins, grad, hess, presence, node = _hist_inputs(n, nf, width, nb, dt, device, seed=i)
+        base = width - 1
+        got = hist.fixed_point_histogram(bins, grad, hess, presence, node, base, width, nb)
+        again = hist.fixed_point_histogram(bins, grad, hess, presence, node, base, width, nb)
+        torch.cuda.synchronize()
+        want = hist.fixed_point_histogram_plain(bins, grad, hess, presence, node, base, width, nb)
+        err, rel = _hist_err(got, want)
+        same = torch.equal(got, again)
+        log(f"[kernel] gbdt_hist {name} (N={n}, F={nf}): max|d| {err:.3e}, relative "
+            f"{rel:.3e} (tol {HIST_TOL:g}, count exact), two launches bitwise equal: {same}")
+        if not same:
+            raise AssertionError(f"gbdt_hist is not deterministic on {name}")
+        if i < 3:
+            main_err = max(main_err, err)
+        if i == 2:  # the final level's totals of the same rows
+            tot = hist.fixed_point_histogram(None, grad, hess, presence, node, 63, 64, 1)
+            tot_want = hist.fixed_point_histogram_plain(None, grad, hess, presence, node,
+                                                        63, 64, 1)
+            log(f"[kernel] gbdt_hist node totals width 64: max|d|, relative "
+                f"{_hist_err(tot, tot_want)}")
+
+    rs = np.random.default_rng(7)  # the shapes of tests/test_gbdt.py:973
+    for n, wb in [(513, 130), (2048, 512), (100, 31 * 8)]:
+        seg = torch.from_numpy(rs.integers(-2, wb + 5, n).astype(np.int32)).to(device)
+        data = torch.from_numpy(rs.normal(size=(n, 3)).astype(np.float32)).to(device)
+        got = hist.segment_histogram(seg, data, wb)
+        keep = (seg >= 0) & (seg < wb)
+        ref = torch.zeros((wb, 3), dtype=torch.float64, device=device).index_add_(
+            0, seg[keep].long(), data[keep].double())
+        err = (got.double() - ref).abs().max().item()
+        log(f"[kernel] gbdt_hist segment_histogram N={n}, {wb} segments, ids out of "
+            f"range dropped: max|d| vs float64 segment sum {err:.3e} (tol 1e-5)")
+        if not err <= 1e-5:
+            raise AssertionError("segment_histogram disagrees with the segment sum")
+    return main_err
+
+
+def _same_forest(a, b) -> bool:
+    return all(np.array_equal(getattr(a, k), getattr(b, k))
+               for k in ("feature", "threshold_value", "leaf_value", "gain", "cover",
+                         "init_score"))
+
+
+def phase_gbdt_main(device, card: str) -> dict:
+    """LightGBMClassifier on the Higgs-1M shape through the kernel: two fits
+    (bitwise equal), held-out scoring, the 'segment' backend beside it, and a
+    small fit on the CPU (the kernel's plain version) beside the card's."""
+    from synapseml_torch import DataFrame as DF
+    from synapseml_torch.gbdt import LightGBMClassifier, hist
+    from synapseml_torch.gbdt.trees import derive_max_depth
+
+    X, y = higgs_data(HIGGS_N, HIGGS_TEST, HIGGS_F)
+    train = DF.from_dict({"features": X[:HIGGS_N], "label": y[:HIGGS_N]})
+    test = DF.from_dict({"features": X[HIGGS_N:]})
+    est = LightGBMClassifier(histogram_impl="pallas", device=str(device), **HIGGS_PARAMS)
+    depth = derive_max_depth(-1, HIGGS_PARAMS["num_leaves"])
+    n_iter = HIGGS_PARAMS["num_iterations"]
+
+    torch.cuda.reset_peak_memory_stats()
+    hist.fixed_point_histogram.launches = 0
+    t0 = time.perf_counter()
+    model = est.fit(train)
+    fit_s = time.perf_counter() - t0
+    launches = hist.fixed_point_histogram.launches
+    want = n_iter * (depth + 1)  # one per level, and one for the final level's totals
+    measures = model.get_train_measures()
+    log(f"[gbdt] fit {HIGGS_N} x {HIGGS_F}, {n_iter} iterations, depth {depth}: {fit_s:.2f} s "
+        f"({HIGGS_N * n_iter / fit_s:,.0f} row-iterations/s; binning "
+        f"{measures['binning_ms']:.0f} ms, training {measures['training_ms']:.0f} ms), "
+        f"gbdt_hist launches {launches} (want {n_iter} x {depth + 1} = {want}), "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | {card}")
+    if launches != want:
+        raise AssertionError(f"gbdt_hist launched {launches} times, want {want}")
+    booster = model.get_booster()
+    if not np.isfinite(booster.leaf_value).all():
+        raise AssertionError("non-finite leaf values")
+
+    second = est.fit(train).get_booster()
+    same = _same_forest(booster, second)
+    log(f"[gbdt] a second fit gives a bitwise-identical forest: {same}")
+    if not same:
+        raise AssertionError("two fits of the kernel path differ")
+
+    model.transform(test.limit(1000))  # the trees' first copy to the card
+    t0 = time.perf_counter()
+    out = model.transform(test)
+    score_s = time.perf_counter() - t0
+    prob = np.stack(list(out.collect_column("probability")))[:, 1]
+    if prob.shape != (HIGGS_TEST,) or not np.isfinite(prob).all():
+        raise AssertionError(f"probabilities not finite of shape ({HIGGS_TEST},)")
+    held_out_auc = auc(y[HIGGS_N:], prob)
+    log(f"[gbdt] transform {HIGGS_TEST} held-out rows: {score_s * 1e3:.1f} ms "
+        f"({HIGGS_TEST / score_s:,.0f} rows/s), AUC {held_out_auc:.5f}")
+
+    t0 = time.perf_counter()
+    seg_model = est.copy({"histogram_impl": "segment"}).fit(train)
+    seg_s = time.perf_counter() - t0
+    seg_b = seg_model.get_booster()
+    seg_prob = np.stack(list(seg_model.transform(test).collect_column("probability")))[:, 1]
+    seg_auc = auc(y[HIGGS_N:], seg_prob)
+    first_same = (np.array_equal(seg_b.feature[0], booster.feature[0])
+                  and np.array_equal(seg_b.threshold_value[0], booster.threshold_value[0]))
+    log(f"[gbdt] 'segment' backend on the card: fit {seg_s:.2f} s, AUC {seg_auc:.5f} "
+        f"(|dAUC| {abs(seg_auc - held_out_auc):.2e}, tol 2e-3), same first tree: {first_same}")
+    if not (first_same and abs(seg_auc - held_out_auc) <= 2e-3):
+        raise AssertionError("the 'segment' fit disagrees with the kernel's")
+
+    small = DF.from_dict({"features": X[:20_000], "label": y[:20_000]})
+    small_est = est.copy({"num_iterations": 10})
+    on_card = small_est.fit(small).get_booster()
+    on_cpu = small_est.copy({"device": "cpu"}).fit(small).get_booster()
+    same_split = np.array_equal(on_card.feature, on_cpu.feature)
+    log(f"[gbdt] 20000 rows, 10 iterations, card (kernel) vs CPU (plain version): same "
+        f"split features in every tree: {same_split}, max|d leaf| "
+        f"{np.abs(on_card.leaf_value - on_cpu.leaf_value).max():.3e}")
+    if not same_split:
+        raise AssertionError("the card's forest splits differently from the CPU's")
+
+    _profile_gbdt_iteration(booster, X[:HIGGS_N], y[:HIGGS_N], device, depth)
+    return {"launches": launches, "fit_s": fit_s, "auc": held_out_auc}
+
+
+_GBDT_GROUPS = (("gbdt_hist kernel", ("hist_kernel", "absmax_kernel", "convert_kernel")),
+                ("memset", ("memset",)),
+                ("gather / index / scatter", ("gather", "index", "scatter")),
+                ("sort / scan", ("sort", "scan", "radix")),
+                ("reduce", ("reduce",)),
+                ("elementwise", ("elementwise", "vectorized", "fill")))
+
+
+def _profile_gbdt_iteration(booster, X, y, device, depth, n=3) -> None:
+    """Where the device time of one boosting iteration at the Higgs shape
+    goes: the iteration's device work (grad/hess, one tree, the score
+    update) by kernel group, and the share of its wall time the card is busy."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from synapseml_torch.gbdt import objectives, trees
+
+    mapper = booster.bin_mapper
+    bins = torch.from_numpy(mapper.transform(X)).to(device)
+    yd = torch.from_numpy(y).to(device)
+    o = objectives.get_objective("binary")
+    scores = o.init_score(yd).reshape(1, 1).repeat(len(y), 1)
+    presence = torch.ones(len(y), device=device)
+    fmask = torch.ones(X.shape[1], dtype=torch.bool, device=device)
+    cfg = trees.GrowthConfig(max_depth=depth, num_leaves=31, num_bins=mapper.num_bins,
+                             lambda_l1=0.0, lambda_l2=0.0, learning_rate=0.1,
+                             min_data_in_leaf=20, min_sum_hessian=1e-3,
+                             min_gain_to_split=0.0, hist_impl="pallas")
+
+    def iteration():
+        g, h = o.grad_hess(scores, yd)
+        tree = trees.grow_tree(bins, g.contiguous(), h.contiguous(), presence, cfg, fmask)
+        scores[:, 0] += trees.traverse_binned(bins, tree, depth)
+
+    iteration()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            iteration()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    kernels = [(e.self_device_time_total / n / 1e3, e.count // n, e.key)
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(k[0] for k in kernels)
+    if not busy:
+        log("[profile] the profiler recorded no device time")
+        return
+    log(f"[profile] one boosting iteration at {len(y)} x {X.shape[1]}: {wall_ms:.3f} ms wall, "
+        f"{busy:.3f} ms of device kernels ({100 * busy / wall_ms:.1f}% busy, "
+        f"{100 - 100 * busy / wall_ms:.1f}% idle), "
+        f"{sum(k[1] for k in kernels)} device kernels")
+    groups = {name: 0.0 for name, _ in _GBDT_GROUPS}
+    groups["other"] = 0.0
+    for ms, _, key in kernels:
+        name = next((g for g, pats in _GBDT_GROUPS if any(p in key.lower() for p in pats)),
+                    "other")
+        groups[name] += ms
+    for name, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        log(f"[profile] group {name}: {ms:.4f} ms/iteration ({100 * ms / busy:.1f}% of device time)")
+    for ms, count, key in sorted(kernels, reverse=True)[:10]:
+        log(f"[profile] {100 * ms / busy:5.1f}%  {ms:8.4f} ms/iteration  {count:4d}/iteration  "
+            f"{key[:90]}")
+
+
+def phase_gbdt_times(device, card: str, launches: int, max_err: float) -> dict:
+    """The kernel at each shape one tree of the main path gives it (levels of
+    width 1..32, then the final level's totals at width 64), beside its
+    bound, its plain version and one index_add_ on precomputed flat ids. The
+    JSON line carries the mean per launch over those shapes."""
+    from synapseml_torch.gbdt import hist
+
+    n, nf, nb = HIGGS_N, HIGGS_F, 256
+    depth = 6
+    rows = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_bytes": 0}
+    shapes = [(2 ** d, nb, nf) for d in range(depth)] + [(2 ** depth, 1, 1)]
+    for width, b, f in shapes:
+        bins, grad, hess, presence, node = _hist_inputs(n, nf, width, nb, torch.uint8,
+                                                        device, seed=width, outside=False)
+        kbins = bins if b > 1 else None
+        args = (kbins, grad, hess, presence, node, width - 1, width, b)
+        ms = cuda_ms(lambda: hist.fixed_point_histogram(*args), warmup=3, iters=20)
+        plain_ms = cuda_ms(lambda: hist.fixed_point_histogram_plain(*args), warmup=1, iters=5)
+        rel = (node - (width - 1)).long()
+        data = torch.stack([grad, hess, presence], 1)
+        if kbins is None:
+            ids, flat_data = rel, data
+        else:
+            ids = ((rel[:, None] * f + torch.arange(f, device=device)) * b + bins.long()).reshape(-1)
+            flat_data = data.repeat_interleave(f, dim=0)
+        library_ms = cuda_ms(lambda: torch.zeros((width * f * b, 3), device=device)
+                             .index_add_(0, ids, flat_data), warmup=3, iters=20)
+        n_bytes = (n * f if kbins is not None else 0) + 4 * n * 4 + width * f * b * 3 * 4
+        bound = n_bytes / HBM_BYTES_PER_S * 1e3
+        what = f"level width {width}" if kbins is not None else f"final totals width {width}"
+        log(f"[times] gbdt_hist {what} [N={n}, F={f}, B={b}]: kernel {ms:.4f} ms, bound "
+            f"{bound:.4f} ms (bytes: {n_bytes / 1e6:.1f} MB), plain {plain_ms:.4f} ms, "
+            f"index_add_ {library_ms:.4f} ms | {card}")
+        rows["ms"] += ms
+        rows["plain_ms"] += plain_ms
+        rows["library_ms"] += library_ms
+        rows["bound_bytes"] += n_bytes
+    k = len(shapes)
+    log(f"[times] gbdt_hist one tree ({k} launches): kernel {rows['ms']:.4f} ms, bound "
+        f"{rows['bound_bytes'] / HBM_BYTES_PER_S * 1e3:.4f} ms, plain {rows['plain_ms']:.4f} ms, "
+        f"index_add_ {rows['library_ms']:.4f} ms | {card}")
+    return {"name": "gbdt_hist", "route": "cuda", "source": "synapseml_torch/csrc/gbdt_hist.cu",
+            "replaces": "synapseml_tpu/gbdt/pallas_hist.py:35", "launches": launches,
+            "max_abs_err": max_err, "ms": rows["ms"] / k, "plain_ms": rows["plain_ms"] / k,
+            "bound_ms": rows["bound_bytes"] / k / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": rows["library_ms"] / k}
+
+
 def main() -> None:
     card, device = phase_device()
     phase_build()
     max_err = phase_kernels(device)
+    hist_err = phase_gbdt_kernels(device)
     main_path = phase_main_path(device, card)
+    gbdt = phase_gbdt_main(device, card)
     kernels = phase_times(device, card, main_path["launches"], max_err)
+    kernels.append(phase_gbdt_times(device, card, gbdt["launches"], hist_err))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -6,6 +6,8 @@ slice, mirroring its layout so each file names its counterpart:
   parallel/    token-sequence padding (the rest with the multi-GPU slice)
   ops/         hand-written CUDA kernels (``csrc/``) with plain versions
   models/      BERT nets, the Flax weight bridge, DeepTextModel scoring
+  gbdt/        LightGBM-style GBDT training and scoring, with the CUDA
+               level-histogram kernel
 
 It imports torch and numpy, never JAX. Entry points run on the CUDA card
 unless the caller asks for the CPU.
