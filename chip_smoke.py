@@ -9,18 +9,23 @@ the kernels are built for sm_90a). Phases, each of which raises on failure:
    TF32 off for matmuls and convolutions;
 2. build: compiles every kernel under synapseml_torch/csrc/ with nvcc;
 3. kernels: holds each kernel against its plain PyTorch version on the
-   card: flash attention at BERT-base shapes in bf16 and f32, with a
-   padding mask, causal and not, unaligned T and D, fully masked rows
-   exactly 0;
+   card: flash attention (the bf16 tensor-core kernel and the f32 scalar
+   kernel) at BERT-base shapes, with a padding mask, causal and not,
+   unaligned T and D, fully masked rows exactly 0, a second launch bitwise
+   equal to the first, and from strided [B, T, H, D] projection views
+   (BERT-base, and T=50 D=32); one flash_attention call from the views
+   runs at most 2 device kernels (the mask cast and the kernel);
    and the GBDT histogram kernel at the Higgs shape (widths 1, 4 and 32,
    256 and 64 bins, uint8 and int32 bins, rows outside the level, N not
    tile-aligned; two launches bitwise equal) and as segment_histogram;
 4. main path 1: DeepTextModel scoring with BERT-base (random weights from
-   a seed) through attn_impl='flash': the kernel must launch 12 times per
-   batch, every score must be finite and the scores must agree with the
-   einsum path on the card and, on a small input, with the CPU path (the
-   kernel's plain version) that the CPU tests hold to the JAX package;
-   then a profile of one batch by kernel group;
+   a seed) through attn_impl='flash': the bf16 kernel must launch 12 times
+   per batch, every score must be finite and the scores must agree with
+   the einsum path on the card and, on a small input, with the CPU path
+   (the kernel's plain version) that the CPU tests hold to the JAX package;
+   one request in f32 compute goes through the f32 kernel (12 launches per
+   batch) and must agree with the f32 einsum path; then a profile of one
+   batch by kernel group;
 5. main path 2: LightGBMClassifier(histogram_impl='pallas') fit on the
    Higgs-1M shape (1e6 x 28, 100 iterations, 31 leaves, 255 bins) through
    a DataFrame: the histogram kernel must launch once per level and once
@@ -30,7 +35,9 @@ the kernels are built for sm_90a). Phases, each of which raises on failure:
    and a small fit on the CPU (the kernel's plain version) the same splits
    as on the card; then a profile of one boosting iteration;
 6. times: each kernel beside its bound, its plain version and the one
-   PyTorch call that computes the same function.
+   PyTorch call that computes the same function (device time, with the
+   host's enqueue hidden behind a spin kernel); flash_attention from the
+   projection views beside the permute-and-call path it replaced.
 
 The line before the last is a JSON object with the kernels' numbers; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or
@@ -40,7 +47,9 @@ result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -63,6 +72,7 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, non-TF32 f32
 TOL_OUT = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 TOL_LSE = 1e-4
+KERNEL_NAMES = att._KERNEL_NAMES  # dtype -> key of flash_attention_fwd.launches
 
 # BERT-base scoring: batch 32, 12 heads, 128 tokens, head dim 64
 B, H, T, D = 32, 12, 128, 64
@@ -73,19 +83,34 @@ def log(*parts):
     print(*parts, flush=True)
 
 
-def cuda_ms(fn, warmup=5, iters=30) -> float:
-    """Median milliseconds of ``fn`` over ``iters`` runs, by CUDA events."""
+def cuda_ms(fn, warmup=5, iters=30, spin_cycles=0) -> float:
+    """Median milliseconds of ``fn`` over ``iters`` runs, by CUDA events.
+
+    With ``spin_cycles``, each run is queued behind a spin kernel of that
+    many clock cycles, long enough for the host to enqueue all of ``fn``:
+    the events then time the device work alone, without the host's Python
+    and launch overhead (which they include otherwise, the device being
+    idle when ``fn`` is called)."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(iters):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if spin_cycles:
+            torch.cuda._sleep(spin_cycles)
         start.record()
         fn()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+SPIN = 10_000_000  # clock cycles, about 5 ms: longer than any timed call's enqueue
+
+
+def device_ms(fn, warmup=5, iters=30) -> float:
+    return cuda_ms(fn, warmup, iters, spin_cycles=SPIN)
 
 
 def phase_device() -> tuple[str, torch.device]:
@@ -107,10 +132,19 @@ def phase_build():
     logs = _build.build()
     log(f"[build] {len(logs)} of {len(_build.sources())} kernel source(s) compiled in "
         f"{time.perf_counter() - t0:.1f} s into {_build.BUILD_DIR}")
+    spills = []
     for name, out in logs.items():
+        fn = "?"
         for line in out.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+            entry = re.search(r"Compiling entry function '(\w+)'", line)
+            if entry:
+                fn = entry.group(1)
+            elif "registers" in line or "spill" in line:
+                log(f"[build] {name} {fn}: {line.strip()}")
+                found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+                if found and "flash_fwd_mma" in fn and found.groups() != ("0", "0"):
+                    spills.append(fn)
+    log(f"[build] bf16 flash kernels with register spills: {spills or 'none'}")
 
 
 def _inputs(BH, Tq, Tk, Dp, dtype, device, seed, true_d=None):
@@ -131,9 +165,67 @@ def _padding_mask(BH, Tk, device, seed, empty_rows=0):
     return mask.to(device)
 
 
-def phase_kernels(device) -> float:
+def _to_bh(x):
+    """[B, T, H, D] -> a contiguous [B*H, T, D] copy."""
+    B_, T_, H_, D_ = x.shape
+    return x.permute(0, 2, 1, 3).reshape(B_ * H_, T_, D_).contiguous()
+
+
+def _projection_views(Bv, Tv, Hv, Dv, dtype, device, seed):
+    """q, k, v as the model cuts them: [B, T, H, D] views of one
+    [B, T, 3*H*D] projection (none of them contiguous)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    proj = torch.randn((Bv, Tv, 3 * Hv * Dv), generator=g, device=device).to(dtype)
+    return [x.unflatten(-1, (Hv, Dv)) for x in proj.split(Hv * Dv, dim=-1)]
+
+
+def _check_views(name, Bv, Tv, Hv, Dv, dtype, device, seed, causal) -> None:
+    """flash_attention on projection views against the plain version on
+    [B*H, T, D] copies, and against a second launch (bitwise)."""
+    q, k, v = _projection_views(Bv, Tv, Hv, Dv, dtype, device, seed)
+    mask = _padding_mask(Bv, Tv, device, seed)
+    out = att.flash_attention(q, k, v, mask.bool(), causal=causal)
+    again = att.flash_attention(q, k, v, mask.bool(), causal=causal)
+    torch.cuda.synchronize()
+    ref, _ = att.flash_attention_fwd_plain(
+        _to_bh(q), _to_bh(k), _to_bh(v), mask[:, None, :].expand(Bv, Hv, Tv).reshape(Bv * Hv, Tv),
+        causal, 1.0 / Dv ** 0.5)
+    ref = ref.reshape(Bv, Hv, Tv, Dv).permute(0, 2, 1, 3)
+    err = (out.float() - ref.float()).abs().max().item()
+    same = torch.equal(out, again)
+    log(f"[kernel] flash_attention {name} from [B,T,H,D]=[{Bv},{Tv},{Hv},{Dv}] projection "
+        f"views: max|dout| {err:.3e} (tol {TOL_OUT[dtype]:g}), two launches bitwise equal: "
+        f"{same}")
+    if not (err <= TOL_OUT[dtype] and same and out.is_contiguous()):
+        raise AssertionError(f"flash_attention from views disagrees on {name}")
+
+
+def _count_view_call_kernels(device) -> None:
+    """Device kernels of one flash_attention call on BERT-base projection
+    views with a bool padding mask: at most the mask cast and the kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    q, k, v = _projection_views(B, T, H, D, torch.bfloat16, device, seed=11)
+    mask = _padding_mask(B, T, device, seed=11).bool()
+    att.flash_attention(q, k, v, mask)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        att.flash_attention(q, k, v, mask)
+        torch.cuda.synchronize()
+    kernels = [(e.key, e.count) for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    n = sum(c for _, c in kernels)
+    log(f"[kernel] one flash_attention call on BERT-base projection views: {n} device "
+        f"kernel(s) {[key[:60] for key, _ in kernels]} (want at most 2)")
+    if not (n <= 2 and any("flash_fwd" in key for key, _ in kernels)):
+        raise AssertionError("flash_attention from views ran more than the mask cast and "
+                             "the kernel")
+
+
+def phase_kernels(device) -> dict:
     """Kernel against its plain version on the same inputs; returns the max
-    |out difference| at the main path's shape (BERT-base, bf16)."""
+    |out difference| at the main path's shape (BERT-base) by kernel."""
     cases = [  # name, BH, Tq, Tk, Dp, true D, dtype, causal, empty mask rows
         ("bert-base bf16", B * H, T, T, D, D, torch.bfloat16, False, 0),
         ("bert-base f32", B * H, T, T, D, D, torch.float32, False, 0),
@@ -145,26 +237,30 @@ def phase_kernels(device) -> float:
         ("fully masked rows f32", 48, T, T, D, D, torch.float32, False, 8),
         ("fully masked rows bf16", 48, T, T, D, D, torch.bfloat16, True, 8),
     ]
-    main_err = None
+    main_err = {}
     for i, (name, BH, Tq, Tk, Dp, true_d, dtype, causal, empty) in enumerate(cases):
         q, k, v = _inputs(BH, Tq, Tk, Dp, dtype, device, seed=i, true_d=true_d)
         mask = _padding_mask(BH, Tk, device, seed=i, empty_rows=empty)
         scale = 1.0 / true_d ** 0.5
         out, lse = att.flash_attention_fwd(q, k, v, mask, causal, scale)
+        out2, lse2 = att.flash_attention_fwd(q, k, v, mask, causal, scale)
         torch.cuda.synchronize()
         ref_out, ref_lse = att.flash_attention_fwd_plain(q, k, v, mask, causal, scale)
         err_out = (out.float() - ref_out.float()).abs().max().item()
         err_lse = (lse - ref_lse).abs().max().item()
+        same = torch.equal(out, out2) and torch.equal(lse, lse2)
         log(f"[kernel] flash_fwd {name}: max|dout| {err_out:.3e} (tol {TOL_OUT[dtype]:g}), "
-            f"max|dlse| {err_lse:.3e} (tol {TOL_LSE:g})")
+            f"max|dlse| {err_lse:.3e} (tol {TOL_LSE:g}), two launches bitwise equal: {same}")
         if not (err_out <= TOL_OUT[dtype] and err_lse <= TOL_LSE):
             raise AssertionError(f"flash_fwd disagrees with its plain version on {name}")
+        if not same:
+            raise AssertionError(f"flash_fwd is not deterministic on {name}")
         if not bool(torch.isfinite(out.float()).all() and torch.isfinite(lse).all()):
             raise AssertionError(f"flash_fwd gave non-finite values on {name}")
         if empty and out[:empty].abs().max().item() != 0.0:
             raise AssertionError(f"fully masked rows are not exactly 0 on {name}")
-        if i == 0:
-            main_err = err_out
+        if i < 2:  # BERT-base, bf16 then f32
+            main_err[KERNEL_NAMES[dtype]] = err_out
 
     # the public [B, T, H, D] face: T and D padding, scale at the true D
     g = torch.Generator(device=device).manual_seed(99)
@@ -176,6 +272,12 @@ def phase_kernels(device) -> float:
         f"max|d| {err:.3e} (tol 2e-5)")
     if not err <= 2e-5:
         raise AssertionError("flash_attention disagrees with reference_attention")
+
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = KERNEL_NAMES[dtype]
+        _check_views(f"bert-base {tag}", B, T, H, D, dtype, device, seed=21, causal=False)
+        _check_views(f"ragged {tag} causal", 4, 50, 6, 32, dtype, device, seed=22, causal=True)
+    _count_view_call_kernels(device)
     return main_err
 
 
@@ -215,17 +317,22 @@ def phase_main_path(device, card: str) -> dict:
     model.transform(df)  # builds the module, moves the weights, warms the libraries
     log(f"[main] first request (module build + warm-up) {time.perf_counter() - t0:.2f} s")
 
+    # f32 compute: the same weights through the f32 kernel
+    model32 = model.copy({"arch_config": dataclasses.replace(cfg, dtype=torch.float32)})
+    model32.transform(df.limit(32))  # builds the module
+
     torch.cuda.reset_peak_memory_stats()
-    att.flash_attention_fwd.launches = 0
+    att.flash_attention_fwd.launches = dict.fromkeys(att.flash_attention_fwd.launches, 0)
     seconds, out = [], None
     for _ in range(N_REQUESTS):
         t0 = time.perf_counter()
         out = model.transform(df)
         seconds.append(time.perf_counter() - t0)
-    launches = att.flash_attention_fwd.launches
-    want = cfg.n_layers * batches * N_REQUESTS
-    log(f"[main] flash_fwd launches {launches} over {N_REQUESTS} requests of {batches} "
-        f"batches (want 12 x {batches * N_REQUESTS} = {want})")
+    out32 = model32.transform(df)
+    launches = dict(att.flash_attention_fwd.launches)
+    want = {"bf16": cfg.n_layers * batches * N_REQUESTS, "f32": cfg.n_layers * batches}
+    log(f"[main] flash_fwd launches {launches} over {N_REQUESTS} bf16 requests and one f32 "
+        f"request of {batches} batches (want 12 per batch: {want})")
     if launches != want:
         raise AssertionError(f"flash_fwd launched {launches} times, want {want}")
 
@@ -242,7 +349,7 @@ def phase_main_path(device, card: str) -> dict:
         raise AssertionError(f"scores not finite of shape ({N_TEXTS}, 2)")
 
     model.set(attn_impl="einsum")
-    before = att.flash_attention_fwd.launches
+    before = dict(att.flash_attention_fwd.launches)
     einsum_scores = np.stack(list(model.transform(df).collect_column("scores")))
     if att.flash_attention_fwd.launches != before:
         raise AssertionError("the einsum path launched the flash kernel")
@@ -263,6 +370,15 @@ def phase_main_path(device, card: str) -> dict:
         f"{cpu_diff:.3e} (tol 3e-2)")
     if not cpu_diff <= 3e-2:
         raise AssertionError("the card's scores disagree with the CPU path's")
+
+    f32_scores = np.stack(list(out32.collect_column("scores")))
+    einsum32 = np.stack(list(model32.copy({"attn_impl": "einsum"}).transform(df)
+                             .collect_column("scores")))
+    diff32 = float(np.abs(f32_scores - einsum32).max())
+    log(f"[main] f32 compute, flash (f32 kernel) vs einsum on the card: max|dprob| "
+        f"{diff32:.3e} (tol 1e-3); vs the bf16 flash scores {np.abs(f32_scores - flash_scores).max():.3e}")
+    if not (np.isfinite(f32_scores).all() and diff32 <= 1e-3):
+        raise AssertionError("f32 flash and einsum scores disagree")
 
     model.set(attn_impl="flash")
     _profile_batch(model, enc)
@@ -311,29 +427,63 @@ def _profile_batch(model, enc, n=5) -> None:
         log(f"[profile] {100 * ms / busy:5.1f}%  {ms:8.4f} ms/batch  {count:4d}/batch  {key[:90]}")
 
 
-def phase_times(device, card: str, launches: int, max_err: float) -> list[dict]:
+def phase_times(device, card: str, launches: dict, max_err: dict) -> list[dict]:
+    """Each flash kernel at BERT-base shapes beside its bound, its plain
+    version and scaled_dot_product_attention, in device time; then
+    flash_attention from the projection views beside the permute-and-call
+    path it replaced (rebuilt here as a yardstick; the port no longer has it)."""
     BH = B * H
-    dtype = torch.bfloat16
-    q, k, v = _inputs(BH, T, T, D, dtype, device, seed=0)
-    mask = _padding_mask(BH, T, device, seed=0)
     scale = 1.0 / D ** 0.5
-    ms = cuda_ms(lambda: att.flash_attention_fwd(q, k, v, mask, False, scale))
-    plain_ms = cuda_ms(lambda: att.flash_attention_fwd_plain(q, k, v, mask, False, scale))
-    q4, k4, v4 = (x.view(B, H, T, D) for x in (q, k, v))
-    bool_mask = mask.view(B, H, 1, T).bool()
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=bool_mask))
-    elt = torch.finfo(dtype).bits // 8
-    n_bytes = 4 * BH * T * D * elt + 2 * BH * T * 4  # q, k, v, out; mask, lse
-    flops = 2 * 2 * BH * T * T * D                   # QK^T and PV, every tile
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
-    bound_ms, bound_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-    log(f"[times] flash_fwd bf16 [B*H={BH}, T={T}, D={D}]: kernel {ms:.4f} ms, bound "
-        f"{bound_ms:.4f} ms ({bound_by}: {n_bytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), "
-        f"plain {plain_ms:.4f} ms, scaled_dot_product_attention {library_ms:.4f} ms | {card}")
-    return [{"name": "flash_fwd", "route": "cuda", "source": "synapseml_torch/csrc/flash_fwd.cu",
-             "replaces": "synapseml_tpu/ops/attention.py:63", "launches": launches,
-             "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-             "bound_by": bound_by, "library_ms": library_ms}]
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = KERNEL_NAMES[dtype]
+        q, k, v = _inputs(BH, T, T, D, dtype, device, seed=0)
+        mask = _padding_mask(BH, T, device, seed=0)
+        q4, k4, v4 = (x.view(B, H, T, D) for x in (q, k, v))
+        bool_mask = mask.view(B, H, 1, T).bool()
+        kernel = lambda: att.flash_attention_fwd(q, k, v, mask, False, scale)  # noqa: E731
+        plain = lambda: att.flash_attention_fwd_plain(q, k, v, mask, False, scale)  # noqa: E731
+        sdpa = lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=bool_mask)  # noqa: E731
+        # in turns, kernel and library twice, so a drift between them shows
+        ms, library_ms, ms2, library_ms2 = (device_ms(f) for f in (kernel, sdpa, kernel, sdpa))
+        plain_ms = device_ms(plain, warmup=2, iters=10)
+        call_ms = cuda_ms(kernel)  # one call as the host sees it, enqueue included
+        elt = torch.finfo(dtype).bits // 8
+        n_bytes = 4 * BH * T * D * elt + 2 * BH * T * 4  # q, k, v, out; mask, lse
+        flops = 2 * 2 * BH * T * T * D                   # QK^T and PV, every tile
+        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
+        bound_ms, bound_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+        log(f"[times] flash_fwd {tag} [B*H={BH}, T={T}, D={D}]: kernel {ms:.4f} / {ms2:.4f} ms "
+            f"(device time, two turns; one call with its host enqueue {call_ms:.4f} ms), bound "
+            f"{bound_ms:.4f} ms ({bound_by}: {n_bytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), "
+            f"plain {plain_ms:.4f} ms, scaled_dot_product_attention {library_ms:.4f} / "
+            f"{library_ms2:.4f} ms | {card}")
+        rows.append({"name": f"flash_fwd_{tag}", "route": "cuda",
+                     "source": "synapseml_torch/csrc/flash_fwd.cu",
+                     "replaces": "synapseml_tpu/ops/attention.py:63",
+                     "launches": launches[tag], "max_abs_err": max_err[tag],
+                     "ms": statistics.median([ms, ms2]), "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": statistics.median([library_ms, library_ms2])})
+
+    q, k, v = _projection_views(B, T, H, D, torch.bfloat16, device, seed=0)
+    bool_kv = _padding_mask(B, T, device, seed=0).bool()
+
+    def from_views():
+        return att.flash_attention(q, k, v, bool_kv).reshape(B, T, H * D)
+
+    def permute_and_call():  # how flash_attention called the kernel before: a yardstick
+        m = bool_kv.to(torch.int32)[:, None, :].expand(B, H, T).reshape(B * H, T).contiguous()
+        out, _ = att.flash_attention_fwd(_to_bh(q), _to_bh(k), _to_bh(v), m, False, scale)
+        return out.reshape(B, H, T, D).permute(0, 2, 1, 3).reshape(B, T, H * D)
+
+    if not torch.equal(from_views(), permute_and_call()):
+        raise AssertionError("flash_attention from views differs from the permute-and-call path")
+    t = [device_ms(f) for f in (permute_and_call, from_views, from_views, permute_and_call)]
+    log(f"[times] flash_attention bf16 at BERT-base from projection views: "
+        f"{t[1]:.4f} / {t[2]:.4f} ms; the permute-and-call path it replaced: {t[0]:.4f} / "
+        f"{t[3]:.4f} ms (device time, in turns) | {card}")
+    return rows
 
 
 # ---------------- GBDT: LightGBM training and scoring ----------------

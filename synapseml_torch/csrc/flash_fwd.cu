@@ -3,8 +3,11 @@
 //
 // Replaces the Pallas TPU kernel synapseml_tpu/ops/attention.py::
 // _flash_fwd_kernel (launched by _flash_core_fwd_impl). Same function:
-//   * q, k, v: [BH, T, D] row-major, float or bfloat16; mask: int32 [BH, Tk]
-//     (nonzero = attend); out: [BH, Tq, D] in q's type; lse: f32 [BH, Tq].
+//   * q: [B, Tq, H, D], k, v: [B, Tk, H, D], out: [B, Tq, H, D] in q's type,
+//     each with any element strides (batch, token, head) and unit stride
+//     along D, so the model's projection views go in and its output comes
+//     out without a copy; mask: int32 [B, Tk] (nonzero = attend), shared by
+//     the heads of a batch row; lse: f32 [B*H, Tq].
 //   * s = (q . k) * scale in f32, scale = 1/sqrt(true head dim) applied
 //     after the dot; masked (and, when causal, kv > q) entries are set to
 //     -1e30 and gated to p = 0 (s <= -5e29), so a fully masked row gives
@@ -14,30 +17,50 @@
 //     lse = m + log(max(l, 1e-30)).
 //   * causal: kv tiles wholly above the diagonal are skipped.
 //
-// Design. The TPU kernel walks kv blocks as the sequential third grid axis
+// Grid. The TPU kernel walks kv blocks as the sequential third grid axis
 // and carries (m, l, acc) in VMEM scratch between grid steps. Blocks of a
-// CUDA grid run in no order, so here one block owns a 64-row query tile and
-// loops over all kv tiles itself; nothing carries between blocks and there
-// are no atomics, so the output is deterministic. The grid is
-// (B*H, ceil(Tq/64)): B*H goes on x, whose limit is 2^31-1, because large
-// offline batches exceed y's limit of 65535.
-//
-// 128 threads (4 warps). Thread (tr = tid/8, tc = tid%8) owns query rows
-// tr + 16*i (i < 4), score columns tc + 8*j (j < 8) and output columns
-// tc + 8*j (j < D/8); the running max, sum and the f32 accumulator stay in
-// its registers. Row reductions are three xor-shuffles over the 8 lanes
-// that share a row. Q^T and K^T tiles (row stride 65 floats), the V tile
-// and the P tile (row stride 72) live in dynamic shared memory as f32, so
-// the inner loops read f32 without conversion and without bank conflicts.
+// CUDA grid run in no order, so here one block owns a 64-row query tile of
+// one (batch, head) and loops over all kv tiles itself; nothing carries
+// between blocks and there are no atomics, so the output is deterministic.
+// The grid is one-dimensional, B*H*ceil(Tq/64) blocks on x (whose limit is
+// 2^31-1; large offline batches exceed y's 65535), query tile major: the
+// first wave reads each (batch, head)'s K/V from memory, later query tiles
+// of the same head mostly find them in L2.
 //
 // Bound on this card. At BERT-base scoring shapes (B*H = 384, T = 128,
 // D = 64, bf16) the function reads q, k, v and the mask and writes out and
 // lse: about 25.6 MB against 1.6 GFLOP, i.e. 7.6 us at 3.35 TB/s against
-// 1.6 us at 989 TFLOP/s: bandwidth-bound. This first version reads each
-// input once (one K/V pass per 64-row query tile: two passes at T = 128)
-// but does both products with scalar f32 FMAs from shared memory, so it
-// runs well above that bound; mma/wgmma tiles and vector loads are the
-// next step (PERF.md records its time beside the bound).
+// 1.6 us at 989 TFLOP/s: bandwidth-bound, so the design aims at moving
+// each byte once, in wide transactions, with loads in flight during math.
+//
+// bf16: tensor cores (flash_fwd_mma_kernel). Four warps; warp w owns query
+// rows 16w..16w+15 of the tile.
+//   * QK^T and PV run on mma.sync.m16n8k16 (bf16 in, f32 accumulate). The Q
+//     fragments are loaded once with ldmatrix and stay in registers; K
+//     fragments come through ldmatrix, V fragments through ldmatrix.trans.
+//   * The online softmax runs on the S accumulators in registers, in base 2
+//     (scores times log2 e, one exp2 each); a row's max and sum take two
+//     xor-shuffles within the quad that holds it.
+//   * P is rounded to bf16 in registers and used directly as the A operand
+//     of the PV product (the m16n8 accumulator layout of two adjacent score
+//     tiles is the m16n8k16 A layout): no P goes through shared memory.
+//   * Q, K and V tiles arrive by 16-byte cp.async (zero-filled past the
+//     sequence end) into rows padded by 16 bytes, which keeps ldmatrix free
+//     of bank conflicts; the mask rides along by 4-byte cp.async, so no
+//     thread stalls on a plain load. K/V are double-buffered, so tile j+1
+//     loads while tile j computes. Shared memory is 5 tiles of 64 x (D+8)
+//     bf16: 46 KB at D = 64.
+//   * Registers are capped at 168 a thread up to D = 64, so that 3 blocks
+//     (12 warps) share an SM: the loads of one block then overlap the
+//     math of the others. At D = 128 the accumulators alone take 64.
+//   * The output is staged through the warp's own rows of the Q tile and
+//     written with 16-byte stores.
+// f32: CUDA cores (flash_fwd_f32_kernel). Tensor cores would take f32 as
+// TF32, about three decimal digits, which the f32 path's 2e-5 tolerance
+// does not allow; so f32 keeps the scalar design: thread (tr = tid/8,
+// tc = tid%8) owns query rows tr + 16*i (i < 4), score columns tc + 8*j and
+// output columns tc + 8*j; Q^T, K^T, V and P tiles live in shared memory as
+// f32 and both products are scalar FMAs. It runs far above its bound.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -48,20 +71,330 @@ namespace {
 constexpr int BLOCK_M = 64;   // query rows per block
 constexpr int BLOCK_N = 64;   // kv rows per tile
 constexpr int THREADS = 128;
-constexpr int LDT = 65;       // row stride of the transposed Q/K tiles
-constexpr int LDP = 72;       // row stride of the P tile
 constexpr float NEG_INF = -1e30f;
 constexpr float MASK_GATE = -5e29f;  // NEG_INF * 0.5, the TPU kernel's gate
 constexpr unsigned FULL = 0xffffffffu;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+using bf16 = __nv_bfloat16;
 
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as torch and XLA cast
+struct Params {
+  const void* q;
+  const void* k;
+  const void* v;
+  const int* mask;  // [B, tk]
+  void* out;
+  float* lse;       // [B*H, tq]
+  int64_t q_sb, q_st, q_sh;  // element strides: batch, token, head
+  int64_t k_sb, k_st, k_sh;
+  int64_t v_sb, v_st, v_sh;
+  int64_t o_sb, o_st, o_sh;
+  int H, tq, tk, causal;
+  float scale;
+};
+
+__host__ __device__ __forceinline__ int n_q_tiles(int tq) { return (tq + BLOCK_M - 1) / BLOCK_M; }
+
+__device__ __forceinline__ int n_kv_tiles(const Params& p, int q0) {
+  int n = (p.tk + BLOCK_N - 1) / BLOCK_N;
+  if (p.causal) {
+    // tiles with kv0 <= last query row of this tile, as the TPU kernel's
+    // pl.when(kv_blk * block_k <= (q_blk + 1) * block_q - 1)
+    n = min(n, (q0 + BLOCK_M - 1) / BLOCK_N + 1);
+  }
+  return n;
 }
+
+// ---------------------------------------------------------------- bf16 ----
+// Shared memory is addressed with 32-bit shared-window addresses: a thread
+// computes its own base once, and every tile offset is a compile-time
+// immediate of the instruction.
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; with !pred nothing is read and zeros land
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(pred ? 16 : 0) : "memory");
+}
+
+// 4 bytes global -> shared, zero-filled when !pred
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(pred ? 4 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+// c += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two f32 rounded to nearest even, `lo` in the low half (the lower column)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(FULL, x, 1));
+  return fmaxf(x, __shfl_xor_sync(FULL, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(FULL, x, 1);
+  return x + __shfl_xor_sync(FULL, x, 2);
+}
+
+template <int D>
+struct MmaTile {
+  static constexpr int LD = D + 8;                  // padded row, in bf16
+  static constexpr int ROW = LD * 2;                // bytes
+  static constexpr int BYTES = BLOCK_M * ROW;       // one Q, K or V tile
+  static constexpr int CH = D / 8;                  // 16-byte chunks a row
+  static constexpr int RS = THREADS / CH;           // rows one pass of the block loads
+  static constexpr size_t SMEM = 5 * BYTES + sizeof(int) * 2 * BLOCK_N;
+};
+
+// 64 rows of a [T, D] slice (token stride `st`) into a padded tile. This
+// thread loads chunk `tid % CH` of rows first_row + i*RS: `dst` and `src`
+// are its chunk of the first. Rows at or past `limit` are zero-filled
+// (read from `any`, a valid address, with size 0).
+template <int D>
+__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src, int64_t st,
+                                          int first_row, int limit, const bf16* any) {
+  using M = MmaTile<D>;
+#pragma unroll
+  for (int i = 0; i < BLOCK_M / M::RS; ++i) {
+    const bool ok = first_row + i * M::RS < limit;
+    cp_async16(dst + i * M::RS * M::ROW, ok ? src + i * M::RS * st : any, ok);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, D <= 64 ? 3 : 2)
+flash_fwd_mma_kernel(const Params p) {
+  using M = MmaTile<D>;
+  constexpr int KS = D / 16;  // k-steps of QK^T
+  constexpr int NT = D / 8;   // 8-column tiles of O
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // [64][LD] Q (later the O staging), [2][64][LD] K, [2][64][LD] V, [2][64] mask
+  const uint32_t sq = smem_addr(smem_raw);
+  const uint32_t sk = sq + M::BYTES;
+  const uint32_t sv = sk + 2 * M::BYTES;
+  const uint32_t smask = sv + 2 * M::BYTES;
+  const int* mask_s = reinterpret_cast<const int*>(smem_raw + 5 * M::BYTES);
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;  // row in the 8-row group, column pair
+  const int n_bh = gridDim.x / n_q_tiles(p.tq);
+  const int bh = blockIdx.x % n_bh;
+  const int b = bh / p.H, h = bh % p.H;
+  const int q0 = blockIdx.x / n_bh * BLOCK_M;
+  const bf16* qg = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const bf16* kg = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const bf16* vg = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
+  bf16* og = static_cast<bf16*>(p.out) + b * p.o_sb + h * p.o_sh;
+  const int* mg = p.mask + static_cast<int64_t>(b) * p.tk;
+  const int n_kv = n_kv_tiles(p, q0);
+
+  // this thread's chunk of the tile loads
+  const int ld_row = tid / M::CH, ld_col = tid % M::CH * 8;
+  const uint32_t ld_smem = ld_row * M::ROW + ld_col * 2;
+  auto load_kv = [&](int j) {
+    const int kv0 = j * BLOCK_N;
+    const uint32_t buf = (j & 1) * M::BYTES;
+    load_tile<D>(sk + buf + ld_smem, kg + (kv0 + ld_row) * p.k_st + ld_col, p.k_st,
+                 kv0 + ld_row, p.tk, kg);
+    load_tile<D>(sv + buf + ld_smem, vg + (kv0 + ld_row) * p.v_st + ld_col, p.v_st,
+                 kv0 + ld_row, p.tk, vg);
+    if (tid < BLOCK_N) {  // the mask too, so that no thread waits on a plain load
+      const int col = kv0 + tid;
+      cp_async4(smask + ((j & 1) * BLOCK_N + tid) * 4, col < p.tk ? mg + col : mg,
+                col < p.tk);
+    }
+    cp_async_commit();
+  };
+
+  load_tile<D>(sq + ld_smem, qg + (q0 + ld_row) * p.q_st + ld_col, p.q_st, q0 + ld_row, p.tq,
+               qg);
+  cp_async_commit();
+  if (n_kv > 0) load_kv(0);
+
+  float m_i[2] = {NEG_INF, NEG_INF};  // rows g and g + 8 of the warp's 16
+  float l_i[2] = {0.f, 0.f};
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  uint32_t qf[KS][4];
+  const int row_a = q0 + warp * 16 + g;  // this thread's two query rows
+  const int row_b = row_a + 8;
+  // this lane's ldmatrix row addresses, tile offsets added as immediates
+  const uint32_t q_lane = sq + (warp * 16 + lane % 16) * M::ROW + (lane / 16) * 16;
+  const uint32_t k_lane = sk + (lane % 8) * M::ROW + (lane / 8) * 16;
+  const uint32_t v_lane = sv + (lane % 8 + (lane / 8 & 1) * 8) * M::ROW + (lane / 16) * 16;
+
+  for (int j = 0; j < n_kv; ++j) {
+    const int kv0 = j * BLOCK_N;
+    const uint32_t buf = (j & 1) * M::BYTES;
+    if (j + 1 < n_kv) {
+      load_kv(j + 1);  // into the other buffer, freed by the last iteration's sync
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (j == 0) {
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) ldmatrix_x4(qf[ks], q_lane + ks * 32);
+    }
+
+    // S = Q K^T: 16 x 64 per warp, 8 tiles of m16n8
+    float s[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 32; ++kk) {
+        uint32_t kf[4];  // b0, b1 of k-steps 2kk and 2kk + 1
+        ldmatrix_x4(kf, k_lane + buf + n * 8 * M::ROW + kk * 64);
+        mma_bf16(s[n], qf[2 * kk], kf[0], kf[1]);
+        mma_bf16(s[n], qf[2 * kk + 1], kf[2], kf[3]);
+      }
+    }
+
+    // online softmax on the accumulators: s[n][0..1] row g, s[n][2..3] row g + 8,
+    // columns n*8 + 2t + {0, 1}. Scores are kept in base 2 (times log2 e),
+    // so that each exponential is one exp2; the LSE converts back.
+    uint32_t ok_cols = 0;  // bit 2n + c: column n*8 + 2t + c may be attended
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const int2 m2 = *reinterpret_cast<const int2*>(mask_s + (j & 1) * BLOCK_N + n * 8 + 2 * t);
+      ok_cols |= (uint32_t)(m2.x != 0) << (2 * n) | (uint32_t)(m2.y != 0) << (2 * n + 1);
+    }
+    const float scale2 = p.scale * LOG2E;
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = n * 8 + 2 * t + (e & 1);
+        const int row = e < 2 ? row_a : row_b;
+        const bool ok = (ok_cols >> (2 * n + (e & 1)) & 1) && (!p.causal || kv0 + col <= row);
+        s[n][e] = ok ? s[n][e] * scale2 : NEG_INF;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+      }
+    float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m_i[r], quad_max(mx[r]));
+      alpha[r] = exp2f(m_i[r] - m_new);
+      m_i[r] = m_new;
+    }
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        // gate, not just subtract: on a fully masked row s == m_new == -1e30
+        // and exp(0) would count masked entries
+        const float x = s[n][e];
+        s[n][e] = x <= MASK_GATE ? 0.f : exp2f(x - m_i[e >> 1]);
+        rs[e >> 1] += s[n][e];
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l_i[r] = l_i[r] * alpha[r] + quad_sum(rs[r]);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      acc[n][0] *= alpha[0];
+      acc[n][1] *= alpha[0];
+      acc[n][2] *= alpha[1];
+      acc[n][3] *= alpha[1];
+    }
+
+    // O += P V: P from registers (rounded to bf16), V through ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < BLOCK_N / 16; ++kk) {
+      const uint32_t pf[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int dn = 0; dn < D / 16; ++dn) {
+        uint32_t vf[4];  // b0, b1 of O tiles 2dn and 2dn + 1
+        ldmatrix_x4_trans(vf, v_lane + buf + kk * 16 * M::ROW + dn * 32);
+        mma_bf16(acc[2 * dn], pf, vf[0], vf[1]);
+        mma_bf16(acc[2 * dn + 1], pf, vf[2], vf[3]);
+      }
+    }
+    __syncthreads();  // this buffer is refilled at the top of iteration j + 1
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the Q tile is free (also when no kv tile ran)
+
+  // epilogue: the warp writes its 16 rows of O into its rows of the Q tile,
+  // then copies them out 16 bytes at a time
+  const float safe_l[2] = {fmaxf(l_i[0], 1e-30f), fmaxf(l_i[1], 1e-30f)};
+  unsigned char* so = smem_raw + warp * 16 * M::ROW;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    *reinterpret_cast<uint32_t*>(so + g * M::ROW + (n * 8 + 2 * t) * 2) =
+        pack_bf16(acc[n][0] / safe_l[0], acc[n][1] / safe_l[0]);
+    *reinterpret_cast<uint32_t*>(so + (g + 8) * M::ROW + (n * 8 + 2 * t) * 2) =
+        pack_bf16(acc[n][2] / safe_l[1], acc[n][3] / safe_l[1]);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < 16 * M::CH / 32; ++i) {
+    const int c = lane + i * 32;
+    const int r = c / M::CH, cc = c % M::CH;
+    const int row = q0 + warp * 16 + r;
+    if (row < p.tq)
+      *reinterpret_cast<uint4*>(og + row * p.o_st + cc * 8) =
+          *reinterpret_cast<const uint4*>(so + r * M::ROW + cc * 16);
+  }
+  if (t == 0) {
+    float* lse = p.lse + static_cast<int64_t>(bh) * p.tq;
+    // back from base 2; a fully masked row keeps the -1e30 max, as unscaled
+#pragma unroll
+    for (int r = 0; r < 2; ++r) m_i[r] = m_i[r] <= MASK_GATE ? NEG_INF : m_i[r] * LN2;
+    if (row_a < p.tq) lse[row_a] = m_i[0] + logf(safe_l[0]);
+    if (row_b < p.tq) lse[row_b] = m_i[1] + logf(safe_l[1]);
+  }
+}
+
+// ----------------------------------------------------------------- f32 ----
+
+constexpr int LDT = 65;  // row stride of the transposed Q/K tiles
+constexpr int LDP = 72;  // row stride of the P tile
 
 __device__ __forceinline__ float row_max8(float x) {
   x = fmaxf(x, __shfl_xor_sync(FULL, x, 1));
@@ -76,15 +409,13 @@ __device__ __forceinline__ float row_sum8(float x) {
 }
 
 template <int D>
-constexpr size_t smem_bytes() {
+constexpr size_t f32_smem_bytes() {
   return sizeof(float) * (2 * D * LDT + BLOCK_N * D + BLOCK_M * LDP) + sizeof(int) * BLOCK_N;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 const int* __restrict__ mask, T* __restrict__ out, float* __restrict__ lse,
-                 int tq, int tk, int causal, float scale) {
+flash_fwd_f32_kernel(const Params p) {
   constexpr int DC = D / 8;  // output columns per thread
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* q_t = reinterpret_cast<float*>(smem_raw);  // [D][LDT]      Q^T
@@ -96,18 +427,22 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int tid = threadIdx.x;
   const int tr = tid / 8;
   const int tc = tid % 8;
-  const size_t bh = blockIdx.x;
-  const int q0 = blockIdx.y * BLOCK_M;
+  const int n_bh = gridDim.x / n_q_tiles(p.tq);
+  const int bh = blockIdx.x % n_bh;
+  const int b = bh / p.H, h = bh % p.H;
+  const int q0 = blockIdx.x / n_bh * BLOCK_M;
+  const int tq = p.tq, tk = p.tk, causal = p.causal;
 
-  const T* qg = q + bh * tq * D;
-  const T* kg = k + bh * tk * D;
-  const T* vg = v + bh * tk * D;
-  const int* mg = mask + bh * tk;
+  const float* qg = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* kg = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const float* vg = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
+  float* og = static_cast<float*>(p.out) + b * p.o_sb + h * p.o_sh;
+  const int* mg = p.mask + static_cast<int64_t>(b) * tk;
 
   for (int e = tid; e < BLOCK_M * D; e += THREADS) {
     const int r = e / D, d = e % D;
     const int row = q0 + r;
-    q_t[d * LDT + r] = row < tq ? to_f32(qg[(size_t)row * D + d]) : 0.f;
+    q_t[d * LDT + r] = row < tq ? qg[row * p.q_st + d] : 0.f;
   }
 
   float m_i[4], l_i[4], acc[4][DC];
@@ -119,13 +454,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     for (int j = 0; j < DC; ++j) acc[i][j] = 0.f;
   }
 
-  int n_kv = (tk + BLOCK_N - 1) / BLOCK_N;
-  if (causal) {
-    // tiles with kv0 <= last query row of this tile, as the TPU kernel's
-    // pl.when(kv_blk * block_k <= (q_blk + 1) * block_q - 1)
-    n_kv = min(n_kv, (q0 + BLOCK_M - 1) / BLOCK_N + 1);
-  }
-
+  const int n_kv = n_kv_tiles(p, q0);
   for (int kt = 0; kt < n_kv; ++kt) {
     const int kv0 = kt * BLOCK_N;
     __syncthreads();  // the previous tile's K, V, P are no longer read
@@ -134,8 +463,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       const int col = kv0 + r;
       float kx = 0.f, vx = 0.f;
       if (col < tk) {
-        kx = to_f32(kg[(size_t)col * D + d]);
-        vx = to_f32(vg[(size_t)col * D + d]);
+        kx = kg[col * p.k_st + d];
+        vx = vg[col * p.v_st + d];
       }
       k_t[d * LDT + r] = kx;
       v_s[r * D + d] = vx;
@@ -153,15 +482,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
 #pragma unroll 4
     for (int d = 0; d < D; ++d) {
-      float a[4], b[8];
+      float a[4], bv[8];
 #pragma unroll
       for (int i = 0; i < 4; ++i) a[i] = q_t[d * LDT + tr + 16 * i];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) b[j] = k_t[d * LDT + tc + 8 * j];
+      for (int j = 0; j < 8; ++j) bv[j] = k_t[d * LDT + tc + 8 * j];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
+        for (int j = 0; j < 8; ++j) s[i][j] = fmaf(a[i], bv[j], s[i][j]);
     }
 
 #pragma unroll
@@ -172,7 +501,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       for (int j = 0; j < 8; ++j) {
         const int cj = tc + 8 * j;
         const bool ok = valid_s[cj] && (!causal || kv0 + cj <= row);
-        s[i][j] = ok ? s[i][j] * scale : NEG_INF;
+        s[i][j] = ok ? s[i][j] * p.scale : NEG_INF;
         mx = fmaxf(mx, s[i][j]);
       }
       const float m_new = fmaxf(m_i[i], row_max8(mx));
@@ -182,9 +511,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       for (int j = 0; j < 8; ++j) {
         // gate, not just subtract: on a fully masked row s == m_new == -1e30
         // and exp(0) would count masked entries
-        const float p = s[i][j] <= MASK_GATE ? 0.f : expf(s[i][j] - m_new);
-        rs += p;
-        p_s[(tr + 16 * i) * LDP + tc + 8 * j] = to_f32(from_f32<T>(p));
+        const float pv = s[i][j] <= MASK_GATE ? 0.f : expf(s[i][j] - m_new);
+        rs += pv;
+        p_s[(tr + 16 * i) * LDP + tc + 8 * j] = pv;
       }
       l_i[i] = l_i[i] * alpha + row_sum8(rs);
       m_i[i] = m_new;
@@ -195,15 +524,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
 #pragma unroll 4
     for (int c = 0; c < BLOCK_N; ++c) {
-      float a[4], b[DC];
+      float a[4], bv[DC];
 #pragma unroll
       for (int i = 0; i < 4; ++i) a[i] = p_s[(tr + 16 * i) * LDP + c];
 #pragma unroll
-      for (int j = 0; j < DC; ++j) b[j] = v_s[c * D + tc + 8 * j];
+      for (int j = 0; j < DC; ++j) bv[j] = v_s[c * D + tc + 8 * j];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < DC; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+        for (int j = 0; j < DC; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
     }
   }
 
@@ -212,55 +541,60 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     const int row = q0 + tr + 16 * i;
     if (row < tq) {
       const float safe_l = fmaxf(l_i[i], 1e-30f);
-      T* og = out + (bh * tq + row) * D;
 #pragma unroll
-      for (int j = 0; j < DC; ++j) og[tc + 8 * j] = from_f32<T>(acc[i][j] / safe_l);
-      if (tc == 0) lse[bh * tq + row] = m_i[i] + logf(safe_l);
+      for (int j = 0; j < DC; ++j) og[row * p.o_st + tc + 8 * j] = acc[i][j] / safe_l;
+      if (tc == 0) p.lse[static_cast<int64_t>(bh) * tq + row] = m_i[i] + logf(safe_l);
     }
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, const void* mask, void* out,
-           void* lse, int bh, int tq, int tk, int causal, float scale, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
-  auto kernel = flash_fwd_kernel<T, D>;
+// --------------------------------------------------------------- launch ----
+
+template <typename Kernel>
+int launch(Kernel kernel, size_t smem, const Params& p, int bh, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(bh, (tq + BLOCK_M - 1) / BLOCK_M);
-  kernel<<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const int*>(mask), static_cast<T*>(out), static_cast<float*>(lse),
-      tq, tk, causal, scale);
+  const int64_t blocks = static_cast<int64_t>(bh) * n_q_tiles(p.tq);  // query tile major
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
+  kernel<<<static_cast<unsigned>(blocks), THREADS, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch_d(const void* q, const void* k, const void* v, const void* mask, void* out,
-               void* lse, int bh, int tq, int tk, int d, int causal, float scale,
-               cudaStream_t stream) {
-  switch (d) {
-    case 32: return launch<T, 32>(q, k, v, mask, out, lse, bh, tq, tk, causal, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, mask, out, lse, bh, tq, tk, causal, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, mask, out, lse, bh, tq, tk, causal, scale, stream);
+template <int D>
+int dispatch_dtype(int dtype, const Params& p, int bh, cudaStream_t s) {
+  switch (dtype) {
+    case 0: return launch(flash_fwd_f32_kernel<D>, f32_smem_bytes<D>(), p, bh, s);
+    case 1: return launch(flash_fwd_mma_kernel<D>, MmaTile<D>::SMEM, p, bh, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns the cudaError_t of the launch
-// (0 on success); launches on `stream` and allocates nothing.
+// q, k, v, out: [B, T, H, d] with element strides (batch, token, head) and
+// unit stride along d; for bfloat16 the pointers and strides are 16-byte
+// aligned. mask: int32 [B, tk]; lse: f32 [B*H, tq]. dtype: 0 = float32
+// (scalar kernel), 1 = bfloat16 (tensor-core kernel). Returns the
+// cudaError_t of the launch (0 on success); launches on `stream` and
+// allocates nothing.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, const void* mask,
-                         void* out, void* lse, int bh, int tq, int tk, int d, int causal,
-                         float scale, int dtype, void* stream) {
-  if (bh <= 0 || tq <= 0 || tk < 0) return (int)cudaErrorInvalidValue;
+                         void* out, void* lse, int B, int H, int tq, int tk, int d,
+                         int64_t q_sb, int64_t q_st, int64_t q_sh,
+                         int64_t k_sb, int64_t k_st, int64_t k_sh,
+                         int64_t v_sb, int64_t v_st, int64_t v_sh,
+                         int64_t o_sb, int64_t o_st, int64_t o_sh,
+                         int causal, float scale, int dtype, void* stream) {
+  if (B <= 0 || H <= 0 || tq <= 0 || tk < 0) return (int)cudaErrorInvalidValue;
+  const Params p{q, k, v, static_cast<const int*>(mask), out, static_cast<float*>(lse),
+                 q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, o_sb, o_st, o_sh,
+                 H, tq, tk, causal, scale};
+  const int bh = B * H;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: return dispatch_d<float>(q, k, v, mask, out, lse, bh, tq, tk, d, causal, scale, s);
-    case 1: return dispatch_d<__nv_bfloat16>(q, k, v, mask, out, lse, bh, tq, tk, d, causal,
-                                             scale, s);
+  switch (d) {
+    case 32: return dispatch_dtype<32>(dtype, p, bh, s);
+    case 64: return dispatch_dtype<64>(dtype, p, bh, s);
+    case 128: return dispatch_dtype<128>(dtype, p, bh, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

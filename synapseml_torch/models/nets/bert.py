@@ -35,14 +35,25 @@ def bert_tiny(**kw) -> TransformerConfig:
     return BertConfig(**defaults)
 
 
+def _embedding(num: int, dim: int, dtype: torch.dtype) -> nn.Embedding:
+    """``nn.Embedding`` that skips its init on the meta device: there its
+    ``normal_`` runs through ``torch._refs`` and so imports ``torch._dynamo``,
+    which a module built only to receive a state_dict does not need."""
+    weight = torch.empty(num, dim, dtype=dtype)
+    emb = nn.Embedding(num, dim, _weight=weight)
+    if not weight.is_meta:
+        emb.reset_parameters()
+    return emb
+
+
 class BertEmbeddings(nn.Module):
     def __init__(self, cfg: TransformerConfig, n_segments: int = 2):
         super().__init__()
         self.cfg = cfg
         pd = cfg.param_dtype
-        self.word = nn.Embedding(cfg.vocab_size, cfg.hidden, dtype=pd)
-        self.position = nn.Embedding(cfg.max_len, cfg.hidden, dtype=pd)
-        self.segment = nn.Embedding(n_segments, cfg.hidden, dtype=pd)
+        self.word = _embedding(cfg.vocab_size, cfg.hidden, pd)
+        self.position = _embedding(cfg.max_len, cfg.hidden, pd)
+        self.segment = _embedding(n_segments, cfg.hidden, pd)
         self.norm = LayerNorm(cfg.hidden, cfg.norm_eps, cfg.dtype, pd)
 
     def forward(self, input_ids, token_type_ids=None):

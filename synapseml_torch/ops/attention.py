@@ -8,7 +8,9 @@ takes for CPU tensors and which the chip check holds the kernel against.
 
 Layout contract: ``q, k, v: [B, T, H, D]`` at the public face (as in
 :mod:`models.nets`), ``kv_mask: [B, T]`` boolean (True = attend). Fully
-masked query rows output exactly zero.
+masked query rows output exactly zero. The kernel takes that layout as it
+is, strided views included, and writes a contiguous ``[B, T, H, D]``
+output; bfloat16 runs on the tensor cores, float32 on a scalar kernel.
 
 Forward only: the scoring path runs under ``torch.inference_mode()``. The
 ``autograd.Function`` with the recompute-from-LSE backward comes with the
@@ -104,73 +106,137 @@ def flash_attention_fwd_plain(q, k, v, kv_mask, causal: bool = False,
 
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_FLASH_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+_KERNEL_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+# q, k, v, mask, out, lse; B, H, Tq, Tk, D; 12 element strides (64-bit: a
+# plain c_int would cut them); causal, scale, dtype, stream
+_FLASH_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_int64] * 12
+                   + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+_ALIGN = 16  # bytes: the bf16 kernel moves q, k, v and out in 16-byte vectors
 
 
-def _check_kernel_args(q, k, v, kv_mask) -> None:
-    tensors = {"q": q, "k": k, "v": v, "kv_mask": kv_mask}
-    for name, t in tensors.items():
+def _head_strides(st, shape) -> list[int]:
+    """The (batch, token, head) element strides of a [B, T, H, D] tensor
+    (``st = x.stride()``, read once: ``x.stride(i)`` costs microseconds a
+    call), 0 for a dim of size 1, whose stride is never used."""
+    return [st[0] if shape[0] > 1 else 0, st[1] if shape[1] > 1 else 0,
+            st[2] if shape[2] > 1 else 0]
+
+
+def _aligned(x) -> bool:
+    """Whether ``x`` meets the kernel's 16-byte alignment: its base address
+    and the strides of its (batch, token, head) dims of size above 1."""
+    elt = x.element_size()
+    return (x.data_ptr() % _ALIGN == 0
+            and all(st * elt % _ALIGN == 0 for st in _head_strides(x.stride(), x.shape)))
+
+
+def _kernel_args(q, k, v, kv_mask, out) -> tuple[int, ...]:
+    """The C entry point's dims and element strides for ``q, out:
+    [B, Tq, H, D]``, ``k, v: [B, Tk, H, D]`` and an int32 ``kv_mask:
+    [B, Tk]``: ``(B, H, Tq, Tk, D)`` then the (batch, token, head) strides
+    of q, k, v and out (0 for a dim of size 1). Raises on what the kernel
+    does not take, before any launch. It runs on every launch, so it reads
+    each shape and stride tuple once."""
+    named = (("q", q), ("k", k), ("v", v), ("kv_mask", kv_mask), ("out", out))
+    for name, t in named:
         if t.device != q.device:
             raise ValueError(f"flash_attention_fwd: {name} is on {t.device}, q on {q.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"flash_attention_fwd: {name} must be contiguous")
-    if q.dtype not in _KERNEL_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    dt = q.dtype
+    if dt not in _KERNEL_DTYPES or k.dtype != dt or v.dtype != dt or out.dtype != dt:
         raise TypeError(f"flash_attention_fwd: the kernel takes float32 or bfloat16 "
                         f"q, k, v of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     if kv_mask.dtype != torch.int32:
         raise TypeError(f"flash_attention_fwd: kv_mask must be int32, got {kv_mask.dtype}")
-    if q.dim() != 3 or k.dim() != 3 or v.shape != k.shape:
-        raise ValueError(f"flash_attention_fwd: want q [BH,Tq,D], k and v [BH,Tk,D], got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    BH, Tq, D = q.shape
-    if k.shape[0] != BH or k.shape[2] != D or Tq < 1:
-        raise ValueError(f"flash_attention_fwd: q {tuple(q.shape)} and k {tuple(k.shape)} "
-                         f"do not agree")
+    qs, ks = tuple(q.shape), tuple(k.shape)
+    if len(qs) != 4 or len(ks) != 4 or tuple(v.shape) != ks or tuple(out.shape) != qs:
+        raise ValueError(f"flash_attention_fwd: want q and out [B,Tq,H,D], k and v [B,Tk,H,D], "
+                         f"got {qs}, {ks}, {tuple(v.shape)}, {tuple(out.shape)}")
+    B, Tq, H, D = qs
+    Tk = ks[1]
+    if ks[0] != B or ks[2:] != qs[2:] or Tq < 1:
+        raise ValueError(f"flash_attention_fwd: q {qs} and k {ks} do not agree")
     if D not in HEAD_DIMS:
         raise ValueError(f"flash_attention_fwd: the kernel takes head dims {HEAD_DIMS}, "
                          f"got {D}")
-    if tuple(kv_mask.shape) != (BH, k.shape[1]):
-        raise ValueError(f"flash_attention_fwd: kv_mask must be [BH, Tk] = "
-                         f"{(BH, k.shape[1])}, got {tuple(kv_mask.shape)}")
+    if tuple(kv_mask.shape) != (B, Tk) or not kv_mask.is_contiguous():
+        raise ValueError(f"flash_attention_fwd: kv_mask must be a contiguous [B, Tk] = "
+                         f"{(B, Tk)}, got {tuple(kv_mask.shape)}")
+    args = [B, H, Tq, Tk, D]
+    for (name, t), shape in zip((named[0], named[1], named[2], named[4]), (qs, ks, ks, qs)):
+        st = t.stride()
+        if st[3] != 1:
+            raise ValueError(f"flash_attention_fwd: {name} must have D innermost (unit "
+                             f"stride), got strides {st}")
+        if not _aligned(t):
+            raise ValueError(f"flash_attention_fwd: {name} must be {_ALIGN}-byte aligned "
+                             f"(base address and strides), got address {t.data_ptr():#x} "
+                             f"and strides {st}")
+        args += _head_strides(st, shape)
+    return tuple(args)
+
+
+def _entry_point():
+    """The C function ``flash_fwd`` with its argument types set."""
+    fn = _build.load("flash_fwd").flash_fwd
+    if fn.argtypes is None:
+        fn.argtypes = _FLASH_ARGTYPES
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _flash_fwd_bthd(q, k, v, kv_mask, causal: bool, scale: float):
+    """``(out [B, Tq, H, D], lse f32 [B*H, Tq])`` for ``[B, T, H, D]`` q/k/v
+    of any strides and an int32 ``kv_mask [B, Tk]``. CUDA tensors launch the
+    kernel in place (no copy of q, k, v or out) or raise; CPU tensors take
+    :func:`flash_attention_fwd_plain` on ``[B*H, T, D]`` copies."""
+    B, Tq, H, D = q.shape
+    Tk = k.shape[1]
+    if q.device.type == "cpu":
+        def to_bh(x, T):
+            return x.permute(0, 2, 1, 3).reshape(B * H, T, D)
+
+        mask = kv_mask[:, None, :].expand(B, H, Tk).reshape(B * H, Tk)
+        out, lse = flash_attention_fwd_plain(to_bh(q, Tq), to_bh(k, Tk), to_bh(v, Tk), mask,
+                                             causal, scale)
+        return out.reshape(B, H, Tq, D).permute(0, 2, 1, 3).contiguous(), lse
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_fwd: no kernel for device {q.device}")
+    with torch.cuda.device(q.device):
+        out = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device)
+        lse = torch.empty((B * H, Tq), dtype=torch.float32, device=q.device)
+        dims = _kernel_args(q, k, v, kv_mask, out)
+        err = _entry_point()(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_mask.data_ptr(),
+                 out.data_ptr(), lse.data_ptr(), *dims, int(causal), float(scale),
+                 _KERNEL_DTYPES[q.dtype], torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_fwd kernel launch failed with CUDA error {err}")
+    flash_attention_fwd.launches[_KERNEL_NAMES[q.dtype]] += 1
+    return out, lse
 
 
 def flash_attention_fwd(q, k, v, kv_mask, causal: bool = False,
                         scale: float | None = None):
     """Flash-attention forward on ``[BH, T, D]``: ``(out, lse)``.
 
-    CUDA tensors launch ``csrc/flash_fwd.cu`` (built at first use) or raise;
-    CPU tensors take :func:`flash_attention_fwd_plain`. Each kernel launch
-    adds one to ``flash_attention_fwd.launches``."""
+    CUDA tensors launch ``csrc/flash_fwd.cu`` (built at first use; the
+    tensor-core kernel for bfloat16, the scalar one for float32) or raise;
+    any strides with D innermost are taken as they are. CPU tensors take
+    :func:`flash_attention_fwd_plain`. Each kernel launch adds one to
+    ``flash_attention_fwd.launches["bf16"]`` or ``["f32"]``."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, kv_mask, causal, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_fwd: no kernel for device {q.device}")
-    _check_kernel_args(q, k, v, kv_mask)
-    BH, Tq, D = q.shape
-    fn = _build.load("flash_fwd").flash_fwd
-    fn.argtypes = _FLASH_ARGTYPES
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(q.device):
-        out = torch.empty_like(q)
-        lse = torch.empty((BH, Tq), dtype=torch.float32, device=q.device)
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_mask.data_ptr(),
-                 out.data_ptr(), lse.data_ptr(), BH, Tq, k.shape[1], D, int(causal),
-                 float(scale), _KERNEL_DTYPES[q.dtype],
-                 torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"flash_fwd kernel launch failed with CUDA error {err}")
-    flash_attention_fwd.launches += 1
-    return out, lse
+    if q.dim() != 3 or k.dim() != 3:
+        raise ValueError(f"flash_attention_fwd: want q [BH,Tq,D], k and v [BH,Tk,D], got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    # the same entry point with H = 1: [BH, T, D] is [B=BH, T, 1, D]
+    out, lse = _flash_fwd_bthd(q.unsqueeze(2), k.unsqueeze(2), v.unsqueeze(2), kv_mask,
+                               causal, scale)
+    return out.squeeze(2), lse
 
 
-flash_attention_fwd.launches = 0
-
-
-def _ceil_to(x: int, m: int) -> int:
-    return ((x + m - 1) // m) * m
+flash_attention_fwd.launches = {"bf16": 0, "f32": 0}
 
 
 def _padded_head_dim(D: int) -> int:
@@ -180,9 +246,12 @@ def _padded_head_dim(D: int) -> int:
 def flash_attention(q, k, v, kv_mask=None, causal: bool = False):
     """Fused blockwise attention forward. [B, T, H, D] layout.
 
-    Pads T to the block and D to the kernel's nearest head dim (zero-padding
-    D leaves dot products unchanged; padded kv positions are masked; padded
-    q rows are sliced away). The scale stays at the true D."""
+    q, k and v go to the kernel as they are, strided views included, and
+    the output comes back as a contiguous ``[B, Tq, H, D]``: no permute and
+    no T padding (the kernel masks its ragged tiles). D is zero-padded up
+    to the kernel's nearest head dim when it is not one of them (which
+    leaves dot products unchanged), and a tensor off the kernel's 16-byte
+    alignment is copied first. The scale stays at the true D."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise NotImplementedError("flash_attention is forward-only; its backward "
                                   "comes with the training slice")
@@ -193,25 +262,16 @@ def flash_attention(q, k, v, kv_mask=None, causal: bool = False):
         # with Tq != Tk would be silently misaligned
         raise ValueError(f"causal flash_attention requires Tq == Tk, got "
                          f"Tq={Tq} Tk={Tk}")
-    if kv_mask is None:
-        kv_mask = torch.ones((B, Tk), dtype=torch.bool, device=q.device)
-
-    block_q = min(BLOCK, _ceil_to(Tq, 8))
-    block_k = min(BLOCK, _ceil_to(Tk, 8))
-    Tq_p, Tk_p = _ceil_to(Tq, block_q), _ceil_to(Tk, block_k)
-    Dp = _padded_head_dim(D)
     scale = 1.0 / math.sqrt(D)  # true head dim — padding D must not change it
-
-    def to_bh(x, T, Tp):
-        if Tp != T or Dp != D:
-            x = F.pad(x, (0, Dp - D, 0, 0, 0, Tp - T))
-        return x.permute(0, 2, 1, 3).reshape(B * H, Tp, Dp).contiguous()
-
-    maskb = kv_mask.to(torch.int32)
-    if Tk_p != Tk:
-        maskb = F.pad(maskb, (0, Tk_p - Tk))
-    maskb = maskb[:, None, :].expand(B, H, Tk_p).reshape(B * H, Tk_p).contiguous()
-    out, _ = flash_attention_fwd(to_bh(q, Tq, Tq_p), to_bh(k, Tk, Tk_p),
-                                 to_bh(v, Tk, Tk_p), maskb, causal, scale)
-    out = out.reshape(B, H, Tq_p, Dp)[:, :, :Tq, :D]
-    return out.permute(0, 2, 1, 3)
+    Dp = _padded_head_dim(D)
+    if Dp != D:
+        q, k, v = (F.pad(x, (0, Dp - D)) for x in (q, k, v))
+    else:
+        q, k, v = (x if x.stride()[-1] == 1 and _aligned(x)
+                   else x.clone(memory_format=torch.contiguous_format) for x in (q, k, v))
+    if kv_mask is None:
+        mask = torch.ones((B, Tk), dtype=torch.int32, device=q.device)
+    else:
+        mask = kv_mask.to(torch.int32).contiguous()
+    out, _ = _flash_fwd_bthd(q, k, v, mask, causal, scale)
+    return out[..., :D] if Dp != D else out

@@ -114,7 +114,7 @@ def test_causal_needs_equal_lengths():
 
 def test_cpu_path_counts_no_kernel_launch_and_refuses_grad():
     q, k, v, _ = make_qkv(T=8)
-    before = tatt.flash_attention_fwd.launches
+    before = dict(tatt.flash_attention_fwd.launches)
     tatt.flash_attention(*_t(q, k, v))
     assert tatt.flash_attention_fwd.launches == before
     qg = torch.from_numpy(q).requires_grad_()
@@ -122,28 +122,81 @@ def test_cpu_path_counts_no_kernel_launch_and_refuses_grad():
         tatt.flash_attention(qg, *_t(k, v))
 
 
+def _projection_views(B=2, T=50, H=3, D=32, dtype=torch.float32, seed=0):
+    """q, k, v as the model makes them: [B, T, H, D] views cut from one
+    [B, T, 3*H*D] projection, so none of them is contiguous."""
+    rs = np.random.default_rng(seed)
+    proj = torch.from_numpy(rs.normal(size=(B, T, 3 * H * D)).astype(np.float32)).to(dtype)
+    return [x.unflatten(-1, (H, D)) for x in proj.split(H * D, dim=-1)]
+
+
 @pytest.mark.parametrize("bad,err,match", [
     ("head_dim", ValueError, "head dims"),
     ("dtype", TypeError, "float32 or bfloat16"),
     ("mask_dtype", TypeError, "int32"),
-    ("strided", ValueError, "contiguous"),
-    ("mask_shape", ValueError, r"\[BH, Tk\]"),
+    ("strided", ValueError, "innermost"),
+    ("mask_shape", ValueError, r"\[B, Tk\]"),
 ])
 def test_kernel_argument_checks(bad, err, match):
     """What the CUDA wrapper refuses before any launch (checked here on CPU
     tensors; the kernel itself runs only on the card)."""
-    q = torch.zeros(4, 16, 64)
-    k = torch.zeros(4, 16, 64)
-    mask = torch.ones(4, 16, dtype=torch.int32)
+    q = torch.zeros(2, 16, 2, 64)
+    k = torch.zeros(2, 16, 2, 64)
+    mask = torch.ones(2, 16, dtype=torch.int32)
     if bad == "head_dim":
-        q, k = torch.zeros(4, 16, 48), torch.zeros(4, 16, 48)
+        q, k = torch.zeros(2, 16, 2, 48), torch.zeros(2, 16, 2, 48)
     elif bad == "dtype":
         q, k = q.half(), k.half()
     elif bad == "mask_dtype":
         mask = mask.bool()
-    elif bad == "strided":
-        q = torch.zeros(4, 64, 16).transpose(1, 2)
+    elif bad == "strided":  # D not innermost
+        q = torch.zeros(2, 16, 64, 2).transpose(2, 3)
     elif bad == "mask_shape":
-        mask = torch.ones(2, 16, dtype=torch.int32)
+        mask = torch.ones(4, 16, dtype=torch.int32)
     with pytest.raises(err, match=match):
-        tatt._check_kernel_args(q, k, k, mask)
+        tatt._kernel_args(q, k, k, mask, torch.empty_like(k))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_args_dims_and_strides(dtype):
+    """The C call's dims and strides for projection views: no copy, the
+    views' own strides; misaligned or D-strided tensors are refused."""
+    B, T, H, D = 2, 50, 3, 32
+    q, k, v = _projection_views(B, T, H, D, dtype)
+    out = torch.empty((B, T, H, D), dtype=dtype)
+    mask = torch.ones(B, T, dtype=torch.int32)
+    args = tatt._kernel_args(q, k, v, mask, out)
+    view = (T * 3 * H * D, 3 * H * D, D)
+    assert args == (B, H, T, T, D, *view, *view, *view, T * H * D, H * D, D)
+    # [BH, T, D] as [B=BH, T, 1, D]: a size-1 head dim passes stride 0
+    flat = torch.zeros(6, T, D, dtype=dtype)
+    args = tatt._kernel_args(*(flat.unsqueeze(2),) * 3, torch.ones(6, T, dtype=torch.int32),
+                             torch.empty_like(flat).unsqueeze(2))
+    assert args == (6, 1, T, T, D) + (T * D, D, 0) * 4
+    # one element off the 16-byte grid
+    shifted = torch.zeros(B * T * H * D + 1, dtype=dtype)[1:].view(B, T, H, D)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tatt._kernel_args(shifted, k, v, mask, out)
+    # a token stride that is not a multiple of 16 bytes
+    odd = torch.zeros(B, T, H * D + 2, dtype=dtype)[..., :H * D].unflatten(-1, (H, D))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tatt._kernel_args(q, odd, v, mask, out)
+    d_strided = torch.zeros(B, T, D, H, dtype=dtype).transpose(2, 3)
+    with pytest.raises(ValueError, match="innermost"):
+        tatt._kernel_args(q, k, d_strided, mask, out)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5), (torch.bfloat16, 3e-2)])
+def test_flash_from_projection_views_matches_jax(causal, dtype, atol):
+    """flash_attention on non-contiguous [B, T, H, D] views of a projection,
+    with a padding mask, against the JAX flash_attention (bf16 inputs go to
+    JAX as the same values in f32)."""
+    q, k, v = _projection_views(B=2, T=50, H=3, D=32, dtype=dtype, seed=6)
+    assert not q.is_contiguous()
+    mask = np.random.default_rng(6).random((2, 50)) > 0.25
+    want = np.asarray(jatt.flash_attention(*_j(*(x.float().numpy() for x in (q, k, v))),
+                                           jnp.asarray(mask), causal=causal))
+    got = tatt.flash_attention(q, k, v, torch.from_numpy(mask), causal=causal)
+    assert got.shape == (2, 50, 3, 32) and got.dtype == dtype and got.is_contiguous()
+    np.testing.assert_allclose(got.float().numpy(), want, atol=atol)

@@ -8,6 +8,10 @@ default within 3e-2.
 """
 
 import dataclasses
+import os
+import subprocess
+import sys
+import textwrap
 
 import flax.linen as nn
 import jax
@@ -15,6 +19,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+# torch._dynamo is imported here, at collection, on purpose: the ONNX export
+# tests install a spec-less ``onnx`` stand-in in sys.modules, and a later first
+# import of torch._dynamo (which calls find_spec("onnx")) then raises. Every
+# xdist worker collects every test file before it runs any test, so with this
+# import dynamo is in place in each worker before any stand-in is.
+import torch._dynamo  # noqa: F401
 
 import synapseml_torch as pt
 from synapseml_torch.core import get_tracer
@@ -164,3 +175,33 @@ def test_transform_is_traced():
     spans = {s["name"]: s for s in get_tracer().spans_as_dicts()}
     assert spans["DeepTextModel.transform"]["parent"] == "pipeline.stage[0]"
     assert spans["pipeline.stage[0]"]["parent"] == "PipelineModel.transform"
+
+
+def test_module_build_imports_no_dynamo():
+    """Building and scoring a DeepTextModel imports no torch._dynamo, so it
+    works with a spec-less ``onnx`` stand-in in sys.modules (a fresh
+    interpreter: this process has dynamo already)."""
+    script = textwrap.dedent("""
+        import sys, types
+        sys.modules["onnx"] = types.ModuleType("onnx")
+        import torch
+        import synapseml_torch as pt
+        from synapseml_torch.models import text
+        from synapseml_torch.models.nets import bert
+        from synapseml_torch.models.tokenizer import HashingTokenizer
+        cfg = bert.bert_tiny(vocab_size=256, dtype=torch.float32)
+        params = {k: v.numpy() for k, v in bert.BertClassifier(cfg).state_dict().items()}
+        model = text.DeepTextModel(model_params=params, arch_config=cfg,
+                                   tokenizer_config=HashingTokenizer(vocab_size=256).to_config(),
+                                   max_token_len=16, batch_size=4, device="cpu",
+                                   attn_impl="flash")
+        out = model.transform(pt.DataFrame.from_rows([{"text": "good film"}, {"text": "bad"}]))
+        assert len(out.collect_column("scores")) == 2
+        assert "torch._dynamo" not in sys.modules, "scoring imported torch._dynamo"
+        print("ok")
+    """)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run([sys.executable, "-c", script], cwd=root, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0 and proc.stdout.strip().endswith("ok"), proc.stderr[-2000:]
