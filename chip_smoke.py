@@ -9,12 +9,13 @@ the kernels are built for sm_90a). Phases, each of which raises on failure:
    TF32 off for matmuls and convolutions;
 2. build: compiles every kernel under synapseml_torch/csrc/ with nvcc;
 3. kernels: holds each kernel against its plain PyTorch version on the
-   card: flash attention (the bf16 tensor-core kernel and the f32 scalar
-   kernel) at BERT-base shapes, with a padding mask, causal and not,
-   unaligned T and D, fully masked rows exactly 0, a second launch bitwise
-   equal to the first, and from strided [B, T, H, D] projection views
-   (BERT-base, and T=50 D=32); one flash_attention call from the views
-   runs at most 2 device kernels (the mask cast and the kernel);
+   card: flash attention (the bf16 tensor-core kernel and the f32 one in
+   split TF32) at BERT-base shapes, with a padding mask, causal and not,
+   unaligned T and D, T=200 at D=128, fully masked rows exactly 0, a second
+   launch bitwise equal to the first, and from strided [B, T, H, D]
+   projection views (BERT-base, and T=50 D=32); one flash_attention call
+   from the views runs at most 2 device kernels (the mask cast and the
+   kernel);
    and the GBDT histogram kernel at the Higgs shape (widths 1, 4 and 32,
    256 and 64 bins, uint8 and int32 bins, rows outside the level, N not
    tile-aligned; two launches bitwise equal) and as segment_histogram;
@@ -25,7 +26,7 @@ the kernels are built for sm_90a). Phases, each of which raises on failure:
    (the kernel's plain version) that the CPU tests hold to the JAX package;
    one request in f32 compute goes through the f32 kernel (12 launches per
    batch) and must agree with the f32 einsum path; then a profile of one
-   batch by kernel group;
+   batch by kernel group, in bf16 and in f32 compute;
 5. main path 2: LightGBMClassifier(histogram_impl='pallas') fit on the
    Higgs-1M shape (1e6 x 28, 100 iterations, 31 leaves, 255 bins) through
    a DataFrame: the histogram kernel must launch once per level and once
@@ -36,8 +37,9 @@ the kernels are built for sm_90a). Phases, each of which raises on failure:
    as on the card; then a profile of one boosting iteration;
 6. times: each kernel beside its bound, its plain version and the one
    PyTorch call that computes the same function (device time, with the
-   host's enqueue hidden behind a spin kernel); flash_attention from the
-   projection views beside the permute-and-call path it replaced.
+   host's enqueue hidden behind a spin kernel; the library call's device
+   kernels named from the profiler); flash_attention from the projection
+   views beside the permute-and-call path it replaced.
 
 The line before the last is a JSON object with the kernels' numbers; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or
@@ -69,7 +71,11 @@ from synapseml_torch.ops import _build
 from synapseml_torch.ops import attention as att
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, non-TF32 f32
+# The card's fastest route at each type's accuracy, dense tensor cores:
+# bf16 products at 989 TFLOP/s; f32 as three TF32 products (split TF32,
+# as the f32 kernel computes) at 495 TFLOP/s
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 495e12}
+MMA_PASSES = {torch.bfloat16: 1, torch.float32: 3}
 TOL_OUT = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 TOL_LSE = 1e-4
 KERNEL_NAMES = att._KERNEL_NAMES  # dtype -> key of flash_attention_fwd.launches
@@ -142,9 +148,9 @@ def phase_build():
             elif "registers" in line or "spill" in line:
                 log(f"[build] {name} {fn}: {line.strip()}")
                 found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-                if found and "flash_fwd_mma" in fn and found.groups() != ("0", "0"):
+                if found and "flash_fwd" in fn and found.groups() != ("0", "0"):
                     spills.append(fn)
-    log(f"[build] bf16 flash kernels with register spills: {spills or 'none'}")
+    log(f"[build] flash kernels with register spills: {spills or 'none'}")
 
 
 def _inputs(BH, Tq, Tk, Dp, dtype, device, seed, true_d=None):
@@ -200,21 +206,29 @@ def _check_views(name, Bv, Tv, Hv, Dv, dtype, device, seed, causal) -> None:
         raise AssertionError(f"flash_attention from views disagrees on {name}")
 
 
-def _count_view_call_kernels(device) -> None:
-    """Device kernels of one flash_attention call on BERT-base projection
-    views with a bool padding mask: at most the mask cast and the kernel."""
+def _device_kernels(fn, n=3) -> list[tuple[str, int]]:
+    """(name, count per call) of the device kernels a call of ``fn`` runs,
+    from the profiler over ``n`` calls after a warm-up call (late in a long
+    process a session can miss some of a single call's kernels)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    q, k, v = _projection_views(B, T, H, D, torch.bfloat16, device, seed=11)
-    mask = _padding_mask(B, T, device, seed=11).bool()
-    att.flash_attention(q, k, v, mask)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        att.flash_attention(q, k, v, mask)
+        for _ in range(n):
+            fn()
         torch.cuda.synchronize()
-    kernels = [(e.key, e.count) for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    return [(e.key, -(-e.count // n)) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+
+
+def _count_view_call_kernels(device) -> None:
+    """Device kernels of one flash_attention call on BERT-base projection
+    views with a bool padding mask: at most the mask cast and the kernel."""
+    q, k, v = _projection_views(B, T, H, D, torch.bfloat16, device, seed=11)
+    mask = _padding_mask(B, T, device, seed=11).bool()
+    kernels = _device_kernels(lambda: att.flash_attention(q, k, v, mask))
     n = sum(c for _, c in kernels)
     log(f"[kernel] one flash_attention call on BERT-base projection views: {n} device "
         f"kernel(s) {[key[:60] for key, _ in kernels]} (want at most 2)")
@@ -234,6 +248,7 @@ def phase_kernels(device) -> dict:
         ("unaligned T=50 D=24 f32 causal", 24, 50, 50, 32, 24, torch.float32, True, 0),
         ("unaligned T=50 D=24 bf16", 24, 50, 50, 32, 24, torch.bfloat16, False, 0),
         ("T=200 D=128 bf16 causal", 16, 200, 200, 128, 128, torch.bfloat16, True, 0),
+        ("T=200 D=128 f32 causal", 16, 200, 200, 128, 128, torch.float32, True, 0),
         ("fully masked rows f32", 48, T, T, D, D, torch.float32, False, 8),
         ("fully masked rows bf16", 48, T, T, D, D, torch.bfloat16, True, 8),
     ]
@@ -381,7 +396,8 @@ def phase_main_path(device, card: str) -> dict:
         raise AssertionError("f32 flash and einsum scores disagree")
 
     model.set(attn_impl="flash")
-    _profile_batch(model, enc)
+    _profile_batch(model, enc, "bf16")
+    _profile_batch(model32, enc, "f32")
     return {"launches": launches, "rows_s": rows_s, "ms_batch": ms_batch}
 
 
@@ -392,9 +408,10 @@ _KERNEL_GROUPS = (("flash_fwd kernel", ("flash_fwd",)),  # matched in lower case
                   ("gelu", ("gelu",)))
 
 
-def _profile_batch(model, enc, n=5) -> None:
-    """Where the device time of one BERT-base batch goes: device kernels by
-    group, the top kernels, and the share of the wall time the card is busy."""
+def _profile_batch(model, enc, tag: str, n=5) -> None:
+    """Where the device time of one BERT-base batch in ``tag`` compute goes:
+    device kernels by group, the top kernels, and the share of the wall time
+    the card is busy."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -413,8 +430,9 @@ def _profile_batch(model, enc, n=5) -> None:
     if not busy:
         log("[profile] the profiler recorded no device time")
         return
-    log(f"[profile] one batch of 32 x 128: {wall_ms:.3f} ms wall, {busy:.3f} ms of device "
-        f"kernels ({100 * busy / wall_ms:.1f}% busy, {100 - 100 * busy / wall_ms:.1f}% idle)")
+    log(f"[profile] one {tag} batch of 32 x 128: {wall_ms:.3f} ms wall, {busy:.3f} ms of "
+        f"device kernels ({100 * busy / wall_ms:.1f}% busy, "
+        f"{100 - 100 * busy / wall_ms:.1f}% idle)")
     groups = {name: 0.0 for name, _ in _KERNEL_GROUPS}
     groups["other"] = 0.0
     for ms, _, key in kernels:
@@ -422,9 +440,11 @@ def _profile_batch(model, enc, n=5) -> None:
                     "other")
         groups[name] += ms
     for name, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
-        log(f"[profile] group {name}: {ms:.4f} ms/batch ({100 * ms / busy:.1f}% of device time)")
+        log(f"[profile] {tag} group {name}: {ms:.4f} ms/batch ({100 * ms / busy:.1f}% of "
+            f"device time)")
     for ms, count, key in sorted(kernels, reverse=True)[:10]:
-        log(f"[profile] {100 * ms / busy:5.1f}%  {ms:8.4f} ms/batch  {count:4d}/batch  {key[:90]}")
+        log(f"[profile] {tag} {100 * ms / busy:5.1f}%  {ms:8.4f} ms/batch  {count:4d}/batch  "
+            f"{key[:90]}")
 
 
 def phase_times(device, card: str, launches: dict, max_err: dict) -> list[dict]:
@@ -448,16 +468,20 @@ def phase_times(device, card: str, launches: dict, max_err: dict) -> list[dict]:
         ms, library_ms, ms2, library_ms2 = (device_ms(f) for f in (kernel, sdpa, kernel, sdpa))
         plain_ms = device_ms(plain, warmup=2, iters=10)
         call_ms = cuda_ms(kernel)  # one call as the host sees it, enqueue included
+        sdpa_kernels = [key[:80] for key, _ in _device_kernels(sdpa)]
         elt = torch.finfo(dtype).bits // 8
         n_bytes = 4 * BH * T * D * elt + 2 * BH * T * 4  # q, k, v, out; mask, lse
         flops = 2 * 2 * BH * T * T * D                   # QK^T and PV, every tile
-        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
+        passes = MMA_PASSES[dtype]
+        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+        t_ops = passes * flops / PEAK_FLOPS[dtype] * 1e3
         bound_ms, bound_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
         log(f"[times] flash_fwd {tag} [B*H={BH}, T={T}, D={D}]: kernel {ms:.4f} / {ms2:.4f} ms "
             f"(device time, two turns; one call with its host enqueue {call_ms:.4f} ms), bound "
-            f"{bound_ms:.4f} ms ({bound_by}: {n_bytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), "
-            f"plain {plain_ms:.4f} ms, scaled_dot_product_attention {library_ms:.4f} / "
-            f"{library_ms2:.4f} ms | {card}")
+            f"{bound_ms:.4f} ms ({bound_by}: {n_bytes / 1e6:.1f} MB = {t_bytes:.4f} ms; "
+            f"{passes} x {flops / 1e9:.2f} GFLOP at {PEAK_FLOPS[dtype] / 1e12:g} TFLOP/s = "
+            f"{t_ops:.4f} ms), plain {plain_ms:.4f} ms, scaled_dot_product_attention "
+            f"{library_ms:.4f} / {library_ms2:.4f} ms, its device kernels {sdpa_kernels} | {card}")
         rows.append({"name": f"flash_fwd_{tag}", "route": "cuda",
                      "source": "synapseml_torch/csrc/flash_fwd.cu",
                      "replaces": "synapseml_tpu/ops/attention.py:63",

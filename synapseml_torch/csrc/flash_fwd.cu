@@ -28,39 +28,57 @@
 // of the same head mostly find them in L2.
 //
 // Bound on this card. At BERT-base scoring shapes (B*H = 384, T = 128,
-// D = 64, bf16) the function reads q, k, v and the mask and writes out and
-// lse: about 25.6 MB against 1.6 GFLOP, i.e. 7.6 us at 3.35 TB/s against
-// 1.6 us at 989 TFLOP/s: bandwidth-bound, so the design aims at moving
-// each byte once, in wide transactions, with loads in flight during math.
+// D = 64) the function reads q, k, v and the mask and writes out and lse.
+// In bf16 that is about 25.6 MB against 1.6 GFLOP: 7.6 us at 3.35 TB/s
+// against 1.6 us at 989 TFLOP/s. In f32 it is 50.7 MB, 15.1 us, against
+// three TF32 products of 1.6 GFLOP each (the split below), 9.8 us at
+// 495 TFLOP/s. Both are bound by bytes, so the design aims at moving each
+// byte once, in wide transactions, with loads in flight during math.
 //
-// bf16: tensor cores (flash_fwd_mma_kernel). Four warps; warp w owns query
-// rows 16w..16w+15 of the tile.
-//   * QK^T and PV run on mma.sync.m16n8k16 (bf16 in, f32 accumulate). The Q
-//     fragments are loaded once with ldmatrix and stay in registers; K
-//     fragments come through ldmatrix, V fragments through ldmatrix.trans.
-//   * The online softmax runs on the S accumulators in registers, in base 2
-//     (scores times log2 e, one exp2 each); a row's max and sum take two
-//     xor-shuffles within the quad that holds it.
+// Both kernels: four warps; warp w owns query rows 16w..16w+15 of the
+// tile. QK^T and PV run on mma.sync with f32 accumulators. The online
+// softmax runs on the S accumulators in registers, in base 2 (scores times
+// log2 e, one exp2 each); a row's max and sum take two xor-shuffles within
+// the quad that holds it. Q, K and V tiles arrive by 16-byte cp.async
+// (zero-filled past the sequence end) into padded rows, double-buffered,
+// so tile j+1 loads while tile j computes; the mask rides along by 4-byte
+// cp.async, so no thread stalls on a plain load. The output is staged
+// through shared memory and written with 16-byte stores.
+//
+// bf16: flash_fwd_mma_kernel, mma.sync.m16n8k16 (bf16 in).
+//   * The Q fragments are loaded once with ldmatrix and stay in registers;
+//     K fragments come through ldmatrix, V fragments through ldmatrix.trans.
 //   * P is rounded to bf16 in registers and used directly as the A operand
 //     of the PV product (the m16n8 accumulator layout of two adjacent score
 //     tiles is the m16n8k16 A layout): no P goes through shared memory.
-//   * Q, K and V tiles arrive by 16-byte cp.async (zero-filled past the
-//     sequence end) into rows padded by 16 bytes, which keeps ldmatrix free
-//     of bank conflicts; the mask rides along by 4-byte cp.async, so no
-//     thread stalls on a plain load. K/V are double-buffered, so tile j+1
-//     loads while tile j computes. Shared memory is 5 tiles of 64 x (D+8)
-//     bf16: 46 KB at D = 64.
-//   * Registers are capped at 168 a thread up to D = 64, so that 3 blocks
-//     (12 warps) share an SM: the loads of one block then overlap the
-//     math of the others. At D = 128 the accumulators alone take 64.
-//   * The output is staged through the warp's own rows of the Q tile and
-//     written with 16-byte stores.
-// f32: CUDA cores (flash_fwd_f32_kernel). Tensor cores would take f32 as
-// TF32, about three decimal digits, which the f32 path's 2e-5 tolerance
-// does not allow; so f32 keeps the scalar design: thread (tr = tid/8,
-// tc = tid%8) owns query rows tr + 16*i (i < 4), score columns tc + 8*j and
-// output columns tc + 8*j; Q^T, K^T, V and P tiles live in shared memory as
-// f32 and both products are scalar FMAs. It runs far above its bound.
+//   * Rows are padded by 16 bytes, which keeps ldmatrix free of bank
+//     conflicts. Shared memory is 5 tiles of 64 x (D+8) bf16: 46 KB at
+//     D = 64. Registers are capped at 168 a thread up to D = 64, so that 3
+//     blocks (12 warps) share an SM.
+// f32: flash_fwd_tf32_kernel, mma.sync.m16n8k8 (TF32 in) in split TF32.
+//   * A tensor core reads an f32 operand as TF32, 10 mantissa bits, which
+//     the f32 path's 2e-5 tolerance does not allow. So each operand x is
+//     split into hi = x rounded to TF32 (to nearest, ties away from zero,
+//     as cvt.rna) and lo = x - hi truncated to TF32, and each product step
+//     is three mma: a_lo*b_hi, a_hi*b_lo, then a_hi*b_hi, accumulated in
+//     f32 (the dropped a_lo*b_lo is about 2^-22 of the product). The kernel
+//     splits always; it does not depend on torch's allow_tf32. The split is
+//     most of the kernel's ALU work, so it is done with integer ops (see
+//     split_tf32) where cvt.rna would cost several instructions a part.
+//   * ldmatrix moves 16-bit elements, so fragments are 32-bit shared loads.
+//     The order of k within one m16n8k8 step is free as long as A and B
+//     follow it, so thread (g, t) takes k = 2t, 2t+1 where the instruction
+//     says t, t+4: Q and K fragments are then one 8-byte load each (rows
+//     padded by 8 floats: conflict-free), and P is the S accumulator as it
+//     stands (columns 2t, 2t+1), with no shuffle; V's fragment is rows
+//     2t, 2t+1 of one column (rows padded by 4 floats: conflict-free).
+//   * Q, K, V and P are split where they are used, by each warp. Splitting
+//     K and V once on arrival into hi/lo tiles was slower (a second pass,
+//     twice the shared loads and 108 KB of shared memory at D = 64); so was
+//     holding Q in registers (spills at D = 128) or capping registers for a
+//     third block an SM (spills). Shared memory is 3 tiles of 64 x (D+8)
+//     and 2 of 64 x (D+4) f32: 88 KB at D = 64, 2 blocks an SM.
+//   * The output is staged through the warp's own rows of the Q tile.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -106,7 +124,7 @@ __device__ __forceinline__ int n_kv_tiles(const Params& p, int q0) {
   return n;
 }
 
-// ---------------------------------------------------------------- bf16 ----
+// ------------------------------------------------------------- shared ----
 // Shared memory is addressed with 32-bit shared-window addresses: a thread
 // computes its own base once, and every tile offset is a compile-time
 // immediate of the instruction.
@@ -136,6 +154,102 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
+// 64 rows of a [T, D] slice (token stride `st`) into a tile of padded rows
+// of ROW bytes, 16 bytes a thread, RS rows a pass of the block. This thread
+// loads one chunk of rows first_row + i*RS: `dst` and `src` are its chunk
+// of the first. Rows at or past `limit` are zero-filled (read from `any`, a
+// valid address, with size 0).
+template <int RS, int ROW, typename T>
+__device__ __forceinline__ void load_tile(uint32_t dst, const T* src, int64_t st,
+                                          int first_row, int limit, const T* any) {
+#pragma unroll
+  for (int i = 0; i < BLOCK_M / RS; ++i) {
+    const bool ok = first_row + i * RS < limit;
+    cp_async16(dst + i * RS * ROW, ok ? src + i * RS * st : any, ok);
+  }
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(FULL, x, 1));
+  return fmaxf(x, __shfl_xor_sync(FULL, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(FULL, x, 1);
+  return x + __shfl_xor_sync(FULL, x, 2);
+}
+
+// One kv tile of the online softmax, on a warp's m16n8 score accumulators:
+// s[n][0..1] are row row_a, s[n][2..3] row row_b, columns n*8 + 2t + {0, 1}
+// of the tile at kv0; mask_tile is the tile's 64 mask entries. Scales and
+// masks s, replaces it with p (base 2: scores times log2 e, so that each
+// exponential is one exp2; the LSE converts back), updates m_i and l_i and
+// rescales acc.
+template <int NT>
+__device__ __forceinline__ void softmax_tile(float (&s)[8][4], float (&acc)[NT][4],
+                                             float (&m_i)[2], float (&l_i)[2],
+                                             const int* mask_tile, int t, int row_a, int row_b,
+                                             int kv0, const Params& p) {
+  uint32_t ok_cols = 0;  // bit 2n + c: column n*8 + 2t + c may be attended
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const int2 m2 = *reinterpret_cast<const int2*>(mask_tile + n * 8 + 2 * t);
+    ok_cols |= (uint32_t)(m2.x != 0) << (2 * n) | (uint32_t)(m2.y != 0) << (2 * n + 1);
+  }
+  const float scale2 = p.scale * LOG2E;
+  float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = n * 8 + 2 * t + (e & 1);
+      const int row = e < 2 ? row_a : row_b;
+      const bool ok = (ok_cols >> (2 * n + (e & 1)) & 1) && (!p.causal || kv0 + col <= row);
+      s[n][e] = ok ? s[n][e] * scale2 : NEG_INF;
+      mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+    }
+  float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float m_new = fmaxf(m_i[r], quad_max(mx[r]));
+    alpha[r] = exp2f(m_i[r] - m_new);
+    m_i[r] = m_new;
+  }
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      // gate, not just subtract: on a fully masked row s == m_new == -1e30
+      // and exp(0) would count masked entries
+      const float x = s[n][e];
+      s[n][e] = x <= MASK_GATE ? 0.f : exp2f(x - m_i[e >> 1]);
+      rs[e >> 1] += s[n][e];
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l_i[r] = l_i[r] * alpha[r] + quad_sum(rs[r]);
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    acc[n][0] *= alpha[0];
+    acc[n][1] *= alpha[0];
+    acc[n][2] *= alpha[1];
+    acc[n][3] *= alpha[1];
+  }
+}
+
+// The LSE of rows row_a and row_b, written by the quad's first thread.
+__device__ __forceinline__ void write_lse(const Params& p, int bh, int t, float (&m_i)[2],
+                                          const float (&safe_l)[2], int row_a, int row_b) {
+  if (t != 0) return;
+  float* lse = p.lse + static_cast<int64_t>(bh) * p.tq;
+  // back from base 2; a fully masked row keeps the -1e30 max, as unscaled
+#pragma unroll
+  for (int r = 0; r < 2; ++r) m_i[r] = m_i[r] <= MASK_GATE ? NEG_INF : m_i[r] * LN2;
+  if (row_a < p.tq) lse[row_a] = m_i[0] + logf(safe_l[0]);
+  if (row_b < p.tq) lse[row_b] = m_i[1] + logf(safe_l[1]);
+}
+
+// ---------------------------------------------------------------- bf16 ----
+
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
@@ -162,16 +276,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(FULL, x, 1));
-  return fmaxf(x, __shfl_xor_sync(FULL, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(FULL, x, 1);
-  return x + __shfl_xor_sync(FULL, x, 2);
-}
-
 template <int D>
 struct MmaTile {
   static constexpr int LD = D + 8;                  // padded row, in bf16
@@ -181,21 +285,6 @@ struct MmaTile {
   static constexpr int RS = THREADS / CH;           // rows one pass of the block loads
   static constexpr size_t SMEM = 5 * BYTES + sizeof(int) * 2 * BLOCK_N;
 };
-
-// 64 rows of a [T, D] slice (token stride `st`) into a padded tile. This
-// thread loads chunk `tid % CH` of rows first_row + i*RS: `dst` and `src`
-// are its chunk of the first. Rows at or past `limit` are zero-filled
-// (read from `any`, a valid address, with size 0).
-template <int D>
-__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src, int64_t st,
-                                          int first_row, int limit, const bf16* any) {
-  using M = MmaTile<D>;
-#pragma unroll
-  for (int i = 0; i < BLOCK_M / M::RS; ++i) {
-    const bool ok = first_row + i * M::RS < limit;
-    cp_async16(dst + i * M::RS * M::ROW, ok ? src + i * M::RS * st : any, ok);
-  }
-}
 
 template <int D>
 __global__ void __launch_bounds__(THREADS, D <= 64 ? 3 : 2)
@@ -230,10 +319,10 @@ flash_fwd_mma_kernel(const Params p) {
   auto load_kv = [&](int j) {
     const int kv0 = j * BLOCK_N;
     const uint32_t buf = (j & 1) * M::BYTES;
-    load_tile<D>(sk + buf + ld_smem, kg + (kv0 + ld_row) * p.k_st + ld_col, p.k_st,
-                 kv0 + ld_row, p.tk, kg);
-    load_tile<D>(sv + buf + ld_smem, vg + (kv0 + ld_row) * p.v_st + ld_col, p.v_st,
-                 kv0 + ld_row, p.tk, vg);
+    load_tile<M::RS, M::ROW>(sk + buf + ld_smem, kg + (kv0 + ld_row) * p.k_st + ld_col, p.k_st,
+                             kv0 + ld_row, p.tk, kg);
+    load_tile<M::RS, M::ROW>(sv + buf + ld_smem, vg + (kv0 + ld_row) * p.v_st + ld_col, p.v_st,
+                             kv0 + ld_row, p.tk, vg);
     if (tid < BLOCK_N) {  // the mask too, so that no thread waits on a plain load
       const int col = kv0 + tid;
       cp_async4(smask + ((j & 1) * BLOCK_N + tid) * 4, col < p.tk ? mg + col : mg,
@@ -242,8 +331,8 @@ flash_fwd_mma_kernel(const Params p) {
     cp_async_commit();
   };
 
-  load_tile<D>(sq + ld_smem, qg + (q0 + ld_row) * p.q_st + ld_col, p.q_st, q0 + ld_row, p.tq,
-               qg);
+  load_tile<M::RS, M::ROW>(sq + ld_smem, qg + (q0 + ld_row) * p.q_st + ld_col, p.q_st,
+                           q0 + ld_row, p.tq, qg);
   cp_async_commit();
   if (n_kv > 0) load_kv(0);
 
@@ -292,53 +381,7 @@ flash_fwd_mma_kernel(const Params p) {
       }
     }
 
-    // online softmax on the accumulators: s[n][0..1] row g, s[n][2..3] row g + 8,
-    // columns n*8 + 2t + {0, 1}. Scores are kept in base 2 (times log2 e),
-    // so that each exponential is one exp2; the LSE converts back.
-    uint32_t ok_cols = 0;  // bit 2n + c: column n*8 + 2t + c may be attended
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const int2 m2 = *reinterpret_cast<const int2*>(mask_s + (j & 1) * BLOCK_N + n * 8 + 2 * t);
-      ok_cols |= (uint32_t)(m2.x != 0) << (2 * n) | (uint32_t)(m2.y != 0) << (2 * n + 1);
-    }
-    const float scale2 = p.scale * LOG2E;
-    float mx[2] = {NEG_INF, NEG_INF};
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = n * 8 + 2 * t + (e & 1);
-        const int row = e < 2 ? row_a : row_b;
-        const bool ok = (ok_cols >> (2 * n + (e & 1)) & 1) && (!p.causal || kv0 + col <= row);
-        s[n][e] = ok ? s[n][e] * scale2 : NEG_INF;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
-      }
-    float alpha[2], rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float m_new = fmaxf(m_i[r], quad_max(mx[r]));
-      alpha[r] = exp2f(m_i[r] - m_new);
-      m_i[r] = m_new;
-    }
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        // gate, not just subtract: on a fully masked row s == m_new == -1e30
-        // and exp(0) would count masked entries
-        const float x = s[n][e];
-        s[n][e] = x <= MASK_GATE ? 0.f : exp2f(x - m_i[e >> 1]);
-        rs[e >> 1] += s[n][e];
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l_i[r] = l_i[r] * alpha[r] + quad_sum(rs[r]);
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      acc[n][0] *= alpha[0];
-      acc[n][1] *= alpha[0];
-      acc[n][2] *= alpha[1];
-      acc[n][3] *= alpha[1];
-    }
+    softmax_tile(s, acc, m_i, l_i, mask_s + (j & 1) * BLOCK_N, t, row_a, row_b, kv0, p);
 
     // O += P V: P from registers (rounded to bf16), V through ldmatrix.trans
 #pragma unroll
@@ -381,171 +424,202 @@ flash_fwd_mma_kernel(const Params p) {
       *reinterpret_cast<uint4*>(og + row * p.o_st + cc * 8) =
           *reinterpret_cast<const uint4*>(so + r * M::ROW + cc * 16);
   }
-  if (t == 0) {
-    float* lse = p.lse + static_cast<int64_t>(bh) * p.tq;
-    // back from base 2; a fully masked row keeps the -1e30 max, as unscaled
-#pragma unroll
-    for (int r = 0; r < 2; ++r) m_i[r] = m_i[r] <= MASK_GATE ? NEG_INF : m_i[r] * LN2;
-    if (row_a < p.tq) lse[row_a] = m_i[0] + logf(safe_l[0]);
-    if (row_b < p.tq) lse[row_b] = m_i[1] + logf(safe_l[1]);
-  }
+  write_lse(p, bh, t, m_i, safe_l, row_a, row_b);
 }
 
 // ----------------------------------------------------------------- f32 ----
 
-constexpr int LDT = 65;  // row stride of the transposed Q/K tiles
-constexpr int LDP = 72;  // row stride of the P tile
-
-__device__ __forceinline__ float row_max8(float x) {
-  x = fmaxf(x, __shfl_xor_sync(FULL, x, 1));
-  x = fmaxf(x, __shfl_xor_sync(FULL, x, 2));
-  return fmaxf(x, __shfl_xor_sync(FULL, x, 4));
+// x = hi + lo in TF32 parts (10 mantissa bits each, low 13 bits zero): hi
+// is x rounded to nearest with ties away from zero, the bits cvt.rna.tf32
+// gives for finite x; lo is x - hi (exact in f32) truncated. Two integer
+// ops and a subtraction a part: cvt.rna compiles to several instructions
+// (it also handles NaN and Inf), and the split is most of the ALU work.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
 }
 
-__device__ __forceinline__ float row_sum8(float x) {
-  x += __shfl_xor_sync(FULL, x, 1);
-  x += __shfl_xor_sync(FULL, x, 2);
-  return x + __shfl_xor_sync(FULL, x, 4);
+// c += a (16x8, row) * b (8x8, col), TF32 in, f32 accumulate
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One product step in split TF32: c += a * b as a_lo*b_hi + a_hi*b_lo +
+// a_hi*b_hi, the small terms first. a: the A fragment, split; b0, b1: the
+// B fragment, as f32.
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&a_hi)[4],
+                                           const uint32_t (&a_lo)[4], float b0, float b1) {
+  uint32_t bh0, bl0, bh1, bl1;
+  split_tf32(b0, bh0, bl0);
+  split_tf32(b1, bh1, bl1);
+  mma_tf32(c, a_lo, bh0, bh1);
+  mma_tf32(c, a_hi, bl0, bl1);
+  mma_tf32(c, a_hi, bh0, bh1);
 }
 
 template <int D>
-constexpr size_t f32_smem_bytes() {
-  return sizeof(float) * (2 * D * LDT + BLOCK_N * D + BLOCK_M * LDP) + sizeof(int) * BLOCK_N;
-}
+struct Tf32Tile {
+  static constexpr int LDQ = D + 8;                  // Q and K rows, in floats: 8-byte
+                                                     // fragment loads conflict-free
+  static constexpr int LDV = D + 4;                  // V row: loads of rows 2t, 2t+1 conflict-free
+  static constexpr int QK_BYTES = BLOCK_N * LDQ * 4;  // one Q or K tile
+  static constexpr int V_BYTES = BLOCK_N * LDV * 4;
+  static constexpr int CH = D / 4;                   // 16-byte chunks a row
+  static constexpr int RS = THREADS / CH;            // rows one pass of the block loads
+  static constexpr size_t SMEM = 3 * QK_BYTES + 2 * V_BYTES + sizeof(int) * 2 * BLOCK_N;
+};
 
 template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_f32_kernel(const Params p) {
-  constexpr int DC = D / 8;  // output columns per thread
+__global__ void __launch_bounds__(THREADS, D <= 32 ? 4 : D <= 64 ? 2 : 1)
+flash_fwd_tf32_kernel(const Params p) {
+  using M = Tf32Tile<D>;
+  constexpr int KS = D / 8;   // k-steps of QK^T
+  constexpr int NT = D / 8;   // 8-column tiles of O
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* q_t = reinterpret_cast<float*>(smem_raw);  // [D][LDT]      Q^T
-  float* k_t = q_t + D * LDT;                       // [D][LDT]      K^T
-  float* v_s = k_t + D * LDT;                       // [BLOCK_N][D]  V
-  float* p_s = v_s + BLOCK_N * D;                   // [BLOCK_M][LDP] P
-  int* valid_s = reinterpret_cast<int*>(p_s + BLOCK_M * LDP);  // [BLOCK_N]
+  // [64][LDQ] Q (later the O staging), [2][64][LDQ] K, [2][64][LDV] V, [2][64] mask
+  float* q_s = reinterpret_cast<float*>(smem_raw);
+  const float* k_s = q_s + BLOCK_M * M::LDQ;
+  const float* v_s = k_s + 2 * BLOCK_N * M::LDQ;
+  const int* mask_s = reinterpret_cast<const int*>(v_s + 2 * BLOCK_N * M::LDV);
+  const uint32_t sq = smem_addr(q_s), sk = smem_addr(k_s), sv = smem_addr(v_s);
+  const uint32_t smask = smem_addr(mask_s);
 
-  const int tid = threadIdx.x;
-  const int tr = tid / 8;
-  const int tc = tid % 8;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;  // row in the 8-row group, column pair
   const int n_bh = gridDim.x / n_q_tiles(p.tq);
   const int bh = blockIdx.x % n_bh;
   const int b = bh / p.H, h = bh % p.H;
   const int q0 = blockIdx.x / n_bh * BLOCK_M;
-  const int tq = p.tq, tk = p.tk, causal = p.causal;
-
   const float* qg = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
   const float* kg = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
   const float* vg = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
   float* og = static_cast<float*>(p.out) + b * p.o_sb + h * p.o_sh;
-  const int* mg = p.mask + static_cast<int64_t>(b) * tk;
-
-  for (int e = tid; e < BLOCK_M * D; e += THREADS) {
-    const int r = e / D, d = e % D;
-    const int row = q0 + r;
-    q_t[d * LDT + r] = row < tq ? qg[row * p.q_st + d] : 0.f;
-  }
-
-  float m_i[4], l_i[4], acc[4][DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m_i[i] = NEG_INF;
-    l_i[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < DC; ++j) acc[i][j] = 0.f;
-  }
-
+  const int* mg = p.mask + static_cast<int64_t>(b) * p.tk;
   const int n_kv = n_kv_tiles(p, q0);
-  for (int kt = 0; kt < n_kv; ++kt) {
-    const int kv0 = kt * BLOCK_N;
-    __syncthreads();  // the previous tile's K, V, P are no longer read
-    for (int e = tid; e < BLOCK_N * D; e += THREADS) {
-      const int r = e / D, d = e % D;
-      const int col = kv0 + r;
-      float kx = 0.f, vx = 0.f;
-      if (col < tk) {
-        kx = kg[col * p.k_st + d];
-        vx = vg[col * p.v_st + d];
-      }
-      k_t[d * LDT + r] = kx;
-      v_s[r * D + d] = vx;
-    }
-    if (tid < BLOCK_N) {
+
+  // this thread's chunk of the tile loads
+  const int ld_row = tid / M::CH, ld_col = tid % M::CH * 4;
+  const uint32_t ld_q = (ld_row * M::LDQ + ld_col) * 4;
+  const uint32_t ld_v = (ld_row * M::LDV + ld_col) * 4;
+  auto load_kv = [&](int j) {
+    const int kv0 = j * BLOCK_N;
+    load_tile<M::RS, M::LDQ * 4>(sk + (j & 1) * M::QK_BYTES + ld_q,
+                                 kg + (kv0 + ld_row) * p.k_st + ld_col, p.k_st, kv0 + ld_row,
+                                 p.tk, kg);
+    load_tile<M::RS, M::LDV * 4>(sv + (j & 1) * M::V_BYTES + ld_v,
+                                 vg + (kv0 + ld_row) * p.v_st + ld_col, p.v_st, kv0 + ld_row,
+                                 p.tk, vg);
+    if (tid < BLOCK_N) {  // the mask too, so that no thread waits on a plain load
       const int col = kv0 + tid;
-      valid_s[tid] = col < tk && mg[col] != 0;
+      cp_async4(smask + ((j & 1) * BLOCK_N + tid) * 4, col < p.tk ? mg + col : mg,
+                col < p.tk);
+    }
+    cp_async_commit();
+  };
+
+  load_tile<M::RS, M::LDQ * 4>(sq + ld_q, qg + (q0 + ld_row) * p.q_st + ld_col, p.q_st,
+                               q0 + ld_row, p.tq, qg);
+  cp_async_commit();
+  if (n_kv > 0) load_kv(0);
+
+  float m_i[2] = {NEG_INF, NEG_INF};  // rows g and g + 8 of the warp's 16
+  float l_i[2] = {0.f, 0.f};
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  const int row_a = q0 + warp * 16 + g;  // this thread's two query rows
+  const int row_b = row_a + 8;
+  // this lane's fragments in a tile: Q[16w + g][ks*8 + 2t, +1],
+  // K[n*8 + g][ks*8 + 2t, +1], V[kk*8 + 2t, +1][dn*8 + g]
+  const float* q_lane = q_s + (warp * 16 + g) * M::LDQ + 2 * t;
+  const float* k_lane = k_s + g * M::LDQ + 2 * t;
+  const float* v_lane = v_s + 2 * t * M::LDV + g;
+
+  for (int j = 0; j < n_kv; ++j) {
+    const int kv0 = j * BLOCK_N;
+    if (j + 1 < n_kv) {
+      load_kv(j + 1);  // into the other buffer, freed by the last iteration's sync
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
+    const float* kt = k_lane + (j & 1) * BLOCK_N * M::LDQ;
+    const float* vt = v_lane + (j & 1) * BLOCK_N * M::LDV;
 
-    float s[4][8];
+    // S = Q K^T: 16 x 64 per warp, 8 tiles of m16n8, D/8 steps of k = 8;
+    // in a step, thread (g, t) holds k = 2t, 2t+1 of A and of B
+    float s[8][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int n = 0; n < 8; ++n)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float a[4], bv[8];
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = q_t[d * LDT + tr + 16 * i];
+    for (int ks = 0; ks < KS; ++ks) {
+      const float2 qa = *reinterpret_cast<const float2*>(q_lane + ks * 8);
+      const float2 qb = *reinterpret_cast<const float2*>(q_lane + 8 * M::LDQ + ks * 8);
+      uint32_t ah[4], al[4];  // A: rows g, g+8 at k 2t, then at 2t+1
+      split_tf32(qa.x, ah[0], al[0]);
+      split_tf32(qb.x, ah[1], al[1]);
+      split_tf32(qa.y, ah[2], al[2]);
+      split_tf32(qb.y, ah[3], al[3]);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) bv[j] = k_t[d * LDT + tc + 8 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) s[i][j] = fmaf(a[i], bv[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + tr + 16 * i;
-      float mx = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int cj = tc + 8 * j;
-        const bool ok = valid_s[cj] && (!causal || kv0 + cj <= row);
-        s[i][j] = ok ? s[i][j] * p.scale : NEG_INF;
-        mx = fmaxf(mx, s[i][j]);
+      for (int n = 0; n < 8; ++n) {
+        const float2 kf = *reinterpret_cast<const float2*>(kt + n * 8 * M::LDQ + ks * 8);
+        mma_3xtf32(s[n], ah, al, kf.x, kf.y);
       }
-      const float m_new = fmaxf(m_i[i], row_max8(mx));
-      const float alpha = expf(m_i[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        // gate, not just subtract: on a fully masked row s == m_new == -1e30
-        // and exp(0) would count masked entries
-        const float pv = s[i][j] <= MASK_GATE ? 0.f : expf(s[i][j] - m_new);
-        rs += pv;
-        p_s[(tr + 16 * i) * LDP + tc + 8 * j] = pv;
-      }
-      l_i[i] = l_i[i] * alpha + row_sum8(rs);
-      m_i[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < DC; ++j) acc[i][j] *= alpha;
     }
-    __syncthreads();
 
-#pragma unroll 4
-    for (int c = 0; c < BLOCK_N; ++c) {
-      float a[4], bv[DC];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = p_s[(tr + 16 * i) * LDP + c];
-#pragma unroll
-      for (int j = 0; j < DC; ++j) bv[j] = v_s[c * D + tc + 8 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < DC; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
-    }
-  }
+    softmax_tile(s, acc, m_i, l_i, mask_s + (j & 1) * BLOCK_N, t, row_a, row_b, kv0, p);
 
+    // O += P V: P is the S accumulator as it stands (row g: columns 2t,
+    // 2t+1 of each score tile, in f32), V's rows 2t, 2t+1 follow
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + tr + 16 * i;
-    if (row < tq) {
-      const float safe_l = fmaxf(l_i[i], 1e-30f);
+    for (int kk = 0; kk < BLOCK_N / 8; ++kk) {
+      uint32_t ah[4], al[4];
+      split_tf32(s[kk][0], ah[0], al[0]);
+      split_tf32(s[kk][2], ah[1], al[1]);
+      split_tf32(s[kk][1], ah[2], al[2]);
+      split_tf32(s[kk][3], ah[3], al[3]);
 #pragma unroll
-      for (int j = 0; j < DC; ++j) og[row * p.o_st + tc + 8 * j] = acc[i][j] / safe_l;
-      if (tc == 0) p.lse[static_cast<int64_t>(bh) * tq + row] = m_i[i] + logf(safe_l);
+      for (int dn = 0; dn < NT; ++dn)
+        mma_3xtf32(acc[dn], ah, al, vt[kk * 8 * M::LDV + dn * 8],
+                   vt[(kk * 8 + 1) * M::LDV + dn * 8]);
     }
+    __syncthreads();  // this buffer is refilled at the top of iteration j + 1
   }
+  cp_async_wait<0>();
+  __syncthreads();  // the Q tile is free (also when no kv tile ran)
+
+  // epilogue: the warp writes its 16 rows of O into its rows of the Q tile,
+  // then copies them out 16 bytes at a time
+  const float safe_l[2] = {fmaxf(l_i[0], 1e-30f), fmaxf(l_i[1], 1e-30f)};
+  float* so = q_s + warp * 16 * M::LDQ;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    *reinterpret_cast<float2*>(so + g * M::LDQ + n * 8 + 2 * t) =
+        make_float2(acc[n][0] / safe_l[0], acc[n][1] / safe_l[0]);
+    *reinterpret_cast<float2*>(so + (g + 8) * M::LDQ + n * 8 + 2 * t) =
+        make_float2(acc[n][2] / safe_l[1], acc[n][3] / safe_l[1]);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < 16 * M::CH / 32; ++i) {
+    const int c = lane + i * 32;
+    const int r = c / M::CH, cc = c % M::CH;
+    const int row = q0 + warp * 16 + r;
+    if (row < p.tq)
+      *reinterpret_cast<float4*>(og + row * p.o_st + cc * 4) =
+          *reinterpret_cast<const float4*>(so + r * M::LDQ + cc * 4);
+  }
+  write_lse(p, bh, t, m_i, safe_l, row_a, row_b);
 }
 
 // --------------------------------------------------------------- launch ----
@@ -564,7 +638,7 @@ int launch(Kernel kernel, size_t smem, const Params& p, int bh, cudaStream_t str
 template <int D>
 int dispatch_dtype(int dtype, const Params& p, int bh, cudaStream_t s) {
   switch (dtype) {
-    case 0: return launch(flash_fwd_f32_kernel<D>, f32_smem_bytes<D>(), p, bh, s);
+    case 0: return launch(flash_fwd_tf32_kernel<D>, Tf32Tile<D>::SMEM, p, bh, s);
     case 1: return launch(flash_fwd_mma_kernel<D>, MmaTile<D>::SMEM, p, bh, s);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -573,9 +647,9 @@ int dispatch_dtype(int dtype, const Params& p, int bh, cudaStream_t s) {
 }  // namespace
 
 // q, k, v, out: [B, T, H, d] with element strides (batch, token, head) and
-// unit stride along d; for bfloat16 the pointers and strides are 16-byte
-// aligned. mask: int32 [B, tk]; lse: f32 [B*H, tq]. dtype: 0 = float32
-// (scalar kernel), 1 = bfloat16 (tensor-core kernel). Returns the
+// unit stride along d; the pointers and strides are 16-byte aligned.
+// mask: int32 [B, tk]; lse: f32 [B*H, tq]. dtype: 0 = float32 (split-TF32
+// tensor-core kernel), 1 = bfloat16 (bf16 tensor-core kernel). Returns the
 // cudaError_t of the launch (0 on success); launches on `stream` and
 // allocates nothing.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, const void* mask,

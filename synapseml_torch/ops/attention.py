@@ -10,7 +10,9 @@ Layout contract: ``q, k, v: [B, T, H, D]`` at the public face (as in
 :mod:`models.nets`), ``kv_mask: [B, T]`` boolean (True = attend). Fully
 masked query rows output exactly zero. The kernel takes that layout as it
 is, strided views included, and writes a contiguous ``[B, T, H, D]``
-output; bfloat16 runs on the tensor cores, float32 on a scalar kernel.
+output. Both types run on the tensor cores: bfloat16 as it is, float32 in
+split TF32 (each operand split into two TF32 parts, three products a step),
+which keeps float32 accuracy.
 
 Forward only: the scoring path runs under ``torch.inference_mode()``. The
 ``autograd.Function`` with the recompute-from-LSE backward comes with the
@@ -111,7 +113,7 @@ _KERNEL_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # plain c_int would cut them); causal, scale, dtype, stream
 _FLASH_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_int64] * 12
                    + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-_ALIGN = 16  # bytes: the bf16 kernel moves q, k, v and out in 16-byte vectors
+_ALIGN = 16  # bytes: both kernels move q, k, v and out in 16-byte vectors
 
 
 def _head_strides(st, shape) -> list[int]:
@@ -218,8 +220,8 @@ def flash_attention_fwd(q, k, v, kv_mask, causal: bool = False,
                         scale: float | None = None):
     """Flash-attention forward on ``[BH, T, D]``: ``(out, lse)``.
 
-    CUDA tensors launch ``csrc/flash_fwd.cu`` (built at first use; the
-    tensor-core kernel for bfloat16, the scalar one for float32) or raise;
+    CUDA tensors launch ``csrc/flash_fwd.cu`` (built at first use; on the
+    tensor cores, float32 in split TF32) or raise;
     any strides with D innermost are taken as they are. CPU tensors take
     :func:`flash_attention_fwd_plain`. Each kernel launch adds one to
     ``flash_attention_fwd.launches["bf16"]`` or ``["f32"]``."""

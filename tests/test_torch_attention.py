@@ -200,3 +200,119 @@ def test_flash_from_projection_views_matches_jax(causal, dtype, atol):
     got = tatt.flash_attention(q, k, v, torch.from_numpy(mask), causal=causal)
     assert got.shape == (2, 50, 3, 32) and got.dtype == dtype and got.is_contiguous()
     np.testing.assert_allclose(got.float().numpy(), want, atol=atol)
+
+
+# --- the f32 kernel's split TF32, emulated -----------------------------------
+# The f32 kernel computes on the tensor cores, which read f32 as TF32 (10
+# mantissa bits). It splits each operand x into hi = x rounded to TF32 (as
+# cvt.rna.tf32.f32) and lo = x - hi truncated to TF32, and takes each product
+# as a_lo*b_hi + a_hi*b_lo + a_hi*b_hi in f32. The emulation below (here only,
+# no part of the port) holds that error budget to the f32 tolerances on the
+# kernel's plain version.
+
+def _tf32(x):
+    """``cvt.rna.tf32.f32``: x to 10 mantissa bits, to nearest, ties away from
+    zero. f32 is sign and magnitude, so adding half of the 13 dropped bits'
+    range to the bit pattern and clearing them rounds the magnitude."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_truncated(x):
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _bmm_split_tf32(a, b):
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32_truncated(a - a_hi), _tf32_truncated(b - b_hi)
+    return torch.bmm(a_lo, b_hi) + torch.bmm(a_hi, b_lo) + torch.bmm(a_hi, b_hi)
+
+
+def _bmm_single_tf32(a, b):
+    return torch.bmm(_tf32(a), _tf32(b))
+
+
+def _flash_with(bmm, q, k, v, mask, causal, scale):
+    """The recurrence of ``flash_attention_fwd_plain`` (64-row tiles, online
+    softmax, the -1e30 fill and gate) with both products through ``bmm``."""
+    BH, Tq, D = q.shape
+    Tk = k.shape[1]
+    out = torch.empty_like(q)
+    lse = torch.empty((BH, Tq))
+    for q0 in range(0, Tq, tatt.BLOCK):
+        qb = q[:, q0:q0 + tatt.BLOCK]
+        bq = qb.shape[1]
+        m = torch.full((BH, bq), -1e30)
+        l = torch.zeros((BH, bq))
+        acc = torch.zeros((BH, bq, D))
+        for k0 in range(0, Tk, tatt.BLOCK):
+            if causal and k0 > q0 + tatt.BLOCK - 1:
+                break
+            kb, vb = k[:, k0:k0 + tatt.BLOCK], v[:, k0:k0 + tatt.BLOCK]
+            s = bmm(qb, kb.transpose(1, 2).contiguous()) * scale
+            ok = mask[:, None, k0:k0 + tatt.BLOCK] != 0
+            if causal:
+                ok = ok & (k0 + torch.arange(kb.shape[1])[None, :]
+                           <= q0 + torch.arange(bq)[:, None])
+            s = torch.where(ok, s, -1e30)
+            new_m = torch.maximum(m, s.amax(dim=-1))
+            p = torch.where(s <= -5e29, 0.0, torch.exp(s - new_m[..., None]))
+            alpha = torch.exp(m - new_m)
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + bmm(p, vb)
+            m = new_m
+        safe_l = torch.clamp_min(l, 1e-30)
+        out[:, q0:q0 + bq] = acc / safe_l[..., None]
+        lse[:, q0:q0 + bq] = m + torch.log(safe_l)
+    return out, lse
+
+
+def _unit_normal_case(with_mask, seed=7, BH=48, T=128, D=64):
+    rs = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rs.normal(size=(BH, T, D)).astype(np.float32))
+               for _ in range(3))
+    mask = np.ones((BH, T), np.int32)
+    if with_mask:  # padding: each row attends to its first 1..T keys
+        mask = (np.arange(T)[None, :] < rs.integers(1, T + 1, BH)[:, None]).astype(np.int32)
+    return q, k, v, torch.from_numpy(mask)
+
+
+def test_tf32_emulation_rounds_to_nearest_ties_away():
+    ulp = 2.0 ** -10  # TF32's step at 1
+    x = torch.tensor([1 + ulp / 2, -(1 + ulp / 2), 1 + ulp / 2 - 2 ** -23,
+                      1 + 1.5 * ulp, 2 - ulp / 2, 3.0, 0.0], dtype=torch.float32)
+    want = [1 + ulp, -(1 + ulp), 1.0, 1 + 2 * ulp, 2.0, 3.0, 0.0]
+    assert _tf32(x).tolist() == want
+    assert _tf32_truncated(x).tolist() == [1.0, -1.0, 1.0, 1 + ulp, 2 - ulp, 3.0, 0.0]
+    y = torch.from_numpy(np.random.default_rng(0).normal(size=1000).astype(np.float32))
+    hi = _tf32(y)
+    lo = _tf32_truncated(y - hi)
+    assert (hi.view(torch.int32) & 0x1FFF).eq(0).all()
+    assert (lo.view(torch.int32) & 0x1FFF).eq(0).all()
+    assert ((y - hi).abs() <= hi.abs() * 2.0 ** -11).all()
+    assert ((y - hi - lo).abs() <= hi.abs() * 2.0 ** -21).all()
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("with_mask", [False, True])
+def test_split_tf32_flash_within_f32_tolerance(with_mask, causal):
+    """Three TF32 products a step keep the kernel within the f32 path's
+    tolerances (2e-5 on O, 1e-4 on the LSE) of its plain version."""
+    q, k, v, mask = _unit_normal_case(with_mask)
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    want_out, want_lse = tatt.flash_attention_fwd_plain(q, k, v, mask, causal, scale)
+    got_out, got_lse = _flash_with(_bmm_split_tf32, q, k, v, mask, causal, scale)
+    assert float((got_out - want_out).abs().max()) <= 2e-5
+    assert float((got_lse - want_lse).abs().max()) <= 1e-4
+
+
+def test_single_tf32_flash_misses_f32_tolerance():
+    """One TF32 product a step misses 2e-5 on O: why the kernel takes three."""
+    q, k, v, mask = _unit_normal_case(with_mask=True)
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    want_out, _ = tatt.flash_attention_fwd_plain(q, k, v, mask, False, scale)
+    single, _ = _flash_with(_bmm_single_tf32, q, k, v, mask, False, scale)
+    split, _ = _flash_with(_bmm_split_tf32, q, k, v, mask, False, scale)
+    single_err = float((single - want_out).abs().max())
+    split_err = float((split - want_out).abs().max())
+    assert single_err > 2e-5 and split_err < single_err / 10
