@@ -16,9 +16,15 @@ the kernels are built for sm_90a). Phases, each of which raises on failure:
    projection views (BERT-base, and T=50 D=32); one flash_attention call
    from the views runs at most 2 device kernels (the mask cast and the
    kernel);
-   and the GBDT histogram kernel at the Higgs shape (widths 1, 4 and 32,
-   256 and 64 bins, uint8 and int32 bins, rows outside the level, N not
-   tile-aligned; two launches bitwise equal) and as segment_histogram;
+   and the GBDT histogram kernel, each case bitwise equal to its plain
+   version and to a second launch: the Higgs shape at widths 1, 4 and 32,
+   64 / 1024 / 300 bins, uint8 and int32 bins, rows outside the level, N
+   not tile-aligned, width 128 (more segments than a block's tile), 40
+   features, 10000 bins (a node split over tiles), N = 1 and N = 0, a feature whose rows all fall in one bin, the final totals
+   (every row in one node too), the per-tree scale and scratch passed in
+   against the scale computed inside, and one level launch running at most
+   2 device operations; the per-tree scale pass equal to its plain
+   version; segment_histogram against a float64 segment sum;
 4. main path 1: DeepTextModel scoring with BERT-base (random weights from
    a seed) through attn_impl='flash': the bf16 kernel must launch 12 times
    per batch, every score must be finite and the scores must agree with
@@ -30,7 +36,8 @@ the kernels are built for sm_90a). Phases, each of which raises on failure:
 5. main path 2: LightGBMClassifier(histogram_impl='pallas') fit on the
    Higgs-1M shape (1e6 x 28, 100 iterations, 31 leaves, 255 bins) through
    a DataFrame: the histogram kernel must launch once per level and once
-   per tree for the final level's totals, a second fit must give a
+   per tree for the final level's totals, its scale pass once per tree;
+   the forest's sha256 digest is printed; a second fit must give a
    bitwise-identical forest, transform scores 100,000 held-out rows (AUC);
    the 'segment' backend must grow the same first tree within 2e-3 AUC,
    and a small fit on the CPU (the kernel's plain version) the same splits
@@ -39,7 +46,9 @@ the kernels are built for sm_90a). Phases, each of which raises on failure:
    PyTorch call that computes the same function (device time, with the
    host's enqueue hidden behind a spin kernel; the library call's device
    kernels named from the profiler); flash_attention from the projection
-   views beside the permute-and-call path it replaced.
+   views beside the permute-and-call path it replaced; the histogram
+   kernel at each shape of one tree and its scale pass, and one call of
+   each with its host enqueue.
 
 The line before the last is a JSON object with the kernels' numbers; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or
@@ -50,6 +59,7 @@ result.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import re
 import statistics
@@ -516,7 +526,6 @@ def phase_times(device, card: str, launches: dict, max_err: dict) -> list[dict]:
 HIGGS_N, HIGGS_TEST, HIGGS_F = 1_000_000, 100_000, 28
 HIGGS_PARAMS = dict(objective="binary", num_iterations=100, learning_rate=0.1,
                     num_leaves=31, max_bin=255)
-HIST_TOL = 1e-5  # relative to the channel's magnitude; the count channel exact
 
 
 def higgs_data(n: int, n_test: int, f: int, seed: int = 0):
@@ -556,22 +565,26 @@ def _hist_inputs(n, nf, width, num_bins, bin_dtype, device, seed, outside=True):
     return bins, grad, hess, presence, node
 
 
-def _hist_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
-    """(max |got - want|, the same relative to each channel's magnitude, at
-    least 1); raises unless within HIST_TOL and the count channel exact."""
-    err = rel = 0.0
-    for c in range(3):
-        d = (got[..., c] - want[..., c]).abs().max().item()
-        err = max(err, d)
-        rel = max(rel, d / max(1.0, want[..., c].abs().max().item()))
-    if not (rel <= HIST_TOL and torch.equal(got[..., 2], want[..., 2])):
-        raise AssertionError(f"gbdt_hist disagrees with its plain version: rel err {rel:.3e}")
-    return err, rel
+def _hist_case(hist, name, args, scale=None, scratch=None) -> float:
+    """One histogram launch against its plain version and a second launch,
+    both bitwise; returns max |difference| (0)."""
+    got = hist.fixed_point_histogram(*args, scale=scale, scratch=scratch)
+    again = hist.fixed_point_histogram(*args, scale=scale, scratch=scratch)
+    torch.cuda.synchronize()
+    want = hist.fixed_point_histogram_plain(*args)
+    err = (got - want).abs().max().item() if want.numel() else 0.0
+    same, same2 = torch.equal(got, want), torch.equal(got, again)
+    log(f"[kernel] gbdt_hist {name}: bitwise equal to the plain version: {same}, to a second "
+        f"launch: {same2} (max|d| {err:.3e})")
+    if not (same and same2):
+        raise AssertionError(f"gbdt_hist disagrees with its plain version or itself on {name}")
+    return err
 
 
-def phase_gbdt_kernels(device) -> float:
-    """The histogram kernel against its plain version, and against itself
-    (bitwise); returns the max |difference| at the main path's shapes."""
+def phase_gbdt_kernels(device) -> dict:
+    """The histogram kernel against its plain version and against itself,
+    bitwise, and the per-tree scale pass against its plain version; returns
+    the max |difference| at the main path's shapes by kernel."""
     from synapseml_torch.gbdt import hist
 
     cases = [  # name, N, F, width, num_bins, bin dtype
@@ -581,29 +594,57 @@ def phase_gbdt_kernels(device) -> float:
         ("width 32, 64 bins u8, N not tile-aligned", 300_007, 28, 32, 64, torch.uint8),
         ("width 4, 256 bins i32", 200_003, 13, 4, 256, torch.int32),
         ("width 8, 1024 bins i32", 100_001, 5, 8, 1024, torch.int32),
+        ("width 128, 256 bins u8 (more segments than a tile)", 500_000, 28, 128, 256,
+         torch.uint8),
+        ("width 4, 300 bins i32", 200_000, 7, 4, 300, torch.int32),
+        ("width 2, F=40 u8 (two feature groups)", 100_000, 40, 2, 256, torch.uint8),
+        ("width 2, 10000 bins i32 (a node split over tiles)", 100_000, 3, 2, 10_000,
+         torch.int32),
+        ("N=1", 1, HIGGS_F, 1, 256, torch.uint8),
+        ("N=0", 0, HIGGS_F, 2, 256, torch.uint8),
     ]
     main_err = 0.0
+    scale_err = 0
     for i, (name, n, nf, width, nb, dt) in enumerate(cases):
-        bins, grad, hess, presence, node = _hist_inputs(n, nf, width, nb, dt, device, seed=i)
-        base = width - 1
-        got = hist.fixed_point_histogram(bins, grad, hess, presence, node, base, width, nb)
-        again = hist.fixed_point_histogram(bins, grad, hess, presence, node, base, width, nb)
-        torch.cuda.synchronize()
-        want = hist.fixed_point_histogram_plain(bins, grad, hess, presence, node, base, width, nb)
-        err, rel = _hist_err(got, want)
-        same = torch.equal(got, again)
-        log(f"[kernel] gbdt_hist {name} (N={n}, F={nf}): max|d| {err:.3e}, relative "
-            f"{rel:.3e} (tol {HIST_TOL:g}, count exact), two launches bitwise equal: {same}")
-        if not same:
-            raise AssertionError(f"gbdt_hist is not deterministic on {name}")
+        bins, grad, hess, presence, node = (
+            t[:n].contiguous() for t in _hist_inputs(max(n, 1), nf, width, nb, dt, device, seed=i))
+        args = (bins, grad, hess, presence, node, width - 1, width, nb)
+        err = _hist_case(hist, f"{name} (N={n}, F={nf})", args)
         if i < 3:
             main_err = max(main_err, err)
-        if i == 2:  # the final level's totals of the same rows
-            tot = hist.fixed_point_histogram(None, grad, hess, presence, node, 63, 64, 1)
-            tot_want = hist.fixed_point_histogram_plain(None, grad, hess, presence, node,
-                                                        63, 64, 1)
-            log(f"[kernel] gbdt_hist node totals width 64: max|d|, relative "
-                f"{_hist_err(tot, tot_want)}")
+        scale = hist.fixed_point_scales(grad, hess, presence)
+        torch.cuda.synchronize()
+        want_scale = hist.fixed_point_scales_plain(grad, hess, presence)
+        scale_err = max(scale_err, (scale - want_scale).abs().max().item())
+        if not torch.equal(scale, want_scale):
+            raise AssertionError(f"fixed_point_scales disagrees with its plain version on {name}")
+        if i == 2:  # the tree's scale and scratch passed in, as grow_tree does
+            tree = hist.fixed_point_tree(grad, hess, presence, nf, 6, nb)
+            passed = hist.fixed_point_histogram(*args, *tree)
+            torch.cuda.synchronize()
+            same = torch.equal(passed, hist.fixed_point_histogram(*args))
+            log(f"[kernel] gbdt_hist {name} with the per-tree scale and scratch passed in: "
+                f"bitwise equal to the scale computed inside: {same}; scratch left zeroed: "
+                f"{not bool(tree.scratch.any())}")
+            if not (same and not tree.scratch.any()):
+                raise AssertionError("the per-tree scale path differs from the per-call one")
+            main_err = max(main_err, _hist_case(
+                hist, "node totals width 64", (None, grad, hess, presence, node, 63, 64, 1),
+                *tree))
+            one = torch.full_like(node, 70)
+            _hist_case(hist, "node totals, every row in one node",
+                       (None, grad, hess, presence, one, 63, 64, 1))
+            skew = bins.clone()
+            skew[:, 3] = 7  # a feature whose rows all fall in one bin
+            _hist_case(hist, "width 32, feature 3 in one bin",
+                       (skew, grad, hess, presence, node, 31, 32, nb))
+            ops = _device_kernels(lambda: hist.fixed_point_histogram(*args, *tree))
+            n_ops = sum(c for _, c in ops)
+            log(f"[kernel] one level launch with the tree's scale and scratch: {n_ops} device "
+                f"operation(s) {[key[:60] for key, _ in ops]} (want at most 2)")
+            if not (1 <= n_ops <= 2 and any("gbdt_hist_kernel" in k for k, _ in ops)):
+                raise AssertionError("a level launch ran more than two device operations")
+    log("[kernel] fixed_point_scales equal to its plain version in every case")
 
     rs = np.random.default_rng(7)  # the shapes of tests/test_gbdt.py:973
     for n, wb in [(513, 130), (2048, 512), (100, 31 * 8)]:
@@ -618,7 +659,16 @@ def phase_gbdt_kernels(device) -> float:
             f"range dropped: max|d| vs float64 segment sum {err:.3e} (tol 1e-5)")
         if not err <= 1e-5:
             raise AssertionError("segment_histogram disagrees with the segment sum")
-    return main_err
+    return {"gbdt_hist": main_err, "gbdt_hist_scale": float(scale_err)}
+
+
+def forest_digest(booster) -> str:
+    """sha256 of a forest's split features, thresholds (one to one with the
+    threshold bins through the bin mapper) and leaf values, tree by tree."""
+    h = hashlib.sha256()
+    for name in ("feature", "threshold_value", "leaf_value"):
+        h.update(np.ascontiguousarray(getattr(booster, name)).tobytes())
+    return h.hexdigest()
 
 
 def _same_forest(a, b) -> bool:
@@ -644,22 +694,28 @@ def phase_gbdt_main(device, card: str) -> dict:
 
     torch.cuda.reset_peak_memory_stats()
     hist.fixed_point_histogram.launches = 0
+    hist.fixed_point_scales.launches = 0
     t0 = time.perf_counter()
     model = est.fit(train)
     fit_s = time.perf_counter() - t0
     launches = hist.fixed_point_histogram.launches
+    scale_launches = hist.fixed_point_scales.launches
     want = n_iter * (depth + 1)  # one per level, and one for the final level's totals
     measures = model.get_train_measures()
     log(f"[gbdt] fit {HIGGS_N} x {HIGGS_F}, {n_iter} iterations, depth {depth}: {fit_s:.2f} s "
         f"({HIGGS_N * n_iter / fit_s:,.0f} row-iterations/s; binning "
         f"{measures['binning_ms']:.0f} ms, training {measures['training_ms']:.0f} ms), "
-        f"gbdt_hist launches {launches} (want {n_iter} x {depth + 1} = {want}), "
+        f"gbdt_hist launches {launches} (want {n_iter} x {depth + 1} = {want}), scale "
+        f"launches {scale_launches} (want one a tree: {n_iter}), "
         f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | {card}")
-    if launches != want:
-        raise AssertionError(f"gbdt_hist launched {launches} times, want {want}")
+    if launches != want or scale_launches != n_iter:
+        raise AssertionError(f"gbdt_hist launched {launches} times and its scale pass "
+                             f"{scale_launches}, want {want} and {n_iter}")
     booster = model.get_booster()
     if not np.isfinite(booster.leaf_value).all():
         raise AssertionError("non-finite leaf values")
+    log(f"[gbdt] forest digest (sha256 of every tree's features, thresholds and leaf "
+        f"values): {forest_digest(booster)}")
 
     second = est.fit(train).get_booster()
     same = _same_forest(booster, second)
@@ -703,10 +759,11 @@ def phase_gbdt_main(device, card: str) -> dict:
         raise AssertionError("the card's forest splits differently from the CPU's")
 
     _profile_gbdt_iteration(booster, X[:HIGGS_N], y[:HIGGS_N], device, depth)
-    return {"launches": launches, "fit_s": fit_s, "auc": held_out_auc}
+    return {"launches": launches, "scale_launches": scale_launches, "fit_s": fit_s,
+            "auc": held_out_auc}
 
 
-_GBDT_GROUPS = (("gbdt_hist kernel", ("hist_kernel", "absmax_kernel", "convert_kernel")),
+_GBDT_GROUPS = (("gbdt_hist kernel", ("gbdt_hist_kernel", "gbdt_scale_kernel")),
                 ("memset", ("memset",)),
                 ("gather / index / scatter", ("gather", "index", "scatter")),
                 ("sort / scan", ("sort", "scan", "radix")),
@@ -772,24 +829,28 @@ def _profile_gbdt_iteration(booster, X, y, device, depth, n=3) -> None:
             f"{key[:90]}")
 
 
-def phase_gbdt_times(device, card: str, launches: int, max_err: float) -> dict:
+def phase_gbdt_times(device, card: str, launches: dict, max_err: dict) -> list[dict]:
     """The kernel at each shape one tree of the main path gives it (levels of
-    width 1..32, then the final level's totals at width 64), beside its
-    bound, its plain version and one index_add_ on precomputed flat ids. The
-    JSON line carries the mean per launch over those shapes."""
+    width 1..32, then the final level's totals at width 64), called as
+    grow_tree calls it (the tree's scale and scratch passed in), beside its
+    bound, its plain version and one index_add_ on precomputed flat ids, all
+    in device time; ``call_ms`` is one call as the host sees it, its enqueue
+    included. Then the per-tree scale pass. The JSON rows carry the mean per
+    level launch over the 7 shapes, and the scale pass."""
     from synapseml_torch.gbdt import hist
 
     n, nf, nb = HIGGS_N, HIGGS_F, 256
     depth = 6
-    rows = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_bytes": 0}
+    keys = ("ms", "ms2", "plain_ms", "library_ms", "library_ms2", "call_ms")
+    tot = dict.fromkeys(keys, 0.0)
+    tot_bytes = 0
     shapes = [(2 ** d, nb, nf) for d in range(depth)] + [(2 ** depth, 1, 1)]
     for width, b, f in shapes:
         bins, grad, hess, presence, node = _hist_inputs(n, nf, width, nb, torch.uint8,
                                                         device, seed=width, outside=False)
         kbins = bins if b > 1 else None
         args = (kbins, grad, hess, presence, node, width - 1, width, b)
-        ms = cuda_ms(lambda: hist.fixed_point_histogram(*args), warmup=3, iters=20)
-        plain_ms = cuda_ms(lambda: hist.fixed_point_histogram_plain(*args), warmup=1, iters=5)
+        tree = hist.fixed_point_tree(grad, hess, presence, nf, depth, nb)
         rel = (node - (width - 1)).long()
         data = torch.stack([grad, hess, presence], 1)
         if kbins is None:
@@ -797,27 +858,60 @@ def phase_gbdt_times(device, card: str, launches: int, max_err: float) -> dict:
         else:
             ids = ((rel[:, None] * f + torch.arange(f, device=device)) * b + bins.long()).reshape(-1)
             flat_data = data.repeat_interleave(f, dim=0)
-        library_ms = cuda_ms(lambda: torch.zeros((width * f * b, 3), device=device)
-                             .index_add_(0, ids, flat_data), warmup=3, iters=20)
+
+        def kernel():
+            return hist.fixed_point_histogram(*args, *tree)
+
+        def library():
+            return torch.zeros((width * f * b, 3), device=device).index_add_(0, ids, flat_data)
+
+        t = dict(zip(("ms", "library_ms", "ms2", "library_ms2"),
+                     (device_ms(fn) for fn in (kernel, library, kernel, library))))
+        t["plain_ms"] = device_ms(lambda: hist.fixed_point_histogram_plain(*args),
+                                  warmup=1, iters=5)
+        t["call_ms"] = cuda_ms(kernel)
         n_bytes = (n * f if kbins is not None else 0) + 4 * n * 4 + width * f * b * 3 * 4
         bound = n_bytes / HBM_BYTES_PER_S * 1e3
         what = f"level width {width}" if kbins is not None else f"final totals width {width}"
-        log(f"[times] gbdt_hist {what} [N={n}, F={f}, B={b}]: kernel {ms:.4f} ms, bound "
-            f"{bound:.4f} ms (bytes: {n_bytes / 1e6:.1f} MB), plain {plain_ms:.4f} ms, "
-            f"index_add_ {library_ms:.4f} ms | {card}")
-        rows["ms"] += ms
-        rows["plain_ms"] += plain_ms
-        rows["library_ms"] += library_ms
-        rows["bound_bytes"] += n_bytes
+        log(f"[times] gbdt_hist {what} [N={n}, F={f}, B={b}]: kernel {t['ms']:.4f} / "
+            f"{t['ms2']:.4f} ms (device time, two turns; one call with its host enqueue "
+            f"{t['call_ms']:.4f} ms), bound {bound:.4f} ms (bytes: {n_bytes / 1e6:.1f} MB), "
+            f"plain {t['plain_ms']:.4f} ms, index_add_ {t['library_ms']:.4f} / "
+            f"{t['library_ms2']:.4f} ms | {card}")
+        for k in keys:
+            tot[k] += t[k]
+        tot_bytes += n_bytes
+
+    grad, hess, presence = _hist_inputs(n, 1, 1, 2, torch.uint8, device, seed=0)[1:4]
+    scale_ms = device_ms(lambda: hist.fixed_point_scales(grad, hess, presence))
+    scale_plain_ms = device_ms(lambda: hist.fixed_point_scales_plain(grad, hess, presence),
+                               warmup=1, iters=5)
+    scale_call_ms = cuda_ms(lambda: hist.fixed_point_scales(grad, hess, presence))
+    scale_bytes = 3 * n * 4 + 8 * 4  # grad, hess, presence; the int32 [8] buffer
+    scale_bound = scale_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"[times] gbdt_hist scale pass [N={n}]: {scale_ms:.4f} ms (device time, zero fill and "
+        f"kernel; one call with its host enqueue {scale_call_ms:.4f} ms), bound "
+        f"{scale_bound:.4f} ms (bytes: {scale_bytes / 1e6:.1f} MB), plain "
+        f"{scale_plain_ms:.4f} ms | {card}")
     k = len(shapes)
-    log(f"[times] gbdt_hist one tree ({k} launches): kernel {rows['ms']:.4f} ms, bound "
-        f"{rows['bound_bytes'] / HBM_BYTES_PER_S * 1e3:.4f} ms, plain {rows['plain_ms']:.4f} ms, "
-        f"index_add_ {rows['library_ms']:.4f} ms | {card}")
-    return {"name": "gbdt_hist", "route": "cuda", "source": "synapseml_torch/csrc/gbdt_hist.cu",
-            "replaces": "synapseml_tpu/gbdt/pallas_hist.py:35", "launches": launches,
-            "max_abs_err": max_err, "ms": rows["ms"] / k, "plain_ms": rows["plain_ms"] / k,
-            "bound_ms": rows["bound_bytes"] / k / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-            "library_ms": rows["library_ms"] / k}
+    tree_ms = statistics.median([tot["ms"], tot["ms2"]]) + scale_ms
+    tree_bound = (tot_bytes + scale_bytes) / HBM_BYTES_PER_S * 1e3
+    log(f"[times] gbdt_hist one tree ({k} launches and the scale pass): kernel {tree_ms:.4f} ms "
+        f"(device time; {tree_ms / tree_bound:.2f}x the bound), bound {tree_bound:.4f} ms, "
+        f"plain {tot['plain_ms'] + scale_plain_ms:.4f} ms, index_add_ "
+        f"{statistics.median([tot['library_ms'], tot['library_ms2']]):.4f} ms, one call each "
+        f"with its host enqueue {tot['call_ms'] + scale_call_ms:.4f} ms | {card}")
+    source = "synapseml_torch/csrc/gbdt_hist.cu"
+    replaces = "synapseml_tpu/gbdt/pallas_hist.py:35"
+    return [{"name": "gbdt_hist", "route": "cuda", "source": source, "replaces": replaces,
+             "launches": launches["gbdt_hist"], "max_abs_err": max_err["gbdt_hist"],
+             "ms": statistics.median([tot["ms"], tot["ms2"]]) / k, "plain_ms": tot["plain_ms"] / k,
+             "bound_ms": tot_bytes / k / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+             "library_ms": statistics.median([tot["library_ms"], tot["library_ms2"]]) / k},
+            {"name": "gbdt_hist_scale", "route": "cuda", "source": source, "replaces": replaces,
+             "launches": launches["gbdt_hist_scale"], "max_abs_err": max_err["gbdt_hist_scale"],
+             "ms": scale_ms, "plain_ms": scale_plain_ms, "bound_ms": scale_bound,
+             "bound_by": "bytes", "library_ms": None}]
 
 
 def main() -> None:
@@ -828,7 +922,9 @@ def main() -> None:
     main_path = phase_main_path(device, card)
     gbdt = phase_gbdt_main(device, card)
     kernels = phase_times(device, card, main_path["launches"], max_err)
-    kernels.append(phase_gbdt_times(device, card, gbdt["launches"], hist_err))
+    kernels += phase_gbdt_times(device, card, {"gbdt_hist": gbdt["launches"],
+                                               "gbdt_hist_scale": gbdt["scale_launches"]},
+                                hist_err)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

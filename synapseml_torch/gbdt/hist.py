@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -32,7 +33,9 @@ import torch.nn.functional as F
 from ..ops import _build
 
 __all__ = ["level_histogram", "node_totals", "segment_histogram",
-           "fixed_point_histogram", "fixed_point_histogram_plain", "HIST_IMPLS"]
+           "fixed_point_histogram", "fixed_point_histogram_plain", "fixed_point_scales",
+           "fixed_point_scales_plain", "fixed_point_tree", "FixedPointTree",
+           "HIST_IMPLS"]
 
 HIST_IMPLS = ("segment", "onehot", "pallas")
 _ONEHOT_ROW_CHUNK = 4096
@@ -87,22 +90,31 @@ def _scale_exps(data: torch.Tensor) -> list[int]:
     return [min(max(61 - n.bit_length() - math.frexp(m)[1], -1000), 1000) for m in maxabs]
 
 
+def fixed_point_scales_plain(grad, hess, presence) -> torch.Tensor:
+    """The kernel's per-tree scale in plain PyTorch: (3,) int32 exponents of
+    grad, hess and presence."""
+    exps = _scale_exps(torch.stack([grad, hess, presence], dim=1))
+    return torch.tensor(exps, dtype=torch.int32, device=grad.device)
+
+
 def fixed_point_histogram_plain(bins, grad, hess, presence, node_of_row, base: int,
-                                width: int, num_bins: int) -> torch.Tensor:
+                                width: int, num_bins: int, scale=None) -> torch.Tensor:
     """The kernel's function in plain PyTorch, bit for bit: each channel is
     scaled by 2^k in float64 (exact), rounded half to even to int64, summed
     per (node, feature, bin) with integer adds, and turned back into float32
-    as ``float(double(sum) * 2^-k)``. ``bins`` None means one feature whose bin
-    is 0 for every row (per-node totals). Bins outside ``[0, num_bins)`` and
-    rows whose node is outside ``[base, base + width)`` add nothing.
-    Returns (width, F, num_bins, 3) float32."""
+    as ``float(double(sum) * 2^-k)``. ``scale`` is the (3,) int32 exponents
+    k of :func:`fixed_point_scales`; None computes them from these rows.
+    ``bins`` None means one feature whose bin is 0 for every row (per-node
+    totals). Bins outside ``[0, num_bins)`` and rows whose node is outside
+    ``[base, base + width)`` add nothing. Returns (width, F, num_bins, 3)
+    float32."""
     n = grad.shape[0]
     nf = 1 if bins is None else bins.shape[1]
     device = grad.device
     data = torch.stack([grad, hess, presence], dim=1)
-    exps = _scale_exps(data)
-    scale = torch.tensor([2.0 ** k for k in exps], dtype=torch.float64, device=device)
-    q = torch.round(data.to(torch.float64) * scale).to(torch.int64)
+    exps = _scale_exps(data) if scale is None else [int(k) for k in scale.tolist()]
+    factor = torch.tensor([2.0 ** k for k in exps], dtype=torch.float64, device=device)
+    q = torch.round(data.to(torch.float64) * factor).to(torch.int64)
     valid, rel = _level_rows(node_of_row, base, width)
     WB = width * num_bins
     acc = torch.zeros((nf, WB + 1, 3), dtype=torch.int64, device=device)  # slot WB: dropped
@@ -118,25 +130,50 @@ def fixed_point_histogram_plain(bins, grad, hess, presence, node_of_row, base: i
 
 
 _BIN_BYTES = {torch.uint8: 1, torch.int32: 4}
-_HIST_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
-                  + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3)
+_PROTOTYPES = {  # ctypes signatures of csrc/gbdt_hist.cu's entry points
+    "gbdt_level_hist": ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
+                        + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3
+                        + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p], ctypes.c_int),
+    "gbdt_hist_scales": ([ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 2,
+                         ctypes.c_int),
+    "gbdt_hist_scratch_words": ([ctypes.c_int] * 3, ctypes.c_longlong),
+}
+_entry_points: dict = {}
 
 
-def _check_kernel_args(bins, grad, hess, presence, node_of_row, base, width, num_bins):
+def _kernel(name: str):
+    """An entry point of the built library, its prototype set once."""
+    fn = _entry_points.get(name)
+    if fn is None:
+        fn = getattr(_build.load("gbdt_hist"), name)
+        fn.argtypes, fn.restype = _PROTOTYPES[name]
+        _entry_points[name] = fn
+    return fn
+
+
+def _check_rows(grad, hess, presence, node_of_row=None, what="fixed_point_histogram"):
     n = grad.shape[0]
-    for name, t, dtype in (("grad", grad, torch.float32), ("hess", hess, torch.float32),
-                           ("presence", presence, torch.float32),
-                           ("node_of_row", node_of_row, torch.int32)):
+    named = [("grad", grad, torch.float32), ("hess", hess, torch.float32),
+             ("presence", presence, torch.float32)]
+    if node_of_row is not None:
+        named.append(("node_of_row", node_of_row, torch.int32))
+    for name, t, dtype in named:
         if t.device != grad.device:
-            raise ValueError(f"fixed_point_histogram: {name} is on {t.device}, "
-                             f"grad on {grad.device}")
+            raise ValueError(f"{what}: {name} is on {t.device}, grad on {grad.device}")
         if t.dtype != dtype:
-            raise TypeError(f"fixed_point_histogram: {name} must be {dtype}, got {t.dtype}")
+            raise TypeError(f"{what}: {name} must be {dtype}, got {t.dtype}")
         if t.dim() != 1 or t.shape[0] != n:
-            raise ValueError(f"fixed_point_histogram: {name} must be ({n},), "
-                             f"got {tuple(t.shape)}")
+            raise ValueError(f"{what}: {name} must be ({n},), got {tuple(t.shape)}")
         if not t.is_contiguous():
-            raise ValueError(f"fixed_point_histogram: {name} must be contiguous")
+            raise ValueError(f"{what}: {name} must be contiguous")
+    if n >= 2 ** 31:
+        raise ValueError(f"{what}: the kernel takes fewer than 2^31 rows")
+
+
+def _check_kernel_args(bins, grad, hess, presence, node_of_row, base, width, num_bins,
+                       scale=None):
+    _check_rows(grad, hess, presence, node_of_row)
+    n = grad.shape[0]
     if bins is None:
         if num_bins != 1:
             raise ValueError("fixed_point_histogram: bins=None takes num_bins=1")
@@ -152,46 +189,96 @@ def _check_kernel_args(bins, grad, hess, presence, node_of_row, base, width, num
                              f"got {tuple(bins.shape)}")
         if not bins.is_contiguous():
             raise ValueError("fixed_point_histogram: bins must be contiguous")
+    if scale is not None and (scale.device != grad.device or scale.dtype != torch.int32
+                              or scale.shape != (3,) or not scale.is_contiguous()):
+        raise ValueError(f"fixed_point_histogram: scale must be a contiguous (3,) int32 "
+                         f"tensor on {grad.device}, got {tuple(scale.shape)} "
+                         f"{scale.dtype} on {scale.device}")
     nf = 1 if bins is None else bins.shape[1]
     if width < 1 or num_bins < 1 or base < 0:
         raise ValueError(f"fixed_point_histogram: want width >= 1, num_bins >= 1 and "
                          f"base >= 0, got {width}, {num_bins}, {base}")
-    if n >= 2 ** 31 or width * nf * num_bins * 3 >= 2 ** 31:
-        raise ValueError("fixed_point_histogram: the kernel takes fewer than 2^31 rows "
-                         "and histogram slots")
+    if width * nf * num_bins * 3 >= 2 ** 31:
+        raise ValueError("fixed_point_histogram: the kernel takes fewer than 2^31 "
+                         "histogram slots")
+
+
+def fixed_point_scales(grad, hess, presence) -> torch.Tensor:
+    """(3,) int32 exponents of the fixed-point scale of grad, hess and
+    presence (float32 (N,) each): computed once a tree and passed to every
+    level's :func:`fixed_point_histogram`. CUDA tensors launch the kernel's
+    scale pass (one zero fill and one kernel, no host sync; each launch adds
+    one to ``fixed_point_scales.launches``); CPU tensors take
+    :func:`fixed_point_scales_plain`."""
+    if grad.device.type == "cpu":
+        return fixed_point_scales_plain(grad, hess, presence)
+    if grad.device.type != "cuda":
+        raise ValueError(f"fixed_point_scales: no kernel for device {grad.device}")
+    _check_rows(grad, hess, presence, what="fixed_point_scales")
+    with torch.cuda.device(grad.device):
+        buf = torch.zeros(8, dtype=torch.int32, device=grad.device)
+        err = _kernel("gbdt_hist_scales")(grad.data_ptr(), hess.data_ptr(),
+                                          presence.data_ptr(), grad.shape[0], buf.data_ptr(),
+                                          torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"gbdt_hist scale kernel launch failed with CUDA error {err}")
+    fixed_point_scales.launches += 1
+    return buf[4:7]
+
+
+fixed_point_scales.launches = 0
+
+
+def _hist_scratch(nf: int, width: int, num_bins: int, device) -> torch.Tensor | None:
+    """The zeroed int64 scratch of a kernel launch of this shape, and of every
+    launch with fewer nodes (each launch leaves it zeroed): allocate it once a
+    tree for the widest level. None for a CPU device (no kernel)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    words = _kernel("gbdt_hist_scratch_words")(nf, width, num_bins)
+    return torch.zeros(words, dtype=torch.int64, device=device)
 
 
 def fixed_point_histogram(bins, grad, hess, presence, node_of_row, base: int,
-                          width: int, num_bins: int) -> torch.Tensor:
+                          width: int, num_bins: int, scale=None,
+                          scratch=None) -> torch.Tensor:
     """(width, F, num_bins, 3) float32 level histogram, deterministic.
 
     ``bins`` (N, F) uint8 or int32, or None (per-node totals: one feature,
     every row in bin 0, ``num_bins=1``); ``grad``/``hess``/``presence`` (N,)
-    float32; ``node_of_row`` (N,) int32. CUDA tensors launch
-    ``csrc/gbdt_hist.cu`` (built at first use) or raise; CPU tensors take
-    :func:`fixed_point_histogram_plain`. Each kernel launch adds one to
-    ``fixed_point_histogram.launches``."""
+    float32; ``node_of_row`` (N,) int32. ``scale``: the tree's
+    :func:`fixed_point_scales`, or None to compute it here. ``scratch``: the
+    tree's :func:`fixed_point_tree` scratch (zeroed, and fitting this
+    shape), or None to allocate one.
+    CUDA tensors launch ``csrc/gbdt_hist.cu`` (built at first use; one
+    kernel, no other device operation, when both are given) or raise; CPU
+    tensors take :func:`fixed_point_histogram_plain`. Each level launch adds
+    one to ``fixed_point_histogram.launches``."""
     if grad.device.type == "cpu":
         return fixed_point_histogram_plain(bins, grad, hess, presence, node_of_row,
-                                           base, width, num_bins)
+                                           base, width, num_bins, scale)
     if grad.device.type != "cuda":
         raise ValueError(f"fixed_point_histogram: no kernel for device {grad.device}")
-    _check_kernel_args(bins, grad, hess, presence, node_of_row, base, width, num_bins)
+    _check_kernel_args(bins, grad, hess, presence, node_of_row, base, width, num_bins, scale)
     n = grad.shape[0]
     nf = 1 if bins is None else bins.shape[1]
-    fn = _build.load("gbdt_hist").gbdt_level_hist
-    fn.argtypes = _HIST_ARGTYPES
-    fn.restype = ctypes.c_int
+    if scale is None:
+        scale = fixed_point_scales(grad, hess, presence)
+    if scratch is None:
+        scratch = _hist_scratch(nf, width, num_bins, grad.device)
+    elif scratch.device != grad.device or scratch.dtype != torch.int64:
+        raise ValueError("fixed_point_histogram: scratch must be a fixed_point_tree "
+                         f"scratch on {grad.device}")
     with torch.cuda.device(grad.device):
         out = torch.empty((width, nf, num_bins, 3), dtype=torch.float32, device=grad.device)
-        scratch = torch.empty(width * nf * num_bins * 3 + 2, dtype=torch.int64,
-                              device=grad.device)
-        err = fn(None if bins is None else bins.data_ptr(),
-                 0 if bins is None else _BIN_BYTES[bins.dtype],
-                 grad.data_ptr(), hess.data_ptr(), presence.data_ptr(),
-                 node_of_row.data_ptr(), n, nf, base, width, num_bins,
-                 out.data_ptr(), scratch.data_ptr(),
-                 torch.cuda.current_stream().cuda_stream)
+        err = _kernel("gbdt_level_hist")(
+            None if bins is None else bins.data_ptr(),
+            0 if bins is None else _BIN_BYTES[bins.dtype],
+            grad.data_ptr(), hess.data_ptr(), presence.data_ptr(), node_of_row.data_ptr(),
+            n, nf, base, width, num_bins, scale.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), scratch.numel(), grad.device.index,
+            torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"gbdt_hist kernel launch failed with CUDA error {err}")
     fixed_point_histogram.launches += 1
@@ -201,17 +288,41 @@ def fixed_point_histogram(bins, grad, hess, presence, node_of_row, base: int,
 fixed_point_histogram.launches = 0
 
 
+class FixedPointTree(NamedTuple):
+    """What every fixed-point launch of one tree shares: the scale of its
+    grad/hess/presence and (on the card) the zeroed scratch of its widest
+    launch."""
+
+    scale: torch.Tensor
+    scratch: torch.Tensor | None
+
+
+def fixed_point_tree(grad, hess, presence, nf: int, max_depth: int,
+                     num_bins: int) -> FixedPointTree:
+    """The per-tree state of :func:`fixed_point_histogram` for a tree of
+    ``max_depth`` levels of histograms over ``nf`` features, then the final
+    level's totals: computed once, before the first level."""
+    widest = _hist_scratch(nf, 2 ** max(max_depth - 1, 0), num_bins, grad.device)
+    totals = _hist_scratch(1, 2 ** max_depth, 1, grad.device)
+    if widest is not None and totals.numel() > widest.numel():
+        widest = totals
+    return FixedPointTree(fixed_point_scales(grad, hess, presence), widest)
+
+
 # ---------------- the level histogram and its backends ----------------
 
 def level_histogram(bins, grad, hess, presence, node_of_row, base: int, width: int,
-                    num_bins: int, impl: str = "segment") -> torch.Tensor:
+                    num_bins: int, impl: str = "segment",
+                    tree: FixedPointTree | None = None) -> torch.Tensor:
     """(width, F, num_bins, 3) histograms for the ``width`` nodes of one
     level, channels (grad, hess, count). Rows whose node is outside
     ``[base, base + width)`` (rows resting in already-final leaves) add
-    nothing. ``impl``: 'segment', 'onehot' or 'pallas' (the CUDA kernel)."""
+    nothing. ``impl``: 'segment', 'onehot' or 'pallas' (the CUDA kernel,
+    which takes the tree's :func:`fixed_point_tree`, or computes its scale
+    and scratch itself when ``tree`` is None)."""
     if impl == "pallas":
         return fixed_point_histogram(bins, grad, hess, presence, node_of_row,
-                                     base, width, num_bins)
+                                     base, width, num_bins, *(tree or (None, None)))
     if impl not in HIST_IMPLS:
         raise ValueError(f"hist_impl must be 'segment', 'onehot' or 'pallas', got {impl!r}")
     valid, rel = _level_rows(node_of_row, base, width)
@@ -221,14 +332,15 @@ def level_histogram(bins, grad, hess, presence, node_of_row, base: int, width: i
 
 
 def node_totals(grad, hess, presence, node_of_row, base: int, width: int,
-                impl: str = "segment") -> torch.Tensor:
+                impl: str = "segment", tree: FixedPointTree | None = None) -> torch.Tensor:
     """(width, 3) per-node (grad, hess, count) totals of the final level.
     The kernel path sums them with the kernel, so that a whole fit is
     deterministic; the others with one ``index_add_``, as the JAX package
-    sums them with ``segment_sum`` whatever the backend."""
+    sums them with ``segment_sum`` whatever the backend. ``tree`` as for
+    :func:`level_histogram`."""
     if impl == "pallas":
-        return fixed_point_histogram(None, grad, hess, presence, node_of_row,
-                                     base, width, 1).reshape(width, 3)
+        return fixed_point_histogram(None, grad, hess, presence, node_of_row, base, width, 1,
+                                     *(tree or (None, None))).reshape(width, 3)
     valid, rel = _level_rows(node_of_row, base, width)
     data = _level_data(grad, hess, presence, valid)
     return torch.zeros((width, 3), dtype=torch.float32,

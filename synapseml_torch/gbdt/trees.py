@@ -29,7 +29,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .hist import level_histogram, node_totals
+from .hist import fixed_point_tree, level_histogram, node_totals
 
 __all__ = ["GrowthConfig", "TreeArrays", "grow_tree", "traverse_binned",
            "predict_raw_forest", "leaf_index_forest", "level_cum_tables",
@@ -181,11 +181,11 @@ class _GrowState:
 
 
 def _level_step(bins, grad, hess, presence, st: _GrowState, feat_mask, base: int,
-                width: int, cfg: GrowthConfig, mono) -> None:
+                width: int, cfg: GrowthConfig, mono, fp) -> None:
     """One level: histogram → best splits → budget → tree + row partition."""
     num_thresholds = cfg.num_bins - 1  # the NaN bin is never a left-inclusive cut
     hist = level_histogram(bins, grad, hess, presence, st.node_of_row, base, width,
-                           cfg.num_bins, impl=cfg.hist_impl)
+                           cfg.num_bins, impl=cfg.hist_impl, tree=fp)
     g_tot, h_tot, c_tot, gl, hl, cl = level_cum_tables(hist, num_thresholds)
     gr, hr, gain = split_gain(g_tot, h_tot, gl, hl, cfg)
     cr = c_tot[:, None, None] - cl
@@ -242,10 +242,10 @@ def _level_step(bins, grad, hess, presence, st: _GrowState, feat_mask, base: int
 
 
 def _final_level(grad, hess, presence, st: _GrowState, base: int, width: int,
-                 cfg: GrowthConfig) -> None:
+                 cfg: GrowthConfig, fp) -> None:
     """At max depth every active node becomes a leaf (no histogram needed —
     just per-node g/h totals)."""
-    tot = node_totals(grad, hess, presence, st.node_of_row, base, width, cfg.hist_impl)
+    tot = node_totals(grad, hess, presence, st.node_of_row, base, width, cfg.hist_impl, fp)
     active = tot[:, 2] > 0
     ids = slice(base, base + width)
     value = torch.clamp(_leaf_value(tot[:, 0], tot[:, 1], cfg), st.node_lo[ids], st.node_hi[ids])
@@ -261,9 +261,12 @@ def grow_tree(bins, grad, hess, presence, cfg: GrowthConfig, feat_mask) -> TreeA
     st = _GrowState(max_nodes(cfg.max_depth), bins.shape[0], bins.device)
     mono = (torch.tensor(cfg.monotone_constraints, dtype=torch.int32, device=bins.device)
             if any(cfg.monotone_constraints) else None)
+    # the kernel path's fixed-point scale and scratch, once a tree
+    fp = (fixed_point_tree(grad, hess, presence, bins.shape[1], cfg.max_depth, cfg.num_bins)
+          if cfg.hist_impl == "pallas" else None)
     for d in range(cfg.max_depth):
-        _level_step(bins, grad, hess, presence, st, feat_mask, 2 ** d - 1, 2 ** d, cfg, mono)
-    _final_level(grad, hess, presence, st, 2 ** cfg.max_depth - 1, 2 ** cfg.max_depth, cfg)
+        _level_step(bins, grad, hess, presence, st, feat_mask, 2 ** d - 1, 2 ** d, cfg, mono, fp)
+    _final_level(grad, hess, presence, st, 2 ** cfg.max_depth - 1, 2 ** cfg.max_depth, cfg, fp)
     return TreeArrays(st.feature, st.threshold_bin, st.leaf_value, st.gain, st.cover)
 
 

@@ -127,6 +127,42 @@ def test_pallas_backend_counts_no_launch_on_the_cpu():
     assert hist.fixed_point_histogram.launches == before
 
 
+def test_grow_tree_with_the_tree_scale_equals_the_per_level_scale(monkeypatch):
+    """grow_tree computes the fixed-point scale once a tree and passes it to
+    every level; the tree is bitwise the one grown by the per-call scale
+    path (each level and the final totals computing their own scale)."""
+    from synapseml_torch.gbdt import hist, trees
+
+    X, y = _mode_dataset(n=600)
+    mapper = BinMapper(max_bin=63).fit(X)
+    bins = torch.from_numpy(mapper.transform(X))
+    rs = np.random.default_rng(13)
+    grad = torch.from_numpy(rs.normal(size=600).astype(np.float32))
+    hess = torch.from_numpy(rs.uniform(0.01, 0.25, 600).astype(np.float32))
+    presence = torch.ones(600)
+    cfg = trees.GrowthConfig(max_depth=4, num_leaves=15, num_bins=mapper.num_bins,
+                             lambda_l1=0.0, lambda_l2=1.0, learning_rate=0.1,
+                             min_data_in_leaf=5, min_sum_hessian=1e-3, min_gain_to_split=0.0,
+                             hist_impl="pallas")
+    fmask = torch.ones(X.shape[1], dtype=torch.bool)
+    got = trees.grow_tree(bins, grad, hess, presence, cfg, fmask)
+
+    def per_call_level(bins, grad, hess, presence, node, base, width, num_bins, impl, tree):
+        return hist.fixed_point_histogram_plain(bins, grad, hess, presence, node, base, width,
+                                                num_bins)
+
+    def per_call_totals(grad, hess, presence, node, base, width, impl, tree):
+        return hist.fixed_point_histogram_plain(None, grad, hess, presence, node, base, width,
+                                                1).reshape(width, 3)
+
+    monkeypatch.setattr(trees, "level_histogram", per_call_level)
+    monkeypatch.setattr(trees, "node_totals", per_call_totals)
+    want = trees.grow_tree(bins, grad, hess, presence, cfg, fmask)
+    for name in trees.TreeArrays._fields:
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    assert int((got.feature >= 0).sum()) > 3  # the tree really split
+
+
 def test_predict_contrib_leaf_and_importance_match_jax(jax_boosters):
     X, y, want = jax_boosters("multiclass")
     got = train_booster(X, y, device="cpu", **CASES["multiclass"][1])

@@ -135,3 +135,42 @@ def test_kernel_argument_checks():
                                    presence.to("meta"), node.to("meta"), BASE, W, B)
     with pytest.raises(ValueError, match="hist_impl must be"):
         hist.level_histogram(bins, grad, hess, presence, node, BASE, W, B, impl="xla")
+
+
+@pytest.mark.parametrize("width", [1, 4, 32])
+def test_plain_version_with_the_tree_scale_equals_its_own_scale(width):
+    """The per-tree scale passed in gives bitwise the histogram of the scale
+    computed from the same rows inside the call, at narrow and wide levels."""
+    bins, grad, hess, presence, node = _torch(*_level_inputs(seed=8, n=2000, nb=B))
+    node = torch.from_numpy(np.random.default_rng(9).integers(
+        0, 2 * width + 3, 2000).astype(np.int32))  # rows in and outside the level
+    scale = hist.fixed_point_scales(grad, hess, presence)
+    assert scale.dtype == torch.int32 and scale.shape == (3,)
+    assert scale.tolist() == hist._scale_exps(torch.stack([grad, hess, presence], 1))
+    got = hist.fixed_point_histogram_plain(bins, grad, hess, presence, node, width - 1,
+                                           width, B, scale)
+    want = hist.fixed_point_histogram_plain(bins, grad, hess, presence, node, width - 1,
+                                            width, B)
+    assert torch.equal(got, want)
+    tree = hist.fixed_point_tree(grad, hess, presence, F, 6, B)
+    assert tree.scratch is None and torch.equal(tree.scale, scale)
+    assert torch.equal(hist.level_histogram(bins, grad, hess, presence, node, width - 1, width,
+                                            B, impl="pallas", tree=tree), want)
+    assert torch.equal(hist.node_totals(grad, hess, presence, node, width - 1, width,
+                                        impl="pallas", tree=tree),
+                       hist.fixed_point_histogram_plain(None, grad, hess, presence, node,
+                                                        width - 1, width, 1)[:, 0, 0])
+
+
+def test_kernel_argument_checks_refuse_a_malformed_scale():
+    bins, grad, hess, presence, node = _torch(*_level_inputs(seed=10))
+    check = hist._check_kernel_args
+    scale = hist.fixed_point_scales(grad, hess, presence)
+    check(bins, grad, hess, presence, node, BASE, W, B, scale)
+    for bad in (scale.long(), scale.float(), scale[:2], torch.zeros(4, dtype=torch.int32),
+                scale.reshape(3, 1), torch.zeros(6, dtype=torch.int32)[::2],
+                scale.to("meta")):
+        with pytest.raises(ValueError, match=r"scale must be a contiguous \(3,\) int32"):
+            check(bins, grad, hess, presence, node, BASE, W, B, bad)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        hist.fixed_point_scales(grad.to("meta"), hess.to("meta"), presence.to("meta"))
