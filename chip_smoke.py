@@ -42,7 +42,18 @@ the kernels are built for sm_90a). Phases, each of which raises on failure:
    the 'segment' backend must grow the same first tree within 2e-3 AUC,
    and a small fit on the CPU (the kernel's plain version) the same splits
    as on the card; then a profile of one boosting iteration;
-6. times: each kernel beside its bound, its plain version and the one
+6. main path 3: DeepTextClassifier fine-tuning BERT-base (hidden 768, 12
+   layers, 12 heads, MLP 3072; f32 params, bf16 compute, einsum attention)
+   on 960 texts that fill 128 tokens, batch 32, 30 optimizer steps: every
+   step's loss finite, every parameter moved; the fitted model's transform
+   through attn_impl='flash' (the bf16 kernel 12 times a batch) against
+   attn_impl='einsum' within main path 1's tolerances; a save -> load round
+   trip bitwise; a second fit from the same seed compared bitwise
+   (reported, not required); samples/s and the median step in device time,
+   peak memory, MFU and a profile of one optimizer step by kernel group;
+   then bert-tiny in f32 compute (TF32 off), 6 steps on the CPU and on the
+   card from the same init and data, per-step losses within 1e-4;
+7. times: each kernel beside its bound, its plain version and the one
    PyTorch call that computes the same function (device time, with the
    host's enqueue hidden behind a spin kernel; the library call's device
    kernels named from the profiler); flash_attention from the projection
@@ -75,7 +86,9 @@ from synapseml_torch import DataFrame
 from synapseml_torch.core import batching as cb
 from synapseml_torch.models.convert_jax import bert_state_dict_from_flax, init_flax_bert_params
 from synapseml_torch.models.nets.bert import bert_base
-from synapseml_torch.models.text import DeepTextModel
+from synapseml_torch.models import text as text_stage
+from synapseml_torch.models import trainer as trainer_mod
+from synapseml_torch.models.text import DeepTextClassifier, DeepTextModel
 from synapseml_torch.models.tokenizer import HashingTokenizer
 from synapseml_torch.ops import _build
 from synapseml_torch.ops import attention as att
@@ -520,6 +533,283 @@ def phase_times(device, card: str, launches: dict, max_err: dict) -> list[dict]:
     return rows
 
 
+# ---------------- main path 3: BERT-base fine-tuning ----------------
+
+FT_ARCH, FT_ROWS, FT_STEPS, FT_BATCH, FT_LEN = "bert-base", 960, 30, 32, 128
+FT_WARMUP = 5  # steps left out of the step time (first calls, allocator warm-up)
+FT_LR = 1e-4
+_POSITIVE = ("great", "good", "moving", "bright", "funny", "well", "fast")
+_NEGATIVE = ("bad", "awful", "boring", "dark", "slow", "sad", "badly")
+TINY_STEPS, TINY_TOL = 6, 1e-4  # bert-tiny f32, CPU against the card
+
+
+def _labelled_texts(n: int, seed: int, n_words=(150, 300)) -> list[dict]:
+    """Texts long enough to fill 128 tokens, labelled 1 when the words that
+    fit hold more positive than negative words: a learnable task."""
+    rs = np.random.default_rng(seed)
+    words = ("the a film plot acting score music scene story actor director not very "
+             "really quite never always long short").split() + list(_POSITIVE + _NEGATIVE)
+    rows = []
+    for m in rs.integers(n_words[0], n_words[1], n):
+        w = list(rs.choice(words, size=int(m)))
+        kept = w[:FT_LEN - 1]  # after the CLS token
+        label = int(sum(x in _POSITIVE for x in kept) > sum(x in _NEGATIVE for x in kept))
+        rows.append({"text": " ".join(w), "label": label})
+    return rows
+
+
+class _StepTimer:
+    """Wraps Trainer.train_step for one fit: CUDA events around each step
+    (the device time from the step's first kernel to its last, idle gaps
+    included), each step's loss tensor, and the last (trainer, state, batch)
+    for the profile. Restores the method on exit."""
+
+    def __init__(self):
+        self.events, self.losses, self.last = [], [], None
+
+    def __enter__(self):
+        orig = self._orig = trainer_mod.Trainer.train_step
+        timer = self
+
+        def timed(trainer, state, batch):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, metrics = orig(trainer, state, batch)
+            end.record()
+            timer.events.append((start, end))
+            timer.losses.append(metrics["loss"])
+            timer.last = (trainer, state, batch)
+            return state, metrics
+
+        trainer_mod.Trainer.train_step = timed
+        return self
+
+    def __exit__(self, *exc):
+        trainer_mod.Trainer.train_step = self._orig
+
+    def step_ms(self) -> list[float]:
+        torch.cuda.synchronize()
+        return [s.elapsed_time(e) for s, e in self.events]
+
+
+def phase_train_main(device, card: str) -> dict:
+    """DeepTextClassifier fine-tuning at full width and depth, then the fitted
+    model's scoring through the flash kernel."""
+    rows = _labelled_texts(FT_ROWS, seed=0)
+    df = DataFrame.from_rows(rows, num_partitions=2)
+    stage = DeepTextClassifier(checkpoint=FT_ARCH, num_classes=2, batch_size=FT_BATCH,
+                               max_token_len=FT_LEN, max_steps=FT_STEPS, learning_rate=FT_LR,
+                               seed=0, device=str(device))
+    log(f"[train] {FT_ARCH} fine-tune: {FT_ROWS} texts ({np.mean([r['label'] for r in rows]):.3f} "
+        f"positive), batch {FT_BATCH} x {FT_LEN} tokens, {FT_STEPS} steps, lr {FT_LR} "
+        f"(linear warm-up {max(FT_STEPS // 10, 1)} steps, then linear decay), bf16 compute, "
+        f"einsum attention")
+    att.flash_attention_fwd.launches = dict.fromkeys(att.flash_attention_fwd.launches, 0)
+    torch.cuda.reset_peak_memory_stats()
+    timer = _StepTimer()
+    t0 = time.perf_counter()
+    with timer:
+        model = stage.fit(df)
+    fit_s = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    steps = timer.step_ms()
+    losses = torch.stack(timer.losses).float().cpu().numpy()
+    if len(steps) != FT_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"{len(steps)} steps, losses {losses.tolist()}: want {FT_STEPS} "
+                             "finite losses")
+    cfg = model.get("arch_config")
+    init = text_stage._init_params(cfg, 2, 0)
+    params = model.get("model_params")
+    still = [k for k in params if np.array_equal(params[k], init[k])]
+    moved = max(float(np.abs(params[k] - init[k]).max()) for k in params)
+    log(f"[train] per-step loss {np.round(losses, 4).tolist()} (all finite); parameters that "
+        f"did not move: {still or 'none'} (largest move {moved:.3e})")
+    if still:
+        raise AssertionError(f"parameters did not move: {still}")
+
+    step_ms = statistics.median(steps[FT_WARMUP:])
+    n_params = sum(a.size for a in params.values())
+    tokens = FT_BATCH * FT_LEN
+    flops = 6 * n_params * tokens
+    mfu = flops / (step_ms / 1e3) / 989e12
+    (entry,) = model.get("train_metrics")
+    log(f"[train] fit {fit_s:.2f} s on the host clock (init, tokenization and {FT_STEPS} steps); "
+        f"median step {step_ms:.3f} ms in device time over steps {FT_WARMUP + 1}-{FT_STEPS} "
+        f"(min {min(steps[FT_WARMUP:]):.3f}, max {max(steps[FT_WARMUP:]):.3f}; first step "
+        f"{steps[0]:.3f}) = {FT_BATCH / step_ms * 1e3:.1f} samples/s; 6ND = {flops / 1e12:.3f} "
+        f"TFLOP a step ({n_params:,} params x {tokens} tokens) = MFU {mfu:.4f} of 989 TFLOP/s "
+        f"bf16 dense; peak device memory {peak_gib:.2f} GiB | {card}")
+    log(f"[train] train_metrics {json.dumps(entry)} (host clock over the whole fit, first steps "
+        f"included)")
+    if "mfu" not in entry:
+        raise AssertionError("train_metrics has no mfu: the card's peak is not in the table")
+
+    # the fitted model's scoring through the flash kernel, against einsum
+    score_df = DataFrame.from_rows([{"text": t} for t in _texts(N_TEXTS, N_PARTS, seed=1)],
+                                   num_partitions=N_PARTS)
+    bucketer = cb.default_bucketer()
+    batches = sum(len(list(bucketer.slices(len(p["text"]), FT_BATCH)))
+                  for p in score_df.partitions)
+    flash_model = model.copy({"attn_impl": "flash"})
+    flash_scores = np.stack(list(flash_model.transform(score_df).collect_column("scores")))
+    launches = dict(att.flash_attention_fwd.launches)
+    want = {"bf16": cfg.n_layers * batches, "f32": 0}
+    log(f"[train] fitted model, flash_fwd launches over the fit and one request of {batches} "
+        f"batches: {launches} (want 12 per batch: {want})")
+    if launches != want:
+        raise AssertionError(f"flash_fwd launched {launches} times, want {want}")
+    einsum_scores = np.stack(list(model.copy({"attn_impl": "einsum"}).transform(score_df)
+                                  .collect_column("scores")))
+    diff = float(np.abs(flash_scores - einsum_scores).max())
+    agree = float(np.mean(flash_scores.argmax(-1) == einsum_scores.argmax(-1)))
+    log(f"[train] fitted model, flash vs einsum on the card: max|dprob| {diff:.3e} (tol 3e-2), "
+        f"predictions agree on {agree:.4f} of rows (want >= 0.99); scores finite: "
+        f"{bool(np.isfinite(flash_scores).all())}")
+    if not (np.isfinite(flash_scores).all() and diff <= 3e-2 and agree >= 0.99):
+        raise AssertionError("the fitted model's flash and einsum scores disagree")
+
+    import tempfile
+
+    with tempfile.TemporaryDirectory(dir=".") as tmp:
+        flash_model.save(f"{tmp}/m")
+        loaded = DeepTextModel.load(f"{tmp}/m")
+        again = np.stack(list(loaded.transform(score_df).collect_column("scores")))
+    same = np.array_equal(again, flash_scores)
+    log(f"[train] save -> load round trip: scores bitwise equal: {same}")
+    if not same:
+        raise AssertionError("the loaded model scores differently")
+
+    second = stage.fit(df).get("model_params")
+    differ = [k for k in params if not np.array_equal(params[k], second[k])]
+    log(f"[train] a second fit from the same seed on the card: bitwise equal: {not differ}"
+        + (f"; {len(differ)} of {len(params)} parameters differ, largest "
+           f"{max(float(np.abs(params[k] - second[k]).max()) for k in differ):.3e}, first "
+           f"{differ[:6]}" if differ else ""))
+
+    _profile_train_step(*timer.last, card, step_ms)
+    _host_step_parts(*timer.last, card)
+    return {"launches": launches, "step_ms": step_ms, "samples_s": FT_BATCH / step_ms * 1e3,
+            "mfu": mfu, "peak_gib": peak_gib}
+
+
+_TRAIN_GROUPS = (("matmul", ("nvjet", "gemm", "cutlass", "sm90_", "cublas")),  # lower case
+                 ("optimizer elementwise (foreach)", ("multi_tensor", "foreach")),
+                 ("embedding backward", ("embedding", "segment", "krn_partial",
+                                         "compute_grad_weight", "sum_and_scatter",
+                                         "radix", "sort")),
+                 ("layer norm", ("layer_norm",)),
+                 ("softmax", ("softmax",)),
+                 ("gelu", ("gelu",)),
+                 ("dtype casts and copies", ("copy", "memcpy")),
+                 ("reductions", ("reduce",)),
+                 ("other elementwise", ("elementwise", "vectorized")))
+
+
+def _profile_train_step(trainer, state, batch, card: str, step_ms: float, n=3) -> None:
+    """Where the device time of one BERT-base optimizer step goes (forward,
+    backward, optimizer), by kernel group, the share of its wall time the
+    card is busy under the profiler, and the device time over the
+    unprofiled median step (``step_ms``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def step():
+        trainer.train_step(state, batch)
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    kernels = [(e.self_device_time_total / n / 1e3, e.count // n, e.key)
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(k[0] for k in kernels)
+    if not busy:
+        log("[profile] the profiler recorded no device time")
+        return
+    log(f"[profile] one optimizer step, BERT-base bf16, batch {FT_BATCH} x {FT_LEN}: "
+        f"{wall_ms:.3f} ms wall, {busy:.3f} ms of device kernels ({100 * busy / wall_ms:.1f}% "
+        f"busy, {100 - 100 * busy / wall_ms:.1f}% idle under the profiler; "
+        f"{100 * busy / step_ms:.1f}% of the unprofiled {step_ms:.3f} ms median step), "
+        f"{sum(k[1] for k in kernels)} device kernels | {card}")
+    groups = {name: 0.0 for name, _ in _TRAIN_GROUPS}
+    groups["other"] = 0.0
+    for ms, _, key in kernels:
+        name = next((g for g, pats in _TRAIN_GROUPS if any(p in key.lower() for p in pats)),
+                    "other")
+        groups[name] += ms
+    for name, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        log(f"[profile] step group {name}: {ms:.4f} ms/step ({100 * ms / busy:.1f}% of device "
+            f"time)")
+    for ms, count, key in sorted(kernels, reverse=True)[:12]:
+        log(f"[profile] step {100 * ms / busy:5.1f}%  {ms:8.4f} ms/step  {count:4d}/step  "
+            f"{key[:200]}")
+
+
+def _host_step_parts(trainer, state, batch, card: str, n=3) -> None:
+    """The host's side of an optimizer step, no profiler and no sync inside:
+    the time to enqueue the batch copy, the forward, the backward and the
+    optimizer."""
+    parts = {"batch to the card": 0.0, "forward": 0.0, "backward": 0.0, "optimizer": 0.0}
+    params = list(state.params.values())
+    torch.cuda.synchronize()
+    for _ in range(n):
+        t0 = time.perf_counter()
+        dev_batch = trainer._to_device(batch)
+        t1 = time.perf_counter()
+        for p in params:
+            p.grad = None
+        loss, _ = trainer.default_loss(dev_batch)
+        t2 = time.perf_counter()
+        loss.backward()
+        t3 = time.perf_counter()
+        trainer._tx.update([p.grad for p in params], state.opt_state, params)
+        t4 = time.perf_counter()
+        for k, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            parts[k] += dt * 1e3 / n
+    torch.cuda.synchronize()
+    log("[profile] host time of a step, no profiler: "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in parts.items())
+        + f" (sum {sum(parts.values()):.3f} ms) | {card}")
+
+
+def phase_train_cpu_card(device) -> None:
+    """bert-tiny in f32 compute (TF32 off), the same init and batches on the
+    CPU and on the card: per-step losses within TINY_TOL."""
+    from synapseml_torch.data import MemorySource
+    from synapseml_torch.models.nets.bert import BertClassifier, bert_tiny
+
+    tok = HashingTokenizer(vocab_size=1024)
+    rows = _labelled_texts(8 * TINY_STEPS, seed=2, n_words=(5, 60))
+    data = {**tok([r["text"] for r in rows], max_len=64),
+            "labels": np.array([r["label"] for r in rows], np.int32)}
+    cfg = bert_tiny(vocab_size=1024, dtype=torch.float32)
+    init = text_stage._init_params(cfg, 2, seed=3)
+    losses = {}
+    for dev in ("cpu", device):
+        trainer = trainer_mod.Trainer(
+            BertClassifier(cfg, 2),
+            trainer_mod.TrainerConfig(learning_rate=1e-3, total_steps=TINY_STEPS, warmup_steps=1,
+                                      lr_schedule="linear"), device=dev)
+        seen = []
+        trainer_mod.fit_source(trainer, MemorySource(data), batch_size=8, total_steps=TINY_STEPS,
+                               seed=0, init_params=init,
+                               callback=lambda i, m: seen.append(float(m["loss"])))
+        losses[str(dev)] = np.array(seen)
+    cpu, card = losses["cpu"], losses[str(device)]
+    err = float(np.abs(cpu - card).max())
+    log(f"[train] bert-tiny f32, {TINY_STEPS} steps from one init: CPU losses "
+        f"{np.round(cpu, 6).tolist()}, card {np.round(card, 6).tolist()}, max|d| {err:.3e} "
+        f"(tol {TINY_TOL:g})")
+    if not (len(cpu) == len(card) == TINY_STEPS and err <= TINY_TOL):
+        raise AssertionError("the card's bert-tiny losses disagree with the CPU's")
+
+
 # ---------------- GBDT: LightGBM training and scoring ----------------
 
 # the repo's GBDT configuration: benchmarks/gbdt_higgs1m.py:16-21,54-58
@@ -921,7 +1211,12 @@ def main() -> None:
     hist_err = phase_gbdt_kernels(device)
     main_path = phase_main_path(device, card)
     gbdt = phase_gbdt_main(device, card)
-    kernels = phase_times(device, card, main_path["launches"], max_err)
+    train = phase_train_main(device, card)
+    phase_train_cpu_card(device)
+    # the flash kernel's launches on the main paths: scoring (path 1) and the
+    # fitted model's scoring (path 3)
+    launches = {k: v + train["launches"][k] for k, v in main_path["launches"].items()}
+    kernels = phase_times(device, card, launches, max_err)
     kernels += phase_gbdt_times(device, card, {"gbdt_hist": gbdt["launches"],
                                                "gbdt_hist_scale": gbdt["scale_launches"]},
                                 hist_err)

@@ -2,10 +2,13 @@
 
 The JAX package stays the reference; this package grows beside it slice by
 slice, mirroring its layout so each file names its counterpart:
-  core/        DataFrame, params, pipeline API, stage telemetry, bucketing
+  core/        DataFrame, params, pipeline API, stage telemetry, bucketing,
+               metrics registry, retry policy
+  data/        sharded sources, the prefetching DataLoader, iterator state
   parallel/    token-sequence padding (the rest with the multi-GPU slice)
   ops/         hand-written CUDA kernels (``csrc/``) with plain versions
-  models/      BERT nets, the Flax weight bridge, DeepTextModel scoring
+  models/      BERT nets, the Flax weight bridge, the single-device trainer,
+               DeepTextClassifier fine-tuning and DeepTextModel scoring
   gbdt/        LightGBM-style GBDT training and scoring, with the CUDA
                level-histogram kernel
 

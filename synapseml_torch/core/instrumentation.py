@@ -7,6 +7,10 @@ mark dataset-prep/training windows and travel back with results). One
 collector serves every engine: estimators thread it through fit and attach
 ``.to_dict()`` to the trained model. The JAX package's ``profile_trace``
 wraps ``jax.profiler``; here ``torch.profiler`` is used directly.
+
+``chip_peak_tflops`` is the counterpart of the JAX package's table of the
+same name (``:29``): the card's dense bf16 peak, named by
+``torch.cuda.get_device_name``, for MFU reporting.
 """
 
 from __future__ import annotations
@@ -16,7 +20,20 @@ import threading
 import time
 from typing import Iterator
 
-__all__ = ["InstrumentationMeasures"]
+__all__ = ["InstrumentationMeasures", "chip_peak_tflops"]
+
+# Dense bf16 tensor-core peak in TFLOP/s by card name (lower-cased
+# substring), from NVIDIA's H100 data sheet: the SXM part at its 700 W
+# limit. A card not listed has no MFU.
+_CHIP_PEAK_TFLOPS = [("h100 80gb hbm3", 989.0), ("h100 sxm", 989.0)]
+
+
+def chip_peak_tflops(device_name: str) -> float | None:
+    name = (device_name or "").lower()
+    for key, peak in _CHIP_PEAK_TFLOPS:
+        if key in name:
+            return peak
+    return None
 
 
 class InstrumentationMeasures:

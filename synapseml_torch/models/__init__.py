@@ -1,4 +1,4 @@
-from .text import DeepTextModel
+from .text import DeepTextClassifier, DeepTextModel
 from .tokenizer import HashingTokenizer, resolve_tokenizer
 
-__all__ = ["DeepTextModel", "HashingTokenizer", "resolve_tokenizer"]
+__all__ = ["DeepTextClassifier", "DeepTextModel", "HashingTokenizer", "resolve_tokenizer"]

@@ -1,33 +1,52 @@
-"""DeepTextModel — BERT text scoring on the card.
+"""DeepTextClassifier / DeepTextModel — BERT fine-tuning and scoring on the card.
 
-Counterpart of ``DeepTextModel`` in ``synapseml_tpu/models/text.py``: the
-same Param names and validators, the same per-partition loop (tokenize,
+Counterpart of ``synapseml_tpu/models/text.py``, with the same Param names,
+defaults and validators.
+
+``DeepTextClassifier`` (``:60-178`` there) tokenizes the text column, fits a
+BERT classifier with :func:`..trainer.fit_arrays` (linear warm-up over a
+tenth of the steps, then linear decay; AdamW; ``unfreeze_layers`` freezes
+all but the last N encoder layers and the head) and returns a
+``DeepTextModel`` holding the fitted ``state_dict`` and the trainer's
+``train_metrics``. The initial weights come from ``_init_params``: the JAX
+package's initialisers drawn with numpy from ``seed``
+(:func:`..convert_jax.init_flax_bert_params`), the same distribution, not
+the same bits, as ``jax.random.PRNGKey(seed)``. Training attention is the
+einsum path; the flash kernel has no backward yet.
+
+``DeepTextModel`` keeps the JAX stage's per-partition loop (tokenize,
 ``ShapeBucketer.slices``, ``pad_rows``, forward, softmax, ``unpad_rows``),
-and a module that is built once per stage — weights moved to the device
-once — and dropped when a param it depends on changes. Scoring runs under
-``torch.inference_mode()`` on ``device`` (default ``"cuda"``; a host
-without a CUDA device must ask for ``"cpu"``).
+and builds its module once per stage — weights moved to the device once —
+dropping it when a param it depends on changes. Scoring runs under
+``torch.inference_mode()``.
 
-``model_params`` is this package's ``state_dict`` as numpy arrays;
-:func:`..convert_jax.bert_state_dict_from_flax` maps a JAX model's Flax
-tree to it. ``DeepTextClassifier`` (fine-tuning) comes with the training
-slice, sharded inference (``mesh_config``) with the multi-GPU slice.
+Both stages run on ``device`` (default ``"cuda"``; a host without a CUDA
+device must ask for ``"cpu"``). ``model_params`` is this package's
+``state_dict`` as numpy arrays; :func:`..convert_jax.bert_state_dict_from_flax`
+maps a JAX model's Flax tree to it. Not ported yet, each refused with
+``NotImplementedError`` naming its ``ROADMAP.md`` item: training
+checkpoints (``checkpoint_dir``), ``mesh_config``, ``ring``/``ulysses``
+attention, ``attn_impl='flash'`` in training, and a local HuggingFace
+checkpoint directory.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
 
-from ..core import DataFrame, Model
+from ..core import DataFrame, Estimator, Model
 from ..core import batching as cb
 from ..core.params import ComplexParam, Param, TypeConverters
+from .convert_jax import bert_state_dict_from_flax, init_flax_bert_params
 from .nets.bert import BertClassifier, bert_base, bert_tiny
 from .tokenizer import resolve_tokenizer
+from .trainer import Trainer, TrainerConfig, _resolve_device, fit_arrays, plan_fit
 
-__all__ = ["DeepTextModel", "legacy_prenorm_fixup"]
+__all__ = ["DeepTextClassifier", "DeepTextModel", "legacy_prenorm_fixup"]
 
 _ARCHS = {"bert-base": bert_base, "bert-tiny": bert_tiny}
 
@@ -40,6 +59,17 @@ def _resolve_arch(name: str):
     except KeyError:
         raise ValueError(f"unknown checkpoint {name!r}; available presets: "
                          f"{sorted(_ARCHS)}") from None
+
+
+def _init_params(cfg, num_classes: int, seed: int) -> dict:
+    """The classifier's initial ``state_dict``: the JAX package's
+    initialisers, drawn with numpy from ``seed``."""
+    return bert_state_dict_from_flax(init_flax_bert_params(cfg, num_classes, seed))
+
+
+def _unported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"DeepTextClassifier: {what} is not ported to "
+                               f"synapseml_torch yet: ROADMAP.md queue A item {item}")
 
 
 def _device_type(spec: str) -> str | None:
@@ -71,6 +101,128 @@ class _TextParams:
                           default=128, converter=TypeConverters.to_int)
     batch_size = Param("batch_size", "global batch size", default=32,
                        converter=TypeConverters.to_int)
+    device = Param("device", "torch device: 'cuda' (default), 'cuda:N' or 'cpu'",
+                   default="cuda", converter=TypeConverters.to_string,
+                   validator=lambda v: _device_type(v) in ("cuda", "cpu"))
+
+
+class DeepTextClassifier(Estimator, _TextParams):
+    feature_name = "deep_learning"
+
+    learning_rate = Param("learning_rate", "peak learning rate", default=5e-5,
+                          converter=TypeConverters.to_float)
+    num_train_epochs = Param("num_train_epochs", "training epochs", default=3,
+                             converter=TypeConverters.to_int)
+    max_steps = Param("max_steps", "hard cap on optimizer steps (-1 = epochs decide)",
+                      default=-1, converter=TypeConverters.to_int)
+    unfreeze_layers = Param("unfreeze_layers",
+                            "train only the last N encoder layers (+head); -1 = all "
+                            "(reference LitDeepTextModel._fine_tune_layers)",
+                            default=-1, converter=TypeConverters.to_int)
+    grad_accum = Param("grad_accum", "gradient accumulation steps "
+                       "(horovod backward_passes_per_step analog)", default=1,
+                       converter=TypeConverters.to_int)
+    seed = Param("seed", "init seed", default=0, converter=TypeConverters.to_int)
+    checkpoint_dir = Param("checkpoint_dir", "directory for training checkpoints "
+                           "(not ported yet: must stay None)", default=None)
+    checkpoint_every = Param("checkpoint_every", "checkpoint every N optimizer "
+                             "steps (0 = only the final state)", default=0,
+                             converter=TypeConverters.to_int)
+    checkpoint_keep = Param("checkpoint_keep", "retain the most recent K "
+                            "checkpoints", default=3,
+                            converter=TypeConverters.to_int)
+    attn_impl = Param("attn_impl", "attention backend: einsum | flash | ring "
+                      "| ulysses (None = architecture default); training runs "
+                      "einsum only until the flash backward is ported", default=None,
+                      validator=lambda v: v in (None, "einsum", "flash",
+                                                "ring", "ulysses"))
+    tokenizer = ComplexParam("tokenizer", "tokenizer object/config/name", default=None)
+    mesh_config = ComplexParam("mesh_config", "MeshConfig override (not ported yet: "
+                               "must stay None)", default=None)
+    weight_decay = Param("weight_decay", "adamw weight decay", default=0.01,
+                         converter=TypeConverters.to_float)
+
+    def _make_config(self, vocab_size: int):
+        return _resolve_arch(self.get("checkpoint"))(vocab_size=vocab_size)
+
+    def _freeze_predicate(self, n_layers_total: int):
+        """Frozen unless in the head or in the last ``unfreeze_layers``
+        encoder layers, on this package's parameter names
+        (``encoder.layers.<i>`` is the Flax ``layer_<i>``)."""
+        n = self.get("unfreeze_layers")
+        if n is None or n < 0:
+            return None
+        trainable = {str(i) for i in range(max(n_layers_total - n, 0), n_layers_total)}
+
+        def frozen(path: tuple[str, ...]) -> bool:
+            if path and path[0] in ("classifier", "pooler"):
+                return False
+            return not (path[:2] == ("encoder", "layers") and len(path) > 2
+                        and path[2] in trainable)
+
+        return frozen
+
+    def _refuse_unported(self) -> None:
+        ck = self.get("checkpoint")
+        if isinstance(ck, (str, os.PathLike)) and os.path.isdir(str(ck)):
+            raise _unported("a local HuggingFace checkpoint directory", "4 (convert_hf)")
+        if self.get("checkpoint_dir"):
+            raise _unported("checkpoint_dir", "9 (parallel/checkpoint.py)")
+        if self.get("mesh_config") is not None:
+            raise _unported("mesh_config", "9 (multi-GPU)")
+        if self.get("attn_impl") in ("ring", "ulysses"):
+            raise _unported(f"attn_impl={self.get('attn_impl')!r}", "9 (multi-GPU)")
+        if self.get("attn_impl") == "flash":
+            raise _unported("attn_impl='flash' in training (the flash kernel has no "
+                            "backward; the parameters require grad)", "1c (flash backward)")
+
+    def _fit(self, df: DataFrame) -> "DeepTextModel":
+        self._refuse_unported()
+        device = _resolve_device("DeepTextClassifier", self.get("device"))
+        tok = resolve_tokenizer(self.get("tokenizer"))
+        cfg = self._make_config(tok.vocab_size)
+        if self.get("attn_impl"):
+            cfg = dataclasses.replace(cfg, attn_impl=self.get("attn_impl"))
+        num_classes = self.get("num_classes")
+        with torch.device("meta"):
+            module = BertClassifier(cfg, num_classes=num_classes)
+        module = module.to_empty(device="cpu")
+
+        texts = df.collect_column(self.get("text_col"))
+        labels = df.collect_column(self.get("label_col")).astype(np.int32)
+        encoded = tok(list(texts), max_len=self.get("max_token_len"))
+        data = {**encoded, "labels": labels}
+
+        bs, total = plan_fit(len(labels), self.get("batch_size"),
+                             self.get("num_train_epochs"), self.get("max_steps"))
+        tcfg = TrainerConfig(
+            learning_rate=self.get("learning_rate"),
+            weight_decay=self.get("weight_decay"),
+            total_steps=total, grad_accum=self.get("grad_accum"),
+            warmup_steps=max(total // 10, 1), lr_schedule="linear",
+            freeze_predicate=self._freeze_predicate(cfg.n_layers),
+        )
+        trainer = Trainer(module, tcfg, device=device)
+        state = fit_arrays(trainer, data, batch_size=bs, total_steps=total,
+                           seed=self.get("seed"),
+                           init_params=_init_params(cfg, num_classes, self.get("seed")))
+        model_params = {k: v.detach().cpu().numpy() for k, v in state.params.items()}
+        # the arch is always saved, so the model keeps evaluating with the
+        # architecture it was trained as
+        return DeepTextModel(
+            model_params=model_params,
+            arch_config=cfg,
+            tokenizer_config=tok.to_config(),
+            checkpoint=self.get("checkpoint"),
+            num_classes=num_classes,
+            text_col=self.get("text_col"),
+            prediction_col=self.get("prediction_col"),
+            scores_col=self.get("scores_col"),
+            max_token_len=self.get("max_token_len"),
+            batch_size=self.get("batch_size"),
+            device=self.get("device"),
+            train_metrics=trainer.metrics,
+        )
 
 
 class DeepTextModel(Model, _TextParams):
@@ -88,11 +240,6 @@ class DeepTextModel(Model, _TextParams):
                       "pure kernel selection — the parameters are unchanged",
                       default=None,
                       validator=lambda v: v in (None, "einsum", "flash"))
-    device = Param("device", "torch device to score on: 'cuda' (default), "
-                   "'cuda:N' or 'cpu'", default="cuda",
-                   converter=TypeConverters.to_string,
-                   validator=lambda v: _device_type(v) in ("cuda", "cpu"))
-
     _APPLY_KEYS = frozenset({"model_params", "arch_config", "tokenizer_config",
                              "checkpoint", "num_classes", "attn_impl", "device"})
 
@@ -109,14 +256,6 @@ class DeepTextModel(Model, _TextParams):
             self._module = None  # the built module captured the old values
         return out
 
-    def _resolve_device(self) -> torch.device:
-        device = torch.device(self.get("device"))
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                f"DeepTextModel: device={self.get('device')!r} but this host has "
-                "no CUDA device; pass device='cpu' to score on the CPU")
-        return device
-
     def _get_module(self) -> BertClassifier:
         """The module on its device, built once per stage."""
         if self._module is None:
@@ -132,7 +271,7 @@ class DeepTextModel(Model, _TextParams):
             if tok.vocab_size > cfg.vocab_size:
                 raise ValueError(f"tokenizer vocab {tok.vocab_size} exceeds the "
                                  f"model's embedding table ({cfg.vocab_size})")
-            device = self._resolve_device()
+            device = _resolve_device("DeepTextModel", self.get("device"))
             with torch.device("meta"):
                 module = BertClassifier(cfg, num_classes=self.get("num_classes"))
             state = {k: torch.as_tensor(np.asarray(v)).to(device=device,
