@@ -15,7 +15,14 @@ the kernels are built for sm_90a). Phases, each of which raises on failure:
    launch bitwise equal to the first, and from strided [B, T, H, D]
    projection views (BERT-base, and T=50 D=32); one flash_attention call
    from the views runs at most 2 device kernels (the mask cast and the
-   kernel);
+   kernel); the flash backward (bf16 on the tensor cores, f32 on the CUDA
+   cores) against its plain version, each (batch, head) slice of dq, dk and
+   dv to its own scale, at BERT-base training shapes and at
+   T=512, B=8, causal and not, T=50 at D=32 and T=200 at D=128, with fully
+   masked rows (dq, dk, dv exactly 0) and padded keys (dk, dv exactly 0), a
+   second launch bitwise equal; autograd through flash_attention against
+   reference_attention in f32 (D=40 through the zero pad too), and from
+   projection views against the plain forward and backward on copies;
    and the GBDT histogram kernel, each case bitwise equal to its plain
    version and to a second launch: the Higgs shape at widths 1, 4 and 32,
    64 / 1024 / 300 bins, uint8 and int32 bins, rows outside the level, N
@@ -43,23 +50,33 @@ the kernels are built for sm_90a). Phases, each of which raises on failure:
    and a small fit on the CPU (the kernel's plain version) the same splits
    as on the card; then a profile of one boosting iteration;
 6. main path 3: DeepTextClassifier fine-tuning BERT-base (hidden 768, 12
-   layers, 12 heads, MLP 3072; f32 params, bf16 compute, einsum attention)
-   on 960 texts that fill 128 tokens, batch 32, 30 optimizer steps: every
-   step's loss finite, every parameter moved; the fitted model's transform
-   through attn_impl='flash' (the bf16 kernel 12 times a batch) against
+   layers, 12 heads, MLP 3072; f32 params, bf16 compute) on 960 texts that
+   fill 128 tokens, batch 32, 30 optimizer steps, with einsum attention and
+   then with attn_impl='flash' (the same data and seed): every step's loss
+   finite, every parameter moved; the flash fit launches the forward and
+   backward kernels 12 times a step each, and its first loss and gradient
+   norm are within 1e-2 of einsum's; each fitted model's transform through
+   attn_impl='flash' (the bf16 kernel 12 times a batch) against
    attn_impl='einsum' within main path 1's tolerances; a save -> load round
    trip bitwise; a second fit from the same seed compared bitwise
    (reported, not required); samples/s and the median step in device time,
-   peak memory, MFU and a profile of one optimizer step by kernel group;
-   then bert-tiny in f32 compute (TF32 off), 6 steps on the CPU and on the
-   card from the same init and data, per-step losses within 1e-4;
-7. times: each kernel beside its bound, its plain version and the one
+   peak memory, MFU and a profile of one optimizer step by kernel group,
+   for each; then bert-tiny in f32 compute (TF32 off), einsum and flash, 6
+   steps on the CPU and on the card from the same init and data, per-step
+   losses within 1e-4;
+7. long-T step: BERT-base, batch 8 x 512 random ids (the second shape of
+   benchmarks/attn_backends.py), 8 steps with einsum and with flash from
+   one init: the median step in device time and the peak memory of each,
+   each layer's gradient at the init within 2e-2 of einsum's, step 1's
+   loss and gradient norm within 1e-2;
+8. times: each kernel beside its bound, its plain version and the one
    PyTorch call that computes the same function (device time, with the
    host's enqueue hidden behind a spin kernel; the library call's device
    kernels named from the profiler); flash_attention from the projection
    views beside the permute-and-call path it replaced; the histogram
    kernel at each shape of one tree and its scale pass, and one call of
-   each with its host enqueue.
+   each with its host enqueue; the flash backward at both training shapes
+   beside the backward of scaled_dot_product_attention.
 
 The line before the last is a JSON object with the kernels' numbers; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or
@@ -70,6 +87,7 @@ result.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import hashlib
 import json
 import re
@@ -171,7 +189,7 @@ def phase_build():
             elif "registers" in line or "spill" in line:
                 log(f"[build] {name} {fn}: {line.strip()}")
                 found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-                if found and "flash_fwd" in fn and found.groups() != ("0", "0"):
+                if found and "flash_" in fn and found.groups() != ("0", "0"):
                     spills.append(fn)
     log(f"[build] flash kernels with register spills: {spills or 'none'}")
 
@@ -216,10 +234,8 @@ def _check_views(name, Bv, Tv, Hv, Dv, dtype, device, seed, causal) -> None:
     out = att.flash_attention(q, k, v, mask.bool(), causal=causal)
     again = att.flash_attention(q, k, v, mask.bool(), causal=causal)
     torch.cuda.synchronize()
-    ref, _ = att.flash_attention_fwd_plain(
-        _to_bh(q), _to_bh(k), _to_bh(v), mask[:, None, :].expand(Bv, Hv, Tv).reshape(Bv * Hv, Tv),
-        causal, 1.0 / Dv ** 0.5)
-    ref = ref.reshape(Bv, Hv, Tv, Dv).permute(0, 2, 1, 3)
+    ref, _ = att._plain_bthd(att.flash_attention_fwd_plain, q, k, v, mask, causal,
+                             1.0 / Dv ** 0.5)
     err = (out.float() - ref.float()).abs().max().item()
     same = torch.equal(out, again)
     log(f"[kernel] flash_attention {name} from [B,T,H,D]=[{Bv},{Tv},{Hv},{Dv}] projection "
@@ -229,10 +245,11 @@ def _check_views(name, Bv, Tv, Hv, Dv, dtype, device, seed, causal) -> None:
         raise AssertionError(f"flash_attention from views disagrees on {name}")
 
 
-def _device_kernels(fn, n=3) -> list[tuple[str, int]]:
-    """(name, count per call) of the device kernels a call of ``fn`` runs,
-    from the profiler over ``n`` calls after a warm-up call (late in a long
-    process a session can miss some of a single call's kernels)."""
+def _device_kernels(fn, n=3) -> list[tuple[str, int, float]]:
+    """(name, count per call, device ms per call) of the device kernels a
+    call of ``fn`` runs, from the profiler over ``n`` calls after a warm-up
+    call (late in a long process a session can miss some of a single call's
+    kernels)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -242,7 +259,8 @@ def _device_kernels(fn, n=3) -> list[tuple[str, int]]:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    return [(e.key, -(-e.count // n)) for e in prof.key_averages()
+    return [(e.key, -(-e.count // n), e.self_device_time_total / n / 1e3)
+            for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
 
 
@@ -252,10 +270,10 @@ def _count_view_call_kernels(device) -> None:
     q, k, v = _projection_views(B, T, H, D, torch.bfloat16, device, seed=11)
     mask = _padding_mask(B, T, device, seed=11).bool()
     kernels = _device_kernels(lambda: att.flash_attention(q, k, v, mask))
-    n = sum(c for _, c in kernels)
+    n = sum(c for _, c, _ in kernels)
     log(f"[kernel] one flash_attention call on BERT-base projection views: {n} device "
-        f"kernel(s) {[key[:60] for key, _ in kernels]} (want at most 2)")
-    if not (n <= 2 and any("flash_fwd" in key for key, _ in kernels)):
+        f"kernel(s) {[key[:60] for key, *_ in kernels]} (want at most 2)")
+    if not (n <= 2 and any("flash_fwd" in key for key, *_ in kernels)):
         raise AssertionError("flash_attention from views ran more than the mask cast and "
                              "the kernel")
 
@@ -316,6 +334,177 @@ def phase_kernels(device) -> dict:
         _check_views(f"bert-base {tag}", B, T, H, D, dtype, device, seed=21, causal=False)
         _check_views(f"ragged {tag} causal", 4, 50, 6, 32, dtype, device, seed=22, causal=True)
     _count_view_call_kernels(device)
+    main_err.update(_bwd_kernel_cases(device))
+    return main_err
+
+
+# ---------------- the backward kernel against its plain version ----------------
+
+# _bwd_err's limits. bf16 outputs round at 2^-9, and dS rounds to bf16
+# before two of the products (a P that differs in its last f32 bit can round
+# dS the other way); f32 sums in another order than the plain version, and
+# the dq and dk of a length-1 row are 0 in exact arithmetic (dS = dP - delta
+# cancels), so they hold rounding only and meet the floor.
+# tests/test_torch_flash_bwd.py holds the limits: the plain version summed in
+# another order passes within half of each, and one that drops delta, or
+# whose dq, dk or dv is 5 % off, fails
+TOL_BWD = {torch.float32: 1e-4, torch.bfloat16: 1.5e-2}
+BWD_FLOOR = 1e-2  # of a tensor's max |plain|: the least scale a slice is held to
+LONG_B, LONG_T = 8, 512  # the long-T training shape of benchmarks/attn_backends.py:27
+# |g_flash - g_einsum| over |g_einsum| for each layer's gradient at the init
+# (the embeddings, each encoder layer, the head), BERT-base bf16 compute
+TOL_INIT_GRAD = 2e-2
+
+
+def _bwd_err(got, want) -> float:
+    """The worst, over the pairs of [B*H, T, D] gradients and over their
+    B*H slices, of max |got - want| in a slice over max |want| in it (at
+    least BWD_FLOOR of the tensor's max |want|). Each slice is held to its
+    own scale: with random padding lengths the dv of a length-1 row is some
+    100 times the typical entry, and a limit on the whole tensor's scale
+    would pass errors of 10 % elsewhere."""
+    worst = 0.0
+    for a, b in zip(got, want):
+        a, b = a.float().flatten(1), b.float().flatten(1)
+        scale = b.abs().amax(dim=1)
+        floor = max(BWD_FLOOR * scale.max().item(), 1e-30)
+        worst = max(worst, ((a - b).abs().amax(dim=1) / scale.clamp_min(floor)).max().item())
+    return worst
+
+
+def _bwd_case(name, q, k, v, mask, causal, scale, empty, seed) -> float:
+    """flash_attention_bwd (the kernel) on [BH, T, D] against
+    flash_attention_bwd_plain on the same inputs (the kernel forward's out
+    and LSE, a random dout), a second launch bitwise, finite values, and
+    exact zeros for the ``empty`` fully masked rows and for padded keys.
+    Returns the max |difference|."""
+    out, lse = att.flash_attention_fwd(q, k, v, mask, causal, scale)
+    g = torch.Generator(device=q.device).manual_seed(seed)
+    dout = torch.randn(out.shape, generator=g, device=q.device).to(q.dtype)
+    got = att.flash_attention_bwd(q, k, v, mask, out, lse, dout, causal, scale)
+    again = att.flash_attention_bwd(q, k, v, mask, out, lse, dout, causal, scale)
+    torch.cuda.synchronize()
+    want = att.flash_attention_bwd_plain(q, k, v, mask, out, lse, dout, causal, scale)
+    err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
+    rel = _bwd_err(got, want)
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    finite = all(bool(torch.isfinite(x.float()).all()) for x in got)
+    padded = (mask == 0)[..., None]
+    zeros = (all(x[:empty].abs().max().item() == 0.0 for x in got) if empty else True) and all(
+        x.float().abs().masked_fill(~padded, 0).max().item() == 0.0 for x in got[1:])
+    log(f"[kernel] flash_bwd {name}: max|d(dq,dk,dv)| {err:.3e}; worst slice's over its "
+        f"max|plain| {rel:.3e} "
+        f"(tol {TOL_BWD[q.dtype]:g}), two launches bitwise equal: {same}, finite: {finite}, "
+        f"fully masked rows ({empty}) and padded keys exactly 0: {zeros}")
+    if not (rel <= TOL_BWD[q.dtype] and same and finite and zeros):
+        raise AssertionError(f"flash_bwd disagrees with its plain version on {name}")
+    return err
+
+
+def _check_grads(name, q, k, v, kv_mask, causal, want_fn, tol) -> None:
+    """Gradients of sum(out * dout) through flash_attention (the kernels)
+    against those through ``want_fn`` on the same leaves."""
+    g = torch.Generator(device=q.device).manual_seed(5)
+    dout = torch.randn(q.shape[:3] + v.shape[-1:], generator=g, device=q.device).to(q.dtype)
+    grads = []
+    for fn in (att.flash_attention, want_fn):
+        leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        fn(*leaves, kv_mask, causal=causal).backward(dout)
+        grads.append([_to_bh(x.grad) for x in leaves])
+    torch.cuda.synchronize()
+    rel = _bwd_err(*grads)
+    log(f"[kernel] flash_attention {name}: autograd through the kernels vs "
+        f"{getattr(want_fn, '__name__', 'plain')}: worst [b, h] slice's max|d grad| over its "
+        f"max|grad| {rel:.3e} "
+        f"(tol {tol:g})")
+    if not rel <= tol:
+        raise AssertionError(f"flash_attention gradients disagree on {name}")
+
+
+def _plain_on_copies(q, k, v, kv_mask, causal: bool = False):
+    """flash_attention through the plain forward and backward on [B*H, T, D]
+    copies, with the plain backward as its gradient: the oracle for the
+    gradients from projection views."""
+    scale = 1.0 / q.shape[-1] ** 0.5
+    mask = kv_mask.to(torch.int32)
+
+    class Plain(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v):
+            out, lse = att._plain_bthd(att.flash_attention_fwd_plain, q, k, v, mask, causal,
+                                       scale)
+            ctx.save_for_backward(q, k, v, out, lse)
+            return out
+
+        @staticmethod
+        def backward(ctx, dout):
+            q, k, v, out, lse = ctx.saved_tensors
+            return att._plain_bthd(att.flash_attention_bwd_plain, q, k, v, mask, out, lse, dout,
+                                   causal, scale)
+
+    return Plain.apply(q, k, v)
+
+
+def _bwd_kernel_cases(device) -> dict:
+    """The backward kernel against its plain version on the card; returns
+    the max |difference| at BERT-base training shapes by dtype."""
+    cases = [  # name, BH, T, D, dtype, causal, fully masked rows
+        ("bert-base bf16", B * H, T, D, torch.bfloat16, False, 8),
+        ("bert-base f32", B * H, T, D, torch.float32, False, 8),
+        ("bert-base bf16 causal", B * H, T, D, torch.bfloat16, True, 0),
+        ("bert-base f32 causal", B * H, T, D, torch.float32, True, 0),
+        ("T=512 bf16", LONG_B * H, LONG_T, D, torch.bfloat16, False, 4),
+        ("T=512 f32", LONG_B * H, LONG_T, D, torch.float32, False, 4),
+        ("T=512 bf16 causal", LONG_B * H, LONG_T, D, torch.bfloat16, True, 0),
+        ("unaligned T=50 D=32 bf16 causal", 24, 50, 32, torch.bfloat16, True, 0),
+        ("unaligned T=50 D=32 f32", 24, 50, 32, torch.float32, False, 2),
+        ("T=200 D=128 bf16", 16, 200, 128, torch.bfloat16, False, 2),
+        ("T=200 D=128 bf16 causal", 16, 200, 128, torch.bfloat16, True, 0),
+        ("T=200 D=128 f32 causal", 16, 200, 128, torch.float32, True, 0),
+    ]
+    main_err = {}
+    for i, (name, BH, Tc, Dc, dtype, causal, empty) in enumerate(cases):
+        q, k, v = _inputs(BH, Tc, Tc, Dc, dtype, device, seed=100 + i)
+        mask = _padding_mask(BH, Tc, device, seed=100 + i, empty_rows=empty)
+        err = _bwd_case(name, q, k, v, mask, causal, 1.0 / Dc ** 0.5, empty, seed=i)
+        if i < 2:
+            main_err[f"bwd_{KERNEL_NAMES[dtype]}"] = err
+
+    # the public face, f32, against autograd through reference_attention (no
+    # fully masked row: there the two differ by design): BERT-base heads
+    # with a padding mask, and D = 40 through the zero pad, causal
+    g = torch.Generator(device=device).manual_seed(98)
+    q, k, v = (torch.randn((4, T, H, D), generator=g, device=device) for _ in range(3))
+    _check_grads("[B,T,H,D]=[4,128,12,64] f32", q, k, v, _padding_mask(4, T, device, 98).bool(),
+                 False, att.reference_attention, TOL_BWD[torch.float32])
+    q, k, v = (torch.randn((2, 50, 4, 40), generator=g, device=device) for _ in range(3))
+    _check_grads("[B,T,H,D]=[2,50,4,40] f32 causal (D padded to 64)", q, k, v,
+                 torch.rand((2, 50), generator=g, device=device) > 0.2, True,
+                 att.reference_attention, TOL_BWD[torch.float32])
+    # strided projection views: the gradient reaches the projection, against
+    # the plain forward and backward on copies, and bitwise on a second run
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = KERNEL_NAMES[dtype]
+        proj0 = torch.cat(_projection_views(B, T, H, D, dtype, device, seed=23), dim=2)
+        kv_mask = _padding_mask(B, T, device, seed=23).bool()
+        runs = []
+        for fn in (att.flash_attention, att.flash_attention, _plain_on_copies):
+            proj = proj0.reshape(B, T, 3 * H * D).clone().requires_grad_()
+            views = [x.unflatten(-1, (H, D)) for x in proj.split(H * D, dim=-1)]
+            fn(*views, kv_mask, causal=False).float().square().sum().backward()
+            runs.append(proj.grad)
+        torch.cuda.synchronize()
+        # the projection's gradient cut back into dq, dk and dv, [B*H, T, D]
+        got, want = ([_to_bh(x) for x in g.unflatten(-1, (3, H, D)).unbind(2)]
+                     for g in (runs[0], runs[2]))
+        rel = _bwd_err(got, want)
+        same = torch.equal(runs[0], runs[1])
+        log(f"[kernel] flash_attention {tag} from BERT-base projection views: the "
+            f"projection's gradient vs the plain forward and backward on copies: worst [b, h] "
+            f"slice's max|d| over its max|grad| {rel:.3e} (tol {TOL_BWD[dtype]:g}), bitwise "
+            f"equal on a second run: {same}")
+        if not (rel <= TOL_BWD[dtype] and same):
+            raise AssertionError(f"the flash backward from views disagrees on {tag}")
     return main_err
 
 
@@ -491,7 +680,7 @@ def phase_times(device, card: str, launches: dict, max_err: dict) -> list[dict]:
         ms, library_ms, ms2, library_ms2 = (device_ms(f) for f in (kernel, sdpa, kernel, sdpa))
         plain_ms = device_ms(plain, warmup=2, iters=10)
         call_ms = cuda_ms(kernel)  # one call as the host sees it, enqueue included
-        sdpa_kernels = [key[:80] for key, _ in _device_kernels(sdpa)]
+        sdpa_kernels = [key[:80] for key, *_ in _device_kernels(sdpa)]
         elt = torch.finfo(dtype).bits // 8
         n_bytes = 4 * BH * T * D * elt + 2 * BH * T * 4  # q, k, v, out; mask, lse
         flops = 2 * 2 * BH * T * T * D                   # QK^T and PV, every tile
@@ -530,6 +719,71 @@ def phase_times(device, card: str, launches: dict, max_err: dict) -> list[dict]:
     log(f"[times] flash_attention bf16 at BERT-base from projection views: "
         f"{t[1]:.4f} / {t[2]:.4f} ms; the permute-and-call path it replaced: {t[0]:.4f} / "
         f"{t[3]:.4f} ms (device time, in turns) | {card}")
+    return rows + _bwd_times(device, card, launches, max_err)
+
+
+def _bwd_times(device, card: str, launches: dict, max_err: dict) -> list[dict]:
+    """The backward kernel at the BERT-base training shape and at T = 512,
+    B = 8 (benchmarks/attn_backends.py:27), in both dtypes, beside its bound,
+    its plain version and the backward of scaled_dot_product_attention with
+    the same mask (its device kernels named and summed from the profiler),
+    all in device time. The JSON rows are the BERT-base shape's."""
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = KERNEL_NAMES[dtype]
+        for i, (Bt, Tt) in enumerate(((B, T), (LONG_B, LONG_T))):
+            BH = Bt * H
+            scale = 1.0 / D ** 0.5
+            q, k, v = _inputs(BH, Tt, Tt, D, dtype, device, seed=7)
+            mask = _padding_mask(BH, Tt, device, seed=7)
+            out, lse = att.flash_attention_fwd(q, k, v, mask, False, scale)
+            g = torch.Generator(device=device).manual_seed(8)
+            dout = torch.randn(out.shape, generator=g, device=device).to(dtype)
+            args = (q, k, v, mask, out, lse, dout, False, scale)
+            leaves = [x.view(Bt, H, Tt, D).detach().requires_grad_() for x in (q, k, v)]
+            sdpa_out = F.scaled_dot_product_attention(*leaves,
+                                                      attn_mask=mask.view(Bt, H, 1, Tt).bool())
+            dout4 = dout.view(Bt, H, Tt, D)
+
+            def kernel():
+                return att.flash_attention_bwd(*args)
+
+            def sdpa_bwd():
+                return torch.autograd.grad(sdpa_out, leaves, dout4, retain_graph=True)
+
+            ms, sdpa_ms, ms2, sdpa_ms2 = (device_ms(f)
+                                          for f in (kernel, sdpa_bwd, kernel, sdpa_bwd))
+            plain_ms = device_ms(lambda: att.flash_attention_bwd_plain(*args), warmup=2, iters=10)
+            call_ms = cuda_ms(kernel)
+            sdpa_kernels = _device_kernels(sdpa_bwd)
+            library_ms = sum(ms for *_, ms in sdpa_kernels)
+            library_kernels = [key[:80] for key, *_ in sdpa_kernels]
+            elt = torch.finfo(dtype).bits // 8
+            # q, k, v, out, dout read and dq, dk, dv written; the mask and LSE
+            n_bytes = 8 * BH * Tt * D * elt + 2 * BH * Tt * 4
+            flops = 5 * 2 * BH * Tt * Tt * D  # S, dP, dV, dQ, dK: every tile
+            passes = MMA_PASSES[dtype]
+            t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+            t_ops = passes * flops / PEAK_FLOPS[dtype] * 1e3
+            bound_ms, bound_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+            log(f"[times] flash_bwd {tag} [B*H={BH}, T={Tt}, D={D}]: kernel {ms:.4f} / {ms2:.4f} "
+                f"ms (device time, two turns, its 3 kernels; one call with its host enqueue "
+                f"{call_ms:.4f} ms; {statistics.median([ms, ms2]) / bound_ms:.2f}x the bound), "
+                f"bound {bound_ms:.4f} ms ({bound_by}: {n_bytes / 1e6:.1f} MB = {t_bytes:.4f} ms; "
+                f"{passes} x {flops / 1e9:.2f} GFLOP at {PEAK_FLOPS[dtype] / 1e12:g} TFLOP/s = "
+                f"{t_ops:.4f} ms), plain {plain_ms:.4f} ms, scaled_dot_product_attention's "
+                f"backward {sdpa_ms:.4f} / {sdpa_ms2:.4f} ms in device time, its device kernels "
+                f"summed {library_ms:.4f} ms: {library_kernels} | {card}")
+            if i == 0:
+                rows.append({"name": f"flash_bwd_{tag}", "route": "cuda",
+                             "source": "synapseml_torch/csrc/flash_bwd.cu",
+                             "replaces": "synapseml_tpu/ops/attention.py:183",
+                             "launches": launches[f"bwd_{tag}"],
+                             "max_abs_err": max_err[f"bwd_{tag}"],
+                             "ms": statistics.median([ms, ms2]), "plain_ms": plain_ms,
+                             "bound_ms": bound_ms, "bound_by": bound_by,
+                             "library_ms": library_ms})
+            del leaves, sdpa_out
     return rows
 
 
@@ -541,6 +795,7 @@ FT_LR = 1e-4
 _POSITIVE = ("great", "good", "moving", "bright", "funny", "well", "fast")
 _NEGATIVE = ("bad", "awful", "boring", "dark", "slow", "sad", "badly")
 TINY_STEPS, TINY_TOL = 6, 1e-4  # bert-tiny f32, CPU against the card
+LONG_STEPS, LONG_WARMUP = 8, 2  # the long-T step: steps run, first steps left out
 
 
 def _labelled_texts(n: int, seed: int, n_words=(150, 300)) -> list[dict]:
@@ -561,11 +816,12 @@ def _labelled_texts(n: int, seed: int, n_words=(150, 300)) -> list[dict]:
 class _StepTimer:
     """Wraps Trainer.train_step for one fit: CUDA events around each step
     (the device time from the step's first kernel to its last, idle gaps
-    included), each step's loss tensor, and the last (trainer, state, batch)
+    included), each step's loss and gradient norm tensors, and the last
+    (trainer, state, batch)
     for the profile. Restores the method on exit."""
 
     def __init__(self):
-        self.events, self.losses, self.last = [], [], None
+        self.events, self.losses, self.grad_norms, self.last = [], [], [], None
 
     def __enter__(self):
         orig = self._orig = trainer_mod.Trainer.train_step
@@ -579,6 +835,7 @@ class _StepTimer:
             end.record()
             timer.events.append((start, end))
             timer.losses.append(metrics["loss"])
+            timer.grad_norms.append(metrics["grad_norm"])
             timer.last = (trainer, state, batch)
             return state, metrics
 
@@ -593,40 +850,49 @@ class _StepTimer:
         return [s.elapsed_time(e) for s, e in self.events]
 
 
-def phase_train_main(device, card: str) -> dict:
-    """DeepTextClassifier fine-tuning at full width and depth, then the fitted
-    model's scoring through the flash kernel."""
-    rows = _labelled_texts(FT_ROWS, seed=0)
-    df = DataFrame.from_rows(rows, num_partitions=2)
+def _zero_flash_counts() -> None:
+    att.flash_attention_fwd.launches = dict.fromkeys(att.flash_attention_fwd.launches, 0)
+    att.flash_attention_bwd.launches = dict.fromkeys(att.flash_attention_bwd.launches, 0)
+
+
+def _flash_counts() -> dict:
+    return {"fwd": dict(att.flash_attention_fwd.launches),
+            "bwd": dict(att.flash_attention_bwd.launches)}
+
+
+def _fine_tune(df, device, card: str, attn_impl: str) -> dict:
+    """One DeepTextClassifier fit at full width and depth with the given
+    attention, the flash launch counts set to 0 just before it and read just
+    after: every step's loss finite, every parameter moved; step times in
+    device time, samples/s, MFU and peak memory."""
     stage = DeepTextClassifier(checkpoint=FT_ARCH, num_classes=2, batch_size=FT_BATCH,
                                max_token_len=FT_LEN, max_steps=FT_STEPS, learning_rate=FT_LR,
-                               seed=0, device=str(device))
-    log(f"[train] {FT_ARCH} fine-tune: {FT_ROWS} texts ({np.mean([r['label'] for r in rows]):.3f} "
-        f"positive), batch {FT_BATCH} x {FT_LEN} tokens, {FT_STEPS} steps, lr {FT_LR} "
-        f"(linear warm-up {max(FT_STEPS // 10, 1)} steps, then linear decay), bf16 compute, "
-        f"einsum attention")
-    att.flash_attention_fwd.launches = dict.fromkeys(att.flash_attention_fwd.launches, 0)
+                               seed=0, attn_impl=attn_impl, device=str(device))
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     timer = _StepTimer()
+    _zero_flash_counts()
     t0 = time.perf_counter()
     with timer:
         model = stage.fit(df)
     fit_s = time.perf_counter() - t0
+    launches = _flash_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     steps = timer.step_ms()
     losses = torch.stack(timer.losses).float().cpu().numpy()
     if len(steps) != FT_STEPS or not np.isfinite(losses).all():
-        raise AssertionError(f"{len(steps)} steps, losses {losses.tolist()}: want {FT_STEPS} "
-                             "finite losses")
+        raise AssertionError(f"{attn_impl}: {len(steps)} steps, losses {losses.tolist()}: want "
+                             f"{FT_STEPS} finite losses")
     cfg = model.get("arch_config")
     init = text_stage._init_params(cfg, 2, 0)
     params = model.get("model_params")
     still = [k for k in params if np.array_equal(params[k], init[k])]
     moved = max(float(np.abs(params[k] - init[k]).max()) for k in params)
-    log(f"[train] per-step loss {np.round(losses, 4).tolist()} (all finite); parameters that "
-        f"did not move: {still or 'none'} (largest move {moved:.3e})")
+    log(f"[train] {attn_impl}: per-step loss {np.round(losses, 4).tolist()} (all finite); "
+        f"parameters that did not move: {still or 'none'} (largest move {moved:.3e}); flash "
+        f"launches over the fit {launches}")
     if still:
-        raise AssertionError(f"parameters did not move: {still}")
+        raise AssertionError(f"{attn_impl}: parameters did not move: {still}")
 
     step_ms = statistics.median(steps[FT_WARMUP:])
     n_params = sum(a.size for a in params.values())
@@ -634,66 +900,151 @@ def phase_train_main(device, card: str) -> dict:
     flops = 6 * n_params * tokens
     mfu = flops / (step_ms / 1e3) / 989e12
     (entry,) = model.get("train_metrics")
-    log(f"[train] fit {fit_s:.2f} s on the host clock (init, tokenization and {FT_STEPS} steps); "
-        f"median step {step_ms:.3f} ms in device time over steps {FT_WARMUP + 1}-{FT_STEPS} "
-        f"(min {min(steps[FT_WARMUP:]):.3f}, max {max(steps[FT_WARMUP:]):.3f}; first step "
-        f"{steps[0]:.3f}) = {FT_BATCH / step_ms * 1e3:.1f} samples/s; 6ND = {flops / 1e12:.3f} "
-        f"TFLOP a step ({n_params:,} params x {tokens} tokens) = MFU {mfu:.4f} of 989 TFLOP/s "
-        f"bf16 dense; peak device memory {peak_gib:.2f} GiB | {card}")
-    log(f"[train] train_metrics {json.dumps(entry)} (host clock over the whole fit, first steps "
-        f"included)")
+    log(f"[train] {attn_impl}: fit {fit_s:.2f} s on the host clock (init, tokenization and "
+        f"{FT_STEPS} steps); median step {step_ms:.3f} ms in device time over steps "
+        f"{FT_WARMUP + 1}-{FT_STEPS} (min {min(steps[FT_WARMUP:]):.3f}, max "
+        f"{max(steps[FT_WARMUP:]):.3f}; first step {steps[0]:.3f}) = "
+        f"{FT_BATCH / step_ms * 1e3:.1f} samples/s; 6ND = {flops / 1e12:.3f} TFLOP a step "
+        f"({n_params:,} params x {tokens} tokens) = MFU {mfu:.4f} of 989 TFLOP/s bf16 dense; "
+        f"peak device memory {peak_gib:.2f} GiB | {card}")
+    log(f"[train] {attn_impl}: train_metrics {json.dumps(entry)} (host clock over the whole "
+        f"fit, first steps included)")
     if "mfu" not in entry:
         raise AssertionError("train_metrics has no mfu: the card's peak is not in the table")
+    return {"stage": stage, "model": model, "timer": timer, "losses": losses,
+            "grad_norm1": float(timer.grad_norms[0]), "launches": launches,
+            "step_ms": step_ms, "samples_s": FT_BATCH / step_ms * 1e3, "mfu": mfu,
+            "peak_gib": peak_gib}
 
-    # the fitted model's scoring through the flash kernel, against einsum
+
+def _score_flash_vs_einsum(model, score_df, batches: int,
+                          tag: str) -> tuple[np.ndarray, dict]:
+    """The fitted model's scores through the flash kernel (12 forward
+    launches a batch, no backward), against einsum on the card; the scores
+    and the flash launches they took."""
+    _zero_flash_counts()
+    flash_scores = np.stack(list(model.copy({"attn_impl": "flash"}).transform(score_df)
+                                 .collect_column("scores")))
+    launches = _flash_counts()
+    n_layers = model.get("arch_config").n_layers
+    want = {"fwd": {"bf16": n_layers * batches, "f32": 0}, "bwd": {"bf16": 0, "f32": 0}}
+    log(f"[train] {tag} model, flash launches over one request of {batches} batches: "
+        f"{launches} (want {n_layers} forward per batch: {want})")
+    if launches != want:
+        raise AssertionError(f"{tag}: flash launched {launches} times, want {want}")
+    einsum_scores = np.stack(list(model.copy({"attn_impl": "einsum"}).transform(score_df)
+                                  .collect_column("scores")))
+    diff = float(np.abs(flash_scores - einsum_scores).max())
+    agree = float(np.mean(flash_scores.argmax(-1) == einsum_scores.argmax(-1)))
+    log(f"[train] {tag} model, flash vs einsum on the card: max|dprob| {diff:.3e} (tol "
+        f"3e-2), predictions agree on {agree:.4f} of rows (want >= 0.99); scores finite: "
+        f"{bool(np.isfinite(flash_scores).all())}")
+    if not (np.isfinite(flash_scores).all() and diff <= 3e-2 and agree >= 0.99):
+        raise AssertionError(f"{tag}: the fitted model's flash and einsum scores disagree")
+    return flash_scores, launches
+
+
+def _second_fit(run: dict, df, tag: str) -> None:
+    """A second fit from the same seed, compared bitwise (reported, not
+    required)."""
+    params = run["model"].get("model_params")
+    second = run["stage"].fit(df).get("model_params")
+    differ = [k for k in params if not np.array_equal(params[k], second[k])]
+    log(f"[train] {tag}: a second fit from the same seed on the card: bitwise equal: "
+        f"{not differ}" + (f"; {len(differ)} of {len(params)} parameters differ, largest "
+                           f"{max(float(np.abs(params[k] - second[k]).max()) for k in differ):.3e}"
+                           f", first {differ[:6]}" if differ else ""))
+
+
+# flash against einsum at step 1 (same init, same batch, bf16 compute): the
+# loss (forward only), and the global norm of the raw gradients, which only
+# a right backward keeps within a bf16 rounding of einsum's
+TOL_STEP1_LOSS, TOL_STEP1_GRAD_NORM = 1e-2, 1e-2
+
+
+def _check_step1(loss_fl, loss_ein, gn_fl, gn_ein, tag: str) -> None:
+    d_loss = abs(float(loss_fl) - float(loss_ein))
+    d_norm = abs(float(gn_fl) - float(gn_ein)) / float(gn_ein)
+    log(f"{tag} step 1 (same init, same batch, before any update): flash loss "
+        f"{float(loss_fl):.6f}, einsum {float(loss_ein):.6f}, |d| {d_loss:.3e} (tol "
+        f"{TOL_STEP1_LOSS:g}); gradient norm flash {float(gn_fl):.6f}, einsum "
+        f"{float(gn_ein):.6f}, |d| over einsum's {d_norm:.3e} (tol {TOL_STEP1_GRAD_NORM:g})")
+    if not (d_loss <= TOL_STEP1_LOSS and d_norm <= TOL_STEP1_GRAD_NORM):
+        raise AssertionError(f"{tag} the flash step 1 disagrees with einsum's")
+
+
+def phase_train_main(device, card: str) -> dict:
+    """DeepTextClassifier fine-tuning at full width and depth, with einsum
+    attention and then with attn_impl='flash' (the flash forward and
+    backward kernels) on the same data and seed; each fitted model's
+    scoring through the flash kernel."""
+    rows = _labelled_texts(FT_ROWS, seed=0)
+    df = DataFrame.from_rows(rows, num_partitions=2)
+    log(f"[train] {FT_ARCH} fine-tune: {FT_ROWS} texts ({np.mean([r['label'] for r in rows]):.3f} "
+        f"positive), batch {FT_BATCH} x {FT_LEN} tokens, {FT_STEPS} steps, lr {FT_LR} "
+        f"(linear warm-up {max(FT_STEPS // 10, 1)} steps, then linear decay), bf16 compute; "
+        f"einsum attention, then flash")
     score_df = DataFrame.from_rows([{"text": t} for t in _texts(N_TEXTS, N_PARTS, seed=1)],
                                    num_partitions=N_PARTS)
     bucketer = cb.default_bucketer()
     batches = sum(len(list(bucketer.slices(len(p["text"]), FT_BATCH)))
                   for p in score_df.partitions)
-    flash_model = model.copy({"attn_impl": "flash"})
-    flash_scores = np.stack(list(flash_model.transform(score_df).collect_column("scores")))
-    launches = dict(att.flash_attention_fwd.launches)
-    want = {"bf16": cfg.n_layers * batches, "f32": 0}
-    log(f"[train] fitted model, flash_fwd launches over the fit and one request of {batches} "
-        f"batches: {launches} (want 12 per batch: {want})")
-    if launches != want:
-        raise AssertionError(f"flash_fwd launched {launches} times, want {want}")
-    einsum_scores = np.stack(list(model.copy({"attn_impl": "einsum"}).transform(score_df)
-                                  .collect_column("scores")))
-    diff = float(np.abs(flash_scores - einsum_scores).max())
-    agree = float(np.mean(flash_scores.argmax(-1) == einsum_scores.argmax(-1)))
-    log(f"[train] fitted model, flash vs einsum on the card: max|dprob| {diff:.3e} (tol 3e-2), "
-        f"predictions agree on {agree:.4f} of rows (want >= 0.99); scores finite: "
-        f"{bool(np.isfinite(flash_scores).all())}")
-    if not (np.isfinite(flash_scores).all() and diff <= 3e-2 and agree >= 0.99):
-        raise AssertionError("the fitted model's flash and einsum scores disagree")
+    n_layers = bert_base().n_layers
+
+    ein = _fine_tune(df, device, card, "einsum")
+    none = {"fwd": {"bf16": 0, "f32": 0}, "bwd": {"bf16": 0, "f32": 0}}
+    if ein["launches"] != none:
+        raise AssertionError(f"the einsum fit launched the flash kernels: {ein['launches']}")
+    flash_scores, ein_scoring = _score_flash_vs_einsum(ein["model"], score_df, batches,
+                                                       "einsum-fitted")
 
     import tempfile
 
     with tempfile.TemporaryDirectory(dir=".") as tmp:
-        flash_model.save(f"{tmp}/m")
+        ein["model"].copy({"attn_impl": "flash"}).save(f"{tmp}/m")
         loaded = DeepTextModel.load(f"{tmp}/m")
         again = np.stack(list(loaded.transform(score_df).collect_column("scores")))
     same = np.array_equal(again, flash_scores)
     log(f"[train] save -> load round trip: scores bitwise equal: {same}")
     if not same:
         raise AssertionError("the loaded model scores differently")
+    del loaded  # its module holds the weights on the card
+    _second_fit(ein, df, "einsum")
+    _profile_train_step(*ein["timer"].last, card, ein["step_ms"], "einsum")
+    _host_step_parts(*ein["timer"].last, card, "einsum")
+    ein["timer"].last = None  # frees the einsum module before the flash fit's peak memory
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    second = stage.fit(df).get("model_params")
-    differ = [k for k in params if not np.array_equal(params[k], second[k])]
-    log(f"[train] a second fit from the same seed on the card: bitwise equal: {not differ}"
-        + (f"; {len(differ)} of {len(params)} parameters differ, largest "
-           f"{max(float(np.abs(params[k] - second[k]).max()) for k in differ):.3e}, first "
-           f"{differ[:6]}" if differ else ""))
+    fl = _fine_tune(df, device, card, "flash")
+    want = {"fwd": {"bf16": n_layers * FT_STEPS, "f32": 0},
+            "bwd": {"bf16": n_layers * FT_STEPS, "f32": 0}}
+    log(f"[train] flash: kernel launches over the fit {fl['launches']} (want {n_layers} forward "
+        f"and {n_layers} backward a step: {want})")
+    if fl["launches"] != want:
+        raise AssertionError(f"the flash fit launched {fl['launches']}, want {want}")
+    _check_step1(fl["losses"][0], ein["losses"][0], fl["grad_norm1"], ein["grad_norm1"],
+                 "[train]")
+    _, fl_scoring = _score_flash_vs_einsum(fl["model"], score_df, batches, "flash-fitted")
+    log(f"[train] flash vs einsum fine-tuning: median step {fl['step_ms']:.3f} vs "
+        f"{ein['step_ms']:.3f} ms, {fl['samples_s']:.1f} vs {ein['samples_s']:.1f} samples/s, "
+        f"MFU {fl['mfu']:.4f} vs {ein['mfu']:.4f}, peak device memory {fl['peak_gib']:.2f} vs "
+        f"{ein['peak_gib']:.2f} GiB | {card}")
+    _second_fit(fl, df, "flash")
+    _profile_train_step(*fl["timer"].last, card, fl["step_ms"], "flash")
+    _host_step_parts(*fl["timer"].last, card, "flash")
+    # flash launches on this path, as counted: the flash fit, and both
+    # fitted models' scoring
+    runs = (fl["launches"], ein_scoring, fl_scoring)
+    return {"launches": {k: sum(r["fwd"][k] for r in runs) for k in ("bf16", "f32")},
+            "bwd_launches": {k: sum(r["bwd"][k] for r in runs) for k in ("bf16", "f32")},
+            **{f"{k}_{tag}": r[k] for tag, r in (("einsum", ein), ("flash", fl))
+               for k in ("step_ms", "samples_s", "mfu", "peak_gib")}}
 
-    _profile_train_step(*timer.last, card, step_ms)
-    _host_step_parts(*timer.last, card)
-    return {"launches": launches, "step_ms": step_ms, "samples_s": FT_BATCH / step_ms * 1e3,
-            "mfu": mfu, "peak_gib": peak_gib}
 
-
-_TRAIN_GROUPS = (("matmul", ("nvjet", "gemm", "cutlass", "sm90_", "cublas")),  # lower case
+_TRAIN_GROUPS = (("flash_fwd kernel", ("flash_fwd",)),  # matched in lower case
+                 ("flash_bwd kernels", ("flash_bwd",)),
+                 ("matmul", ("nvjet", "gemm", "cutlass", "sm90_", "cublas")),
                  ("optimizer elementwise (foreach)", ("multi_tensor", "foreach")),
                  ("embedding backward", ("embedding", "segment", "krn_partial",
                                          "compute_grad_weight", "sum_and_scatter",
@@ -706,7 +1057,8 @@ _TRAIN_GROUPS = (("matmul", ("nvjet", "gemm", "cutlass", "sm90_", "cublas")),  #
                  ("other elementwise", ("elementwise", "vectorized")))
 
 
-def _profile_train_step(trainer, state, batch, card: str, step_ms: float, n=3) -> None:
+def _profile_train_step(trainer, state, batch, card: str, step_ms: float, tag: str,
+                        n=3) -> None:
     """Where the device time of one BERT-base optimizer step goes (forward,
     backward, optimizer), by kernel group, the share of its wall time the
     card is busy under the profiler, and the device time over the
@@ -732,7 +1084,7 @@ def _profile_train_step(trainer, state, batch, card: str, step_ms: float, n=3) -
     if not busy:
         log("[profile] the profiler recorded no device time")
         return
-    log(f"[profile] one optimizer step, BERT-base bf16, batch {FT_BATCH} x {FT_LEN}: "
+    log(f"[profile] one {tag} optimizer step, BERT-base bf16, batch {FT_BATCH} x {FT_LEN}: "
         f"{wall_ms:.3f} ms wall, {busy:.3f} ms of device kernels ({100 * busy / wall_ms:.1f}% "
         f"busy, {100 - 100 * busy / wall_ms:.1f}% idle under the profiler; "
         f"{100 * busy / step_ms:.1f}% of the unprofiled {step_ms:.3f} ms median step), "
@@ -744,14 +1096,14 @@ def _profile_train_step(trainer, state, batch, card: str, step_ms: float, n=3) -
                     "other")
         groups[name] += ms
     for name, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
-        log(f"[profile] step group {name}: {ms:.4f} ms/step ({100 * ms / busy:.1f}% of device "
-            f"time)")
+        log(f"[profile] {tag} step group {name}: {ms:.4f} ms/step ({100 * ms / busy:.1f}% of "
+            f"device time)")
     for ms, count, key in sorted(kernels, reverse=True)[:12]:
-        log(f"[profile] step {100 * ms / busy:5.1f}%  {ms:8.4f} ms/step  {count:4d}/step  "
+        log(f"[profile] {tag} step {100 * ms / busy:5.1f}%  {ms:8.4f} ms/step  {count:4d}/step  "
             f"{key[:200]}")
 
 
-def _host_step_parts(trainer, state, batch, card: str, n=3) -> None:
+def _host_step_parts(trainer, state, batch, card: str, tag: str, n=3) -> None:
     """The host's side of an optimizer step, no profiler and no sync inside:
     the time to enqueue the batch copy, the forward, the backward and the
     optimizer."""
@@ -773,14 +1125,17 @@ def _host_step_parts(trainer, state, batch, card: str, n=3) -> None:
         for k, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
             parts[k] += dt * 1e3 / n
     torch.cuda.synchronize()
-    log("[profile] host time of a step, no profiler: "
+    log(f"[profile] host time of a {tag} step, no profiler: "
         + ", ".join(f"{k} {v:.3f} ms" for k, v in parts.items())
         + f" (sum {sum(parts.values()):.3f} ms) | {card}")
 
 
-def phase_train_cpu_card(device) -> None:
+def phase_train_cpu_card(device) -> dict:
     """bert-tiny in f32 compute (TF32 off), the same init and batches on the
-    CPU and on the card: per-step losses within TINY_TOL."""
+    CPU and on the card, with einsum attention and with attn_impl='flash'
+    (on the card the f32 flash forward and backward kernels, on the CPU their
+    plain versions): per-step losses within TINY_TOL. Returns the flash
+    kernels' launches on the card's flash run."""
     from synapseml_torch.data import MemorySource
     from synapseml_torch.models.nets.bert import BertClassifier, bert_tiny
 
@@ -788,26 +1143,143 @@ def phase_train_cpu_card(device) -> None:
     rows = _labelled_texts(8 * TINY_STEPS, seed=2, n_words=(5, 60))
     data = {**tok([r["text"] for r in rows], max_len=64),
             "labels": np.array([r["label"] for r in rows], np.int32)}
-    cfg = bert_tiny(vocab_size=1024, dtype=torch.float32)
-    init = text_stage._init_params(cfg, 2, seed=3)
-    losses = {}
-    for dev in ("cpu", device):
-        trainer = trainer_mod.Trainer(
-            BertClassifier(cfg, 2),
-            trainer_mod.TrainerConfig(learning_rate=1e-3, total_steps=TINY_STEPS, warmup_steps=1,
-                                      lr_schedule="linear"), device=dev)
-        seen = []
-        trainer_mod.fit_source(trainer, MemorySource(data), batch_size=8, total_steps=TINY_STEPS,
-                               seed=0, init_params=init,
-                               callback=lambda i, m: seen.append(float(m["loss"])))
-        losses[str(dev)] = np.array(seen)
-    cpu, card = losses["cpu"], losses[str(device)]
-    err = float(np.abs(cpu - card).max())
-    log(f"[train] bert-tiny f32, {TINY_STEPS} steps from one init: CPU losses "
-        f"{np.round(cpu, 6).tolist()}, card {np.round(card, 6).tolist()}, max|d| {err:.3e} "
-        f"(tol {TINY_TOL:g})")
-    if not (len(cpu) == len(card) == TINY_STEPS and err <= TINY_TOL):
-        raise AssertionError("the card's bert-tiny losses disagree with the CPU's")
+    launches = None
+    for attn_impl in ("einsum", "flash"):
+        cfg = bert_tiny(vocab_size=1024, dtype=torch.float32, attn_impl=attn_impl)
+        init = text_stage._init_params(cfg, 2, seed=3)
+        losses = {}
+        for dev in ("cpu", device):
+            trainer = trainer_mod.Trainer(
+                BertClassifier(cfg, 2),
+                trainer_mod.TrainerConfig(learning_rate=1e-3, total_steps=TINY_STEPS,
+                                          warmup_steps=1, lr_schedule="linear"), device=dev)
+            seen = []
+            _zero_flash_counts()
+            trainer_mod.fit_source(trainer, MemorySource(data), batch_size=8,
+                                   total_steps=TINY_STEPS, seed=0, init_params=init,
+                                   callback=lambda i, m: seen.append(float(m["loss"])))
+            losses[str(dev)] = np.array(seen)
+            launches = _flash_counts()
+        cpu, card = losses["cpu"], losses[str(device)]
+        err = float(np.abs(cpu - card).max())
+        log(f"[train] bert-tiny f32 {attn_impl}, {TINY_STEPS} steps from one init: CPU losses "
+            f"{np.round(cpu, 6).tolist()}, card {np.round(card, 6).tolist()}, max|d| {err:.3e} "
+            f"(tol {TINY_TOL:g}); flash launches on the card {launches}")
+        if not (len(cpu) == len(card) == TINY_STEPS and err <= TINY_TOL):
+            raise AssertionError(f"the card's bert-tiny {attn_impl} losses disagree with the "
+                                 "CPU's")
+    want = {"fwd": {"bf16": 0, "f32": cfg.n_layers * TINY_STEPS},
+            "bwd": {"bf16": 0, "f32": cfg.n_layers * TINY_STEPS}}
+    if launches != want:
+        raise AssertionError(f"bert-tiny flash on the card launched {launches}, want {want}")
+    return launches
+
+
+def phase_train_long(device, card: str) -> dict:
+    """The long-T training shape of benchmarks/attn_backends.py:27: BERT-base,
+    batch 8 x 512 tokens of random ids with a full mask, a Trainer at lr
+    5e-5, LONG_STEPS steps on one batch with einsum and then with flash from
+    the same init: the median step in device time and the peak memory of
+    each; step 1's loss and gradient norm as in main path 3, and before it,
+    each layer's gradient at the init (one forward and backward outside the
+    timed steps) within TOL_INIT_GRAD of einsum's."""
+    from synapseml_torch.models.nets.bert import BertClassifier
+
+    cfg0 = bert_base()
+    rng = np.random.default_rng(0)
+    batch = {"input_ids": rng.integers(0, cfg0.vocab_size, (LONG_B, LONG_T)).astype(np.int32),
+             "attention_mask": np.ones((LONG_B, LONG_T), np.int32),
+             "labels": rng.integers(0, 2, (LONG_B,)).astype(np.int32)}
+    init = text_stage._init_params(cfg0, 2, 0)
+    out, grads0 = {}, {}
+    for attn_impl in ("einsum", "flash"):
+        cfg = dataclasses.replace(cfg0, attn_impl=attn_impl)
+        with torch.device("meta"):
+            module = BertClassifier(cfg, 2)
+        trainer = trainer_mod.Trainer(module.to_empty(device="cpu"),
+                                      trainer_mod.TrainerConfig(learning_rate=5e-5,
+                                                                total_steps=1000),
+                                      device=device)
+        state = trainer.init_state(init_params=init)
+        loss0, _ = trainer.default_loss(trainer._to_device(batch))
+        loss0.backward()
+        grads0[attn_impl] = {name: p.grad.float().cpu() for name, p in state.params.items()
+                             if p.grad is not None}
+        for p in state.params.values():
+            p.grad = None
+        del loss0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_flash_counts()
+        events, losses, grad_norms = [], [], []
+        for _ in range(LONG_STEPS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, metrics = trainer.train_step(state, batch)
+            end.record()
+            events.append((start, end))
+            losses.append(metrics["loss"])
+            grad_norms.append(metrics["grad_norm"])
+        torch.cuda.synchronize()
+        launches = _flash_counts()
+        steps = [s.elapsed_time(e) for s, e in events]
+        losses = torch.stack(losses).float().cpu().numpy()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        n = cfg.n_layers * LONG_STEPS
+        want = ({"fwd": {"bf16": n, "f32": 0}, "bwd": {"bf16": n, "f32": 0}}
+                if attn_impl == "flash" else
+                {"fwd": {"bf16": 0, "f32": 0}, "bwd": {"bf16": 0, "f32": 0}})
+        step_ms = statistics.median(steps[LONG_WARMUP:])
+        log(f"[long] {attn_impl}, BERT-base batch {LONG_B} x {LONG_T}: median step "
+            f"{step_ms:.3f} ms in device time over steps {LONG_WARMUP + 1}-{LONG_STEPS} (first "
+            f"{steps[0]:.3f}), {LONG_B * LONG_T / step_ms * 1e3:,.0f} tokens/s, peak device "
+            f"memory {peak:.2f} GiB; losses {np.round(losses, 4).tolist()}; flash launches "
+            f"{launches} (want {want}) | {card}")
+        if not (np.isfinite(losses).all() and launches == want):
+            raise AssertionError(f"the long-T {attn_impl} steps failed")
+        out[attn_impl] = {"step_ms": step_ms, "peak_gib": peak, "loss1": float(losses[0]),
+                          "grad_norm1": float(grad_norms[0]), "launches": launches}
+        del trainer, state
+        gc.collect()
+        torch.cuda.empty_cache()
+    ein, fl = grads0["einsum"], grads0["flash"]
+    # held by layer, not by parameter: at the init the deep layers' query and
+    # key gradients are orders of magnitude below their value weights'
+    # (near-uniform attention over near-equal hidden states), and there
+    # delta's rounding (from O in bf16, as in the JAX backward) leaves a
+    # rank-1 term of their size in flash's
+    groups: dict[str, list[str]] = {}
+    for name in ein:
+        group = re.match(r"encoder\.layers\.\d+|[^.]+", name).group(0)
+        groups.setdefault(group, []).append(name)
+
+    def rel(names):
+        return (sum(float((fl[n] - ein[n]).norm()) ** 2 for n in names)
+                / sum(float(ein[n].norm()) ** 2 for n in names)) ** 0.5
+
+    by_group = {g: rel(names) for g, names in groups.items()}
+    worst = max(by_group, key=by_group.get)
+    qk = {n: rel([n]) for n in ein if re.search(r"attn[.][qk][.]weight", n)}
+    qk_worst = max(qk, key=qk.get)
+    diff = (fl[qk_worst] - ein[qk_worst]).double()
+    v_name = re.sub(r"attn[.][qk][.]", "attn.v.", qk_worst)
+    log(f"[long] gradients at the init, flash vs einsum, |g_flash - g_einsum| over "
+        f"|g_einsum|: all {rel(list(ein)):.3e}; by layer, the worst {by_group[worst]:.3e} "
+        f"({worst}; tol {TOL_INIT_GRAD:g}), "
+        + ", ".join(f"{g} {v:.2e}" for g, v in by_group.items())
+        + f"; query and key weights alone (not held) from {min(qk.values()):.2e} to "
+        f"{qk[qk_worst]:.2e} ({qk_worst}: |g_einsum| {float(ein[qk_worst].norm()):.3e}, its "
+        f"layer's value weight's {float(ein[v_name].norm()):.3e}; the difference's largest "
+        f"singular value over its Frobenius norm "
+        f"{float(torch.linalg.matrix_norm(diff, ord=2) / diff.norm()):.3f}, 1 = rank 1)")
+    if not (fl.keys() == ein.keys() and by_group[worst] <= TOL_INIT_GRAD):
+        raise AssertionError("the long-T flash gradients at the init disagree with einsum's")
+    _check_step1(out["flash"]["loss1"], out["einsum"]["loss1"], out["flash"]["grad_norm1"],
+                 out["einsum"]["grad_norm1"], "[long]")
+    log(f"[long] flash vs einsum step {out['flash']['step_ms']:.3f} vs "
+        f"{out['einsum']['step_ms']:.3f} ms, peak {out['flash']['peak_gib']:.2f} vs "
+        f"{out['einsum']['peak_gib']:.2f} GiB | {card}")
+    return out
 
 
 # ---------------- GBDT: LightGBM training and scoring ----------------
@@ -929,10 +1401,10 @@ def phase_gbdt_kernels(device) -> dict:
             _hist_case(hist, "width 32, feature 3 in one bin",
                        (skew, grad, hess, presence, node, 31, 32, nb))
             ops = _device_kernels(lambda: hist.fixed_point_histogram(*args, *tree))
-            n_ops = sum(c for _, c in ops)
+            n_ops = sum(c for _, c, _ in ops)
             log(f"[kernel] one level launch with the tree's scale and scratch: {n_ops} device "
-                f"operation(s) {[key[:60] for key, _ in ops]} (want at most 2)")
-            if not (1 <= n_ops <= 2 and any("gbdt_hist_kernel" in k for k, _ in ops)):
+                f"operation(s) {[key[:60] for key, *_ in ops]} (want at most 2)")
+            if not (1 <= n_ops <= 2 and any("gbdt_hist_kernel" in k for k, *_ in ops)):
                 raise AssertionError("a level launch ran more than two device operations")
     log("[kernel] fixed_point_scales equal to its plain version in every case")
 
@@ -1212,10 +1684,19 @@ def main() -> None:
     main_path = phase_main_path(device, card)
     gbdt = phase_gbdt_main(device, card)
     train = phase_train_main(device, card)
-    phase_train_cpu_card(device)
-    # the flash kernel's launches on the main paths: scoring (path 1) and the
-    # fitted model's scoring (path 3)
-    launches = {k: v + train["launches"][k] for k, v in main_path["launches"].items()}
+    tiny = phase_train_cpu_card(device)
+    long_t = phase_train_long(device, card)
+    # the flash kernels' launches on the paths, each counted from 0 just
+    # before it ran: scoring (path 1), fine-tuning through flash and both
+    # fitted models' scoring (path 3), bert-tiny f32 through flash on the
+    # card, and the long-T flash steps
+    paths = (train, {"launches": tiny["fwd"], "bwd_launches": tiny["bwd"]},
+             {"launches": long_t["flash"]["launches"]["fwd"],
+              "bwd_launches": long_t["flash"]["launches"]["bwd"]})
+    launches = {k: v + sum(p["launches"][k] for p in paths)
+                for k, v in main_path["launches"].items()}
+    launches.update({f"bwd_{k}": sum(p["bwd_launches"][k] for p in paths)
+                     for k in ("bf16", "f32")})
     kernels = phase_times(device, card, launches, max_err)
     kernels += phase_gbdt_times(device, card, {"gbdt_hist": gbdt["launches"],
                                                "gbdt_hist_scale": gbdt["scale_launches"]},

@@ -80,22 +80,11 @@
 //     and 2 of 64 x (D+4) f32: 88 KB at D = 64, 2 blocks an SM.
 //   * The output is staged through the warp's own rows of the Q tile.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int BLOCK_M = 64;   // query rows per block
-constexpr int BLOCK_N = 64;   // kv rows per tile
-constexpr int THREADS = 128;
-constexpr float NEG_INF = -1e30f;
-constexpr float MASK_GATE = -5e29f;  // NEG_INF * 0.5, the TPU kernel's gate
-constexpr unsigned FULL = 0xffffffffu;
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float LN2 = 0.6931471805599453f;
-
-using bf16 = __nv_bfloat16;
+using namespace flash;  // constants and helpers shared with flash_bwd.cu
 
 struct Params {
   const void* q;
@@ -112,8 +101,6 @@ struct Params {
   float scale;
 };
 
-__host__ __device__ __forceinline__ int n_q_tiles(int tq) { return (tq + BLOCK_M - 1) / BLOCK_M; }
-
 __device__ __forceinline__ int n_kv_tiles(const Params& p, int q0) {
   int n = (p.tk + BLOCK_N - 1) / BLOCK_N;
   if (p.causal) {
@@ -122,51 +109,6 @@ __device__ __forceinline__ int n_kv_tiles(const Params& p, int q0) {
     n = min(n, (q0 + BLOCK_M - 1) / BLOCK_N + 1);
   }
   return n;
-}
-
-// ------------------------------------------------------------- shared ----
-// Shared memory is addressed with 32-bit shared-window addresses: a thread
-// computes its own base once, and every tile offset is a compile-time
-// immediate of the instruction.
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; with !pred nothing is read and zeros land
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(pred ? 16 : 0) : "memory");
-}
-
-// 4 bytes global -> shared, zero-filled when !pred
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool pred) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(dst), "l"(src), "r"(pred ? 4 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-// 64 rows of a [T, D] slice (token stride `st`) into a tile of padded rows
-// of ROW bytes, 16 bytes a thread, RS rows a pass of the block. This thread
-// loads one chunk of rows first_row + i*RS: `dst` and `src` are its chunk
-// of the first. Rows at or past `limit` are zero-filled (read from `any`, a
-// valid address, with size 0).
-template <int RS, int ROW, typename T>
-__device__ __forceinline__ void load_tile(uint32_t dst, const T* src, int64_t st,
-                                          int first_row, int limit, const T* any) {
-#pragma unroll
-  for (int i = 0; i < BLOCK_M / RS; ++i) {
-    const bool ok = first_row + i * RS < limit;
-    cp_async16(dst + i * RS * ROW, ok ? src + i * RS * st : any, ok);
-  }
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -249,32 +191,7 @@ __device__ __forceinline__ void write_lse(const Params& p, int bh, int t, float 
 }
 
 // ---------------------------------------------------------------- bf16 ----
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
-// c += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two f32 rounded to nearest even, `lo` in the low half (the lower column)
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+// (ldmatrix, mma_bf16 and pack_bf16 are in flash_common.cuh)
 
 template <int D>
 struct MmaTile {
@@ -302,7 +219,7 @@ flash_fwd_mma_kernel(const Params p) {
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;  // row in the 8-row group, column pair
-  const int n_bh = gridDim.x / n_q_tiles(p.tq);
+  const int n_bh = gridDim.x / n_tiles(p.tq);
   const int bh = blockIdx.x % n_bh;
   const int b = bh / p.H, h = bh % p.H;
   const int q0 = blockIdx.x / n_bh * BLOCK_M;
@@ -491,7 +408,7 @@ flash_fwd_tf32_kernel(const Params p) {
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;  // row in the 8-row group, column pair
-  const int n_bh = gridDim.x / n_q_tiles(p.tq);
+  const int n_bh = gridDim.x / n_tiles(p.tq);
   const int bh = blockIdx.x % n_bh;
   const int b = bh / p.H, h = bh % p.H;
   const int q0 = blockIdx.x / n_bh * BLOCK_M;
@@ -629,7 +546,7 @@ int launch(Kernel kernel, size_t smem, const Params& p, int bh, cudaStream_t str
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int64_t blocks = static_cast<int64_t>(bh) * n_q_tiles(p.tq);  // query tile major
+  const int64_t blocks = static_cast<int64_t>(bh) * n_tiles(p.tq);  // query tile major
   if (blocks > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
   kernel<<<static_cast<unsigned>(blocks), THREADS, smem, stream>>>(p);
   return (int)cudaGetLastError();

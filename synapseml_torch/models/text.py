@@ -11,8 +11,9 @@ all but the last N encoder layers and the head) and returns a
 ``train_metrics``. The initial weights come from ``_init_params``: the JAX
 package's initialisers drawn with numpy from ``seed``
 (:func:`..convert_jax.init_flax_bert_params`), the same distribution, not
-the same bits, as ``jax.random.PRNGKey(seed)``. Training attention is the
-einsum path; the flash kernel has no backward yet.
+the same bits, as ``jax.random.PRNGKey(seed)``. Training runs either
+attention: ``attn_impl='flash'`` goes through the flash forward and
+backward kernels.
 
 ``DeepTextModel`` keeps the JAX stage's per-partition loop (tokenize,
 ``ShapeBucketer.slices``, ``pad_rows``, forward, softmax, ``unpad_rows``),
@@ -26,8 +27,7 @@ device must ask for ``"cpu"``). ``model_params`` is this package's
 maps a JAX model's Flax tree to it. Not ported yet, each refused with
 ``NotImplementedError`` naming its ``ROADMAP.md`` item: training
 checkpoints (``checkpoint_dir``), ``mesh_config``, ``ring``/``ulysses``
-attention, ``attn_impl='flash'`` in training, and a local HuggingFace
-checkpoint directory.
+attention, and a local HuggingFace checkpoint directory.
 """
 
 from __future__ import annotations
@@ -132,8 +132,8 @@ class DeepTextClassifier(Estimator, _TextParams):
                             "checkpoints", default=3,
                             converter=TypeConverters.to_int)
     attn_impl = Param("attn_impl", "attention backend: einsum | flash | ring "
-                      "| ulysses (None = architecture default); training runs "
-                      "einsum only until the flash backward is ported", default=None,
+                      "| ulysses (None = architecture default); ring and "
+                      "ulysses are not ported yet", default=None,
                       validator=lambda v: v in (None, "einsum", "flash",
                                                 "ring", "ulysses"))
     tokenizer = ComplexParam("tokenizer", "tokenizer object/config/name", default=None)
@@ -172,9 +172,6 @@ class DeepTextClassifier(Estimator, _TextParams):
             raise _unported("mesh_config", "9 (multi-GPU)")
         if self.get("attn_impl") in ("ring", "ulysses"):
             raise _unported(f"attn_impl={self.get('attn_impl')!r}", "9 (multi-GPU)")
-        if self.get("attn_impl") == "flash":
-            raise _unported("attn_impl='flash' in training (the flash kernel has no "
-                            "backward; the parameters require grad)", "1c (flash backward)")
 
     def _fit(self, df: DataFrame) -> "DeepTextModel":
         self._refuse_unported()

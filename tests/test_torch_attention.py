@@ -113,13 +113,20 @@ def test_causal_needs_equal_lengths():
 
 
 def test_cpu_path_counts_no_kernel_launch_and_refuses_grad():
+    """The CPU path launches no kernel, forward or backward. It no longer
+    refuses inputs that require grad: it differentiates them, through the
+    backward kernel's plain version (tests/test_torch_flash_bwd.py holds the
+    gradients to the JAX package's)."""
     q, k, v, _ = make_qkv(T=8)
     before = dict(tatt.flash_attention_fwd.launches)
+    before_bwd = dict(tatt.flash_attention_bwd.launches)
     tatt.flash_attention(*_t(q, k, v))
     assert tatt.flash_attention_fwd.launches == before
     qg = torch.from_numpy(q).requires_grad_()
-    with pytest.raises(NotImplementedError, match="forward-only"):
-        tatt.flash_attention(qg, *_t(k, v))
+    tatt.flash_attention(qg, *_t(k, v)).sum().backward()
+    assert qg.grad is not None and bool(torch.isfinite(qg.grad).all())
+    assert tatt.flash_attention_fwd.launches == before
+    assert tatt.flash_attention_bwd.launches == before_bwd
 
 
 def _projection_views(B=2, T=50, H=3, D=32, dtype=torch.float32, seed=0):
@@ -154,7 +161,7 @@ def test_kernel_argument_checks(bad, err, match):
     elif bad == "mask_shape":
         mask = torch.ones(4, 16, dtype=torch.int32)
     with pytest.raises(err, match=match):
-        tatt._kernel_args(q, k, k, mask, torch.empty_like(k))
+        tatt._kernel_args(q, k, k, mask, torch.empty_like(k), fn="flash_attention_fwd")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -165,25 +172,25 @@ def test_kernel_args_dims_and_strides(dtype):
     q, k, v = _projection_views(B, T, H, D, dtype)
     out = torch.empty((B, T, H, D), dtype=dtype)
     mask = torch.ones(B, T, dtype=torch.int32)
-    args = tatt._kernel_args(q, k, v, mask, out)
+    args = tatt._kernel_args(q, k, v, mask, out, fn="flash_attention_fwd")
     view = (T * 3 * H * D, 3 * H * D, D)
     assert args == (B, H, T, T, D, *view, *view, *view, T * H * D, H * D, D)
     # [BH, T, D] as [B=BH, T, 1, D]: a size-1 head dim passes stride 0
     flat = torch.zeros(6, T, D, dtype=dtype)
     args = tatt._kernel_args(*(flat.unsqueeze(2),) * 3, torch.ones(6, T, dtype=torch.int32),
-                             torch.empty_like(flat).unsqueeze(2))
+                             torch.empty_like(flat).unsqueeze(2), fn="flash_attention_fwd")
     assert args == (6, 1, T, T, D) + (T * D, D, 0) * 4
     # one element off the 16-byte grid
     shifted = torch.zeros(B * T * H * D + 1, dtype=dtype)[1:].view(B, T, H, D)
     with pytest.raises(ValueError, match="16-byte aligned"):
-        tatt._kernel_args(shifted, k, v, mask, out)
+        tatt._kernel_args(shifted, k, v, mask, out, fn="flash_attention_fwd")
     # a token stride that is not a multiple of 16 bytes
     odd = torch.zeros(B, T, H * D + 2, dtype=dtype)[..., :H * D].unflatten(-1, (H, D))
     with pytest.raises(ValueError, match="16-byte aligned"):
-        tatt._kernel_args(q, odd, v, mask, out)
+        tatt._kernel_args(q, odd, v, mask, out, fn="flash_attention_fwd")
     d_strided = torch.zeros(B, T, D, H, dtype=dtype).transpose(2, 3)
     with pytest.raises(ValueError, match="innermost"):
-        tatt._kernel_args(q, k, d_strided, mask, out)
+        tatt._kernel_args(q, k, d_strided, mask, out, fn="flash_attention_fwd")
 
 
 @pytest.mark.parametrize("causal", [False, True])

@@ -1,0 +1,287 @@
+"""The flash-attention backward of synapseml_torch against synapseml_tpu's.
+
+The same numpy inputs go through ``jax.grad`` of the JAX package's
+``flash_attention`` (the Pallas forward in interpret mode on the CPU, as
+tests/test_ops.py runs it, and its XLA backward ``_flash_core_bwd``) and
+through the port: autograd through ``flash_attention``, whose CPU tensors
+take the backward kernel's plain version ``flash_attention_bwd_plain``, and
+that plain version called directly. Tolerances are those of
+tests/test_ops.py:30-68: f32 atol 5e-5 (the two sum in different orders);
+bf16 against the f32 oracle atol 0.15, rtol 0.05. Fully masked rows and
+padded keys get exactly zero gradient, and a CPU call launches no kernel.
+"""
+
+import importlib.util
+import os
+import pathlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from synapseml_torch.ops import _build
+from synapseml_torch.ops import attention as tatt
+from synapseml_tpu.ops import attention as jatt
+
+
+def make_qkv(B=2, T=64, H=4, D=32, seed=0):
+    rs = np.random.default_rng(seed)
+    q, k, v = (rs.normal(size=(B, T, H, D)).astype(np.float32) for _ in range(3))
+    mask = rs.random((B, T)) > 0.2
+    return q, k, v, mask
+
+
+def jax_grads(q, k, v, mask, causal, fn=None):
+    """``jax.grad`` of ``sum(out ** 2)`` through the JAX flash_attention
+    (16-row blocks, as tests/test_ops.py), or through ``fn``."""
+    fn = fn or (lambda *a, **kw: jatt.flash_attention(*a, block_q=16, block_k=16, **kw))
+    jmask = None if mask is None else jnp.asarray(mask)
+
+    def loss(q, k, v):
+        return jnp.sum(fn(q, k, v, kv_mask=jmask, causal=causal).astype(jnp.float32) ** 2)
+
+    return [np.asarray(g, dtype=np.float32)
+            for g in jax.grad(loss, argnums=(0, 1, 2))(*(jnp.asarray(x) for x in (q, k, v)))]
+
+
+def port_grads(q, k, v, mask, causal, dtype=torch.float32, fn=None):
+    """Autograd of ``sum(out ** 2)`` through the port's flash_attention."""
+    fn = fn or tatt.flash_attention
+    leaves = [torch.from_numpy(x).to(dtype).requires_grad_() for x in (q, k, v)]
+    out = fn(*leaves, None if mask is None else torch.from_numpy(mask), causal=causal)
+    (out.float() ** 2).sum().backward()
+    return [x.grad for x in leaves]
+
+
+def _bh(x):
+    """[B, T, H, D] numpy -> a [B*H, T, D] tensor."""
+    B, T, H, D = x.shape
+    return torch.from_numpy(np.ascontiguousarray(x.transpose(0, 2, 1, 3).reshape(B * H, T, D)))
+
+
+def _bthd(x, B, H):
+    BH, T, D = x.shape
+    return x.reshape(B, H, T, D).permute(0, 2, 1, 3).numpy()
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("with_mask", [False, True])
+def test_autograd_matches_jax_grad(causal, with_mask):
+    q, k, v, mask = make_qkv()
+    mask = mask if with_mask else None
+    want = jax_grads(q, k, v, mask, causal)
+    got = port_grads(q, k, v, mask, causal)
+    for name, g, w in zip("qkv", got, want):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), w, atol=5e-5, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_plain_version_matches_jax_grad(causal):
+    """``flash_attention_bwd_plain`` on [B*H, T, D] with the forward's out
+    and LSE and dout = 2 * out (the gradient of sum(out ** 2))."""
+    B, T, H, D = 2, 64, 4, 32
+    q, k, v, mask = make_qkv(B, T, H, D, seed=1)
+    want = jax_grads(q, k, v, mask, causal)
+    bmask = torch.from_numpy(np.repeat(mask, H, axis=0).astype(np.int32))
+    qb, kb, vb = _bh(q), _bh(k), _bh(v)
+    scale = 1.0 / np.sqrt(D)
+    out, lse = tatt.flash_attention_fwd_plain(qb, kb, vb, bmask, causal, scale)
+    got = tatt.flash_attention_bwd_plain(qb, kb, vb, bmask, out, lse, 2 * out, causal, scale)
+    for name, g, w in zip("qkv", got, want):
+        np.testing.assert_allclose(_bthd(g, B, H), w, atol=5e-5, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("T,D,causal", [(50, 32, True), (50, 32, False), (50, 40, True),
+                                        (130, 24, False)])
+def test_unaligned_shapes_match_jax_grad(T, D, causal):
+    """T not a multiple of the 64-row tile, D = 40 and 24 zero-padded to the
+    kernel's 64 and 32 (the pad stays differentiable), B*H > 1."""
+    q, k, v, mask = make_qkv(B=2, T=T, H=3, D=D, seed=2)
+    want = jax_grads(q, k, v, mask, causal)
+    got = port_grads(q, k, v, mask, causal)
+    for name, g, w in zip("qkv", got, want):
+        assert g.shape == (2, T, 3, D)
+        np.testing.assert_allclose(g.numpy(), w, atol=5e-5, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_autograd_matches_reference_attention(causal):
+    """Against autograd through the port's own reference_attention (f32),
+    with no fully masked row (where the two paths differ by design)."""
+    q, k, v, mask = make_qkv(T=40, seed=3)
+    mask[:, 0] = True
+    want = port_grads(q, k, v, mask, causal, fn=tatt.reference_attention)
+    got = port_grads(q, k, v, mask, causal)
+    for name, g, w in zip("qkv", got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=5e-5, err_msg=f"d{name}")
+
+
+def test_bf16_grads_match_f32_oracle():
+    """bf16 q, k, v through the port against jax.grad of the f32 reference,
+    as tests/test_ops.py::test_flash_bf16_matches_f32_reference holds the
+    JAX package's bf16 flash gradients."""
+    q, k, v, mask = make_qkv(T=16, seed=4)
+    want = jax_grads(q, k, v, mask, True, fn=jatt.reference_attention)
+    got = port_grads(q, k, v, mask, True, dtype=torch.bfloat16)
+    for name, g, w in zip("qkv", got, want):
+        assert g.dtype == torch.bfloat16
+        np.testing.assert_allclose(g.float().numpy(), w, atol=0.15, rtol=0.05,
+                                   err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_masked_rows_and_padded_keys_get_exactly_zero(dtype):
+    """Batch row 0 has every key masked (every query row fully masked);
+    batch row 1 masks its first 10 keys and, causal, its first 10 query
+    rows see no key. Their dq, and dk and dv at masked keys, are exactly 0;
+    the output there is 0 too."""
+    q, k, v, _ = make_qkv(B=2, T=70, H=2, D=32, seed=5)
+    mask = np.ones((2, 70), bool)
+    mask[0] = False
+    mask[1, :10] = False
+    mask[1, 60:] = False
+    leaves = [torch.from_numpy(x).to(dtype).requires_grad_() for x in (q, k, v)]
+    out = tatt.flash_attention(*leaves, torch.from_numpy(mask), causal=True)
+    dout = torch.from_numpy(np.random.default_rng(5).normal(size=out.shape).astype(np.float32))
+    out.backward(dout.to(dtype))
+    dq, dk, dv = (x.grad for x in leaves)
+    out = out.detach()
+    assert float(out[0].abs().max()) == 0.0 and float(out[1, :10].abs().max()) == 0.0
+    assert float(dq[0].abs().max()) == 0.0 and float(dq[1, :10].abs().max()) == 0.0
+    for g in (dk, dv):
+        assert float(g[0].abs().max()) == 0.0
+        assert float(g[1, :10].abs().max()) == 0.0 and float(g[1, 60:].abs().max()) == 0.0
+    assert float(dq[1, 10:].abs().max()) > 0 and float(dv[1, 10:60].abs().max()) > 0
+
+
+def test_strided_projection_views_differentiate():
+    """q, k, v as [B, T, H, D] views of one projection: the gradient reaches
+    the projection, equal to the one through contiguous copies."""
+    rs = np.random.default_rng(6)
+    B, T, H, D = 2, 50, 3, 32
+    proj = torch.from_numpy(rs.normal(size=(B, T, 3 * H * D)).astype(np.float32))
+    mask = torch.from_numpy(rs.random((B, T)) > 0.25)
+    dout = torch.from_numpy(rs.normal(size=(B, T, H, D)).astype(np.float32))
+    grads = []
+    for copy in (False, True):
+        p = proj.clone().requires_grad_()
+        q, k, v = (x.unflatten(-1, (H, D)) for x in p.split(H * D, dim=-1))
+        if copy:
+            q, k, v = (x.contiguous() for x in (q, k, v))
+        else:
+            assert not q.is_contiguous()
+        tatt.flash_attention(q, k, v, mask).backward(dout)
+        grads.append(p.grad)
+    assert torch.equal(grads[0], grads[1]) and float(grads[0].abs().max()) > 0
+
+
+def _chip_smoke():
+    """chip_smoke.py at the repo root, imported as a module (its checks run
+    only from main())."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chip_check_bwd_limit_passes_reordering_and_fails_planted_faults(dtype, monkeypatch):
+    """The chip check holds the backward kernel to its plain version with
+    ``_bwd_err`` under ``TOL_BWD``. At a BERT-base head (T = 128, D = 64) with
+    padding lengths down to 1 and fully masked rows, the limit must pass the
+    plain version blocked at 32 instead of 64 (the same function summed in
+    another order, as the kernel sums it), with room to spare, and must fail
+    a plain version that drops delta or whose dq, dk or dv is 5 % off."""
+    cs = _chip_smoke()
+    tol = cs.TOL_BWD[dtype]
+    BH, T, D = 48, 128, 64
+    g = torch.Generator().manual_seed(7)
+    q, k, v, dout = (torch.randn(BH, T, D, generator=g).to(dtype) for _ in range(4))
+    mask = cs._padding_mask(BH, T, "cpu", seed=7, empty_rows=4)
+    scale = 1.0 / D ** 0.5
+    out, lse = tatt.flash_attention_fwd_plain(q, k, v, mask, False, scale)
+    want = tatt.flash_attention_bwd_plain(q, k, v, mask, out, lse, dout, False, scale)
+    monkeypatch.setattr(tatt, "BLOCK", 32)
+    reordered = tatt.flash_attention_bwd_plain(q, k, v, mask, out, lse, dout, False, scale)
+    monkeypatch.undo()
+    assert not all(torch.equal(a, b) for a, b in zip(reordered, want))
+    assert cs._bwd_err(reordered, want) <= tol / 2
+    no_delta = tatt.flash_attention_bwd_plain(q, k, v, mask, torch.zeros_like(out), lse, dout,
+                                              False, scale)
+    assert cs._bwd_err(no_delta, want) > 100 * tol
+    for i in range(3):
+        off = [x * 1.05 if j == i else x for j, x in enumerate(want)]
+        assert cs._bwd_err(off, want) > 3 * tol
+
+
+def test_cpu_path_launches_no_kernel():
+    q, k, v, mask = make_qkv(T=8)
+    fwd, bwd = dict(tatt.flash_attention_fwd.launches), dict(tatt.flash_attention_bwd.launches)
+    port_grads(q, k, v, mask, False)
+    port_grads(q, k, v, mask, True, dtype=torch.bfloat16)
+    qb = _bh(q)
+    m = torch.ones(qb.shape[:2], dtype=torch.int32)
+    out, lse = tatt.flash_attention_fwd(qb, qb, qb, m)
+    tatt.flash_attention_bwd(qb, qb, qb, m, out, lse, out)
+    assert tatt.flash_attention_fwd.launches == fwd
+    assert tatt.flash_attention_bwd.launches == bwd
+
+
+def test_inference_path_builds_no_graph():
+    """Without grad (as scoring runs) flash_attention runs the forward alone:
+    no autograd node, even for inputs that require grad."""
+    q, k, v, mask = make_qkv(T=8)
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    with torch.no_grad():
+        out = tatt.flash_attention(*leaves, torch.from_numpy(mask))
+    assert out.grad_fn is None and not out.requires_grad
+    out = tatt.flash_attention(*leaves, torch.from_numpy(mask))
+    assert type(out.grad_fn).__name__ == "_FlashAttentionBackward"
+
+
+@pytest.mark.parametrize("bad,err,match", [
+    ("dout_shape", ValueError,
+     r"flash_attention_bwd: want q, out and dout .* dout \(2, 8, 2, 64\)"),
+    ("dout_dtype", TypeError, "flash_attention_bwd: .*float32 or bfloat16"),
+    ("dout_strided", ValueError, "flash_attention_bwd: dout must have D innermost"),
+])
+def test_kernel_argument_checks_cover_dout(bad, err, match):
+    """What the CUDA wrapper refuses in dout before any launch, in the
+    backward's name (checked on CPU tensors; the kernel itself runs only on
+    the card)."""
+    q = torch.zeros(2, 16, 2, 64)
+    mask = torch.ones(2, 16, dtype=torch.int32)
+    dout = torch.zeros(2, 16, 2, 64)
+    if bad == "dout_shape":
+        dout = torch.zeros(2, 8, 2, 64)
+    elif bad == "dout_dtype":
+        dout = dout.to(torch.bfloat16)
+    elif bad == "dout_strided":
+        dout = torch.zeros(2, 16, 64, 2).transpose(2, 3)
+    with pytest.raises(err, match=match):
+        tatt._kernel_args(q, q, q, mask, torch.empty_like(q), dout, fn="flash_attention_bwd")
+    args = tatt._kernel_args(q, q, q, mask, torch.empty_like(q), torch.zeros_like(q),
+                             fn="flash_attention_bwd")
+    assert args == (2, 2, 16, 16, 64) + (16 * 2 * 64, 2 * 64, 64) * 5
+
+
+def test_non_cpu_tensors_launch_or_raise(monkeypatch, tmp_path):
+    """No fallback hides the device: a tensor off the CPU goes to the kernel
+    or raises. Meta tensors have no kernel; and on a host without nvcc the
+    kernel cannot be built, so its entry point raises."""
+    q = torch.empty(1, 8, 1, 32, device="meta")
+    mask = torch.ones(1, 8, dtype=torch.int32, device="meta")
+    lse = torch.empty(1, 8, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        tatt._flash_bwd_bthd(q, q, q, mask, q, lse, q, False, 1.0)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    assert not os.path.exists(_build._lib_path("flash_bwd"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        tatt._bwd_entry_point()

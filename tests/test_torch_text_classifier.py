@@ -10,7 +10,8 @@ lr x steps (an entry whose gradient cancels to ~0 moves on rounding noise,
 which Adam scales up to lr a step; the attention key bias, whose exact
 gradient is 0, only moves that way); scores within 1e-4 with equal
 predictions. With ``unfreeze_layers=1`` the same leaves stay bitwise at
-their init on both sides. The fitted model round-trips save -> load
+their init on both sides. A fit with ``attn_impl='flash'`` (the flash
+backward) is held the same way. The fitted model round-trips save -> load
 bitwise, its init (numpy) has the Flax init's distribution, and the
 unported options are refused.
 """
@@ -103,7 +104,26 @@ def _frozen_port(name):
 @pytest.mark.parametrize("unfreeze", [-1, 1])
 def test_fit_matches_jax(fits, unfreeze):
     init, models = fits
-    jmodel, tmodel = models[unfreeze]
+    _assert_fit_matches(*models[unfreeze], init, unfreeze)
+
+
+def test_flash_fit_matches_jax():
+    """Both stages fit with attn_impl='flash': the JAX flash_attention
+    (Pallas in interpret mode) and its custom_vjp backward against the port's
+    flash forward and backward (their plain versions on the CPU), held as the
+    einsum fit is."""
+    rows = _rows()
+    with pytest.MonkeyPatch.context() as mp:
+        init = _patched(mp)
+        jmodel = jtext.DeepTextClassifier(**_stage_kw(attn_impl="flash")).fit(
+            JDataFrame.from_rows(rows, num_partitions=2))
+        tmodel = ttext.DeepTextClassifier(device="cpu", **_stage_kw(attn_impl="flash")).fit(
+            pt.DataFrame.from_rows(rows, num_partitions=2))
+    assert tmodel.get("arch_config").attn_impl == "flash"
+    _assert_fit_matches(jmodel, tmodel, init, -1)
+
+
+def _assert_fit_matches(jmodel, tmodel, init, unfreeze):
     want = convert_jax.bert_state_dict_from_flax(
         jax.tree.map(np.asarray, jmodel.get("model_params")))
     got = tmodel.get("model_params")
@@ -186,7 +206,6 @@ _REFUSED = {
     "mesh_config": (dict(mesh_config=object()), "item 9"),
     "ring": (dict(attn_impl="ring"), "item 9"),
     "ulysses": (dict(attn_impl="ulysses"), "item 9"),
-    "flash": (dict(attn_impl="flash"), "item 1c"),
 }
 
 

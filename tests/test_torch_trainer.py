@@ -6,7 +6,8 @@
   params within rtol 1e-6 (atol 1e-6 for entries near 0). The learning
   rate is 0.1, so a missed trap (lr != 0 on the first warm-up step, the
   clip's threshold, decay on frozen leaves) moves a parameter by ~0.1.
-* Both ``Trainer``s on ``bert_tiny`` in f32 with the Flax init bridged,
+* Both ``Trainer``s on ``bert_tiny`` in f32 with the Flax init bridged
+  (einsum attention, and once ``attn_impl='flash'``: the flash backward),
   6 steps on the same batches (padded rows with ``_valid = 0``): per-step
   loss within 1e-5, ``grad_norm`` within rtol 1e-4, final params within
   atol 2e-5 (summation order differs between XLA and torch; Adam turns a
@@ -142,9 +143,10 @@ def test_cross_entropy_divides_by_the_valid_rows():
 # ------------------------------------------------------------ bert_tiny steps
 
 
-def _configs(vocab=VOCAB):
-    jcfg = jbert.bert_tiny(vocab_size=vocab, dtype=jnp.float32, max_len=32)
-    tcfg = tbert.bert_tiny(vocab_size=vocab, dtype=torch.float32, max_len=32)
+def _configs(vocab=VOCAB, attn_impl="einsum"):
+    jcfg = jbert.bert_tiny(vocab_size=vocab, dtype=jnp.float32, max_len=32, attn_impl=attn_impl)
+    tcfg = tbert.bert_tiny(vocab_size=vocab, dtype=torch.float32, max_len=32,
+                           attn_impl=attn_impl)
     return jcfg, tcfg
 
 
@@ -180,8 +182,12 @@ def _freeze_enc0_port(path):
     return not (path[0] in ("classifier", "pooler") or path[:3] == ("encoder", "layers", "1"))
 
 
-_TRAIN_CASES = {  # the three schedules; freezing and accumulation ride two of them
+_TRAIN_CASES = {  # the three schedules; freezing, accumulation and flash ride on them
     "constant": (dict(lr_schedule="constant"), {}),
+    # the flash kernel's forward and backward (their plain versions on the
+    # CPU) against the JAX flash_attention (Pallas in interpret mode) and
+    # its custom_vjp backward
+    "constant, attn_impl=flash": (dict(lr_schedule="constant"), dict(attn_impl="flash")),
     "cosine, freeze_predicate": (dict(lr_schedule="cosine", warmup_steps=2),
                                  dict(freeze=(_freeze_enc0_flax, _freeze_enc0_port))),
     "linear, grad_accum=2": (dict(lr_schedule="linear", warmup_steps=1, grad_accum=2), {}),
@@ -193,7 +199,7 @@ def test_bert_tiny_steps_match_jax(case, flax_init):
     kw, extra = _TRAIN_CASES[case]
     common = dict(learning_rate=2e-3, total_steps=6, grad_clip=1.0, **kw)
     jfreeze, tfreeze = extra.get("freeze", (None, None))
-    jcfg, tcfg = _configs()
+    jcfg, tcfg = _configs(attn_impl=extra.get("attn_impl", "einsum"))
     batches = _batches()
 
     jtrainer = jt.Trainer(jbert.BertClassifier(jcfg, 2), _ONE_DEVICE(),
