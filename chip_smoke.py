@@ -7,7 +7,9 @@ the kernels are built for sm_90a). Phases, each of which raises on failure:
 
 1. device: requires CUDA, prints the card's name and power limit, turns
    TF32 off for matmuls and convolutions;
-2. build: compiles every kernel under synapseml_torch/csrc/ with nvcc;
+2. build: compiles every kernel under synapseml_torch/csrc/ with nvcc,
+   keeps each kernel's registers and spills, and requires HGMMA (wgmma)
+   in the SASS of the bf16 backward kernel at every head dim;
 3. kernels: holds each kernel against its plain PyTorch version on the
    card: flash attention (the bf16 tensor-core kernel and the f32 one in
    split TF32) at BERT-base shapes, with a padding mask, causal and not,
@@ -15,12 +17,15 @@ the kernels are built for sm_90a). Phases, each of which raises on failure:
    launch bitwise equal to the first, and from strided [B, T, H, D]
    projection views (BERT-base, and T=50 D=32); one flash_attention call
    from the views runs at most 2 device kernels (the mask cast and the
-   kernel); the flash backward (bf16 on the tensor cores, f32 on the CUDA
-   cores) against its plain version, each (batch, head) slice of dq, dk and
-   dv to its own scale, at BERT-base training shapes and at
-   T=512, B=8, causal and not, T=50 at D=32 and T=200 at D=128, with fully
-   masked rows (dq, dk, dv exactly 0) and padded keys (dk, dv exactly 0), a
-   second launch bitwise equal; autograd through flash_attention against
+   kernel); the flash backward (bf16 on wgmma, f32 on the CUDA cores)
+   against its plain version, each (batch, head) slice of dq, dk and dv to
+   its own scale, at BERT-base training shapes and at T=512, B=8, causal
+   and not, T=50 at D=32, T=200 at D=128, T=300 at D=32 and T=1100 (dQ
+   summed over 3 and 9 kv tiles), with fully masked rows (dq, dk, dv
+   exactly 0) and padded keys (dk, dv exactly 0), a second launch bitwise
+   equal; one bf16 call at BERT-base and at T=512 captured in a CUDA graph
+   and replayed twice, bitwise the eager call, the capture counted as one
+   launch; autograd through flash_attention against
    reference_attention in f32 (D=40 through the zero pad too), and from
    projection views against the plain forward and backward on copies;
    and the GBDT histogram kernel, each case bitwise equal to its plain
@@ -76,7 +81,8 @@ the kernels are built for sm_90a). Phases, each of which raises on failure:
    views beside the permute-and-call path it replaced; the histogram
    kernel at each shape of one tree and its scale pass, and one call of
    each with its host enqueue; the flash backward at both training shapes
-   beside the backward of scaled_dot_product_attention.
+   beside the backward of scaled_dot_product_attention, with its device
+   kernels by name and count and the bf16 kernel's registers and spills.
 
 The line before the last is a JSON object with the kernels' numbers; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or
@@ -91,6 +97,7 @@ import gc
 import hashlib
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -174,6 +181,9 @@ def phase_device() -> tuple[str, torch.device]:
     return card, torch.device("cuda:0")
 
 
+PTXAS: dict[str, dict] = {}  # kernel (mangled name) -> registers and spill bytes, from the build
+
+
 def phase_build():
     t0 = time.perf_counter()
     logs = _build.build()
@@ -189,9 +199,33 @@ def phase_build():
             elif "registers" in line or "spill" in line:
                 log(f"[build] {name} {fn}: {line.strip()}")
                 found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-                if found and "flash_" in fn and found.groups() != ("0", "0"):
-                    spills.append(fn)
+                regs = re.search(r"Used (\d+) registers", line)
+                if found:
+                    PTXAS.setdefault(fn, {})["spill_bytes"] = tuple(map(int, found.groups()))
+                    if "flash_" in fn and found.groups() != ("0", "0"):
+                        spills.append(fn)
+                if regs:
+                    PTXAS.setdefault(fn, {})["registers"] = int(regs.group(1))
     log(f"[build] flash kernels with register spills: {spills or 'none'}")
+    _check_hgmma()
+
+
+def _check_hgmma() -> None:
+    """The bf16 backward kernel's SASS (cuobjdump of the built library) must
+    hold HGMMA, the warpgroup tensor-core instruction, at every head dim."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(_build._lib_path("flash_bwd"))],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        head = re.search(r"Function : (\S+)", line)
+        if head:
+            fn = head.group(1)
+        elif fn and "flash_bwd_wgmma_kernel" in fn and "HGMMA" in line:
+            counts[fn] = counts.get(fn, 0) + 1
+    log(f"[build] HGMMA instructions in the SASS of flash_bwd_wgmma_kernel: {counts}")
+    if len(counts) != len(att.HEAD_DIMS):
+        raise AssertionError("flash_bwd_wgmma_kernel's SASS has no HGMMA at some head dim")
 
 
 def _inputs(BH, Tq, Tk, Dp, dtype, device, seed, true_d=None):
@@ -245,11 +279,15 @@ def _check_views(name, Bv, Tv, Hv, Dv, dtype, device, seed, causal) -> None:
         raise AssertionError(f"flash_attention from views disagrees on {name}")
 
 
-def _device_kernels(fn, n=3) -> list[tuple[str, int, float]]:
-    """(name, count per call, device ms per call) of the device kernels a
-    call of ``fn`` runs, from the profiler over ``n`` calls after a warm-up
-    call (late in a long process a session can miss some of a single call's
-    kernels)."""
+def _device_kernels(fn, n=3) -> list[tuple[str, int, float, int, float]]:
+    """(name, count per call, device ms per call, launches recorded, ms
+    recorded over ``n``) of the device kernels a call of ``fn`` runs, from
+    the profiler over ``n`` calls after a warm-up call. Late in a long
+    process a session can miss some of the calls' kernels, so a kernel's
+    count a call is its recorded launches over ``n`` rounded up (each call
+    is taken to launch it a whole number of times) and its time a call is
+    its mean over the launches recorded times that count; the last two
+    fields are what was recorded, to check that against."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -259,7 +297,8 @@ def _device_kernels(fn, n=3) -> list[tuple[str, int, float]]:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    return [(e.key, -(-e.count // n), e.self_device_time_total / n / 1e3)
+    return [(e.key, -(-e.count // n), e.self_device_time_total / e.count * -(-e.count // n) / 1e3,
+             e.count, e.self_device_time_total / n / 1e3)
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
 
@@ -270,7 +309,7 @@ def _count_view_call_kernels(device) -> None:
     q, k, v = _projection_views(B, T, H, D, torch.bfloat16, device, seed=11)
     mask = _padding_mask(B, T, device, seed=11).bool()
     kernels = _device_kernels(lambda: att.flash_attention(q, k, v, mask))
-    n = sum(c for _, c, _ in kernels)
+    n = sum(c for _, c, *_ in kernels)
     log(f"[kernel] one flash_attention call on BERT-base projection views: {n} device "
         f"kernel(s) {[key[:60] for key, *_ in kernels]} (want at most 2)")
     if not (n <= 2 and any("flash_fwd" in key for key, *_ in kernels)):
@@ -445,6 +484,75 @@ def _plain_on_copies(q, k, v, kv_mask, causal: bool = False):
     return Plain.apply(q, k, v)
 
 
+def _check_graph_capture(BH, Tc, device) -> None:
+    """One bf16 flash_attention_bwd call captured in a CUDA graph (as a
+    captured training step will hold it) and replayed twice: each replay
+    bitwise the eager call's gradients, and the capture counted as one
+    launch (a replay runs the kernels without the wrapper)."""
+    scale = 1.0 / D ** 0.5
+    q, k, v = _inputs(BH, Tc, Tc, D, torch.bfloat16, device, seed=130)
+    mask = _padding_mask(BH, Tc, device, seed=130)
+    out, lse = att.flash_attention_fwd(q, k, v, mask, False, scale)
+    g = torch.Generator(device=device).manual_seed(131)
+    dout = torch.randn(out.shape, generator=g, device=device).to(torch.bfloat16)
+    args = (q, k, v, mask, out, lse, dout, False, scale)
+    eager = att.flash_attention_bwd(*args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # a warm-up off the capturing stream, as torch advises
+        att.flash_attention_bwd(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = att.flash_attention_bwd.launches["bf16"]
+    with torch.cuda.graph(graph):
+        captured = att.flash_attention_bwd(*args)
+    counted = att.flash_attention_bwd.launches["bf16"] - before
+    same = []
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        same.append(all(torch.equal(a, b) for a, b in zip(captured, eager)))
+    log(f"[kernel] flash_bwd bf16 [B*H={BH}, T={Tc}, D={D}] in a CUDA graph: two replays "
+        f"bitwise the eager call: {same}, launches counted by the capture: {counted} (want 1)")
+    if not (all(same) and counted == 1):
+        raise AssertionError("the flash backward captured in a CUDA graph differs from the "
+                             "eager call")
+    del graph
+
+
+def _check_broadcast_views(device) -> None:
+    """Gradients through flash_attention with k and v of one head expanded
+    over the heads and a dout broadcast over the batch (zero strides on
+    dims longer than 1, which the bf16 backward copies before its tensor
+    maps), against the plain forward and backward on copies, and bitwise
+    on a second run."""
+    Bc = 4
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = KERNEL_NAMES[dtype]
+        g = torch.Generator(device=device).manual_seed(140)
+        q0 = torch.randn((Bc, T, H, D), generator=g, device=device).to(dtype)
+        k0, v0 = (torch.randn((Bc, T, 1, D), generator=g, device=device).to(dtype)
+                  for _ in range(2))
+        dout = torch.randn((1, T, H, D), generator=g, device=device).to(dtype).expand(
+            Bc, T, H, D)
+        kv_mask = _padding_mask(Bc, T, device, seed=140).bool()
+        runs = []
+        for fn in (att.flash_attention, att.flash_attention, _plain_on_copies):
+            leaves = [x.clone().requires_grad_() for x in (q0, k0, v0)]
+            q, k, v = leaves[0], *(x.expand(Bc, T, H, D) for x in leaves[1:])
+            fn(q, k, v, kv_mask, causal=False).backward(dout)
+            runs.append([_to_bh(x.grad) for x in leaves])
+        torch.cuda.synchronize()
+        rel = _bwd_err(runs[0], runs[2])
+        same = all(torch.equal(a, b) for a, b in zip(runs[0], runs[1]))
+        log(f"[kernel] flash_attention {tag} [B,T,H,D]=[{Bc},{T},{H},{D}], k and v expanded "
+            f"over heads, dout broadcast over the batch: gradients vs the plain forward and "
+            f"backward on copies: worst slice's max|d| over its max|grad| {rel:.3e} "
+            f"(tol {TOL_BWD[dtype]:g}), bitwise equal on a second run: {same}")
+        if not (rel <= TOL_BWD[dtype] and same):
+            raise AssertionError(f"the flash backward from broadcast views disagrees on {tag}")
+
+
 def _bwd_kernel_cases(device) -> dict:
     """The backward kernel against its plain version on the card; returns
     the max |difference| at BERT-base training shapes by dtype."""
@@ -461,6 +569,10 @@ def _bwd_kernel_cases(device) -> dict:
         ("T=200 D=128 bf16", 16, 200, 128, torch.bfloat16, False, 2),
         ("T=200 D=128 bf16 causal", 16, 200, 128, torch.bfloat16, True, 0),
         ("T=200 D=128 f32 causal", 16, 200, 128, torch.float32, True, 0),
+        # dQ summed over three 128-row kv tiles at the narrowest head dim, and
+        # over nine
+        ("T=300 D=32 bf16", 24, 300, 32, torch.bfloat16, False, 2),
+        ("T=1100 bf16 causal", 4, 1100, D, torch.bfloat16, True, 0),
     ]
     main_err = {}
     for i, (name, BH, Tc, Dc, dtype, causal, empty) in enumerate(cases):
@@ -469,6 +581,9 @@ def _bwd_kernel_cases(device) -> dict:
         err = _bwd_case(name, q, k, v, mask, causal, 1.0 / Dc ** 0.5, empty, seed=i)
         if i < 2:
             main_err[f"bwd_{KERNEL_NAMES[dtype]}"] = err
+    for Bc, Tc in ((B, T), (LONG_B, LONG_T)):
+        _check_graph_capture(Bc * H, Tc, device)
+    _check_broadcast_views(device)
 
     # the public face, f32, against autograd through reference_attention (no
     # fully masked row: there the two differ by design): BERT-base heads
@@ -755,9 +870,20 @@ def _bwd_times(device, card: str, launches: dict, max_err: dict) -> list[dict]:
                                           for f in (kernel, sdpa_bwd, kernel, sdpa_bwd))
             plain_ms = device_ms(lambda: att.flash_attention_bwd_plain(*args), warmup=2, iters=10)
             call_ms = cuda_ms(kernel)
-            sdpa_kernels = _device_kernels(sdpa_bwd)
-            library_ms = sum(ms for *_, ms in sdpa_kernels)
+            own = _device_kernels(kernel, n=10)
+            log(f"[times] flash_bwd {tag} [B*H={BH}, T={Tt}, D={D}]: its device kernels a call "
+                f"(name, count, device ms): "
+                f"{[(key[:60], n, round(t, 4)) for key, n, t, *_ in own]}")
+            sdpa_kernels = _device_kernels(sdpa_bwd, n=10)
+            library_ms = sum(ms for _, _, ms, *_ in sdpa_kernels)
             library_kernels = [key[:80] for key, *_ in sdpa_kernels]
+            recorded = [(key[:50], rec, c, round(t, 4), round(raw, 4))
+                        for key, c, t, rec, raw in sdpa_kernels]
+            log(f"[times] flash_bwd {tag} [B*H={BH}, T={Tt}, D={D}]: "
+                f"scaled_dot_product_attention's backward kernels over 10 calls (name, launches "
+                f"recorded, counted a call, ms a call from the mean a launch, ms recorded over "
+                f"10): {recorded}; summed {library_ms:.4f} ms, recorded over 10 "
+                f"{sum(raw for *_, raw in sdpa_kernels):.4f} ms")
             elt = torch.finfo(dtype).bits // 8
             # q, k, v, out, dout read and dq, dk, dv written; the mask and LSE
             n_bytes = 8 * BH * Tt * D * elt + 2 * BH * Tt * 4
@@ -767,7 +893,8 @@ def _bwd_times(device, card: str, launches: dict, max_err: dict) -> list[dict]:
             t_ops = passes * flops / PEAK_FLOPS[dtype] * 1e3
             bound_ms, bound_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
             log(f"[times] flash_bwd {tag} [B*H={BH}, T={Tt}, D={D}]: kernel {ms:.4f} / {ms2:.4f} "
-                f"ms (device time, two turns, its 3 kernels; one call with its host enqueue "
+                f"ms (device time, two turns, its {sum(n for _, n, *_ in own)} kernels; one call "
+                f"with its host enqueue "
                 f"{call_ms:.4f} ms; {statistics.median([ms, ms2]) / bound_ms:.2f}x the bound), "
                 f"bound {bound_ms:.4f} ms ({bound_by}: {n_bytes / 1e6:.1f} MB = {t_bytes:.4f} ms; "
                 f"{passes} x {flops / 1e9:.2f} GFLOP at {PEAK_FLOPS[dtype] / 1e12:g} TFLOP/s = "
@@ -784,6 +911,11 @@ def _bwd_times(device, card: str, launches: dict, max_err: dict) -> list[dict]:
                              "bound_ms": bound_ms, "bound_by": bound_by,
                              "library_ms": library_ms})
             del leaves, sdpa_out
+    wgmma = sorted([(int(re.search(r"ILi(\d+)E", fn).group(1)), v) for fn, v in PTXAS.items()
+                    if "flash_bwd_wgmma_kernel" in fn], key=lambda dv: dv[0])
+    log("[times] flash_bwd_wgmma_kernel registers and spill bytes (stores, loads) by head dim: "
+        + (", ".join(f"D={d}: {v.get('registers')} registers, {v.get('spill_bytes')}"
+                     for d, v in wgmma) or "not compiled in this process"))
     return rows
 
 
@@ -1401,7 +1533,7 @@ def phase_gbdt_kernels(device) -> dict:
             _hist_case(hist, "width 32, feature 3 in one bin",
                        (skew, grad, hess, presence, node, 31, 32, nb))
             ops = _device_kernels(lambda: hist.fixed_point_histogram(*args, *tree))
-            n_ops = sum(c for _, c, _ in ops)
+            n_ops = sum(c for _, c, *_ in ops)
             log(f"[kernel] one level launch with the tree's scale and scratch: {n_ops} device "
                 f"operation(s) {[key[:60] for key, *_ in ops]} (want at most 2)")
             if not (1 <= n_ops <= 2 and any("gbdt_hist_kernel" in k for k, *_ in ops)):

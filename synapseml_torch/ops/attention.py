@@ -17,7 +17,8 @@ take that layout as it is, strided views included, and write contiguous
 ``[B, T, H, D]`` outputs. The forward runs both types on the tensor cores:
 bfloat16 as it is, float32 in split TF32 (each operand split into two TF32
 parts, three products a step), which keeps float32 accuracy. The backward
-runs bfloat16 on the tensor cores and float32 on the CUDA cores.
+runs bfloat16 on Hopper's warpgroup tensor-core products (wgmma, tiles
+brought by TMA) and float32 on the CUDA cores.
 
 :func:`flash_attention` is differentiable: when grad is enabled and an
 input requires it, an ``autograd.Function`` saves q, k, v, the mask, the
@@ -190,6 +191,12 @@ def _aligned(x) -> bool:
             and all(st * elt % _ALIGN == 0 for st in _head_strides(x.stride(), x.shape)))
 
 
+def _broadcast(x) -> bool:
+    """Whether ``x`` steps by a zero stride along a dim longer than 1 (an
+    expanded view, such as k/v of one head expanded over heads)."""
+    return any(st == 0 and n > 1 for st, n in zip(x.stride(), x.shape))
+
+
 def _kernel_args(q, k, v, kv_mask, out, dout=None, *, fn: str) -> tuple[int, ...]:
     """The C entry point's dims and element strides for ``q, out:
     [B, Tq, H, D]``, ``k, v: [B, Tk, H, D]`` and an int32 ``kv_mask:
@@ -317,28 +324,35 @@ def flash_attention_fwd(q, k, v, kv_mask, causal: bool = False,
 flash_attention_fwd.launches = {"bf16": 0, "f32": 0}
 
 
-# q, k, v, mask, out, dout, lse, delta, dq, dk, dv; B, H, Tq, Tk, D; 15
+# q, k, v, mask, out, dout, lse, scratch, dq, dk, dv; B, H, Tq, Tk, D; 15
 # element strides; causal, scale, dtype, stream
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_int64] * 15
                  + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+_TENSOR_MAP_ERR = 100000  # flash_bwd's code when TMA cannot describe a view
 
 
 def _bwd_entry_point():
-    """The C function ``flash_bwd`` with its argument types set."""
-    fn = _build.load("flash_bwd").flash_bwd
+    """The C functions ``flash_bwd`` and ``flash_bwd_scratch_bytes`` (B, H,
+    Tq, Tk, D, dtype -> bytes of scratch a call needs), argument types set."""
+    lib = _build.load("flash_bwd")
+    fn, size = lib.flash_bwd, lib.flash_bwd_scratch_bytes
     if fn.argtypes is None:
+        size.argtypes = [ctypes.c_int] * 6
+        size.restype = ctypes.c_longlong
         fn.argtypes = _BWD_ARGTYPES
         fn.restype = ctypes.c_int
-    return fn
+    return fn, size
 
 
 def _flash_bwd_bthd(q, k, v, kv_mask, out, lse, dout, causal: bool, scale: float):
     """``(dq, dk, dv)``, contiguous ``[B, T, H, D]``, for ``[B, T, H, D]``
     q/k/v/out/dout of any strides, an int32 ``kv_mask [B, Tk]`` and the
     forward's ``lse f32 [B*H, Tq]``. CUDA tensors launch ``csrc/flash_bwd.cu``
-    in place or raise (a dout off the kernel's layout is copied once first);
-    no host sync. CPU tensors take :func:`flash_attention_bwd_plain` on
-    ``[B*H, T, D]`` copies."""
+    in place or raise (a dout off the kernel's layout is copied once first,
+    and in bf16 so is any broadcast view, since TMA steps by every stride);
+    no host sync, and every output and scratch comes from torch's allocator,
+    so a CUDA graph can capture the call. CPU tensors take
+    :func:`flash_attention_bwd_plain` on ``[B*H, T, D]`` copies."""
     B, Tq, H, D = q.shape
     Tk = k.shape[1]
     if q.device.type == "cpu":
@@ -348,6 +362,9 @@ def _flash_bwd_bthd(q, k, v, kv_mask, out, lse, dout, causal: bool, scale: float
         raise ValueError(f"flash_attention_bwd: no kernel for device {q.device}")
     if dout.dtype != q.dtype or dout.stride()[-1] != 1 or not _aligned(dout):
         dout = dout.to(q.dtype).contiguous()
+    if q.dtype == torch.bfloat16:
+        q, k, v, out, dout = (x.contiguous() if _broadcast(x) else x
+                              for x in (q, k, v, out, dout))
     if lse.dtype != torch.float32 or tuple(lse.shape) != (B * H, Tq) or not lse.is_contiguous():
         raise ValueError(f"flash_attention_bwd: lse must be a contiguous float32 [B*H, Tq] = "
                          f"{(B * H, Tq)}, got {lse.dtype} {tuple(lse.shape)}")
@@ -355,13 +372,17 @@ def _flash_bwd_bthd(q, k, v, kv_mask, out, lse, dout, causal: bool, scale: float
         dq = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device)
         dk = torch.empty((B, Tk, H, D), dtype=q.dtype, device=q.device)
         dv = torch.empty((B, Tk, H, D), dtype=q.dtype, device=q.device)
-        delta = torch.empty((B * H, Tq), dtype=torch.float32, device=q.device)
         dims = _kernel_args(q, k, v, kv_mask, out, dout, fn="flash_attention_bwd")
-        err = _bwd_entry_point()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_mask.data_ptr(), out.data_ptr(),
-            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), *dims, int(causal), float(scale), _KERNEL_DTYPES[q.dtype],
-            torch.cuda.current_stream().cuda_stream)
+        fn, size = _bwd_entry_point()
+        dtype = _KERNEL_DTYPES[q.dtype]
+        scratch = torch.empty(size(B, H, Tq, Tk, D, dtype), dtype=torch.uint8, device=q.device)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_mask.data_ptr(), out.data_ptr(),
+                 dout.data_ptr(), lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(),
+                 dk.data_ptr(), dv.data_ptr(), *dims, int(causal), float(scale), dtype,
+                 torch.cuda.current_stream().cuda_stream)
+    if err >= _TENSOR_MAP_ERR:
+        raise RuntimeError(f"flash_bwd: cuTensorMapEncodeTiled refused an input or output "
+                           f"(CUresult {err - _TENSOR_MAP_ERR}); strides {dims[5:]}")
     if err != 0:
         raise RuntimeError(f"flash_bwd kernel launch failed with CUDA error {err}")
     flash_attention_bwd.launches[_KERNEL_NAMES[q.dtype]] += 1
@@ -374,11 +395,14 @@ def flash_attention_bwd(q, k, v, kv_mask, out, lse, dout, causal: bool = False,
     forward's ``out`` and ``lse`` and the output gradient ``dout``.
 
     CUDA tensors launch ``csrc/flash_bwd.cu`` (built at first use; bf16 on
-    the tensor cores, float32 on the CUDA cores) or raise; any strides with
-    D innermost are taken as they are. CPU tensors take
-    :func:`flash_attention_bwd_plain`. Each launch of the entry point (its
-    three kernels) adds one to ``flash_attention_bwd.launches["bf16"]`` or
-    ``["f32"]``."""
+    the tensor cores with wgmma and TMA, float32 on the CUDA cores) or
+    raise; any strides with D innermost are taken as they are, except that
+    bf16 copies a broadcast view (a zero stride on a dim longer than 1)
+    first, since TMA steps by every stride. CPU tensors
+    take :func:`flash_attention_bwd_plain`. Each call of the entry point
+    (one kernel in bf16, after a memset of its dQ counters when Tk > 128;
+    three in float32) adds one to ``flash_attention_bwd.launches["bf16"]``
+    or ``["f32"]``."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":

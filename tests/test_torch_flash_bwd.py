@@ -188,14 +188,17 @@ def _chip_smoke():
     return mod
 
 
+@pytest.mark.parametrize("block", [32, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_chip_check_bwd_limit_passes_reordering_and_fails_planted_faults(dtype, monkeypatch):
+def test_chip_check_bwd_limit_passes_reordering_and_fails_planted_faults(dtype, block,
+                                                                          monkeypatch):
     """The chip check holds the backward kernel to its plain version with
     ``_bwd_err`` under ``TOL_BWD``. At a BERT-base head (T = 128, D = 64) with
     padding lengths down to 1 and fully masked rows, the limit must pass the
-    plain version blocked at 32 instead of 64 (the same function summed in
-    another order, as the kernel sums it), with room to spare, and must fail
-    a plain version that drops delta or whose dq, dk or dv is 5 % off."""
+    plain version blocked at ``block`` instead of 64 (the same function summed
+    in another order: at 128, the bf16 kernel's kv tile, dq is summed over
+    fewer, larger tiles, as that kernel sums it), with room to spare, and must
+    fail a plain version that drops delta or whose dq, dk or dv is 5 % off."""
     cs = _chip_smoke()
     tol = cs.TOL_BWD[dtype]
     BH, T, D = 48, 128, 64
@@ -205,7 +208,7 @@ def test_chip_check_bwd_limit_passes_reordering_and_fails_planted_faults(dtype, 
     scale = 1.0 / D ** 0.5
     out, lse = tatt.flash_attention_fwd_plain(q, k, v, mask, False, scale)
     want = tatt.flash_attention_bwd_plain(q, k, v, mask, out, lse, dout, False, scale)
-    monkeypatch.setattr(tatt, "BLOCK", 32)
+    monkeypatch.setattr(tatt, "BLOCK", block)
     reordered = tatt.flash_attention_bwd_plain(q, k, v, mask, out, lse, dout, False, scale)
     monkeypatch.undo()
     assert not all(torch.equal(a, b) for a, b in zip(reordered, want))
@@ -267,6 +270,41 @@ def test_kernel_argument_checks_cover_dout(bad, err, match):
     args = tatt._kernel_args(q, q, q, mask, torch.empty_like(q), torch.zeros_like(q),
                              fn="flash_attention_bwd")
     assert args == (2, 2, 16, 16, 64) + (16 * 2 * 64, 2 * 64, 64) * 5
+
+
+def test_tensor_map_error_code_matches_the_kernel_source():
+    """The wrapper tells a refused TMA tensor map from a CUDA error by the
+    code flash_bwd.cu returns for it."""
+    src = (_build.CSRC / "flash_bwd.cu").read_text()
+    assert f"constexpr int ERR_TENSOR_MAP = {tatt._TENSOR_MAP_ERR};" in src
+
+
+def test_broadcast_views_are_told_from_size_one_dims():
+    """The bf16 wrapper copies a view with a zero stride on a dim longer
+    than 1 before the kernel builds its TMA maps (which step by every
+    stride): k and v of one head expanded over the heads, a dout broadcast
+    over the batch. A zero stride on a dim of size 1 is never stepped and
+    needs no copy."""
+    B, T, H, D = 2, 16, 4, 64
+    kv = torch.zeros(B, T, 1, D)
+    assert tatt._broadcast(kv.expand(B, T, H, D))
+    assert tatt._broadcast(torch.zeros(1, T, H, D).expand(B, T, H, D))
+    assert not tatt._broadcast(kv)
+    assert not tatt._broadcast(torch.zeros(T, H, D).expand(1, T, H, D))
+    assert not tatt._broadcast(torch.zeros(B, T, 3 * H * D)[..., :H * D].unflatten(-1, (H, D)))
+
+
+def test_trace_stamp_points_are_in_the_kernel_source():
+    """scripts/flash_bwd_trace.py splices its timestamps into a copy of
+    flash_bwd.cu at literal markers: each must still be there, once."""
+    spec = importlib.util.spec_from_file_location(
+        "flash_bwd_trace",
+        pathlib.Path(__file__).resolve().parents[1] / "scripts" / "flash_bwd_trace.py")
+    trace = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(trace)
+    src = (_build.CSRC / "flash_bwd.cu").read_text()
+    for marker, _, _ in trace.POINTS:
+        assert src.count(marker) == 1, marker
 
 
 def test_non_cpu_tensors_launch_or_raise(monkeypatch, tmp_path):
