@@ -8,8 +8,10 @@ the kernels are built for sm_90a). Phases, each of which raises on failure:
 1. device: requires CUDA, prints the card's name and power limit, turns
    TF32 off for matmuls and convolutions;
 2. build: compiles every kernel under synapseml_torch/csrc/ with nvcc,
-   keeps each kernel's registers and spills, and requires HGMMA (wgmma)
-   in the SASS of the bf16 backward kernel at every head dim;
+   keeps each kernel's registers and spills, and requires in the SASS of
+   the backward at every head dim HGMMA (wgmma) in the bf16 kernel, HMMA
+   on TF32 operands (and fewer FFMA than HMMA) in the f32 kernel, and no
+   other kernel;
 3. kernels: holds each kernel against its plain PyTorch version on the
    card: flash attention (the bf16 tensor-core kernel and the f32 one in
    split TF32) at BERT-base shapes, with a padding mask, causal and not,
@@ -17,15 +19,16 @@ the kernels are built for sm_90a). Phases, each of which raises on failure:
    launch bitwise equal to the first, and from strided [B, T, H, D]
    projection views (BERT-base, and T=50 D=32); one flash_attention call
    from the views runs at most 2 device kernels (the mask cast and the
-   kernel); the flash backward (bf16 on wgmma, f32 on the CUDA cores)
-   against its plain version, each (batch, head) slice of dq, dk and dv to
-   its own scale, at BERT-base training shapes and at T=512, B=8, causal
-   and not, T=50 at D=32, T=200 at D=128, T=300 at D=32 and T=1100 (dQ
-   summed over 3 and 9 kv tiles), with fully masked rows (dq, dk, dv
-   exactly 0) and padded keys (dk, dv exactly 0), a second launch bitwise
-   equal; one bf16 call at BERT-base and at T=512 captured in a CUDA graph
-   and replayed twice, bitwise the eager call, the capture counted as one
-   launch; autograd through flash_attention against
+   kernel); the flash backward (bf16 on wgmma, f32 on mma.sync in split
+   TF32) against its plain version, each (batch, head) slice of dq, dk and
+   dv to its own scale, at BERT-base training shapes and at T=512, B=8,
+   causal and not, T=50 at D=32, T=200 at D=128, T=300 at D=32 and T=1100
+   (dQ summed over 3 and 9 kv tiles), in both dtypes, with fully masked
+   rows (dq, dk, dv exactly 0) and padded keys (dk, dv exactly 0), a
+   second launch bitwise equal; one call in each dtype at BERT-base and at
+   T=512 captured in a CUDA graph and replayed twice, bitwise the eager
+   call, the capture counted as one launch; autograd through
+   flash_attention against
    reference_attention in f32 (D=40 through the zero pad too), and from
    projection views against the plain forward and backward on copies;
    and the GBDT histogram kernel, each case bitwise equal to its plain
@@ -73,7 +76,10 @@ the kernels are built for sm_90a). Phases, each of which raises on failure:
    benchmarks/attn_backends.py), 8 steps with einsum and with flash from
    one init: the median step in device time and the peak memory of each,
    each layer's gradient at the init within 2e-2 of einsum's, step 1's
-   loss and gradient norm within 1e-2;
+   loss and gradient norm within 1e-2; then 4 flash steps in f32 compute
+   (TF32 off) from the same init through the f32 kernels, its median step,
+   peak memory and the flash backward's share of one profiled step, step
+   1's loss within 1e-2 of the bf16 flash run's;
 8. times: each kernel beside its bound, its plain version and the one
    PyTorch call that computes the same function (device time, with the
    host's enqueue hidden behind a spin kernel; the library call's device
@@ -82,7 +88,7 @@ the kernels are built for sm_90a). Phases, each of which raises on failure:
    kernel at each shape of one tree and its scale pass, and one call of
    each with its host enqueue; the flash backward at both training shapes
    beside the backward of scaled_dot_product_attention, with its device
-   kernels by name and count and the bf16 kernel's registers and spills.
+   kernels by name and count and both kernels' registers and spills.
 
 The line before the last is a JSON object with the kernels' numbers; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or
@@ -207,12 +213,15 @@ def phase_build():
                 if regs:
                     PTXAS.setdefault(fn, {})["registers"] = int(regs.group(1))
     log(f"[build] flash kernels with register spills: {spills or 'none'}")
-    _check_hgmma()
+    _check_sass()
 
 
-def _check_hgmma() -> None:
-    """The bf16 backward kernel's SASS (cuobjdump of the built library) must
-    hold HGMMA, the warpgroup tensor-core instruction, at every head dim."""
+def _check_sass() -> None:
+    """The backward kernels' SASS (cuobjdump of the built library) at every
+    head dim: HGMMA, the warpgroup tensor-core instruction, in the bf16
+    kernel; HMMA on TF32 operands in the f32 kernel, with fewer FFMA than
+    HMMA (a product loop on the CUDA cores would outnumber them); and no
+    other kernel in the library."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(_build._lib_path("flash_bwd"))],
                           capture_output=True, text=True, timeout=300, check=True).stdout
@@ -221,11 +230,24 @@ def _check_hgmma() -> None:
         head = re.search(r"Function : (\S+)", line)
         if head:
             fn = head.group(1)
-        elif fn and "flash_bwd_wgmma_kernel" in fn and "HGMMA" in line:
-            counts[fn] = counts.get(fn, 0) + 1
-    log(f"[build] HGMMA instructions in the SASS of flash_bwd_wgmma_kernel: {counts}")
-    if len(counts) != len(att.HEAD_DIMS):
+            counts[fn] = {"HGMMA": 0, "HMMA.TF32": 0, "FFMA": 0}
+        elif fn:
+            op = re.search(r"\b(HGMMA|HMMA|FFMA)\S*", line)
+            if op and (op.group(1) != "HMMA" or "TF32" in op.group(0)):
+                counts[fn]["HMMA.TF32" if op.group(1) == "HMMA" else op.group(1)] += 1
+    bf16 = {f: c["HGMMA"] for f, c in counts.items() if "flash_bwd_wgmma_kernel" in f}
+    f32 = {f: c for f, c in counts.items() if "flash_bwd_tf32_kernel" in f}
+    others = [f for f in counts if f not in bf16 and f not in f32]
+    log(f"[build] HGMMA instructions in the SASS of flash_bwd_wgmma_kernel: {bf16}")
+    log(f"[build] HMMA (TF32) and FFMA instructions in the SASS of flash_bwd_tf32_kernel: "
+        f"{ {f: (c['HMMA.TF32'], c['FFMA']) for f, c in f32.items()} }; other kernels: "
+        f"{others or 'none'}")
+    if not (len(bf16) == len(att.HEAD_DIMS) and all(bf16.values())):
         raise AssertionError("flash_bwd_wgmma_kernel's SASS has no HGMMA at some head dim")
+    if not (len(f32) == len(att.HEAD_DIMS) and not others
+            and all(c["FFMA"] < c["HMMA.TF32"] for c in f32.values())):
+        raise AssertionError("flash_bwd_tf32_kernel is not on the tensor cores at every head "
+                             "dim, or another kernel is in flash_bwd")
 
 
 def _inputs(BH, Tq, Tk, Dp, dtype, device, seed, true_d=None):
@@ -484,17 +506,18 @@ def _plain_on_copies(q, k, v, kv_mask, causal: bool = False):
     return Plain.apply(q, k, v)
 
 
-def _check_graph_capture(BH, Tc, device) -> None:
-    """One bf16 flash_attention_bwd call captured in a CUDA graph (as a
-    captured training step will hold it) and replayed twice: each replay
-    bitwise the eager call's gradients, and the capture counted as one
-    launch (a replay runs the kernels without the wrapper)."""
+def _check_graph_capture(BH, Tc, dtype, device) -> None:
+    """One flash_attention_bwd call captured in a CUDA graph (as a captured
+    training step will hold it) and replayed twice: each replay bitwise the
+    eager call's gradients, and the capture counted as one launch (a replay
+    runs the kernels without the wrapper)."""
+    tag = KERNEL_NAMES[dtype]
     scale = 1.0 / D ** 0.5
-    q, k, v = _inputs(BH, Tc, Tc, D, torch.bfloat16, device, seed=130)
+    q, k, v = _inputs(BH, Tc, Tc, D, dtype, device, seed=130)
     mask = _padding_mask(BH, Tc, device, seed=130)
     out, lse = att.flash_attention_fwd(q, k, v, mask, False, scale)
     g = torch.Generator(device=device).manual_seed(131)
-    dout = torch.randn(out.shape, generator=g, device=device).to(torch.bfloat16)
+    dout = torch.randn(out.shape, generator=g, device=device).to(dtype)
     args = (q, k, v, mask, out, lse, dout, False, scale)
     eager = att.flash_attention_bwd(*args)
     side = torch.cuda.Stream()
@@ -503,20 +526,20 @@ def _check_graph_capture(BH, Tc, device) -> None:
         att.flash_attention_bwd(*args)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    before = att.flash_attention_bwd.launches["bf16"]
+    before = att.flash_attention_bwd.launches[tag]
     with torch.cuda.graph(graph):
         captured = att.flash_attention_bwd(*args)
-    counted = att.flash_attention_bwd.launches["bf16"] - before
+    counted = att.flash_attention_bwd.launches[tag] - before
     same = []
     for _ in range(2):
         graph.replay()
         torch.cuda.synchronize()
         same.append(all(torch.equal(a, b) for a, b in zip(captured, eager)))
-    log(f"[kernel] flash_bwd bf16 [B*H={BH}, T={Tc}, D={D}] in a CUDA graph: two replays "
+    log(f"[kernel] flash_bwd {tag} [B*H={BH}, T={Tc}, D={D}] in a CUDA graph: two replays "
         f"bitwise the eager call: {same}, launches counted by the capture: {counted} (want 1)")
     if not (all(same) and counted == 1):
-        raise AssertionError("the flash backward captured in a CUDA graph differs from the "
-                             "eager call")
+        raise AssertionError(f"the {tag} flash backward captured in a CUDA graph differs from "
+                             "the eager call")
     del graph
 
 
@@ -573,6 +596,9 @@ def _bwd_kernel_cases(device) -> dict:
         # over nine
         ("T=300 D=32 bf16", 24, 300, 32, torch.bfloat16, False, 2),
         ("T=1100 bf16 causal", 4, 1100, D, torch.bfloat16, True, 0),
+        # and in f32 (128-row kv tiles; 64 at D = 128, so T=200 above sums four)
+        ("T=300 D=32 f32", 24, 300, 32, torch.float32, False, 2),
+        ("T=1100 f32 causal", 4, 1100, D, torch.float32, True, 0),
     ]
     main_err = {}
     for i, (name, BH, Tc, Dc, dtype, causal, empty) in enumerate(cases):
@@ -581,8 +607,9 @@ def _bwd_kernel_cases(device) -> dict:
         err = _bwd_case(name, q, k, v, mask, causal, 1.0 / Dc ** 0.5, empty, seed=i)
         if i < 2:
             main_err[f"bwd_{KERNEL_NAMES[dtype]}"] = err
-    for Bc, Tc in ((B, T), (LONG_B, LONG_T)):
-        _check_graph_capture(Bc * H, Tc, device)
+    for dtype in (torch.bfloat16, torch.float32):
+        for Bc, Tc in ((B, T), (LONG_B, LONG_T)):
+            _check_graph_capture(Bc * H, Tc, dtype, device)
     _check_broadcast_views(device)
 
     # the public face, f32, against autograd through reference_attention (no
@@ -911,11 +938,12 @@ def _bwd_times(device, card: str, launches: dict, max_err: dict) -> list[dict]:
                              "bound_ms": bound_ms, "bound_by": bound_by,
                              "library_ms": library_ms})
             del leaves, sdpa_out
-    wgmma = sorted([(int(re.search(r"ILi(\d+)E", fn).group(1)), v) for fn, v in PTXAS.items()
-                    if "flash_bwd_wgmma_kernel" in fn], key=lambda dv: dv[0])
-    log("[times] flash_bwd_wgmma_kernel registers and spill bytes (stores, loads) by head dim: "
-        + (", ".join(f"D={d}: {v.get('registers')} registers, {v.get('spill_bytes')}"
-                     for d, v in wgmma) or "not compiled in this process"))
+    for kernel in ("flash_bwd_wgmma_kernel", "flash_bwd_tf32_kernel"):
+        by_d = sorted([(int(re.search(r"ILi(\d+)E", fn).group(1)), v)
+                       for fn, v in PTXAS.items() if kernel in fn], key=lambda dv: dv[0])
+        log(f"[times] {kernel} registers and spill bytes (stores, loads) by head dim: "
+            + (", ".join(f"D={d}: {v.get('registers')} registers, {v.get('spill_bytes')}"
+                         for d, v in by_d) or "not compiled in this process"))
     return rows
 
 
@@ -928,6 +956,7 @@ _POSITIVE = ("great", "good", "moving", "bright", "funny", "well", "fast")
 _NEGATIVE = ("bad", "awful", "boring", "dark", "slow", "sad", "badly")
 TINY_STEPS, TINY_TOL = 6, 1e-4  # bert-tiny f32, CPU against the card
 LONG_STEPS, LONG_WARMUP = 8, 2  # the long-T step: steps run, first steps left out
+LONG_F32_STEPS = 4  # the long-T step in f32 compute (the f32 flash kernels)
 
 
 def _labelled_texts(n: int, seed: int, n_words=(150, 300)) -> list[dict]:
@@ -1189,12 +1218,12 @@ _TRAIN_GROUPS = (("flash_fwd kernel", ("flash_fwd",)),  # matched in lower case
                  ("other elementwise", ("elementwise", "vectorized")))
 
 
-def _profile_train_step(trainer, state, batch, card: str, step_ms: float, tag: str,
-                        n=3) -> None:
-    """Where the device time of one BERT-base optimizer step goes (forward,
-    backward, optimizer), by kernel group, the share of its wall time the
-    card is busy under the profiler, and the device time over the
-    unprofiled median step (``step_ms``)."""
+def _profile_train_step(trainer, state, batch, card: str, step_ms: float, tag: str, n=3,
+                        what=f"BERT-base bf16, batch {FT_BATCH} x {FT_LEN}") -> dict:
+    """Where the device time of one BERT-base optimizer step (``what``) goes
+    (forward, backward, optimizer), by kernel group, the share of its wall
+    time the card is busy under the profiler, and the device time over the
+    unprofiled median step (``step_ms``). Returns ms a step by group."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1215,8 +1244,8 @@ def _profile_train_step(trainer, state, batch, card: str, step_ms: float, tag: s
     busy = sum(k[0] for k in kernels)
     if not busy:
         log("[profile] the profiler recorded no device time")
-        return
-    log(f"[profile] one {tag} optimizer step, BERT-base bf16, batch {FT_BATCH} x {FT_LEN}: "
+        return {}
+    log(f"[profile] one {tag} optimizer step, {what}: "
         f"{wall_ms:.3f} ms wall, {busy:.3f} ms of device kernels ({100 * busy / wall_ms:.1f}% "
         f"busy, {100 - 100 * busy / wall_ms:.1f}% idle under the profiler; "
         f"{100 * busy / step_ms:.1f}% of the unprofiled {step_ms:.3f} ms median step), "
@@ -1233,6 +1262,7 @@ def _profile_train_step(trainer, state, batch, card: str, step_ms: float, tag: s
     for ms, count, key in sorted(kernels, reverse=True)[:12]:
         log(f"[profile] {tag} step {100 * ms / busy:5.1f}%  {ms:8.4f} ms/step  {count:4d}/step  "
             f"{key[:200]}")
+    return groups
 
 
 def _host_step_parts(trainer, state, batch, card: str, tag: str, n=3) -> None:
@@ -1314,7 +1344,11 @@ def phase_train_long(device, card: str) -> dict:
     the same init: the median step in device time and the peak memory of
     each; step 1's loss and gradient norm as in main path 3, and before it,
     each layer's gradient at the init (one forward and backward outside the
-    timed steps) within TOL_INIT_GRAD of einsum's."""
+    timed steps) within TOL_INIT_GRAD of einsum's. Then flash in f32
+    compute (TF32 off for matmuls), LONG_F32_STEPS steps from the same init:
+    its median step, peak memory and the flash backward group of one
+    profiled step; step 1's loss within TOL_STEP1_LOSS of the bf16 flash
+    run's."""
     from synapseml_torch.models.nets.bert import BertClassifier
 
     cfg0 = bert_base()
@@ -1324,8 +1358,10 @@ def phase_train_long(device, card: str) -> dict:
              "labels": rng.integers(0, 2, (LONG_B,)).astype(np.int32)}
     init = text_stage._init_params(cfg0, 2, 0)
     out, grads0 = {}, {}
-    for attn_impl in ("einsum", "flash"):
-        cfg = dataclasses.replace(cfg0, attn_impl=attn_impl)
+    runs = (("einsum", "einsum", cfg0.dtype, LONG_STEPS), ("flash", "flash", cfg0.dtype, LONG_STEPS),
+            ("flash f32", "flash", torch.float32, LONG_F32_STEPS))
+    for tag, attn_impl, dtype, n_steps in runs:
+        cfg = dataclasses.replace(cfg0, attn_impl=attn_impl, dtype=dtype)
         with torch.device("meta"):
             module = BertClassifier(cfg, 2)
         trainer = trainer_mod.Trainer(module.to_empty(device="cpu"),
@@ -1333,18 +1369,19 @@ def phase_train_long(device, card: str) -> dict:
                                                                 total_steps=1000),
                                       device=device)
         state = trainer.init_state(init_params=init)
-        loss0, _ = trainer.default_loss(trainer._to_device(batch))
-        loss0.backward()
-        grads0[attn_impl] = {name: p.grad.float().cpu() for name, p in state.params.items()
-                             if p.grad is not None}
-        for p in state.params.values():
-            p.grad = None
-        del loss0
+        if dtype == cfg0.dtype:
+            loss0, _ = trainer.default_loss(trainer._to_device(batch))
+            loss0.backward()
+            grads0[tag] = {name: p.grad.float().cpu() for name, p in state.params.items()
+                           if p.grad is not None}
+            for p in state.params.values():
+                p.grad = None
+            del loss0
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _zero_flash_counts()
         events, losses, grad_norms = [], [], []
-        for _ in range(LONG_STEPS):
+        for _ in range(n_steps):
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
             state, metrics = trainer.train_step(state, batch)
@@ -1357,20 +1394,25 @@ def phase_train_long(device, card: str) -> dict:
         steps = [s.elapsed_time(e) for s, e in events]
         losses = torch.stack(losses).float().cpu().numpy()
         peak = torch.cuda.max_memory_allocated() / 2**30
-        n = cfg.n_layers * LONG_STEPS
-        want = ({"fwd": {"bf16": n, "f32": 0}, "bwd": {"bf16": n, "f32": 0}}
-                if attn_impl == "flash" else
-                {"fwd": {"bf16": 0, "f32": 0}, "bwd": {"bf16": 0, "f32": 0}})
+        n = cfg.n_layers * n_steps
+        want = {"fwd": {"bf16": 0, "f32": 0}, "bwd": {"bf16": 0, "f32": 0}}
+        if attn_impl == "flash":
+            want = {d: {**want[d], KERNEL_NAMES[dtype]: n} for d in want}
         step_ms = statistics.median(steps[LONG_WARMUP:])
-        log(f"[long] {attn_impl}, BERT-base batch {LONG_B} x {LONG_T}: median step "
-            f"{step_ms:.3f} ms in device time over steps {LONG_WARMUP + 1}-{LONG_STEPS} (first "
+        log(f"[long] {tag}, BERT-base batch {LONG_B} x {LONG_T}: median step "
+            f"{step_ms:.3f} ms in device time over steps {LONG_WARMUP + 1}-{n_steps} (first "
             f"{steps[0]:.3f}), {LONG_B * LONG_T / step_ms * 1e3:,.0f} tokens/s, peak device "
             f"memory {peak:.2f} GiB; losses {np.round(losses, 4).tolist()}; flash launches "
             f"{launches} (want {want}) | {card}")
         if not (np.isfinite(losses).all() and launches == want):
-            raise AssertionError(f"the long-T {attn_impl} steps failed")
-        out[attn_impl] = {"step_ms": step_ms, "peak_gib": peak, "loss1": float(losses[0]),
-                          "grad_norm1": float(grad_norms[0]), "launches": launches}
+            raise AssertionError(f"the long-T {tag} steps failed")
+        out[tag] = {"step_ms": step_ms, "peak_gib": peak, "loss1": float(losses[0]),
+                    "grad_norm1": float(grad_norms[0]), "launches": launches}
+        if dtype == torch.float32:
+            groups = _profile_train_step(trainer, state, batch, card, step_ms, tag, n=1,
+                                         what=f"BERT-base f32 (TF32 off), batch {LONG_B} x "
+                                              f"{LONG_T}")
+            out[tag]["bwd_group_ms"] = groups.get("flash_bwd kernels")
         del trainer, state
         gc.collect()
         torch.cuda.empty_cache()
@@ -1411,6 +1453,13 @@ def phase_train_long(device, card: str) -> dict:
     log(f"[long] flash vs einsum step {out['flash']['step_ms']:.3f} vs "
         f"{out['einsum']['step_ms']:.3f} ms, peak {out['flash']['peak_gib']:.2f} vs "
         f"{out['einsum']['peak_gib']:.2f} GiB | {card}")
+    f32, d_loss = out["flash f32"], abs(out["flash f32"]["loss1"] - out["flash"]["loss1"])
+    log(f"[long] flash f32: step {f32['step_ms']:.3f} ms, peak {f32['peak_gib']:.2f} GiB, the flash "
+        f"backward group of one profiled step {f32['bwd_group_ms']} ms; step 1's loss "
+        f"{f32['loss1']:.6f} against the bf16 flash run's {out['flash']['loss1']:.6f}, |d| "
+        f"{d_loss:.3e} (tol {TOL_STEP1_LOSS:g}) | {card}")
+    if not d_loss <= TOL_STEP1_LOSS:
+        raise AssertionError("the long-T f32 flash step 1 disagrees with the bf16 flash run's")
     return out
 
 
@@ -1821,10 +1870,10 @@ def main() -> None:
     # the flash kernels' launches on the paths, each counted from 0 just
     # before it ran: scoring (path 1), fine-tuning through flash and both
     # fitted models' scoring (path 3), bert-tiny f32 through flash on the
-    # card, and the long-T flash steps
+    # card, and the long-T flash steps in bf16 and in f32
     paths = (train, {"launches": tiny["fwd"], "bwd_launches": tiny["bwd"]},
-             {"launches": long_t["flash"]["launches"]["fwd"],
-              "bwd_launches": long_t["flash"]["launches"]["bwd"]})
+             *({"launches": long_t[tag]["launches"]["fwd"],
+                "bwd_launches": long_t[tag]["launches"]["bwd"]} for tag in ("flash", "flash f32")))
     launches = {k: v + sum(p["launches"][k] for p in paths)
                 for k, v in main_path["launches"].items()}
     launches.update({f"bwd_{k}": sum(p["bwd_launches"][k] for p in paths)

@@ -64,7 +64,8 @@
 //     f32 (the dropped a_lo*b_lo is about 2^-22 of the product). The kernel
 //     splits always; it does not depend on torch's allow_tf32. The split is
 //     most of the kernel's ALU work, so it is done with integer ops (see
-//     split_tf32) where cvt.rna would cost several instructions a part.
+//     split_tf32 in flash_common.cuh, shared with the f32 backward) where
+//     cvt.rna would cost several instructions a part.
 //   * ldmatrix moves 16-bit elements, so fragments are 32-bit shared loads.
 //     The order of k within one m16n8k8 step is free as long as A and B
 //     follow it, so thread (g, t) takes k = 2t, 2t+1 where the instruction
@@ -346,38 +347,7 @@ flash_fwd_mma_kernel(const Params p) {
 
 // ----------------------------------------------------------------- f32 ----
 
-// x = hi + lo in TF32 parts (10 mantissa bits each, low 13 bits zero): hi
-// is x rounded to nearest with ties away from zero, the bits cvt.rna.tf32
-// gives for finite x; lo is x - hi (exact in f32) truncated. Two integer
-// ops and a subtraction a part: cvt.rna compiles to several instructions
-// (it also handles NaN and Inf), and the split is most of the ALU work.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
-}
-
-// c += a (16x8, row) * b (8x8, col), TF32 in, f32 accumulate
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// One product step in split TF32: c += a * b as a_lo*b_hi + a_hi*b_lo +
-// a_hi*b_hi, the small terms first. a: the A fragment, split; b0, b1: the
-// B fragment, as f32.
-__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&a_hi)[4],
-                                           const uint32_t (&a_lo)[4], float b0, float b1) {
-  uint32_t bh0, bl0, bh1, bl1;
-  split_tf32(b0, bh0, bl0);
-  split_tf32(b1, bh1, bl1);
-  mma_tf32(c, a_lo, bh0, bh1);
-  mma_tf32(c, a_hi, bl0, bl1);
-  mma_tf32(c, a_hi, bh0, bh1);
-}
+// (split_tf32, mma_tf32 and mma_3xtf32 are in flash_common.cuh)
 
 template <int D>
 struct Tf32Tile {

@@ -18,7 +18,8 @@ take that layout as it is, strided views included, and write contiguous
 bfloat16 as it is, float32 in split TF32 (each operand split into two TF32
 parts, three products a step), which keeps float32 accuracy. The backward
 runs bfloat16 on Hopper's warpgroup tensor-core products (wgmma, tiles
-brought by TMA) and float32 on the CUDA cores.
+brought by TMA) and float32 on the tensor cores in split TF32 too
+(mma.sync, tiles brought by cp.async).
 
 :func:`flash_attention` is differentiable: when grad is enabled and an
 input requires it, an ``autograd.Function`` saves q, k, v, the mask, the
@@ -197,6 +198,20 @@ def _broadcast(x) -> bool:
     return any(st == 0 and n > 1 for st, n in zip(x.stride(), x.shape))
 
 
+def _kernel_views(q, k, v, out, dout):
+    """The backward kernel's inputs: ``dout`` in q's dtype with D innermost
+    and 16-byte aligned (copied once when it is not), and in bfloat16 a
+    contiguous copy of any broadcast view (a zero stride on a dim longer
+    than 1), since TMA steps by every stride. The float32 kernel copies its
+    tiles with cp.async from any address and takes such a view as it is."""
+    if dout.dtype != q.dtype or dout.stride()[-1] != 1 or not _aligned(dout):
+        dout = dout.to(q.dtype).contiguous()
+    views = (q, k, v, out, dout)
+    if q.dtype == torch.bfloat16:
+        views = tuple(x.contiguous() if _broadcast(x) else x for x in views)
+    return views
+
+
 def _kernel_args(q, k, v, kv_mask, out, dout=None, *, fn: str) -> tuple[int, ...]:
     """The C entry point's dims and element strides for ``q, out:
     [B, Tq, H, D]``, ``k, v: [B, Tk, H, D]`` and an int32 ``kv_mask:
@@ -349,7 +364,7 @@ def _flash_bwd_bthd(q, k, v, kv_mask, out, lse, dout, causal: bool, scale: float
     q/k/v/out/dout of any strides, an int32 ``kv_mask [B, Tk]`` and the
     forward's ``lse f32 [B*H, Tq]``. CUDA tensors launch ``csrc/flash_bwd.cu``
     in place or raise (a dout off the kernel's layout is copied once first,
-    and in bf16 so is any broadcast view, since TMA steps by every stride);
+    and so is a broadcast view in bf16, see :func:`_kernel_views`);
     no host sync, and every output and scratch comes from torch's allocator,
     so a CUDA graph can capture the call. CPU tensors take
     :func:`flash_attention_bwd_plain` on ``[B*H, T, D]`` copies."""
@@ -360,11 +375,7 @@ def _flash_bwd_bthd(q, k, v, kv_mask, out, lse, dout, causal: bool, scale: float
                            scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: no kernel for device {q.device}")
-    if dout.dtype != q.dtype or dout.stride()[-1] != 1 or not _aligned(dout):
-        dout = dout.to(q.dtype).contiguous()
-    if q.dtype == torch.bfloat16:
-        q, k, v, out, dout = (x.contiguous() if _broadcast(x) else x
-                              for x in (q, k, v, out, dout))
+    q, k, v, out, dout = _kernel_views(q, k, v, out, dout)
     if lse.dtype != torch.float32 or tuple(lse.shape) != (B * H, Tq) or not lse.is_contiguous():
         raise ValueError(f"flash_attention_bwd: lse must be a contiguous float32 [B*H, Tq] = "
                          f"{(B * H, Tq)}, got {lse.dtype} {tuple(lse.shape)}")
@@ -395,14 +406,14 @@ def flash_attention_bwd(q, k, v, kv_mask, out, lse, dout, causal: bool = False,
     forward's ``out`` and ``lse`` and the output gradient ``dout``.
 
     CUDA tensors launch ``csrc/flash_bwd.cu`` (built at first use; bf16 on
-    the tensor cores with wgmma and TMA, float32 on the CUDA cores) or
-    raise; any strides with D innermost are taken as they are, except that
-    bf16 copies a broadcast view (a zero stride on a dim longer than 1)
-    first, since TMA steps by every stride. CPU tensors
-    take :func:`flash_attention_bwd_plain`. Each call of the entry point
-    (one kernel in bf16, after a memset of its dQ counters when Tk > 128;
-    three in float32) adds one to ``flash_attention_bwd.launches["bf16"]``
-    or ``["f32"]``."""
+    the tensor cores with wgmma and TMA, float32 on the tensor cores in
+    split TF32 with mma.sync) or raise; any strides with D innermost are
+    taken as they are, except that bf16 copies a broadcast view (a zero
+    stride on a dim longer than 1) first, since TMA steps by every stride.
+    CPU tensors take :func:`flash_attention_bwd_plain`. Each call of the
+    entry point (one kernel, after a memset of its dQ counters when a head
+    has more than one kv tile: Tk > 128, or > 64 at D = 128 in float32)
+    adds one to ``flash_attention_bwd.launches["bf16"]`` or ``["f32"]``."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":

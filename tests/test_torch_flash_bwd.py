@@ -246,25 +246,27 @@ def test_inference_path_builds_no_graph():
     assert type(out.grad_fn).__name__ == "_FlashAttentionBackward"
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bad,err,match", [
     ("dout_shape", ValueError,
      r"flash_attention_bwd: want q, out and dout .* dout \(2, 8, 2, 64\)"),
     ("dout_dtype", TypeError, "flash_attention_bwd: .*float32 or bfloat16"),
     ("dout_strided", ValueError, "flash_attention_bwd: dout must have D innermost"),
 ])
-def test_kernel_argument_checks_cover_dout(bad, err, match):
+def test_kernel_argument_checks_cover_dout(bad, err, match, dtype):
     """What the CUDA wrapper refuses in dout before any launch, in the
-    backward's name (checked on CPU tensors; the kernel itself runs only on
-    the card)."""
-    q = torch.zeros(2, 16, 2, 64)
+    backward's name, for either kernel's dtype (checked on CPU tensors; the
+    kernel itself runs only on the card)."""
+    other = torch.bfloat16 if dtype == torch.float32 else torch.float32
+    q = torch.zeros(2, 16, 2, 64, dtype=dtype)
     mask = torch.ones(2, 16, dtype=torch.int32)
-    dout = torch.zeros(2, 16, 2, 64)
+    dout = torch.zeros(2, 16, 2, 64, dtype=dtype)
     if bad == "dout_shape":
-        dout = torch.zeros(2, 8, 2, 64)
+        dout = torch.zeros(2, 8, 2, 64, dtype=dtype)
     elif bad == "dout_dtype":
-        dout = dout.to(torch.bfloat16)
+        dout = dout.to(other)
     elif bad == "dout_strided":
-        dout = torch.zeros(2, 16, 64, 2).transpose(2, 3)
+        dout = torch.zeros(2, 16, 64, 2, dtype=dtype).transpose(2, 3)
     with pytest.raises(err, match=match):
         tatt._kernel_args(q, q, q, mask, torch.empty_like(q), dout, fn="flash_attention_bwd")
     args = tatt._kernel_args(q, q, q, mask, torch.empty_like(q), torch.zeros_like(q),
@@ -272,26 +274,52 @@ def test_kernel_argument_checks_cover_dout(bad, err, match):
     assert args == (2, 2, 16, 16, 64) + (16 * 2 * 64, 2 * 64, 64) * 5
 
 
-def test_tensor_map_error_code_matches_the_kernel_source():
+def _c_function(src: str, signature: str) -> str:
+    """The body of the C++ function of flash_bwd.cu that starts with
+    ``signature``, up to its closing brace at the start of a line."""
+    body = src[src.index(signature):]
+    return body[:body.index("\n}\n")]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tensor_map_error_code_matches_the_kernel_source(dtype):
     """The wrapper tells a refused TMA tensor map from a CUDA error by the
-    code flash_bwd.cu returns for it."""
+    code flash_bwd.cu returns for it. Only the bf16 path builds tensor maps;
+    the float32 kernel copies its tiles with cp.async and never returns the
+    code."""
     src = (_build.CSRC / "flash_bwd.cu").read_text()
     assert f"constexpr int ERR_TENSOR_MAP = {tatt._TENSOR_MAP_ERR};" in src
+    run = _c_function(src, "int run_tf32(" if dtype == torch.float32 else "int run_bf16(")
+    kernel = _c_function(src, "flash_bwd_tf32_kernel(" if dtype == torch.float32
+                         else "flash_bwd_wgmma_kernel(")
+    if dtype == torch.float32:
+        assert "encode_view" not in run and "tma_" not in kernel and "cp_async" in kernel
+    else:
+        assert run.count("encode_view<D>") == 8 and "tma_load_4d" in kernel
 
 
-def test_broadcast_views_are_told_from_size_one_dims():
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_broadcast_views_are_told_from_size_one_dims(dtype):
     """The bf16 wrapper copies a view with a zero stride on a dim longer
     than 1 before the kernel builds its TMA maps (which step by every
     stride): k and v of one head expanded over the heads, a dout broadcast
     over the batch. A zero stride on a dim of size 1 is never stepped and
-    needs no copy."""
+    needs no copy. The float32 kernel (cp.async) takes such views as they
+    are."""
     B, T, H, D = 2, 16, 4, 64
-    kv = torch.zeros(B, T, 1, D)
+    kv = torch.zeros(B, T, 1, D, dtype=dtype)
     assert tatt._broadcast(kv.expand(B, T, H, D))
     assert tatt._broadcast(torch.zeros(1, T, H, D).expand(B, T, H, D))
     assert not tatt._broadcast(kv)
     assert not tatt._broadcast(torch.zeros(T, H, D).expand(1, T, H, D))
     assert not tatt._broadcast(torch.zeros(B, T, 3 * H * D)[..., :H * D].unflatten(-1, (H, D)))
+    q = torch.zeros(B, T, H, D, dtype=dtype)
+    views = (q, kv.expand(B, T, H, D), kv.expand(B, T, H, D), torch.zeros_like(q),
+             torch.zeros(1, T, H, D, dtype=dtype).expand(B, T, H, D))
+    got = tatt._kernel_views(*views)
+    copied = [a is not b for a, b in zip(got, views)]
+    assert copied == ([False] * 5 if dtype == torch.float32 else [False, True, True, False, True])
+    assert all(not tatt._broadcast(x) for x in got) or dtype == torch.float32
 
 
 def test_trace_stamp_points_are_in_the_kernel_source():
@@ -323,3 +351,139 @@ def test_non_cpu_tensors_launch_or_raise(monkeypatch, tmp_path):
     assert not os.path.exists(_build._lib_path("flash_bwd"))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         tatt._bwd_entry_point()
+
+
+# --- the f32 kernel's split TF32, emulated -----------------------------------
+# flash_bwd_tf32_kernel computes every product on the tensor cores, which
+# read f32 as TF32 (10 mantissa bits). It splits each operand x into hi = x
+# rounded to TF32 (as cvt.rna.tf32.f32) and lo = x - hi truncated to TF32,
+# P and dS too where they become operands, and takes each product as
+# a_lo*b_hi + a_hi*b_lo + a_hi*b_hi in f32. delta = rowsum(O dO) is the
+# diagonal of O dO^T taken in exactly dP's arithmetic, so that dP - delta,
+# which is 0 for a query row that attends one key (its O is that key's V),
+# is 0 in the kernel too. The emulation below (a copy of
+# test_torch_attention.py's TF32 rounding; here only, no part of the port)
+# holds that error budget, at the kernel's tiles, to the chip check's limit.
+
+def _tf32(x):
+    """``cvt.rna.tf32.f32``: x to 10 mantissa bits, to nearest, ties away from
+    zero. f32 is sign and magnitude, so adding half of the 13 dropped bits'
+    range to the bit pattern and clearing them rounds the magnitude."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_truncated(x):
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _tf32_parts(x, single):
+    """(hi, lo) of split TF32, or (x rounded to TF32, 0) for one pass."""
+    hi = _tf32(x)
+    return hi, torch.zeros_like(x) if single else _tf32_truncated(x - hi)
+
+
+def _bmm_tf32(a, b, single=False):
+    """a @ b as the kernel's mma steps: a_lo b_hi + a_hi b_lo + a_hi b_hi."""
+    (ah, al), (bh, bl) = _tf32_parts(a, single), _tf32_parts(b, single)
+    return torch.bmm(al, bh) + torch.bmm(ah, bl) + torch.bmm(ah, bh)
+
+
+def _rows_tf32(a, b, single=False):
+    """``[BH, m, D] x [BH, n, D] -> [BH, m, n]`` dot products of rows, in the
+    same split and in one fixed order for every pair of rows, so that equal
+    rows give equal bits (as one mma instruction does wherever they sit)."""
+    (ah, al), (bh, bl) = _tf32_parts(a, single), _tf32_parts(b, single)
+
+    def dot(x, y):
+        return (x[:, :, None, :] * y[:, None, :, :]).sum(-1)
+
+    return dot(al, bh) + dot(ah, bl) + dot(ah, bh)
+
+
+def _bwd_split_tf32(q, k, v, mask, out, lse, dout, causal, scale, single=False, bn=128,
+                    bm=64):
+    """flash_attention_bwd_plain's function with flash_bwd_tf32_kernel's
+    tiles (kv tiles of ``bn`` rows, q tiles of ``bm``; D = 64) and its
+    arithmetic: S^T, dP^T and delta, then dV, dK and dQ, each product in
+    split TF32 (``single``: one TF32 pass), dQ summed over the kv tiles in
+    kv order."""
+    Tq, Tk = q.shape[1], k.shape[1]
+    dq, dk, dv = torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    for q0 in range(0, Tq, bm):
+        qb, gb = q[:, q0:q0 + bm], dout[:, q0:q0 + bm]
+        delta = torch.diagonal(_rows_tf32(out[:, q0:q0 + bm], gb, single), dim1=1, dim2=2)
+        for k0 in range(0, Tk, bn):
+            if causal and k0 > q0 + bm - 1:
+                continue
+            kb, vb = k[:, k0:k0 + bn], v[:, k0:k0 + bn]
+            st = _bmm_tf32(kb, qb.transpose(1, 2), single)
+            dpt = _rows_tf32(vb, gb, single)
+            ok = mask[:, k0:k0 + bn, None] != 0
+            if causal:
+                ok = ok & (k0 + torch.arange(kb.shape[1])[:, None]
+                           <= q0 + torch.arange(qb.shape[1])[None, :])
+            p = torch.where(ok, torch.exp(st * scale - lse[:, None, q0:q0 + bm]), 0.0)
+            ds = p * (dpt - delta[:, None, :])
+            dv[:, k0:k0 + bn] += _bmm_tf32(p, gb, single)
+            dk[:, k0:k0 + bn] += _bmm_tf32(ds, qb, single)
+            dq[:, q0:q0 + bm] = dq[:, q0:q0 + bm] + _bmm_tf32(ds.transpose(1, 2), kb, single)
+    return dq * scale, dk * scale, dv
+
+
+def _bwd_case_inputs(BH, T, causal, seed=7):
+    """The chip check's inputs at D = 64 (those of the limit test above):
+    padding lengths down to 1, four fully masked rows, random dout; the
+    plain forward's out and LSE."""
+    cs = _chip_smoke()
+    g = torch.Generator().manual_seed(seed)
+    q, k, v, dout = (torch.randn(BH, T, 64, generator=g) for _ in range(4))
+    mask = cs._padding_mask(BH, T, "cpu", seed=seed, empty_rows=4)
+    out, lse = tatt.flash_attention_fwd_plain(q, k, v, mask, causal, 1.0 / 8)
+    return cs, (q, k, v, mask, out, lse, dout, causal, 1.0 / 8)
+
+
+def _bwd_float64(q, k, v, mask, out, lse, dout, causal, scale):
+    """The backward's function on the same inputs (the forward's out and
+    LSE included) in float64, dense: (dq, dk, dv)."""
+    q, k, v, out, lse, dout = (x.double() for x in (q, k, v, out, lse, dout))
+    ok = (mask[:, None, :] != 0).expand(-1, q.shape[1], -1)
+    if causal:
+        ok = ok & (torch.arange(k.shape[1])[None, :] <= torch.arange(q.shape[1])[:, None])
+    p = torch.where(ok, torch.exp(q @ k.transpose(1, 2) * scale - lse[..., None]), 0.0)
+    ds = p * (dout @ v.transpose(1, 2) - (out * dout).sum(-1, keepdim=True))
+    return ds @ k * scale, ds.transpose(1, 2) @ q * scale, p.transpose(1, 2) @ dout
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("BH,T", [(48, 128), (8, 512)])
+def test_split_tf32_bwd_within_half_the_chip_limit(BH, T, causal):
+    """The kernel's arithmetic, emulated, at a BERT-base head (T = 128) and
+    at T = 512: within TOL_BWD / 2 by _bwd_err of the function in float64,
+    and within TOL_BWD (the chip check) of the plain version. Not TOL_BWD / 2
+    of the plain version: in a slice whose rows attend one key, dq and dk
+    are 0 in exact arithmetic and the plain version's own rounding there is
+    about 6e-5 of the floor at T = 128. The emulation gives those rows
+    exactly zero dq and dk (dP - delta cancels), as exact arithmetic does."""
+    cs, args = _bwd_case_inputs(BH, T, causal)
+    got = _bwd_split_tf32(*args)
+    tol = cs.TOL_BWD[torch.float32]
+    assert cs._bwd_err(got, _bwd_float64(*args)) <= tol / 2
+    assert cs._bwd_err(got, tatt.flash_attention_bwd_plain(*args)) <= tol
+    mask = args[3]
+    if causal:  # query row 0 attends key 0 alone in every slice that has it
+        assert float(got[0][mask[:, 0] != 0, 0].abs().max()) == 0.0
+    one_key = (mask.sum(1) == 1) & (mask[:, 0] != 0)
+    if one_key.any():
+        assert float(got[0][one_key].abs().max()) == 0.0
+        assert float(got[1][one_key].abs().max()) == 0.0
+
+
+def test_single_tf32_bwd_misses_the_chip_limit():
+    """One TF32 pass a product misses TOL_BWD by far at the same inputs: why
+    the kernel splits every operand."""
+    cs, args = _bwd_case_inputs(48, 128, False)
+    single = _bwd_split_tf32(*args, single=True)
+    tol = cs.TOL_BWD[torch.float32]
+    assert cs._bwd_err(single, _bwd_float64(*args)) > 5 * tol
+    assert cs._bwd_err(single, tatt.flash_attention_bwd_plain(*args)) > 5 * tol
