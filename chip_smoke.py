@@ -7,11 +7,12 @@ the kernels are built for sm_90a). Phases, each of which raises on failure:
 
 1. device: requires CUDA, prints the card's name and power limit, turns
    TF32 off for matmuls and convolutions;
-2. build: compiles every kernel under synapseml_torch/csrc/ with nvcc,
-   keeps each kernel's registers and spills, and requires in the SASS of
-   the backward at every head dim HGMMA (wgmma) in the bf16 kernel, HMMA
-   on TF32 operands (and fewer FFMA than HMMA) in the f32 kernel, and no
-   other kernel;
+2. build: compiles every kernel source under synapseml_torch/csrc/ with
+   nvcc, one process each, all at once, keeps each kernel's registers and
+   spills, and requires in the SASS of the backward at every head dim
+   HGMMA (wgmma) in the bf16 kernel (flash_bwd_bf16.cu), HMMA on TF32
+   operands (and fewer FFMA than HMMA) in the f32 kernel (flash_bwd_f32.cu),
+   and no other kernel in either library;
 3. kernels: holds each kernel against its plain PyTorch version on the
    card: flash attention (the bf16 tensor-core kernel and the f32 one in
    split TF32) at BERT-base shapes, with a padding mask, causal and not,
@@ -59,19 +60,30 @@ the kernels are built for sm_90a). Phases, each of which raises on failure:
    as on the card; then a profile of one boosting iteration;
 6. main path 3: DeepTextClassifier fine-tuning BERT-base (hidden 768, 12
    layers, 12 heads, MLP 3072; f32 params, bf16 compute) on 960 texts that
-   fill 128 tokens, batch 32, 30 optimizer steps, with einsum attention and
-   then with attn_impl='flash' (the same data and seed): every step's loss
-   finite, every parameter moved; the flash fit launches the forward and
-   backward kernels 12 times a step each, and its first loss and gradient
-   norm are within 1e-2 of einsum's; each fitted model's transform through
-   attn_impl='flash' (the bf16 kernel 12 times a batch) against
+   fill 128 tokens, batch 32, 64 optimizer steps, with einsum attention and
+   then with attn_impl='flash' (the same data and seed; first, reported,
+   whether _foreach_div and _foreach_mul with a 0-d tensor scalar, as the
+   optimizer takes its per-step scalars, equal their Python-float forms
+   bitwise), each three times:
+   the stage's own fit, which runs chunks of 8 steps as CUDA graphs
+   (Trainer.train_steps_scan: an eager warm-up chunk, one capture, six
+   replays), then twice the eager per-step loop (the stage's trainer, data
+   and init through fit_arrays with scan_chunk=1). Every step's loss
+   finite, every parameter moved, one capture a fit; each leaf of the
+   graph fit bitwise the eager fit's except where the two eager fits
+   already differ (there within 1e-6); the flash fits launch the forward and
+   backward kernels 12 times a step each, replayed steps included, and a
+   profiled replay names each 96 times; flash's first loss and gradient
+   norm are within 1e-2 of einsum's; each graph-fitted model's transform
+   through attn_impl='flash' (the bf16 kernel 12 times a batch) against
    attn_impl='einsum' within main path 1's tolerances; a save -> load round
-   trip bitwise; a second fit from the same seed compared bitwise
-   (reported, not required); samples/s and the median step in device time,
-   peak memory, MFU and a profile of one optimizer step by kernel group,
-   for each; then bert-tiny in f32 compute (TF32 off), einsum and flash, 6
-   steps on the CPU and on the card from the same init and data, per-step
-   losses within 1e-4;
+   trip bitwise; for graph and eager, samples/s, the median step in device
+   time (a chunk's ms / 8 for the graphs), peak memory, MFU and the busy
+   share of a profiled chunk or step, and a profile by kernel group;
+   then bert-tiny in f32 compute (TF32 off), einsum and flash, 6 steps on
+   the CPU and on the card from the same init and data, per step and as
+   two graph chunks of 3, losses within 1e-4 of the CPU's and the graph
+   run bitwise the eager one as above;
 7. long-T step: BERT-base, batch 8 x 512 random ids (the second shape of
    benchmarks/attn_backends.py), 8 steps with einsum and with flash from
    one init: the median step in device time and the peak memory of each,
@@ -217,27 +229,31 @@ def phase_build():
 
 
 def _check_sass() -> None:
-    """The backward kernels' SASS (cuobjdump of the built library) at every
+    """The backward kernels' SASS (cuobjdump of each built library) at every
     head dim: HGMMA, the warpgroup tensor-core instruction, in the bf16
     kernel; HMMA on TF32 operands in the f32 kernel, with fewer FFMA than
     HMMA (a product loop on the CUDA cores would outnumber them); and no
-    other kernel in the library."""
+    other kernel in either library."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([tool, "-sass", str(_build._lib_path("flash_bwd"))],
-                          capture_output=True, text=True, timeout=300, check=True).stdout
-    counts, fn = {}, None
-    for line in sass.splitlines():
-        head = re.search(r"Function : (\S+)", line)
-        if head:
-            fn = head.group(1)
-            counts[fn] = {"HGMMA": 0, "HMMA.TF32": 0, "FFMA": 0}
-        elif fn:
-            op = re.search(r"\b(HGMMA|HMMA|FFMA)\S*", line)
-            if op and (op.group(1) != "HMMA" or "TF32" in op.group(0)):
-                counts[fn]["HMMA.TF32" if op.group(1) == "HMMA" else op.group(1)] += 1
-    bf16 = {f: c["HGMMA"] for f, c in counts.items() if "flash_bwd_wgmma_kernel" in f}
-    f32 = {f: c for f, c in counts.items() if "flash_bwd_tf32_kernel" in f}
-    others = [f for f in counts if f not in bf16 and f not in f32]
+    counts = {}
+    for dtype, name in att._BWD_SOURCES.items():
+        sass = subprocess.run([tool, "-sass", str(_build._lib_path(name))],
+                              capture_output=True, text=True, timeout=300, check=True).stdout
+        fn = None
+        for line in sass.splitlines():
+            head = re.search(r"Function : (\S+)", line)
+            if head:
+                fn = (name, head.group(1))
+                counts[fn] = {"HGMMA": 0, "HMMA.TF32": 0, "FFMA": 0}
+            elif fn:
+                op = re.search(r"\b(HGMMA|HMMA|FFMA)\S*", line)
+                if op and (op.group(1) != "HMMA" or "TF32" in op.group(0)):
+                    counts[fn]["HMMA.TF32" if op.group(1) == "HMMA" else op.group(1)] += 1
+    bf16 = {f: c["HGMMA"] for (lib, f), c in counts.items()
+            if lib == "flash_bwd_bf16" and "flash_bwd_wgmma_kernel" in f}
+    f32 = {f: c for (lib, f), c in counts.items()
+           if lib == "flash_bwd_f32" and "flash_bwd_tf32_kernel" in f}
+    others = [f"{lib}: {f}" for lib, f in counts if f not in bf16 and f not in f32]
     log(f"[build] HGMMA instructions in the SASS of flash_bwd_wgmma_kernel: {bf16}")
     log(f"[build] HMMA (TF32) and FFMA instructions in the SASS of flash_bwd_tf32_kernel: "
         f"{ {f: (c['HMMA.TF32'], c['FFMA']) for f, c in f32.items()} }; other kernels: "
@@ -247,7 +263,7 @@ def _check_sass() -> None:
     if not (len(f32) == len(att.HEAD_DIMS) and not others
             and all(c["FFMA"] < c["HMMA.TF32"] for c in f32.values())):
         raise AssertionError("flash_bwd_tf32_kernel is not on the tensor cores at every head "
-                             "dim, or another kernel is in flash_bwd")
+                             "dim, or another kernel is in flash_bwd_bf16 or flash_bwd_f32")
 
 
 def _inputs(BH, Tq, Tk, Dp, dtype, device, seed, true_d=None):
@@ -301,6 +317,9 @@ def _check_views(name, Bv, Tv, Hv, Dv, dtype, device, seed, causal) -> None:
         raise AssertionError(f"flash_attention from views disagrees on {name}")
 
 
+PROFILE_TRIES = 3  # profiler sessions for a measurement that recorded nothing
+
+
 def _device_kernels(fn, n=3) -> list[tuple[str, int, float, int, float]]:
     """(name, count per call, device ms per call, launches recorded, ms
     recorded over ``n``) of the device kernels a call of ``fn`` runs, from
@@ -309,20 +328,28 @@ def _device_kernels(fn, n=3) -> list[tuple[str, int, float, int, float]]:
     count a call is its recorded launches over ``n`` rounded up (each call
     is taken to launch it a whole number of times) and its time a call is
     its mean over the launches recorded times that count; the last two
-    fields are what was recorded, to check that against."""
+    fields are what was recorded, to check that against. A session that
+    recorded no device kernel at all measured nothing: it is taken again,
+    up to PROFILE_TRIES sessions."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
+    for attempt in range(PROFILE_TRIES):
         torch.cuda.synchronize()
-    return [(e.key, -(-e.count // n), e.self_device_time_total / e.count * -(-e.count // n) / 1e3,
-             e.count, e.self_device_time_total / n / 1e3)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        out = [(e.key, -(-e.count // n),
+                e.self_device_time_total / e.count * -(-e.count // n) / 1e3,
+                e.count, e.self_device_time_total / n / 1e3)
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        if out:
+            return out
+        log(f"[profile] session {attempt + 1} recorded no device kernel; profiling again")
+    return []
 
 
 def _count_view_call_kernels(device) -> None:
@@ -930,7 +957,7 @@ def _bwd_times(device, card: str, launches: dict, max_err: dict) -> list[dict]:
                 f"summed {library_ms:.4f} ms: {library_kernels} | {card}")
             if i == 0:
                 rows.append({"name": f"flash_bwd_{tag}", "route": "cuda",
-                             "source": "synapseml_torch/csrc/flash_bwd.cu",
+                             "source": f"synapseml_torch/csrc/{att._BWD_SOURCES[dtype]}.cu",
                              "replaces": "synapseml_tpu/ops/attention.py:183",
                              "launches": launches[f"bwd_{tag}"],
                              "max_abs_err": max_err[f"bwd_{tag}"],
@@ -949,12 +976,20 @@ def _bwd_times(device, card: str, launches: dict, max_err: dict) -> list[dict]:
 
 # ---------------- main path 3: BERT-base fine-tuning ----------------
 
-FT_ARCH, FT_ROWS, FT_STEPS, FT_BATCH, FT_LEN = "bert-base", 960, 30, 32, 128
-FT_WARMUP = 5  # steps left out of the step time (first calls, allocator warm-up)
+FT_ARCH, FT_ROWS, FT_STEPS, FT_BATCH, FT_LEN = "bert-base", 960, 64, 32, 128
+FT_CHUNK = 8  # the stage's scan_chunk (fit_arrays' default): steps a captured graph runs
+FT_WARMUP = 5  # eager steps left out of the step time (first calls, allocator warm-up)
+# graph chunks left out of the step time: the warm-up chunk (eager, on a side
+# stream) and the chunk that captures; the profiled chunk is left out too
+FT_GRAPH_SKIP = 2
+FT_PROFILE_AT = 5  # the chunk profiled (0-based), or the next if its profile lost records
 FT_LR = 1e-4
+# a leaf on which two eager fits from one seed differ is held to the eager
+# fit within this, not bitwise
+TOL_SPREAD = 1e-6
 _POSITIVE = ("great", "good", "moving", "bright", "funny", "well", "fast")
 _NEGATIVE = ("bad", "awful", "boring", "dark", "slow", "sad", "badly")
-TINY_STEPS, TINY_TOL = 6, 1e-4  # bert-tiny f32, CPU against the card
+TINY_STEPS, TINY_CHUNK, TINY_TOL = 6, 3, 1e-4  # bert-tiny f32, CPU against the card
 LONG_STEPS, LONG_WARMUP = 8, 2  # the long-T step: steps run, first steps left out
 LONG_F32_STEPS = 4  # the long-T step in f32 compute (the f32 flash kernels)
 
@@ -1011,6 +1046,89 @@ class _StepTimer:
         return [s.elapsed_time(e) for s, e in self.events]
 
 
+def _flash_named(kernels) -> tuple[int, int]:
+    """(forward, backward) flash kernels a profile recorded, by name."""
+    return (sum(n for _, n, key in kernels if "flash_fwd" in key),
+            sum(n for _, n, key in kernels if "flash_bwd" in key))
+
+
+class _ChunkTimer:
+    """Wraps Trainer.train_steps_scan for one fit, as _StepTimer wraps
+    train_step: CUDA events around each chunk (its host-to-card copies and
+    its graph replay; the first chunk of a key is its eager warm-up, the
+    second also captures), each chunk's losses and gradient norms, and a
+    profile of chunk ``profile_at`` (a replay): its wall time, its device
+    kernels by group and the flash kernels by name, which must number
+    ``want_flash`` (forward, backward). The profiler starts tracing in a
+    warm-up cycle before the chunk, whose records it drops (without one a
+    profile missed a replay's first step on one H100). A
+    profile that still lost records (no kernel, or fewer flash kernels
+    than the chunk launched) measured less than ran: the next chunk is
+    profiled in its place. Restores the method on exit."""
+
+    def __init__(self, profile_at: int | None = None, want_flash=(0, 0)):
+        self.events, self.losses, self.grad_norms = [], [], []
+        self.profile_at, self.want_flash, self.profile = profile_at, want_flash, None
+        self.short = []  # (forward, backward) of profiles that lost records
+
+    def __enter__(self):
+        orig = self._orig = trainer_mod.Trainer.train_steps_scan
+        timer = self
+
+        def timed(trainer, state, stacked):
+            if len(timer.events) == timer.profile_at:
+                state, metrics = timer._profiled(orig, trainer, state, stacked)
+            else:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                state, metrics = orig(trainer, state, stacked)
+                end.record()
+                timer.events.append((start, end))
+            timer.losses.append(metrics["loss"])
+            timer.grad_norms.append(metrics["grad_norm"])
+            return state, metrics
+
+        trainer_mod.Trainer.train_steps_scan = timed
+        return self
+
+    def _profiled(self, orig, trainer, state, stacked):
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile, schedule
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+            torch.cuda._sleep(SPIN // 10)  # work for the warm-up cycle to trace
+            torch.cuda.synchronize()
+            prof.step()  # the active cycle; it ends when the block does
+            t0 = time.perf_counter()
+            state, metrics = orig(trainer, state, stacked)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        # the active cycle's own span is recorded on the card too: not a kernel
+        kernels = [(e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+                   and not e.key.startswith("ProfilerStep")]
+        self.events.append(None)
+        if kernels and _flash_named(kernels) == tuple(self.want_flash):
+            self.profile = {"wall_ms": wall_ms, "kernels": kernels}
+        else:
+            self.short.append(_flash_named(kernels) if kernels else None)
+            log(f"[profile] the profile of chunk {self.profile_at + 1} recorded "
+                f"{_flash_named(kernels) if kernels else 'no'} flash kernels of "
+                f"{tuple(self.want_flash)} (of {len(kernels)} kernel names); profiling the next")
+            self.profile_at += 1
+        return state, metrics
+
+    def __exit__(self, *exc):
+        trainer_mod.Trainer.train_steps_scan = self._orig
+
+    def chunk_ms(self) -> list[float | None]:
+        torch.cuda.synchronize()
+        return [e[0].elapsed_time(e[1]) if e else None for e in self.events]
+
+
 def _zero_flash_counts() -> None:
     att.flash_attention_fwd.launches = dict.fromkeys(att.flash_attention_fwd.launches, 0)
     att.flash_attention_bwd.launches = dict.fromkeys(att.flash_attention_bwd.launches, 0)
@@ -1021,17 +1139,38 @@ def _flash_counts() -> dict:
             "bwd": dict(att.flash_attention_bwd.launches)}
 
 
-def _fine_tune(df, device, card: str, attn_impl: str) -> dict:
-    """One DeepTextClassifier fit at full width and depth with the given
-    attention, the flash launch counts set to 0 just before it and read just
-    after: every step's loss finite, every parameter moved; step times in
-    device time, samples/s, MFU and peak memory."""
-    stage = DeepTextClassifier(checkpoint=FT_ARCH, num_classes=2, batch_size=FT_BATCH,
-                               max_token_len=FT_LEN, max_steps=FT_STEPS, learning_rate=FT_LR,
-                               seed=0, attn_impl=attn_impl, device=str(device))
+def _stage(device, attn_impl: str) -> DeepTextClassifier:
+    return DeepTextClassifier(checkpoint=FT_ARCH, num_classes=2, batch_size=FT_BATCH,
+                              max_token_len=FT_LEN, max_steps=FT_STEPS, learning_rate=FT_LR,
+                              seed=0, attn_impl=attn_impl, device=str(device))
+
+
+def _fit_numbers(tag: str, attn_impl: str, step_ms: float, peak_gib: float, n_params: int,
+                 card: str, how: str) -> dict:
+    tokens = FT_BATCH * FT_LEN
+    flops = 6 * n_params * tokens
+    mfu = flops / (step_ms / 1e3) / 989e12
+    log(f"[train] {attn_impl} {tag}: median step {step_ms:.3f} ms in device time ({how}) = "
+        f"{FT_BATCH / step_ms * 1e3:.1f} samples/s; 6ND = {flops / 1e12:.3f} TFLOP a step "
+        f"({n_params:,} params x {tokens} tokens) = MFU {mfu:.4f} of 989 TFLOP/s bf16 dense; "
+        f"peak device memory {peak_gib:.2f} GiB | {card}")
+    return {"step_ms": step_ms, "samples_s": FT_BATCH / step_ms * 1e3, "mfu": mfu,
+            "peak_gib": peak_gib}
+
+
+def _graph_fine_tune(df, device, card: str, attn_impl: str) -> dict:
+    """The stage's own fit (fit_arrays at its default scan_chunk: CUDA
+    graphs of FT_CHUNK steps) at full width and depth, the flash launch
+    counts set to 0 just before it and read just after: every step's loss
+    finite, every parameter moved, one capture for the fit's one key; the
+    chunks' times, peak memory, MFU, and the profile of the last chunk."""
+    stage = _stage(device, attn_impl)
+    cache = cb.get_compiled_cache()
+    misses0 = cache.miss_count("train_steps_scan")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    timer = _StepTimer()
+    n_flash = bert_base().n_layers * FT_CHUNK if attn_impl == "flash" else 0
+    timer = _ChunkTimer(profile_at=FT_PROFILE_AT, want_flash=(n_flash, n_flash))
     _zero_flash_counts()
     t0 = time.perf_counter()
     with timer:
@@ -1039,43 +1178,122 @@ def _fine_tune(df, device, card: str, attn_impl: str) -> dict:
     fit_s = time.perf_counter() - t0
     launches = _flash_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    steps = timer.step_ms()
-    losses = torch.stack(timer.losses).float().cpu().numpy()
-    if len(steps) != FT_STEPS or not np.isfinite(losses).all():
-        raise AssertionError(f"{attn_impl}: {len(steps)} steps, losses {losses.tolist()}: want "
-                             f"{FT_STEPS} finite losses")
+    captures = cache.miss_count("train_steps_scan") - misses0
+    chunks = timer.chunk_ms()
+    losses = torch.cat(timer.losses).float().cpu().numpy()
+    if (len(chunks) != FT_STEPS // FT_CHUNK or not np.isfinite(losses).all()
+            or timer.profile is None):
+        raise AssertionError(f"{attn_impl} graph fit: {len(chunks)} chunks, losses "
+                             f"{losses.tolist()}, a profile {timer.profile is not None}: want "
+                             f"{FT_STEPS // FT_CHUNK} chunks of finite losses and a profile")
     cfg = model.get("arch_config")
     init = text_stage._init_params(cfg, 2, 0)
     params = model.get("model_params")
     still = [k for k in params if np.array_equal(params[k], init[k])]
-    moved = max(float(np.abs(params[k] - init[k]).max()) for k in params)
-    log(f"[train] {attn_impl}: per-step loss {np.round(losses, 4).tolist()} (all finite); "
-        f"parameters that did not move: {still or 'none'} (largest move {moved:.3e}); flash "
-        f"launches over the fit {launches}")
-    if still:
-        raise AssertionError(f"{attn_impl}: parameters did not move: {still}")
-
-    step_ms = statistics.median(steps[FT_WARMUP:])
+    log(f"[train] {attn_impl} graph fit: per-step loss {np.round(losses, 4).tolist()} (all "
+        f"finite); parameters that did not move: {still or 'none'}; captures "
+        f"{captures:g} (want 1: one key, batch {FT_BATCH} x {FT_LEN}, K = {FT_CHUNK}, phase 0); "
+        f"flash launches over the fit {launches}; CompiledCache {cache.stats()}")
+    if still or captures != 1:
+        raise AssertionError(f"{attn_impl} graph fit: parameters did not move ({still}) or "
+                             f"{captures} captures")
     n_params = sum(a.size for a in params.values())
-    tokens = FT_BATCH * FT_LEN
-    flops = 6 * n_params * tokens
-    mfu = flops / (step_ms / 1e3) / 989e12
-    (entry,) = model.get("train_metrics")
-    log(f"[train] {attn_impl}: fit {fit_s:.2f} s on the host clock (init, tokenization and "
-        f"{FT_STEPS} steps); median step {step_ms:.3f} ms in device time over steps "
-        f"{FT_WARMUP + 1}-{FT_STEPS} (min {min(steps[FT_WARMUP:]):.3f}, max "
-        f"{max(steps[FT_WARMUP:]):.3f}; first step {steps[0]:.3f}) = "
-        f"{FT_BATCH / step_ms * 1e3:.1f} samples/s; 6ND = {flops / 1e12:.3f} TFLOP a step "
-        f"({n_params:,} params x {tokens} tokens) = MFU {mfu:.4f} of 989 TFLOP/s bf16 dense; "
-        f"peak device memory {peak_gib:.2f} GiB | {card}")
-    log(f"[train] {attn_impl}: train_metrics {json.dumps(entry)} (host clock over the whole "
-        f"fit, first steps included)")
-    if "mfu" not in entry:
-        raise AssertionError("train_metrics has no mfu: the card's peak is not in the table")
-    return {"stage": stage, "model": model, "timer": timer, "losses": losses,
-            "grad_norm1": float(timer.grad_norms[0]), "launches": launches,
-            "step_ms": step_ms, "samples_s": FT_BATCH / step_ms * 1e3, "mfu": mfu,
-            "peak_gib": peak_gib}
+    _check_train_metrics(model.get("train_metrics"), n_params, attn_impl)
+    timed = [c for c in chunks[FT_GRAPH_SKIP:] if c is not None]  # None: profiled
+    step_ms = statistics.median(timed) / FT_CHUNK
+    log(f"[train] {attn_impl} graph fit: {fit_s:.2f} s on the host clock (init, tokenization "
+        f"and {FT_STEPS} steps); chunks of {FT_CHUNK} steps in device time "
+        f"{[round(c, 3) if c else 'profiled' for c in chunks]} ms (the first the eager warm-up, "
+        f"the second with the capture) | {card}")
+    out = _fit_numbers("graph", attn_impl, step_ms, peak_gib, n_params, card,
+                       f"the unprofiled chunks from {FT_GRAPH_SKIP + 1} on, ms / {FT_CHUNK}: "
+                       f"{len(timed)} chunks, min {min(timed) / FT_CHUNK:.3f}, max "
+                       f"{max(timed) / FT_CHUNK:.3f}")
+    prof = timer.profile
+    busy = sum(k[0] for k in prof["kernels"])
+    n_fwd, n_bwd = _flash_named(prof["kernels"])
+    log(f"[profile] one replayed {attn_impl} chunk of {FT_CHUNK} steps: {prof['wall_ms']:.3f} ms "
+        f"wall, {busy:.3f} ms of device kernels ({100 * busy / prof['wall_ms']:.1f}% busy, "
+        f"{100 - 100 * busy / prof['wall_ms']:.1f}% idle under the profiler), "
+        f"{sum(k[1] for k in prof['kernels'])} device kernels; flash forward kernels "
+        f"{n_fwd}, backward {n_bwd} (earlier profiles that lost records: "
+        f"{timer.short or 'none'}) | {card}")
+    _log_groups(prof["kernels"], busy, f"{attn_impl} graph chunk", FT_CHUNK)
+    out.update(model=model, losses=losses, launches=launches, captures=captures,
+               busy=busy / prof["wall_ms"], prof_flash=(n_fwd, n_bwd),
+               grad_norm1=float(timer.grad_norms[0][0]))
+    return out
+
+
+def _check_train_metrics(entries: list[dict], n_params: int, attn_impl: str) -> None:
+    """The stage's ``train_metrics`` after a graph fit: a window where
+    Trainer.fit's log rule closes one (``log_every`` 50, steps counted a
+    chunk at a time), the last at FT_STEPS, each with an MFU, and tokens over
+    samples FT_LEN (the meter counts a chunk's K x B samples)."""
+    want, logged = [], 0
+    for done in range(FT_CHUNK, FT_STEPS + 1, FT_CHUNK):
+        if done - logged >= 50 or done >= FT_STEPS:
+            want.append(done)
+            logged = done
+    per_sample = [e["model_tflops_per_sec"] * 1e12 / e["samples_per_sec"] / (6 * n_params)
+                  for e in entries]
+    log(f"[train] {attn_impl} graph fit: train_metrics {json.dumps(entries)} (host clock, "
+        f"first chunks included); window steps {[e['step'] for e in entries]} (want {want}), "
+        f"tokens a sample {per_sample} (want {FT_LEN})")
+    if ([e["step"] for e in entries] != want or not all("mfu" in e for e in entries)
+            or not np.allclose(per_sample, FT_LEN, rtol=1e-9, atol=0)):
+        raise AssertionError(f"{attn_impl} graph fit: train_metrics {entries}: want windows at "
+                             f"{want}, each with an mfu and {FT_LEN} tokens a sample")
+
+
+def _eager_fine_tune(df, device, card: str, attn_impl: str, timed: bool = True) -> dict:
+    """The eager baseline: the stage's own trainer, data, init and keywords
+    (``_fit_plan``) through fit_arrays with scan_chunk=1, the per-step loop;
+    with ``timed``, CUDA events around each step and peak memory."""
+    trainer, data, kw, _, _ = _stage(device, attn_impl)._fit_plan(df)
+    timer = _StepTimer()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_flash_counts()
+    with timer:
+        state = trainer_mod.fit_arrays(trainer, data, scan_chunk=1, **kw)
+    launches = _flash_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    params = {k: v.detach().cpu().numpy() for k, v in state.params.items()}
+    out = {"params": params, "launches": launches}
+    if not timed:
+        return out
+    steps = timer.step_ms()
+    losses = torch.stack(timer.losses).float().cpu().numpy()
+    if len(steps) != FT_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"{attn_impl} eager fit: {len(steps)} steps, losses "
+                             f"{losses.tolist()}: want {FT_STEPS} finite losses")
+    step_ms = statistics.median(steps[FT_WARMUP:])
+    out.update(_fit_numbers("eager", attn_impl, step_ms, peak_gib,
+                            sum(a.size for a in params.values()), card,
+                            f"steps {FT_WARMUP + 1}-{FT_STEPS}, min "
+                            f"{min(steps[FT_WARMUP:]):.3f}, max {max(steps[FT_WARMUP:]):.3f}; "
+                            f"first step {steps[0]:.3f}"))
+    out.update(timer=timer, losses=losses, grad_norm1=float(timer.grad_norms[0]))
+    return out
+
+
+def _graph_against_eager(graph: dict, eager: dict, eager2: dict, tag: str) -> list[str]:
+    """Each leaf of the graph fit bitwise equal to the eager fit's, except
+    the leaves on which two eager fits from one seed already differ (held
+    within TOL_SPREAD); returns those."""
+    spread = [k for k in eager if not np.array_equal(eager[k], eager2[k])]
+    off = {k: float(np.abs(graph[k].astype(np.float64) - eager[k]).max())
+           for k in eager if not np.array_equal(graph[k], eager[k])}
+    log(f"{tag} graph fit against the eager fit: {len(eager) - len(off)} of {len(eager)} "
+        f"parameters bitwise equal; differing {({k: f'{v:.3e}' for k, v in off.items()}) or 'none'}; "
+        f"the leaves on which two eager fits from one seed differ (max |d| within "
+        f"{TOL_SPREAD:g} allowed there): "
+        f"{({k: f'{np.abs(eager[k] - eager2[k]).max():.3e}' for k in spread}) or 'none'}")
+    bad = [k for k, v in off.items() if k not in spread or v > TOL_SPREAD]
+    if bad:
+        raise AssertionError(f"{tag} the graph fit differs from the eager fit on {bad}")
+    return spread
 
 
 def _score_flash_vs_einsum(model, score_df, batches: int,
@@ -1105,18 +1323,6 @@ def _score_flash_vs_einsum(model, score_df, batches: int,
     return flash_scores, launches
 
 
-def _second_fit(run: dict, df, tag: str) -> None:
-    """A second fit from the same seed, compared bitwise (reported, not
-    required)."""
-    params = run["model"].get("model_params")
-    second = run["stage"].fit(df).get("model_params")
-    differ = [k for k in params if not np.array_equal(params[k], second[k])]
-    log(f"[train] {tag}: a second fit from the same seed on the card: bitwise equal: "
-        f"{not differ}" + (f"; {len(differ)} of {len(params)} parameters differ, largest "
-                           f"{max(float(np.abs(params[k] - second[k]).max()) for k in differ):.3e}"
-                           f", first {differ[:6]}" if differ else ""))
-
-
 # flash against einsum at step 1 (same init, same batch, bf16 compute): the
 # loss (forward only), and the global norm of the raw gradients, which only
 # a right backward keeps within a bf16 rounding of einsum's
@@ -1134,35 +1340,129 @@ def _check_step1(loss_fl, loss_ein, gn_fl, gn_ein, tag: str) -> None:
         raise AssertionError(f"{tag} the flash step 1 disagrees with einsum's")
 
 
+def _free_card() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+class _InitOnce:
+    """Within a phase, ``text._init_params`` (the JAX initialisers drawn
+    with numpy: seconds of host time at BERT-base) computed once per
+    (config, classes, seed) and handed to every fit that asks, the stage's
+    own included; the fits only read it. Restores the function on exit."""
+
+    def __enter__(self):
+        orig = self._orig = text_stage._init_params
+        memo = {}
+
+        def once(cfg, num_classes, seed):
+            key = (cfg, num_classes, seed)
+            if key not in memo:
+                memo[key] = orig(cfg, num_classes, seed)
+            return memo[key]
+
+        text_stage._init_params = once
+        return self
+
+    def __exit__(self, *exc):
+        text_stage._init_params = self._orig
+
+
+def _fine_tune_pair(df, device, card: str, attn_impl: str, n_layers: int) -> dict:
+    """The graph fit (the stage's default), then the eager baseline twice
+    (the second fit shows which leaves two eager fits from one seed already
+    differ on), each from the same seed, data and init: the graph fit
+    against the eager fit leaf by leaf, and the flash launches of each."""
+    graph = _graph_fine_tune(df, device, card, attn_impl)
+    _free_card()
+    eager = _eager_fine_tune(df, device, card, attn_impl)
+    _free_card()
+    eager2 = _eager_fine_tune(df, device, card, attn_impl, timed=False)
+    _free_card()
+    tag = f"[train] {attn_impl}:"
+    _graph_against_eager(graph["model"].get("model_params"), eager["params"], eager2["params"],
+                         tag)
+    d_loss = float(np.abs(graph["losses"] - eager["losses"]).max())
+    log(f"{tag} per-step losses of the graph fit against the eager fit: max |d| {d_loss:.3e}")
+    n = n_layers * FT_STEPS if attn_impl == "flash" else 0
+    want = {"fwd": {"bf16": n, "f32": 0}, "bwd": {"bf16": n, "f32": 0}}
+    n_chunk = n_layers * FT_CHUNK if attn_impl == "flash" else 0
+    log(f"{tag} flash launches: graph fit {graph['launches']}, eager fit {eager['launches']} "
+        f"(want {want}: {n_layers} forward and {n_layers} backward a step, replayed steps "
+        f"included); in the profiled replay {graph['prof_flash']} forward and backward "
+        f"kernels (want {n_chunk} each)")
+    if not (graph["launches"] == eager["launches"] == eager2["launches"] == want
+            and graph["prof_flash"] == (n_chunk, n_chunk)):
+        raise AssertionError(f"{tag} flash launched {graph['launches']} / {eager['launches']}"
+                             f" / profiled {graph['prof_flash']}, want {want}")
+    log(f"[train] {attn_impl} graph vs eager: median step {graph['step_ms']:.3f} vs "
+        f"{eager['step_ms']:.3f} ms, {graph['samples_s']:.1f} vs {eager['samples_s']:.1f} "
+        f"samples/s, MFU {graph['mfu']:.4f} vs {eager['mfu']:.4f}, peak device memory "
+        f"{graph['peak_gib']:.2f} vs {eager['peak_gib']:.2f} GiB; busy share of one profiled "
+        f"graph chunk {100 * graph['busy']:.1f}% | {card}")
+    return {"graph": graph, "eager": eager}
+
+
+def _check_tensor_scalars(device) -> bool:
+    """The optimizer's per-step scalars are 0-d device tensors (a graph reads
+    each replay's from its table): torch._foreach_div and _foreach_mul with
+    such a tensor against the same value as a Python float, on the card, on
+    leaves of BERT-base's shapes, for values like a step's -lr, bias
+    corrections and accumulation divisor. Reported, not required: eager and
+    graph steps both take the tensor overloads."""
+    g = torch.Generator(device=device).manual_seed(150)
+    xs = [torch.randn(shape, generator=g, device=device) for shape in ((30522, 768), (768,),
+                                                                     (3072, 768), (2, 768))]
+    values = [-np.float32(1e-4) * np.float32(0.37), np.float32(1) - np.float32(0.9) ** 7,
+              np.float32(1) - np.float32(0.999) ** 7, np.float32(2)]
+    found = {}
+    for op in (torch._foreach_div, torch._foreach_mul):
+        pairs = [(a, b) for v in values
+                 for a, b in zip(op(xs, torch.tensor(v, device=device)), op(xs, float(v)))]
+        found[op.__name__] = (all(torch.equal(a, b) for a, b in pairs),
+                              max(float(((a - b).abs() / b.abs().clamp_min(1e-30)).max())
+                                  for a, b in pairs))
+    log(f"[train] the optimizer's tensor scalars: a 0-d float32 tensor against a Python float "
+        f"on the card, {len(values)} values on BERT-base-shaped leaves: "
+        + ", ".join(f"{name} bitwise equal {same} (largest relative difference {rel:.3e})"
+                    for name, (same, rel) in found.items()))
+    return all(same for same, _ in found.values())
+
+
 def phase_train_main(device, card: str) -> dict:
     """DeepTextClassifier fine-tuning at full width and depth, with einsum
     attention and then with attn_impl='flash' (the flash forward and
-    backward kernels) on the same data and seed; each fitted model's
-    scoring through the flash kernel."""
+    backward kernels) on the same data and seed: the stage's fit through
+    CUDA graphs against the eager per-step loop; each graph-fitted
+    model's scoring through the flash kernel."""
     rows = _labelled_texts(FT_ROWS, seed=0)
     df = DataFrame.from_rows(rows, num_partitions=2)
     log(f"[train] {FT_ARCH} fine-tune: {FT_ROWS} texts ({np.mean([r['label'] for r in rows]):.3f} "
         f"positive), batch {FT_BATCH} x {FT_LEN} tokens, {FT_STEPS} steps, lr {FT_LR} "
         f"(linear warm-up {max(FT_STEPS // 10, 1)} steps, then linear decay), bf16 compute; "
-        f"einsum attention, then flash")
+        f"einsum attention, then flash; each through CUDA graphs of {FT_CHUNK} steps (the "
+        f"stage's fit) and through the eager per-step loop")
     score_df = DataFrame.from_rows([{"text": t} for t in _texts(N_TEXTS, N_PARTS, seed=1)],
                                    num_partitions=N_PARTS)
     bucketer = cb.default_bucketer()
     batches = sum(len(list(bucketer.slices(len(p["text"]), FT_BATCH)))
                   for p in score_df.partitions)
     n_layers = bert_base().n_layers
+    _check_tensor_scalars(device)
+    with _InitOnce():
+        return _train_main(df, score_df, batches, n_layers, device, card)
 
-    ein = _fine_tune(df, device, card, "einsum")
-    none = {"fwd": {"bf16": 0, "f32": 0}, "bwd": {"bf16": 0, "f32": 0}}
-    if ein["launches"] != none:
-        raise AssertionError(f"the einsum fit launched the flash kernels: {ein['launches']}")
-    flash_scores, ein_scoring = _score_flash_vs_einsum(ein["model"], score_df, batches,
+
+def _train_main(df, score_df, batches: int, n_layers: int, device, card: str) -> dict:
+    """phase_train_main's fits, checks and profiles, on its data."""
+    ein = _fine_tune_pair(df, device, card, "einsum", n_layers)
+    flash_scores, ein_scoring = _score_flash_vs_einsum(ein["graph"]["model"], score_df, batches,
                                                        "einsum-fitted")
 
     import tempfile
 
     with tempfile.TemporaryDirectory(dir=".") as tmp:
-        ein["model"].copy({"attn_impl": "flash"}).save(f"{tmp}/m")
+        ein["graph"]["model"].copy({"attn_impl": "flash"}).save(f"{tmp}/m")
         loaded = DeepTextModel.load(f"{tmp}/m")
         again = np.stack(list(loaded.transform(score_df).collect_column("scores")))
     same = np.array_equal(again, flash_scores)
@@ -1170,37 +1470,36 @@ def phase_train_main(device, card: str) -> dict:
     if not same:
         raise AssertionError("the loaded model scores differently")
     del loaded  # its module holds the weights on the card
-    _second_fit(ein, df, "einsum")
-    _profile_train_step(*ein["timer"].last, card, ein["step_ms"], "einsum")
-    _host_step_parts(*ein["timer"].last, card, "einsum")
-    ein["timer"].last = None  # frees the einsum module before the flash fit's peak memory
-    gc.collect()
-    torch.cuda.empty_cache()
+    timer = ein["eager"]["timer"]
+    _profile_train_step(*timer.last, card, ein["eager"]["step_ms"], "einsum eager")
+    _host_step_parts(*timer.last, card, "einsum eager")
+    timer.last = None  # frees the einsum module before the flash fits' peak memory
+    _free_card()
 
-    fl = _fine_tune(df, device, card, "flash")
-    want = {"fwd": {"bf16": n_layers * FT_STEPS, "f32": 0},
-            "bwd": {"bf16": n_layers * FT_STEPS, "f32": 0}}
-    log(f"[train] flash: kernel launches over the fit {fl['launches']} (want {n_layers} forward "
-        f"and {n_layers} backward a step: {want})")
-    if fl["launches"] != want:
-        raise AssertionError(f"the flash fit launched {fl['launches']}, want {want}")
-    _check_step1(fl["losses"][0], ein["losses"][0], fl["grad_norm1"], ein["grad_norm1"],
-                 "[train]")
-    _, fl_scoring = _score_flash_vs_einsum(fl["model"], score_df, batches, "flash-fitted")
-    log(f"[train] flash vs einsum fine-tuning: median step {fl['step_ms']:.3f} vs "
-        f"{ein['step_ms']:.3f} ms, {fl['samples_s']:.1f} vs {ein['samples_s']:.1f} samples/s, "
-        f"MFU {fl['mfu']:.4f} vs {ein['mfu']:.4f}, peak device memory {fl['peak_gib']:.2f} vs "
-        f"{ein['peak_gib']:.2f} GiB | {card}")
-    _second_fit(fl, df, "flash")
-    _profile_train_step(*fl["timer"].last, card, fl["step_ms"], "flash")
-    _host_step_parts(*fl["timer"].last, card, "flash")
-    # flash launches on this path, as counted: the flash fit, and both
-    # fitted models' scoring
-    runs = (fl["launches"], ein_scoring, fl_scoring)
+    fl = _fine_tune_pair(df, device, card, "flash", n_layers)
+    for kind in ("graph", "eager"):
+        _check_step1(fl[kind]["losses"][0], ein[kind]["losses"][0], fl[kind]["grad_norm1"],
+                     ein[kind]["grad_norm1"], f"[train] {kind}")
+    _, fl_scoring = _score_flash_vs_einsum(fl["graph"]["model"], score_df, batches,
+                                           "flash-fitted")
+    log("[train] main path 3 (BERT-base, batch 32 x 128, bf16): " + "; ".join(
+        f"{impl} {kind} {r[kind]['samples_s']:.1f} samples/s, median step "
+        f"{r[kind]['step_ms']:.3f} ms, MFU {r[kind]['mfu']:.4f}, peak {r[kind]['peak_gib']:.2f} GiB"
+        for impl, r in (("einsum", ein), ("flash", fl)) for kind in ("eager", "graph"))
+        + f"; busy share of a graph chunk einsum {100 * ein['graph']['busy']:.1f}%, flash "
+        f"{100 * fl['graph']['busy']:.1f}% | {card}")
+    timer = fl["eager"]["timer"]
+    _profile_train_step(*timer.last, card, fl["eager"]["step_ms"], "flash eager")
+    _host_step_parts(*timer.last, card, "flash eager")
+    timer.last = None
+    # flash launches on this path, as counted: the flash fits (graph and the
+    # eager baseline; the second eager fit is a check) and both graph-fitted
+    # models' scoring
+    runs = (fl["graph"]["launches"], fl["eager"]["launches"], ein_scoring, fl_scoring)
     return {"launches": {k: sum(r["fwd"][k] for r in runs) for k in ("bf16", "f32")},
             "bwd_launches": {k: sum(r["bwd"][k] for r in runs) for k in ("bf16", "f32")},
-            **{f"{k}_{tag}": r[k] for tag, r in (("einsum", ein), ("flash", fl))
-               for k in ("step_ms", "samples_s", "mfu", "peak_gib")}}
+            **{f"{k}_{impl}_{kind}": r[kind][k] for impl, r in (("einsum", ein), ("flash", fl))
+               for kind in ("eager", "graph") for k in ("step_ms", "samples_s", "mfu", "peak_gib")}}
 
 
 _TRAIN_GROUPS = (("flash_fwd kernel", ("flash_fwd",)),  # matched in lower case
@@ -1250,18 +1549,25 @@ def _profile_train_step(trainer, state, batch, card: str, step_ms: float, tag: s
         f"busy, {100 - 100 * busy / wall_ms:.1f}% idle under the profiler; "
         f"{100 * busy / step_ms:.1f}% of the unprofiled {step_ms:.3f} ms median step), "
         f"{sum(k[1] for k in kernels)} device kernels | {card}")
+    return _log_groups(kernels, busy, tag, 1)
+
+
+def _log_groups(kernels, busy: float, tag: str, steps: int) -> dict:
+    """Device time by kernel group (``_TRAIN_GROUPS``) and the top kernels,
+    from ``(ms, count, name)`` over ``steps`` steps; returns ms a step by
+    group."""
     groups = {name: 0.0 for name, _ in _TRAIN_GROUPS}
     groups["other"] = 0.0
     for ms, _, key in kernels:
         name = next((g for g, pats in _TRAIN_GROUPS if any(p in key.lower() for p in pats)),
                     "other")
-        groups[name] += ms
+        groups[name] += ms / steps
     for name, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
-        log(f"[profile] {tag} step group {name}: {ms:.4f} ms/step ({100 * ms / busy:.1f}% of "
-            f"device time)")
+        log(f"[profile] {tag} step group {name}: {ms:.4f} ms/step ({100 * ms * steps / busy:.1f}% "
+            f"of device time)")
     for ms, count, key in sorted(kernels, reverse=True)[:12]:
-        log(f"[profile] {tag} step {100 * ms / busy:5.1f}%  {ms:8.4f} ms/step  {count:4d}/step  "
-            f"{key[:200]}")
+        log(f"[profile] {tag} step {100 * ms / busy:5.1f}%  {ms / steps:8.4f} ms/step  "
+            f"{count / steps:6.1f}/step  {key[:200]}")
     return groups
 
 
@@ -1296,8 +1602,14 @@ def phase_train_cpu_card(device) -> dict:
     """bert-tiny in f32 compute (TF32 off), the same init and batches on the
     CPU and on the card, with einsum attention and with attn_impl='flash'
     (on the card the f32 flash forward and backward kernels, on the CPU their
-    plain versions): per-step losses within TINY_TOL. Returns the flash
-    kernels' launches on the card's flash run."""
+    plain versions). On the card: the per-step loop twice, and the chunked
+    fit (two chunks of TINY_CHUNK steps: the eager warm-up, then a capture
+    and its replay), then the chunked fit again on that trainer, its first
+    state kept alive. Per-step losses within TINY_TOL of the CPU's; the graph
+    run's final parameters bitwise equal to the eager run's but where two
+    eager runs differ (there within TOL_SPREAD); the second graph fit on one
+    trainer bitwise the first, one capture each. Returns the flash kernels'
+    launches on the card's flash runs (the eager one and the graph one)."""
     from synapseml_torch.data import MemorySource
     from synapseml_torch.models.nets.bert import BertClassifier, bert_tiny
 
@@ -1305,36 +1617,81 @@ def phase_train_cpu_card(device) -> dict:
     rows = _labelled_texts(8 * TINY_STEPS, seed=2, n_words=(5, 60))
     data = {**tok([r["text"] for r in rows], max_len=64),
             "labels": np.array([r["label"] for r in rows], np.int32)}
-    launches = None
+    total = {"fwd": {"bf16": 0, "f32": 0}, "bwd": {"bf16": 0, "f32": 0}}
+    cache = cb.get_compiled_cache()
     for attn_impl in ("einsum", "flash"):
         cfg = bert_tiny(vocab_size=1024, dtype=torch.float32, attn_impl=attn_impl)
         init = text_stage._init_params(cfg, 2, seed=3)
-        losses = {}
-        for dev in ("cpu", device):
-            trainer = trainer_mod.Trainer(
-                BertClassifier(cfg, 2),
-                trainer_mod.TrainerConfig(learning_rate=1e-3, total_steps=TINY_STEPS,
-                                          warmup_steps=1, lr_schedule="linear"), device=dev)
-            seen = []
+        losses, params, launches, captures = {}, {}, {}, {}
+        kept = None  # the graph run's trainer and state, alive through the refit
+        for run, dev in (("cpu", "cpu"), ("eager", device), ("eager2", device),
+                         ("graph", device), ("refit", device)):
+            if run == "refit":  # a second fit on the graph run's trainer
+                trainer = kept[0]
+            else:
+                trainer = trainer_mod.Trainer(
+                    BertClassifier(cfg, 2),
+                    trainer_mod.TrainerConfig(learning_rate=1e-3, total_steps=TINY_STEPS,
+                                              warmup_steps=1, lr_schedule="linear"), device=dev)
+            graphs = run in ("graph", "refit")
+            seen, timer = [], _ChunkTimer()
+            misses0 = cache.miss_count("train_steps_scan")
             _zero_flash_counts()
-            trainer_mod.fit_source(trainer, MemorySource(data), batch_size=8,
-                                   total_steps=TINY_STEPS, seed=0, init_params=init,
-                                   callback=lambda i, m: seen.append(float(m["loss"])))
-            losses[str(dev)] = np.array(seen)
-            launches = _flash_counts()
-        cpu, card = losses["cpu"], losses[str(device)]
-        err = float(np.abs(cpu - card).max())
+            with timer:
+                state = trainer_mod.fit_source(
+                    trainer, MemorySource(data), batch_size=8, total_steps=TINY_STEPS, seed=0,
+                    init_params=init, scan_chunk=TINY_CHUNK,
+                    callback=None if graphs else (lambda i, m: seen.append(float(m["loss"]))))
+            if graphs:
+                seen = torch.cat(timer.losses).cpu().numpy().tolist()
+                captures[run] = cache.miss_count("train_steps_scan") - misses0
+                if len(timer.losses) != TINY_STEPS // TINY_CHUNK:
+                    raise AssertionError(f"bert-tiny {attn_impl}: {len(timer.losses)} chunks")
+            losses[run] = np.array(seen)
+            params[run] = {k: v.detach().cpu().numpy() for k, v in state.params.items()}
+            launches[run] = _flash_counts()
+            if run == "graph":
+                kept = (trainer, state)
+            else:
+                trainer.release_graphs()
+            del trainer, state
+        del kept
+        cpu = losses["cpu"]
+        err = {run: float(np.abs(cpu - losses[run]).max()) for run in ("eager", "graph")}
         log(f"[train] bert-tiny f32 {attn_impl}, {TINY_STEPS} steps from one init: CPU losses "
-            f"{np.round(cpu, 6).tolist()}, card {np.round(card, 6).tolist()}, max|d| {err:.3e} "
-            f"(tol {TINY_TOL:g}); flash launches on the card {launches}")
-        if not (len(cpu) == len(card) == TINY_STEPS and err <= TINY_TOL):
+            f"{np.round(cpu, 6).tolist()}, card {np.round(losses['eager'], 6).tolist()} (per "
+            f"step), {np.round(losses['graph'], 6).tolist()} (graphs of {TINY_CHUNK}); max|d| "
+            f"from the CPU {err['eager']:.3e} / {err['graph']:.3e} (tol {TINY_TOL:g}); flash "
+            f"launches on the card {launches['eager']} / {launches['graph']}")
+        if not (all(len(losses[r]) == TINY_STEPS for r in losses)
+                and max(err.values()) <= TINY_TOL):
             raise AssertionError(f"the card's bert-tiny {attn_impl} losses disagree with the "
                                  "CPU's")
-    want = {"fwd": {"bf16": 0, "f32": cfg.n_layers * TINY_STEPS},
-            "bwd": {"bf16": 0, "f32": cfg.n_layers * TINY_STEPS}}
-    if launches != want:
-        raise AssertionError(f"bert-tiny flash on the card launched {launches}, want {want}")
-    return launches
+        _graph_against_eager(params["graph"], params["eager"], params["eager2"],
+                             f"[train] bert-tiny f32 {attn_impl}:")
+        # the refit: init_state moved the module's tensors and made new moments
+        # while the first fit's state stayed alive; its graphs must go with it
+        off = [k for k in params["graph"] if not np.array_equal(params["refit"][k],
+                                                                 params["graph"][k])]
+        same_losses = np.array_equal(losses["refit"], losses["graph"])
+        log(f"[train] bert-tiny f32 {attn_impl}: a second graph fit on the same trainer (the "
+            f"first fit's state kept) against the first fit on a fresh trainer: losses bitwise "
+            f"equal {same_losses}, parameters differing {off or 'none'} (of "
+            f"{len(params['graph'])}); "
+            f"captures {captures['graph']:g} and {captures['refit']:g} (want 1 each)")
+        if off or not same_losses or captures != {"graph": 1, "refit": 1}:
+            raise AssertionError(f"bert-tiny {attn_impl}: the second fit on one trainer differs "
+                                 f"from a fresh trainer's ({off}, losses equal {same_losses}) "
+                                 f"or captured {captures}")
+        n = cfg.n_layers * TINY_STEPS if attn_impl == "flash" else 0
+        want = {"fwd": {"bf16": 0, "f32": n}, "bwd": {"bf16": 0, "f32": n}}
+        if not all(launches[r] == want for r in ("eager", "eager2", "graph", "refit")):
+            raise AssertionError(f"bert-tiny {attn_impl} on the card launched {launches}, "
+                                 f"want {want} a run")
+        for d in total:
+            for k in total[d]:
+                total[d][k] += launches["eager"][d][k] + launches["graph"][d][k]
+    return total
 
 
 def phase_train_long(device, card: str) -> dict:
@@ -1858,15 +2215,28 @@ def phase_gbdt_times(device, card: str, launches: dict, max_err: dict) -> list[d
 
 
 def main() -> None:
+    t0 = time.perf_counter()
+
+    def done(phase):
+        log(f"[phase] {phase} done at {time.perf_counter() - t0:.1f} s")
+
     card, device = phase_device()
     phase_build()
+    done("build")
     max_err = phase_kernels(device)
+    done("kernels")
     hist_err = phase_gbdt_kernels(device)
+    done("gbdt kernels")
     main_path = phase_main_path(device, card)
+    done("main path 1")
     gbdt = phase_gbdt_main(device, card)
+    done("main path 2")
     train = phase_train_main(device, card)
+    done("main path 3")
     tiny = phase_train_cpu_card(device)
+    done("bert-tiny, CPU against the card")
     long_t = phase_train_long(device, card)
+    done("long-T step")
     # the flash kernels' launches on the paths, each counted from 0 just
     # before it ran: scoring (path 1), fine-tuning through flash and both
     # fitted models' scoring (path 3), bert-tiny f32 through flash on the
@@ -1882,6 +2252,7 @@ def main() -> None:
     kernels += phase_gbdt_times(device, card, {"gbdt_hist": gbdt["launches"],
                                                "gbdt_hist_scale": gbdt["scale_launches"]},
                                 hist_err)
+    done("times")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

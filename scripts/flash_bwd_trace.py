@@ -2,7 +2,7 @@
 
     python3 scripts/flash_bwd_trace.py        # from the root of a checkout, on a CUDA host
 
-Copies synapseml_torch/csrc/flash_bwd.cu into build/flash_bwd_trace/ with a
+Copies synapseml_torch/csrc/flash_bwd_bf16.cu into build/flash_bwd_trace/ with a
 %globaltimer stamp (thread 0 of each block) at fixed points: the block's
 start, its first K and V, and for each of its first 8 q tiles the tile's
 arrival, the end of S^T, dP^T and delta, the end of the other products, and
@@ -32,7 +32,7 @@ SLOTS = 36  # a block's stamps: 0 start, 1 first K/V, 2 + 4k + (0..3) q tile k, 
 STAMP = ('#define STAMP(e) do { if (threadIdx.x == 0 && (e) < 35) { unsigned long long t_; '
          'asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_)); '
          'g_stamps[blockIdx.x * 36 + (e)] = t_; } } while (0)\n')
-# (marker in flash_bwd.cu, code to insert, insert after the marker?)
+# (marker in flash_bwd_bf16.cu, code to insert, insert after the marker?)
 POINTS = [
     ('#include "hopper.cuh"\n', '\n__device__ unsigned long long g_stamps[8192 * 36];\n' + STAMP,
      True),
@@ -63,10 +63,10 @@ extern "C" int flash_bwd_stamps_clear() {
 
 
 def build() -> ctypes.CDLL:
-    src = (_build.CSRC / "flash_bwd.cu").read_text()
+    src = (_build.CSRC / "flash_bwd_bf16.cu").read_text()
     for marker, code, after in POINTS:
         if marker not in src:
-            raise RuntimeError(f"flash_bwd.cu no longer has the stamp point {marker!r}")
+            raise RuntimeError(f"flash_bwd_bf16.cu no longer has the stamp point {marker!r}")
         at = src.index(marker) + (len(marker) if after else 0)
         src = src[:at] + code + src[at:]
     out = Path("build/flash_bwd_trace")
@@ -120,7 +120,7 @@ def trace(lib, device, BH: int, Tt: int) -> None:
 
 def main() -> None:
     lib = build()
-    _build._libs["flash_bwd"] = lib  # the wrappers launch the stamped copy
+    _build._libs["flash_bwd_bf16"] = lib  # the bf16 wrapper launches the stamped copy
     card, device = c.phase_device()
     trace(lib, device, c.B * c.H, c.T)
     trace(lib, device, c.LONG_B * c.H, c.LONG_T)

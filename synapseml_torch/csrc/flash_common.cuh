@@ -1,5 +1,5 @@
 // Device helpers shared by the flash-attention kernels (flash_fwd.cu and
-// flash_bwd.cu): tile constants, cp.async copies into shared memory,
+// flash_bwd_{bf16,f32}.cu): tile constants, cp.async copies into shared memory,
 // ldmatrix, the bf16 mma.sync and its packing, and the TF32 mma.sync in
 // split TF32 that both f32 kernels compute with. Header-only and included
 // by one source of each library, so everything is inline.

@@ -85,7 +85,7 @@
 
 namespace {
 
-using namespace flash;  // constants and helpers shared with flash_bwd.cu
+using namespace flash;  // constants and helpers shared with flash_bwd_*.cu
 
 struct Params {
   const void* q;

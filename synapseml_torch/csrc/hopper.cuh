@@ -2,7 +2,7 @@
 // Memory Accelerator (TMA) and bulk copies completed on mbarriers, and
 // warpgroup matrix multiplies (wgmma) on bf16 operands in shared memory or
 // registers with f32 accumulators. Header-only and included by the sources
-// that use it (flash_bwd.cu), so everything is inline.
+// that use it (flash_bwd_bf16.cu), so everything is inline.
 //
 // Shared-memory operand layouts follow the wgmma descriptor's canonical
 // forms, as TMA writes them with CU_TENSOR_MAP_SWIZZLE_128B (or _64B):

@@ -62,9 +62,14 @@ class BertEmbeddings(nn.Module):
         pos = torch.arange(input_ids.shape[1], device=input_ids.device)[None, :]
         x = x + self.position(pos).to(dt)
         if token_type_ids is None:
-            token_type_ids = torch.zeros_like(input_ids)
-        x = x + self.segment(token_type_ids).to(dt)
-        return self.norm(x)
+            # every token in segment 0: row 0 broadcast, whose gradient is
+            # a reduction in a fixed order (the embedding backward of one id
+            # repeated over every token summed in an order that differed
+            # between two runs on the card)
+            seg = self.segment.weight[0].expand(*input_ids.shape, -1)
+        else:
+            seg = self.segment(token_type_ids)
+        return self.norm(x + seg.to(dt))
 
 
 class BertClassifier(nn.Module):

@@ -6,7 +6,9 @@ defaults and validators.
 ``DeepTextClassifier`` (``:60-178`` there) tokenizes the text column, fits a
 BERT classifier with :func:`..trainer.fit_arrays` (linear warm-up over a
 tenth of the steps, then linear decay; AdamW; ``unfreeze_layers`` freezes
-all but the last N encoder layers and the head) and returns a
+all but the last N encoder layers and the head) at its default
+``scan_chunk`` of 8, as the reference does: on the card, chunks of 8 steps
+run as captured CUDA graphs (``Trainer.train_steps_scan``), and returns a
 ``DeepTextModel`` holding the fitted ``state_dict`` and the trainer's
 ``train_metrics``. The initial weights come from ``_init_params``: the JAX
 package's initialisers drawn with numpy from ``seed``
@@ -173,7 +175,11 @@ class DeepTextClassifier(Estimator, _TextParams):
         if self.get("attn_impl") in ("ring", "ulysses"):
             raise _unported(f"attn_impl={self.get('attn_impl')!r}", "9 (multi-GPU)")
 
-    def _fit(self, df: DataFrame) -> "DeepTextModel":
+    def _fit_plan(self, df: DataFrame):
+        """What the fit runs: ``(trainer, data, fit_arrays keywords, cfg,
+        tokenizer)`` for ``df``, the trainer on the stage's device with its
+        module and ``TrainerConfig``, the keywords those of the reference
+        stage's ``fit_arrays`` call (its default ``scan_chunk``)."""
         self._refuse_unported()
         device = _resolve_device("DeepTextClassifier", self.get("device"))
         tok = resolve_tokenizer(self.get("tokenizer"))
@@ -200,9 +206,15 @@ class DeepTextClassifier(Estimator, _TextParams):
             freeze_predicate=self._freeze_predicate(cfg.n_layers),
         )
         trainer = Trainer(module, tcfg, device=device)
-        state = fit_arrays(trainer, data, batch_size=bs, total_steps=total,
-                           seed=self.get("seed"),
-                           init_params=_init_params(cfg, num_classes, self.get("seed")))
+        kw = dict(batch_size=bs, total_steps=total, seed=self.get("seed"),
+                  init_params=_init_params(cfg, num_classes, self.get("seed")))
+        return trainer, data, kw, cfg, tok
+
+    def _fit(self, df: DataFrame) -> "DeepTextModel":
+        trainer, data, kw, cfg, tok = self._fit_plan(df)
+        num_classes = self.get("num_classes")
+        state = fit_arrays(trainer, data, **kw)
+        trainer.release_graphs()  # the captured steps' memory pools
         model_params = {k: v.detach().cpu().numpy() for k, v in state.params.items()}
         # the arch is always saved, so the model keeps evaluating with the
         # architecture it was trained as

@@ -1,12 +1,12 @@
 """Single-device trainer: the counterpart of ``synapseml_tpu/models/trainer.py``.
 
 The JAX package jits one train step over a named mesh and scans chunks of
-steps on the device. Here one ``nn.Module`` on one device takes a step at a
-time: the forward and ``loss.backward()`` with the module in ``eval()``
-mode (dropout stays off, as the JAX step applies the module without a
-dropout rng), then the optimizer of ``_make_optimizer`` (``:214-230``
-there), written as plain functions on tensors so that it computes what
-optax computes:
+steps on the device. Here one ``nn.Module`` on one device takes each step
+as the forward and ``loss.backward()`` with the module in ``eval()`` mode
+(dropout stays off, as the JAX step applies the module without a dropout
+rng), then the optimizer of ``_make_optimizer`` (``:214-230`` there),
+written as plain functions on tensors so that it computes what optax
+computes:
 
 * the learning-rate schedule is evaluated at the optimizer's count BEFORE
   its increment, in float32 (so the first linear warm-up step has lr 0);
@@ -20,29 +20,43 @@ optax computes:
   micro-gradients and applies nothing on the k-1 steps in between; the
   schedule counts optimizer steps.
 
+The per-step scalars (learning rate, bias corrections, the running mean's
+divisor) are computed on the host from the counters and reach the
+optimizer as device tensors, so that :meth:`Trainer.train_steps_scan`
+(the JAX ``lax.scan`` of K steps, ``:487-502`` there) runs K whole steps as
+one captured CUDA graph per (batch shape, K, accumulation phase), replayed
+with no host dispatch; on the CPU it runs them eagerly through the same
+step body. ``fit`` dispatches as the JAX package's does (``:551-675``):
+chunks of ``scan_chunk`` same-shape batches, stacked by a producer thread,
+go through ``train_steps_scan``; a callback, a ``skip_fn`` or
+``scan_chunk <= 1`` run the per-step loop.
+
 ``TrainState.params`` holds the module's own parameters, updated in place.
-``fit`` runs the per-step loop of the JAX package (``:596-680``); a
-``scan_chunk`` is accepted and the loop stays per step (the JAX package's
-scanned and per-step loops give equal results). Not ported yet, each
-refused with ``NotImplementedError`` naming its ``ROADMAP.md`` item:
-checkpointing (``checkpointer``, ``checkpoint_every``, ``resume_from``),
-gang training (``gang``, ``fit_gang_source``), ``train_steps_scan``, a mesh
+Not ported yet, each refused with ``NotImplementedError`` naming its
+``ROADMAP.md`` item: checkpointing (``checkpointer``, ``checkpoint_every``,
+``resume_from``), gang training (``gang``, ``fit_gang_source``), a mesh
 and ``partition_rules``/``zero_shard``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
+import queue
+import threading
 import time
+import weakref
 from typing import Any, Callable, Iterator
 
 import numpy as np
 import torch
 from torch import nn
 
+from ..core import batching as cb
 from ..core import observability as obs
 from ..core.instrumentation import chip_peak_tflops
+from ..ops import attention as att
 
 __all__ = ["TrainerConfig", "Trainer", "TrainState", "NonFiniteLossError",
            "cross_entropy_loss", "plan_fit", "fit_source", "fit_arrays",
@@ -170,7 +184,17 @@ class OptState:
 class _Optimizer:
     """Global-norm clip then AdamW over the trained leaves, with frozen
     leaves left as they are and ``MultiSteps`` accumulation: the optax chain
-    that the JAX package's ``_make_optimizer`` builds."""
+    that the JAX package's ``_make_optimizer`` builds.
+
+    The per-step scalars (``-lr``, the bias corrections and the running
+    mean's divisor) are computed on the host from the counters
+    (:meth:`plan`) and reach :meth:`apply` as 0-d tensors on the params'
+    device, read by the tensor-scalar overloads of ``torch._foreach_*``: a
+    captured CUDA graph then reads each replay's values from its table
+    instead of freezing the captured step's."""
+
+    # columns of the per-step scalar table
+    NEG_LR, BC1, BC2, DIV = range(4)
 
     def __init__(self, cfg: TrainerConfig, names: list[str]):
         self.cfg = cfg
@@ -186,11 +210,36 @@ class _Optimizer:
         return OptState(mu=zeros(), nu=zeros(),
                         acc=zeros() if self.cfg.grad_accum > 1 else None)
 
+    def plan(self, state: OptState, n: int) -> tuple[np.ndarray, list[int]]:
+        """The next ``n`` micro-steps from ``state``'s counters, which it
+        advances: a float32 ``[n, 4]`` table of (``-lr``, ``1 - b1^count``,
+        ``1 - b2^count``, the running mean's divisor) and each step's index
+        within its accumulation window (``grad_accum - 1`` applies the
+        update; always 0 without accumulation). The schedule reads the
+        count before its increment, the bias corrections after it."""
+        cfg, k = self.cfg, self.cfg.grad_accum
+        table = np.zeros((n, 4), np.float32)
+        micro = []
+        for i in range(n):
+            table[i, self.DIV] = state.mini_step + 1
+            micro.append(state.mini_step)
+            if k > 1 and state.mini_step + 1 < k:
+                state.mini_step += 1
+                continue
+            state.mini_step = 0
+            table[i, self.NEG_LR] = -self.schedule(state.count)
+            state.count += 1
+            table[i, self.BC1] = np.float32(1) - np.float32(cfg.b1) ** state.count
+            table[i, self.BC2] = np.float32(1) - np.float32(cfg.b2) ** state.count
+        return table, micro
+
     @torch.no_grad()
-    def update(self, grads: list[torch.Tensor], state: OptState,
-               params: list[torch.Tensor]) -> None:
-        """One optimizer (micro-)step: ``params`` change in place. The
-        trained leaves' ``grads`` are overwritten (clipped)."""
+    def apply(self, grads: list[torch.Tensor], state: OptState, params: list[torch.Tensor],
+              scalars: torch.Tensor, micro: int) -> None:
+        """One optimizer (micro-)step with ``scalars``, a row of
+        :meth:`plan`'s table on the params' device, at accumulation index
+        ``micro``: ``params`` change in place; the trained leaves' ``grads``
+        are overwritten (clipped). Reads nothing back to the host."""
         cfg = self.cfg
         g = [grads[i] for i in self.train_idx]
         p = [params[i] for i in self.train_idx]
@@ -200,12 +249,10 @@ class _Optimizer:
         if k > 1:
             # running mean: acc + (g - acc) / (n + 1)
             delta = torch._foreach_sub(g, state.acc)
-            torch._foreach_div_(delta, float(state.mini_step + 1))
+            torch._foreach_div_(delta, scalars[self.DIV])
             torch._foreach_add_(state.acc, delta)
-            state.mini_step += 1
-            if state.mini_step < k:
+            if micro < k - 1:
                 return
-            state.mini_step = 0
             g = state.acc  # the mean; reset to 0 * acc after the update
         # clip_by_global_norm: t if norm < max_norm else (t / norm) * max_norm
         norm = _global_norm(g)
@@ -215,27 +262,40 @@ class _Optimizer:
                                            torch.ones_like(norm)))
         # scale_by_adam: moments, then bias correction by the new count
         b1, b2 = cfg.b1, cfg.b2
-        lr = self.schedule(state.count)
-        state.count += 1
         torch._foreach_mul_(state.mu, b1)
         torch._foreach_add_(state.mu, torch._foreach_mul(g, 1 - b1))
         sq = torch._foreach_mul(g, g)
         torch._foreach_mul_(sq, 1 - b2)
         torch._foreach_mul_(state.nu, b2)
         torch._foreach_add_(state.nu, sq)
-        bc1 = float(np.float32(1) - np.float32(b1) ** state.count)
-        bc2 = float(np.float32(1) - np.float32(b2) ** state.count)
-        upd = torch._foreach_div(state.mu, bc1)
-        den = torch._foreach_div(state.nu, bc2)
+        upd = torch._foreach_div(state.mu, scalars[self.BC1])
+        den = torch._foreach_div(state.nu, scalars[self.BC2])
         torch._foreach_sqrt_(den)
         torch._foreach_add_(den, 1e-8)
         torch._foreach_div_(upd, den)
         # add_decayed_weights, then scale by -lr, then apply
         torch._foreach_add_(upd, torch._foreach_mul(p, cfg.weight_decay))
-        torch._foreach_mul_(upd, -float(lr))
+        torch._foreach_mul_(upd, scalars[self.NEG_LR])
         torch._foreach_add_(p, upd)
         if k > 1:
             torch._foreach_mul_(state.acc, 0.0)
+
+    def update(self, grads: list[torch.Tensor], state: OptState,
+               params: list[torch.Tensor]) -> None:
+        """One optimizer (micro-)step from the counters: :meth:`plan` one
+        step, then :meth:`apply` it."""
+        table, micro = self.plan(state, 1)
+        device = params[0].device if params else torch.device("cpu")
+        self.apply(grads, state, params, _scalars_on(table, device)[0], micro[0])
+
+
+def _scalars_on(table: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host scalar table on ``device``: on a CUDA device through pinned
+    memory with a copy that does not wait for the host."""
+    t = torch.from_numpy(table)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
 # ---------------------------------------------------------------------------
@@ -265,6 +325,119 @@ def _resolve_device(owner: str, spec) -> torch.device:
     return device
 
 
+def _shape_key(batch: dict) -> tuple:
+    """A batch's (key, shape, dtype) triples, sorted: the JAX package's
+    ``shape_key`` of ``_fit_chunked``."""
+    return tuple(sorted((k, np.shape(v), str(getattr(v, "dtype", None) or np.asarray(v).dtype))
+                        for k, v in batch.items()))
+
+
+_SIDE_STREAMS: dict = {}  # device -> the stream of warm-ups and captures
+_SIDE_LOCK = threading.Lock()
+
+
+def _release_graphs(token: str) -> int:
+    """Evict the graphs keyed to a trainer's ``token``, after the card has
+    finished any replay of them still in flight."""
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    return cb.get_compiled_cache().evict_instance(token)
+
+
+def _binding(trainer: "Trainer", state: "TrainState") -> tuple[int, ...]:
+    """The addresses a captured chunk reads and writes outside its pool: the
+    module's parameters and buffers, the state's parameters, and its
+    optimizer moments and accumulators."""
+    opt = state.opt_state
+    tensors = itertools.chain(trainer.module.parameters(), trainer.module.buffers(),
+                              state.params.values(), opt.mu, opt.nu, opt.acc or ())
+    return tuple(t.data_ptr() for t in tensors)
+
+
+def _flash_counts() -> list[tuple[Callable, str, int]]:
+    """(wrapper, dtype key, count) for each flash launch counter."""
+    return [(fn, k, n) for fn in (att.flash_attention_fwd, att.flash_attention_bwd)
+            for k, n in fn.launches.items()]
+
+
+class _ChunkGraph:
+    """K whole optimizer steps (forward, loss, ``backward``, global norm,
+    clip and AdamW, accumulation resolved by the phase of the key) captured
+    in one ``torch.cuda.CUDAGraph`` and replayed for every chunk of its key.
+
+    It holds the static device inputs ``[K, ...]`` and the scalar table,
+    filled before each replay from pinned host buffers by copies that do
+    not wait for the host, and the static ``loss`` and ``grad_norm``
+    outputs; all of them are allocated outside the graph's memory pool, so
+    nothing read after a replay lives in it. The module's parameters and
+    the optimizer moments stay where they are and are updated in place.
+    The graph has a pool of its own. It keeps no reference to the trainer,
+    but it holds those tensors' addresses: a replay for a state whose tensors
+    lie elsewhere (one from another ``init_state``, or a module moved since
+    the capture) raises instead of writing to them.
+
+    A replay runs the flash kernels without their wrappers, so the capture
+    notes how much each launch counter grew, takes that back (nothing ran),
+    and every replay adds it: the counters count launches that ran."""
+
+    def __init__(self, stacked: dict, device: torch.device):
+        self.host = {k: torch.empty(v.shape, dtype=torch.from_numpy(v[:0]).dtype,
+                                    pin_memory=True) for k, v in stacked.items()}
+        self.inputs = {k: torch.empty_like(v, device=device) for k, v in self.host.items()}
+        K = next(iter(stacked.values())).shape[0]
+        self.host_scalars = torch.empty((K, 4), dtype=torch.float32, pin_memory=True)
+        self.scalars = torch.empty((K, 4), dtype=torch.float32, device=device)
+        self.loss = torch.zeros(K, dtype=torch.float32, device=device)
+        self.grad_norm = torch.zeros(K, dtype=torch.float32, device=device)
+        self.copied = torch.cuda.Event()  # the last copy out of the pinned buffers
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self.binding: tuple[int, ...] = ()  # _binding at the capture
+        self.launches: list[tuple[Callable, str, int]] = []
+
+    def _load(self, stacked: dict, table: np.ndarray) -> None:
+        self.copied.synchronize()  # the pinned buffers are free again
+        for k, v in stacked.items():
+            self.host[k].numpy()[...] = v
+        self.host_scalars.numpy()[...] = table
+        for k, v in self.inputs.items():
+            v.copy_(self.host[k], non_blocking=True)
+        self.scalars.copy_(self.host_scalars, non_blocking=True)
+        self.copied.record()
+
+    def _capture(self, trainer: "Trainer", state: "TrainState", micro: list[int]) -> None:
+        graph = torch.cuda.CUDAGraph()
+        self.binding = _binding(trainer, state)
+        before = _flash_counts()
+        with torch.cuda.graph(graph, stream=trainer._side_stream()):
+            for i, m in enumerate(micro):
+                loss, grad_norm = trainer._step(
+                    state, {k: v[i] for k, v in self.inputs.items()}, self.scalars[i], m)
+                self.loss[i].copy_(loss)
+                self.grad_norm[i].copy_(grad_norm)
+        for fn, k, n in before:
+            self.launches.append((fn, k, fn.launches[k] - n))
+            fn.launches[k] = n
+        for p in state.params.values():
+            p.grad = None  # the last step's gradients live in the graph's pool
+        self.graph = graph
+
+    def __call__(self, trainer: "Trainer", state: "TrainState", stacked: dict,
+                 table: np.ndarray, micro: list[int]) -> dict:
+        if self.graph is not None and _binding(trainer, state) != self.binding:
+            raise RuntimeError(
+                "train_steps_scan: this chunk's CUDA graph was captured with other parameter "
+                "or optimizer-moment tensors than this state holds (a state from another "
+                "init_state, or a module moved since the capture); call "
+                "trainer.release_graphs() before training it")
+        self._load(stacked, table)
+        if self.graph is None:
+            self._capture(trainer, state, micro)
+        self.graph.replay()
+        for fn, k, n in self.launches:
+            fn.launches[k] += n
+        return {"loss": self.loss.clone(), "grad_norm": self.grad_norm.clone()}
+
+
 class Trainer:
     """Owns the module on its device, the optimizer and the step loop.
 
@@ -286,11 +459,18 @@ class Trainer:
         # newest optimizer step whose loss was finite (post-step numbering);
         # -1 until the first loss is seen
         self.last_finite_step: int = -1
+        # train_steps_scan on the card: the keys whose warm-up chunk ran; the
+        # captured graphs go when the trainer does
+        self._warm: set = set()
+        weakref.finalize(self, _release_graphs, cb.instance_token(self))
 
     def init_state(self, seed: int = 0, init_params: dict | None = None) -> TrainState:
         """Fresh state. ``init_params`` (a ``state_dict`` of host arrays)
         replaces the module's values, every parameter by name and shape;
-        without it the module's own initialisers run under ``seed``."""
+        without it the module's own initialisers run under ``seed``. The
+        module's tensors move, so the trainer's captured graphs are dropped
+        (:meth:`release_graphs`)."""
+        self.release_graphs()
         module = self.module.to("cpu")
         named = dict(module.named_parameters())
         with torch.no_grad():
@@ -329,11 +509,14 @@ class Trainer:
         labels = batch.get("labels", batch.get("label"))
         return cross_entropy_loss(logits, labels, batch.get("_valid")), logits
 
-    def train_step(self, state: TrainState, batch: dict) -> tuple[TrainState, dict]:
-        """One step on a host batch: forward, backward, optimizer. ``state``
-        is updated in place and returned; ``metrics`` holds the loss and
-        the global norm of the raw gradients as 0-d device tensors."""
-        batch = self._to_device(batch)
+    def _step(self, state: TrainState, batch: dict, scalars: torch.Tensor,
+              micro: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """The body of one step on a device batch, shared by the eager step
+        and the captured chunk: forward, ``backward``, the global norm of
+        the raw gradients, and the optimizer with ``scalars`` (a row of
+        ``_Optimizer.plan``'s table) at accumulation index ``micro``.
+        Returns the loss and the norm as f32 device tensors; reads nothing
+        back to the host."""
         params = list(state.params.values())
         for p in params:
             p.grad = None
@@ -345,13 +528,91 @@ class Trainer:
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
         with torch.no_grad():
             grad_norm = _global_norm(grads)
-        self._tx.update(grads, state.opt_state, params)
-        state.step += 1
-        return state, {"loss": loss.detach().float(), "grad_norm": grad_norm.float()}
+        self._tx.apply(grads, state.opt_state, params, scalars, micro)
+        return loss.detach().float(), grad_norm.float()
 
-    def train_steps_scan(self, state, stacked_batches):
-        raise _unported("train_steps_scan (K steps in one dispatch)",
-                        "ROADMAP.md queue A item 1d (the scanned / CUDA-graph step)")
+    def train_step(self, state: TrainState, batch: dict) -> tuple[TrainState, dict]:
+        """One step on a host batch: forward, backward, optimizer. ``state``
+        is updated in place and returned; ``metrics`` holds the loss and
+        the global norm of the raw gradients as 0-d device tensors."""
+        batch = self._to_device(batch)
+        table, micro = self._tx.plan(state.opt_state, 1)
+        loss, grad_norm = self._step(state, batch, _scalars_on(table, self.device)[0], micro[0])
+        state.step += 1
+        return state, {"loss": loss, "grad_norm": grad_norm}
+
+    def train_steps_scan(self, state: TrainState, stacked_batches: dict
+                         ) -> tuple[TrainState, dict]:
+        """K optimizer steps over ``stacked_batches`` (host arrays with a
+        leading dim K): the state after them, and ``{"loss": [K],
+        "grad_norm": [K]}`` as f32 device tensors, as the JAX package's
+        ``lax.scan`` returns its stacked metrics.
+
+        On a CUDA device the K steps run as one captured CUDA graph
+        (:class:`_ChunkGraph`), got through the process-wide
+        :class:`~synapseml_torch.core.batching.CompiledCache` under the key
+        (the shape key of one batch, K, the accumulation phase at the
+        chunk's start): the first chunk of a new key runs its K steps
+        eagerly on a side stream (the warm-up torch advises before a
+        capture; they are real steps), the next captures and replays, the
+        later ones replay. A failed capture or replay raises. On the CPU
+        the K steps run eagerly through the same step body."""
+        stacked = {k: np.asarray(v) for k, v in stacked_batches.items()}
+        K = int(next(iter(stacked.values())).shape[0])
+        phase = state.opt_state.mini_step
+        table, micro = self._tx.plan(state.opt_state, K)
+        if self.device.type != "cuda":
+            metrics = self._eager_chunk(state, stacked, table, micro)
+        else:
+            key = (_shape_key({k: v[0] for k, v in stacked.items()}), K, phase)
+            if key not in self._warm:
+                metrics = self._warm_up(state, stacked, table, micro)
+                self._warm.add(key)
+            else:
+                runner = cb.get_compiled_cache().get(
+                    "train_steps_scan", key, lambda: _ChunkGraph(stacked, self.device),
+                    instance=cb.instance_token(self))
+                metrics = runner(self, state, stacked, table, micro)
+        state.step += K
+        return state, metrics
+
+    def _eager_chunk(self, state: TrainState, stacked: dict, table: np.ndarray,
+                     micro: list[int]) -> dict:
+        """K eager steps over a stacked chunk, on the current stream."""
+        batches = self._to_device(stacked)
+        scalars = _scalars_on(table, self.device)
+        out = [self._step(state, {k: v[i] for k, v in batches.items()}, scalars[i], m)
+               for i, m in enumerate(micro)]
+        return {"loss": torch.stack([o[0] for o in out]),
+                "grad_norm": torch.stack([o[1] for o in out])}
+
+    def _side_stream(self) -> "torch.cuda.Stream":
+        """The stream of the warm-up chunks and captures on this trainer's
+        card: one a device for the process, since cuBLAS keeps a workspace
+        for every stream it has run on until the process ends."""
+        with _SIDE_LOCK:
+            if self.device not in _SIDE_STREAMS:
+                _SIDE_STREAMS[self.device] = torch.cuda.Stream(self.device)
+            return _SIDE_STREAMS[self.device]
+
+    def _warm_up(self, state: TrainState, stacked: dict, table: np.ndarray,
+                 micro: list[int]) -> dict:
+        """A new key's first chunk: its K steps, eagerly on the side stream,
+        which meet every first-use cost of the step (kernel builds, cuBLAS
+        workspaces, the flash kernels' shared-memory set-up) before a
+        capture."""
+        side = self._side_stream()
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            metrics = self._eager_chunk(state, stacked, table, micro)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        return metrics
+
+    def release_graphs(self) -> int:
+        """Drop this trainer's captured graphs (and their memory pools) from
+        the process-wide cache; returns how many."""
+        self._warm.clear()
+        return _release_graphs(cb.instance_token(self))
 
     # ---- non-finite loss guard ----
     def _observe_losses(self, losses, last_step: int) -> None:
@@ -392,6 +653,14 @@ class Trainer:
             skip_fn: Callable[[int], bool] | None = None, gang=None) -> TrainState:
         """Up to ``max_steps`` steps over any iterator of host batches.
 
+        Default path (:meth:`_fit_chunked`): a producer thread stacks
+        ``scan_chunk`` same-shape batches into chunks for
+        :meth:`train_steps_scan` (CUDA graphs on the card), the next chunk
+        built while this one trains; a shape change flushes the pending
+        batches and a short or odd tail runs per step. A ``callback``, a
+        ``skip_fn``, ``scan_chunk <= 1`` or ``max_steps <= 1`` run the
+        per-step loop instead:
+
         ``callback(i, metrics)`` runs after each trained step.
         ``skip_fn(batch_index)`` (the pre-step counter) marks batches to
         consume but not train: ``state.step`` advances, the params stay.
@@ -405,6 +674,9 @@ class Trainer:
         if gang is not None:
             raise _unported("gang training", _MULTI_GPU)
         it = iter(batch_iter)
+        if not (callback is not None or skip_fn is not None or scan_chunk <= 1
+                or max_steps <= 1):
+            return self._fit_chunked(state, it, max_steps, scan_chunk, log_every)
         meter = _ThroughputMeter(self, state.params)
         base = state.step
         eager_guard = self.cfg.nonfinite_action == "raise"
@@ -444,6 +716,98 @@ class Trainer:
         flush()
         return state
 
+    def _fit_chunked(self, state: TrainState, it: Iterator[dict], max_steps: int,
+                     scan_chunk: int, log_every: int = 50) -> TrainState:
+        """The JAX package's ``_fit_chunked``: a producer thread stacks
+        ``scan_chunk`` same-shape batches into a chunk (double-buffered, at
+        most two waiting), a shape change flushes the pending batches, and
+        a short or odd tail goes per step. Each chunk's losses are read
+        once, checked by the non-finite guard, and a log window closes when
+        ``log_every`` steps have passed or the last step is done. A producer
+        error is raised here; an error here stops the producer."""
+        end = object()
+        q: queue.Queue = queue.Queue(maxsize=2)
+        stop = threading.Event()
+
+        def put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.5)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def producer():
+            try:
+                pending: list[dict] = []
+                pkey = None
+                taken = 0
+
+                def flush() -> bool:
+                    nonlocal pending, pkey
+                    if not pending:
+                        return True
+                    if len(pending) == scan_chunk:
+                        item = ("chunk", {k: np.stack([b[k] for b in pending])
+                                          for k in pending[0]})
+                    else:  # a short or odd tail: per step
+                        item = ("steps", pending)
+                    pending, pkey = [], None
+                    return put(item)
+
+                while taken < max_steps:
+                    try:
+                        b = next(it)
+                    except StopIteration:
+                        break
+                    key = _shape_key(b)
+                    if pending and key != pkey:
+                        if not flush():
+                            return
+                    pending.append(b)
+                    pkey = key
+                    taken += 1
+                    if len(pending) == scan_chunk and not flush():
+                        return
+                if flush():
+                    put(end)
+            except BaseException as e:  # noqa: BLE001 - surfaced in the consumer
+                put(e)
+
+        threading.Thread(target=producer, daemon=True, name="fit-chunk-producer").start()
+        meter = _ThroughputMeter(self, state.params)
+        steps_done = logged_at = 0
+        base = state.step
+        try:
+            while True:
+                item = q.get()
+                if item is end:
+                    break
+                if isinstance(item, BaseException):
+                    raise item
+                kind, payload = item
+                if kind == "chunk":
+                    state, metrics = self.train_steps_scan(state, payload)
+                    meter.observe(payload, steps=scan_chunk)
+                    steps_done += scan_chunk
+                    losses = metrics["loss"].cpu().numpy()
+                else:
+                    step_losses = []
+                    for b in payload:
+                        state, metrics = self.train_step(state, b)
+                        meter.observe(b, steps=1)
+                        step_losses.append(metrics["loss"])
+                    steps_done += len(payload)
+                    losses = torch.stack(step_losses).cpu().numpy()
+                self._observe_losses(losses, last_step=base + steps_done)
+                if steps_done - logged_at >= log_every or steps_done >= max_steps:
+                    self._metrics.append(meter.entry(float(losses[-1])))
+                    logged_at = steps_done
+        finally:
+            stop.set()
+        return state
+
     @property
     def metrics(self) -> list[dict]:
         return self._metrics
@@ -466,9 +830,12 @@ class _ThroughputMeter:
         self._last_t = self.t0
         self._last_steps = 0
 
-    def observe(self, batch: dict) -> None:
-        self.steps += 1
-        self.n_samples += int(np.shape(next(iter(batch.values())))[0])
+    def observe(self, batch: dict, steps: int = 1) -> None:
+        """``batch`` leaves are (B, ...) when ``steps`` is 1, (K, B, ...)
+        stacked when it is K."""
+        self.steps += steps
+        first = np.shape(next(iter(batch.values())))
+        self.n_samples += int(np.prod(first[: (2 if steps > 1 else 1)]))
         ids = batch.get("input_ids")
         if ids is not None:
             self.n_tokens += int(np.prod(np.shape(ids)))

@@ -2,7 +2,7 @@
 
 Counterpart of ``synapseml_tpu/ops``: :mod:`attention` holds the
 hand-written CUDA flash-attention forward and backward
-(``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``) beside their plain PyTorch
+(``csrc/flash_fwd.cu``, ``csrc/flash_bwd_{bf16,f32}.cu``) beside their plain PyTorch
 versions. Ring and Ulysses attention come with the multi-GPU slice.
 """
 

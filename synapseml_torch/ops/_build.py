@@ -4,9 +4,10 @@ Each ``csrc/<name>.cu`` has a plain C entry point and is compiled by its
 own ``nvcc`` into ``build/torch_kernels/lib<name>_<hash>.so`` at the root of
 the checkout (a directory ``.gitignore`` lists). The hash covers the source,
 the shared headers and the flags, so an edited kernel is rebuilt and an
-unchanged one is reused. Sources that need building are compiled in
-parallel, one process each. Nothing here runs at import time: the package
-imports, and its CPU paths run, on hosts with no CUDA toolkit.
+unchanged one is reused. The first load builds every source that needs
+it in one batch, one ``nvcc`` process each, all at once. Nothing here runs
+at import time: the package imports, and its CPU paths run, on hosts with
+no CUDA toolkit.
 """
 
 from __future__ import annotations
@@ -81,9 +82,10 @@ def build(names: list[str] | None = None) -> dict[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library of ``csrc/<name>.cu``. The first call builds every
+    source not built yet (:func:`build`), so the later loads find theirs."""
     with _lock:
         if name not in _libs:
-            build([name])
+            build()
             _libs[name] = ctypes.CDLL(str(_lib_path(name)))
         return _libs[name]

@@ -6,7 +6,8 @@ Counterpart of ``synapseml_tpu/ops/attention.py``. The Pallas TPU kernel
 is the same blockwise online softmax in plain PyTorch, which the wrapper
 takes for CPU tensors and which the chip check holds the kernel against.
 The backward that ``jax.custom_vjp`` gives it there (``_flash_core_bwd``,
-XLA) becomes ``csrc/flash_bwd.cu``, launched by :func:`flash_attention_bwd`,
+XLA) becomes ``csrc/flash_bwd_bf16.cu`` and ``csrc/flash_bwd_f32.cu``, one
+library each, launched by :func:`flash_attention_bwd`,
 beside :func:`flash_attention_bwd_plain`: the gradients recomputed blockwise
 from the forward's LSE, never the ``[T, T]`` scores.
 
@@ -336,23 +337,31 @@ def flash_attention_fwd(q, k, v, kv_mask, causal: bool = False,
     return out.squeeze(2), lse
 
 
+# Launches that ran, by dtype. A CUDA graph replays kernels without their
+# wrapper: a capture counts its calls and the graph's owner takes them back
+# and adds them on every replay (models/trainer.py::_ChunkGraph).
 flash_attention_fwd.launches = {"bf16": 0, "f32": 0}
 
 
 # q, k, v, mask, out, dout, lse, scratch, dq, dk, dv; B, H, Tq, Tk, D; 15
-# element strides; causal, scale, dtype, stream
+# element strides; causal, scale, stream
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_int64] * 15
-                 + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                 + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
 _TENSOR_MAP_ERR = 100000  # flash_bwd's code when TMA cannot describe a view
 
 
-def _bwd_entry_point():
+_BWD_SOURCES = {torch.float32: "flash_bwd_f32", torch.bfloat16: "flash_bwd_bf16"}
+
+
+def _bwd_entry_point(dtype):
     """The C functions ``flash_bwd`` and ``flash_bwd_scratch_bytes`` (B, H,
-    Tq, Tk, D, dtype -> bytes of scratch a call needs), argument types set."""
-    lib = _build.load("flash_bwd")
+    Tq, Tk, D -> bytes of scratch a call needs) of ``dtype``'s library
+    (``csrc/flash_bwd_bf16.cu`` or ``csrc/flash_bwd_f32.cu``), argument
+    types set."""
+    lib = _build.load(_BWD_SOURCES[dtype])
     fn, size = lib.flash_bwd, lib.flash_bwd_scratch_bytes
     if fn.argtypes is None:
-        size.argtypes = [ctypes.c_int] * 6
+        size.argtypes = [ctypes.c_int] * 5
         size.restype = ctypes.c_longlong
         fn.argtypes = _BWD_ARGTYPES
         fn.restype = ctypes.c_int
@@ -362,8 +371,8 @@ def _bwd_entry_point():
 def _flash_bwd_bthd(q, k, v, kv_mask, out, lse, dout, causal: bool, scale: float):
     """``(dq, dk, dv)``, contiguous ``[B, T, H, D]``, for ``[B, T, H, D]``
     q/k/v/out/dout of any strides, an int32 ``kv_mask [B, Tk]`` and the
-    forward's ``lse f32 [B*H, Tq]``. CUDA tensors launch ``csrc/flash_bwd.cu``
-    in place or raise (a dout off the kernel's layout is copied once first,
+    forward's ``lse f32 [B*H, Tq]``. CUDA tensors launch the backward kernel
+    of their dtype in place or raise (a dout off the kernel's layout is copied once first,
     and so is a broadcast view in bf16, see :func:`_kernel_views`);
     no host sync, and every output and scratch comes from torch's allocator,
     so a CUDA graph can capture the call. CPU tensors take
@@ -384,12 +393,11 @@ def _flash_bwd_bthd(q, k, v, kv_mask, out, lse, dout, causal: bool, scale: float
         dk = torch.empty((B, Tk, H, D), dtype=q.dtype, device=q.device)
         dv = torch.empty((B, Tk, H, D), dtype=q.dtype, device=q.device)
         dims = _kernel_args(q, k, v, kv_mask, out, dout, fn="flash_attention_bwd")
-        fn, size = _bwd_entry_point()
-        dtype = _KERNEL_DTYPES[q.dtype]
-        scratch = torch.empty(size(B, H, Tq, Tk, D, dtype), dtype=torch.uint8, device=q.device)
+        fn, size = _bwd_entry_point(q.dtype)
+        scratch = torch.empty(size(B, H, Tq, Tk, D), dtype=torch.uint8, device=q.device)
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_mask.data_ptr(), out.data_ptr(),
                  dout.data_ptr(), lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(),
-                 dk.data_ptr(), dv.data_ptr(), *dims, int(causal), float(scale), dtype,
+                 dk.data_ptr(), dv.data_ptr(), *dims, int(causal), float(scale),
                  torch.cuda.current_stream().cuda_stream)
     if err >= _TENSOR_MAP_ERR:
         raise RuntimeError(f"flash_bwd: cuTensorMapEncodeTiled refused an input or output "
@@ -405,9 +413,9 @@ def flash_attention_bwd(q, k, v, kv_mask, out, lse, dout, causal: bool = False,
     """Flash-attention backward on ``[BH, T, D]``: ``(dq, dk, dv)`` from the
     forward's ``out`` and ``lse`` and the output gradient ``dout``.
 
-    CUDA tensors launch ``csrc/flash_bwd.cu`` (built at first use; bf16 on
-    the tensor cores with wgmma and TMA, float32 on the tensor cores in
-    split TF32 with mma.sync) or raise; any strides with D innermost are
+    CUDA tensors launch ``csrc/flash_bwd_bf16.cu`` (wgmma and TMA) or
+    ``csrc/flash_bwd_f32.cu`` (the tensor cores in split TF32 with
+    mma.sync), built at first use, or raise; any strides with D innermost are
     taken as they are, except that bf16 copies a broadcast view (a zero
     stride on a dim longer than 1) first, since TMA steps by every stride.
     CPU tensors take :func:`flash_attention_bwd_plain`. Each call of the
@@ -426,6 +434,7 @@ def flash_attention_bwd(q, k, v, kv_mask, out, lse, dout, causal: bool = False,
     return tuple(x.squeeze(2) for x in grads)
 
 
+# Launches that ran, by dtype, counted under CUDA graphs as the forward's are.
 flash_attention_bwd.launches = {"bf16": 0, "f32": 0}
 
 

@@ -275,7 +275,7 @@ def test_kernel_argument_checks_cover_dout(bad, err, match, dtype):
 
 
 def _c_function(src: str, signature: str) -> str:
-    """The body of the C++ function of flash_bwd.cu that starts with
+    """The body of the C++ function of ``src`` that starts with
     ``signature``, up to its closing brace at the start of a line."""
     body = src[src.index(signature):]
     return body[:body.index("\n}\n")]
@@ -284,11 +284,12 @@ def _c_function(src: str, signature: str) -> str:
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_tensor_map_error_code_matches_the_kernel_source(dtype):
     """The wrapper tells a refused TMA tensor map from a CUDA error by the
-    code flash_bwd.cu returns for it. Only the bf16 path builds tensor maps;
-    the float32 kernel copies its tiles with cp.async and never returns the
-    code."""
-    src = (_build.CSRC / "flash_bwd.cu").read_text()
-    assert f"constexpr int ERR_TENSOR_MAP = {tatt._TENSOR_MAP_ERR};" in src
+    code flash_bwd_bf16.cu returns for it. Only the bf16 path builds tensor
+    maps; the float32 kernel (flash_bwd_f32.cu) copies its tiles with
+    cp.async and never returns the code."""
+    src = (_build.CSRC / f"{tatt._BWD_SOURCES[dtype]}.cu").read_text()
+    bf16_src = (_build.CSRC / "flash_bwd_bf16.cu").read_text()
+    assert f"constexpr int ERR_TENSOR_MAP = {tatt._TENSOR_MAP_ERR};" in bf16_src
     run = _c_function(src, "int run_tf32(" if dtype == torch.float32 else "int run_bf16(")
     kernel = _c_function(src, "flash_bwd_tf32_kernel(" if dtype == torch.float32
                          else "flash_bwd_wgmma_kernel(")
@@ -324,13 +325,13 @@ def test_broadcast_views_are_told_from_size_one_dims(dtype):
 
 def test_trace_stamp_points_are_in_the_kernel_source():
     """scripts/flash_bwd_trace.py splices its timestamps into a copy of
-    flash_bwd.cu at literal markers: each must still be there, once."""
+    flash_bwd_bf16.cu at literal markers: each must still be there, once."""
     spec = importlib.util.spec_from_file_location(
         "flash_bwd_trace",
         pathlib.Path(__file__).resolve().parents[1] / "scripts" / "flash_bwd_trace.py")
     trace = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(trace)
-    src = (_build.CSRC / "flash_bwd.cu").read_text()
+    src = (_build.CSRC / "flash_bwd_bf16.cu").read_text()
     for marker, _, _ in trace.POINTS:
         assert src.count(marker) == 1, marker
 
@@ -348,9 +349,10 @@ def test_non_cpu_tensors_launch_or_raise(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "_libs", {})
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
-    assert not os.path.exists(_build._lib_path("flash_bwd"))
-    with pytest.raises(RuntimeError, match="nvcc not found"):
-        tatt._bwd_entry_point()
+    for dtype in (torch.float32, torch.bfloat16):
+        assert not os.path.exists(_build._lib_path(tatt._BWD_SOURCES[dtype]))
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            tatt._bwd_entry_point(dtype)
 
 
 # --- the f32 kernel's split TF32, emulated -----------------------------------

@@ -342,8 +342,19 @@ def test_nonfinite_raise_names_the_poisoned_step():
     trainer = _trainer(4, nonfinite_action="raise")
     state = trainer.init_state(seed=0)
     with pytest.raises(tt.NonFiniteLossError, match="at step 3") as err:
-        trainer.fit(state, iter(_poisoned(2)), max_steps=4)
+        trainer.fit(state, iter(_poisoned(2)), max_steps=4, scan_chunk=1)  # per step
     assert err.value.step == 3 and err.value.last_finite_step == 2
+
+
+def test_nonfinite_raise_names_the_poisoned_step_inside_a_chunk():
+    """The chunked fit reads a chunk's losses at once and still names the
+    first poisoned step: batch 2 of the chunk of batches 0-3 trains step 3."""
+    trainer = _trainer(4, nonfinite_action="raise")
+    state = trainer.init_state(seed=0)
+    with pytest.raises(tt.NonFiniteLossError, match="at step 3") as err:
+        trainer.fit(state, iter(_poisoned(2)), max_steps=4, scan_chunk=4)
+    assert err.value.step == 3 and err.value.last_finite_step == 2
+    assert state.step == 4  # the whole chunk ran
 
 
 def test_nonfinite_count_increments_the_registry_counter():
@@ -376,8 +387,6 @@ def test_unported_trainer_options_are_refused():
                       resume_from="/nonexistent")
     with pytest.raises(NotImplementedError, match="item 9"):
         tt.fit_gang_source(trainer, MemorySource(data))
-    with pytest.raises(NotImplementedError, match="item 1"):
-        trainer.train_steps_scan(state, {})
 
 
 def test_trainer_defaults_to_the_card():
