@@ -60,13 +60,13 @@ the kernels are built for sm_90a). Phases, each of which raises on failure:
    as on the card; then a profile of one boosting iteration;
 6. main path 3: DeepTextClassifier fine-tuning BERT-base (hidden 768, 12
    layers, 12 heads, MLP 3072; f32 params, bf16 compute) on 960 texts that
-   fill 128 tokens, batch 32, 64 optimizer steps, with einsum attention and
+   fill 128 tokens, batch 32, 48 optimizer steps, with einsum attention and
    then with attn_impl='flash' (the same data and seed; first, reported,
    whether _foreach_div and _foreach_mul with a 0-d tensor scalar, as the
    optimizer takes its per-step scalars, equal their Python-float forms
    bitwise), each three times:
    the stage's own fit, which runs chunks of 8 steps as CUDA graphs
-   (Trainer.train_steps_scan: an eager warm-up chunk, one capture, six
+   (Trainer.train_steps_scan: an eager warm-up chunk, one capture, four
    replays), then twice the eager per-step loop (the stage's trainer, data
    and init through fit_arrays with scan_chunk=1). Every step's loss
    finite, every parameter moved, one capture a fit; each leaf of the
@@ -92,7 +92,23 @@ the kernels are built for sm_90a). Phases, each of which raises on failure:
    (TF32 off) from the same init through the f32 kernels, its median step,
    peak memory and the flash backward's share of one profiled step, step
    1's loss within 1e-2 of the bf16 flash run's;
-8. times: each kernel beside its bound, its plain version and the one
+8. main path 4: ONNXModel(device='cuda') scoring 520 random 3 x 224 x 224
+   images (3 partitions of 216, 176 and 128 rows, mini_batch_size 64: full
+   rungs, and partial chunks padded to rungs of 32 and 64) with a
+   torchvision-layout ResNet-50 (full width and depth, weights and
+   BatchNorm statistics from seed 0) exported by torch.onnx.export
+   (TorchScript, under an onnx stand-in backed by the port's codec), with
+   softmax and argmax columns: logits within 1e-5 of the torch module on
+   the card in f32, argmax equal wherever the top two logits differ by
+   more than 1e-3, 4 images through the port on the CPU within 1e-4 of the
+   card, a second transform bitwise the first, CompiledCache misses equal
+   to the rungs used and none on the second transform, no kernel of the
+   port's launched, and the graph sliced at its Flatten output giving the
+   2048-wide features of the module's avgpool within 1e-5; a control
+   batch with TF32 allowed must exceed both limits; then images/s,
+   device ms a batch of 64 beside the torch module's, the input copy, peak
+   memory, and a profile of one batch by group;
+9. times: each kernel beside its bound, its plain version and the one
    PyTorch call that computes the same function (device time, with the
    host's enqueue hidden behind a spin kernel; the library call's device
    kernels named from the profiler); flash_attention from the projection
@@ -113,6 +129,9 @@ from __future__ import annotations
 import dataclasses
 import gc
 import hashlib
+import importlib.machinery
+import importlib.util
+import io
 import json
 import re
 import shutil
@@ -133,6 +152,8 @@ from synapseml_torch.models import text as text_stage
 from synapseml_torch.models import trainer as trainer_mod
 from synapseml_torch.models.text import DeepTextClassifier, DeepTextModel
 from synapseml_torch.models.tokenizer import HashingTokenizer
+from synapseml_torch.onnx import ONNXModel
+from synapseml_torch.onnx import proto as onnx_proto
 from synapseml_torch.ops import _build
 from synapseml_torch.ops import attention as att
 
@@ -976,13 +997,14 @@ def _bwd_times(device, card: str, launches: dict, max_err: dict) -> list[dict]:
 
 # ---------------- main path 3: BERT-base fine-tuning ----------------
 
-FT_ARCH, FT_ROWS, FT_STEPS, FT_BATCH, FT_LEN = "bert-base", 960, 64, 32, 128
+# 48 steps, cut from 64 so that main path 4 fits the script's time
+FT_ARCH, FT_ROWS, FT_STEPS, FT_BATCH, FT_LEN = "bert-base", 960, 48, 32, 128
 FT_CHUNK = 8  # the stage's scan_chunk (fit_arrays' default): steps a captured graph runs
 FT_WARMUP = 5  # eager steps left out of the step time (first calls, allocator warm-up)
 # graph chunks left out of the step time: the warm-up chunk (eager, on a side
 # stream) and the chunk that captures; the profiled chunk is left out too
 FT_GRAPH_SKIP = 2
-FT_PROFILE_AT = 5  # the chunk profiled (0-based), or the next if its profile lost records
+FT_PROFILE_AT = 4  # the chunk profiled (0-based), or the next if its profile lost records
 FT_LR = 1e-4
 # a leaf on which two eager fits from one seed differ is held to the eager
 # fit within this, not bitwise
@@ -2214,6 +2236,363 @@ def phase_gbdt_times(device, card: str, launches: dict, max_err: dict) -> list[d
              "bound_by": "bytes", "library_ms": None}]
 
 
+# ---------------------------------------------------------------------------
+# main path 4: ONNXModel scoring a torch-exported ResNet-50
+# ---------------------------------------------------------------------------
+
+ONNX_PARTS = (216, 176, 128)  # 520 images: 3x64 + 24 (a rung of 32), 2x64 + 48 (64), 2x64
+ONNX_BATCH = 64               # mini_batch_size, the JAX stage's default
+# logits and features against the torch module, both strict f32 on the card:
+# tighter than tests/test_onnx_resnet.py's full-size 1e-3, so that a path
+# that let TF32 into its convolutions fails (the control in phase_onnx)
+ONNX_TOL = 1e-5
+ONNX_TIE = 1e-3               # argmax is compared where the top two logits differ by more
+ONNX_CPU_N, ONNX_CPU_TOL = 4, 1e-4
+_ONNX_GROUPS = (("pooling", ("pool",)),  # matched in lower case, first match wins
+                ("convolutions", ("fprop", "conv", "implicit", "winograd", "fft", "flip_filter",
+                                  "cf32")),  # cf32: the complex products of cuDNN's FFT algorithm
+                ("matmul (fc)", ("gemm", "nvjet", "cutlass", "cublas")),
+                ("host-to-device copies", ("htod",)),
+                ("device-to-host copies", ("dtoh",)),
+                ("elementwise", ("elementwise", "vectorized", "relu", "add", "softmax",
+                                 "argmax", "reduce")))
+
+
+class _Bottleneck(torch.nn.Module):
+    def __init__(self, cin, width, stride=1, downsample=None):
+        super().__init__()
+        nn = torch.nn
+        self.conv1 = nn.Conv2d(cin, width, 1, bias=False)
+        self.bn1 = nn.BatchNorm2d(width)
+        self.conv2 = nn.Conv2d(width, width, 3, stride, 1, bias=False)
+        self.bn2 = nn.BatchNorm2d(width)
+        self.conv3 = nn.Conv2d(width, width * 4, 1, bias=False)
+        self.bn3 = nn.BatchNorm2d(width * 4)
+        self.relu = nn.ReLU(inplace=True)
+        self.downsample = downsample
+
+    def forward(self, x):
+        idt = x if self.downsample is None else self.downsample(x)
+        out = self.relu(self.bn1(self.conv1(x)))
+        out = self.relu(self.bn2(self.conv2(out)))
+        return self.relu(self.bn3(self.conv3(out)) + idt)
+
+
+class _ResNet50(torch.nn.Module):
+    """torchvision's ResNet-50 layout: (3, 4, 6, 3) bottlenecks, width 64,
+    1000 classes, the layer names of tests/_torch_resnet.py."""
+
+    def __init__(self, layers=(3, 4, 6, 3), num_classes=1000, width0=64):
+        super().__init__()
+        nn = torch.nn
+        self.conv1 = nn.Conv2d(3, width0, 7, 2, 3, bias=False)
+        self.bn1 = nn.BatchNorm2d(width0)
+        self.relu = nn.ReLU(inplace=True)
+        self.maxpool = nn.MaxPool2d(3, 2, 1)
+        cin, stages = width0, []
+        for i, n in enumerate(layers):
+            width, stride = width0 * 2 ** i, 1 if i == 0 else 2
+            down = nn.Sequential(nn.Conv2d(cin, width * 4, 1, stride, bias=False),
+                                 nn.BatchNorm2d(width * 4))
+            blocks = [_Bottleneck(cin, width, stride, down)]
+            cin = width * 4
+            blocks += [_Bottleneck(cin, width) for _ in range(n - 1)]
+            stages.append(nn.Sequential(*blocks))
+        self.layer1, self.layer2, self.layer3, self.layer4 = stages
+        self.avgpool = nn.AdaptiveAvgPool2d((1, 1))
+        self.fc = nn.Linear(cin, num_classes)
+
+    def features(self, x):
+        x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
+        for layer in (self.layer1, self.layer2, self.layer3, self.layer4):
+            x = layer(x)
+        return self.avgpool(x).flatten(1)
+
+    def forward(self, x):
+        return self.fc(self.features(x))
+
+
+def _resnet50(seed: int) -> torch.nn.Module:
+    """ResNet-50 with torch's initialisers from ``seed``, and BatchNorm's
+    scale, shift and running statistics drawn from it too, so that the
+    exporter's folded conv biases are not zero."""
+    torch.manual_seed(seed)
+    model = _ResNet50()
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                for t, lo, hi in ((m.weight, 0.5, 1.5), (m.bias, -0.1, 0.1),
+                                  (m.running_mean, -0.1, 0.1), (m.running_var, 0.5, 1.5)):
+                    t.uniform_(lo, hi, generator=gen)
+    return model.eval()
+
+
+def _export_onnx(model, example) -> bytes:
+    """``torch.onnx.export`` (the TorchScript exporter) with an ``onnx``
+    stand-in backed by the port's codec: the exporter loads its own output
+    back only to look for custom onnxscript functions, of which a convnet
+    has none. The stand-in has a real module spec (a spec-less module in
+    sys.modules breaks a later ``find_spec("onnx")``) and leaves
+    sys.modules as it found it."""
+    class _Loaded:
+        def __init__(self, data):
+            self.graph, self.functions = onnx_proto.parse_model(data).graph, []
+
+    stand_in = importlib.util.module_from_spec(importlib.machinery.ModuleSpec("onnx", None))
+    stand_in.load_model_from_string = _Loaded
+    saved = sys.modules.get("onnx")
+    sys.modules["onnx"] = stand_in
+    try:
+        buf = io.BytesIO()
+        torch.onnx.export(model, example, buf, dynamo=False, input_names=["input"],
+                          output_names=["logits"],
+                          dynamic_axes={"input": {0: "N"}, "logits": {0: "N"}})
+    finally:
+        if saved is None:
+            sys.modules.pop("onnx", None)
+        else:
+            sys.modules["onnx"] = saved
+    return buf.getvalue()
+
+
+def _onnx_column(df, col) -> np.ndarray:
+    return np.concatenate([p[col] for p in df.partitions], axis=0)
+
+
+def _port_kernel_counts() -> dict:
+    from synapseml_torch.gbdt import hist
+
+    return {**{f"flash_{k}": sum(v.values()) for k, v in _flash_counts().items()},
+            "gbdt_hist": hist.fixed_point_histogram.launches,
+            "gbdt_hist_scale": hist.fixed_point_scales.launches}
+
+
+def _zero_port_kernel_counts() -> None:
+    from synapseml_torch.gbdt import hist
+
+    _zero_flash_counts()
+    hist.fixed_point_histogram.launches = hist.fixed_point_scales.launches = 0
+
+
+def _profile_onnx_batch(fn, card: str, n=3) -> dict:
+    """Where the device time of one scored batch of 64 goes (its input copy,
+    the graph, the post-columns, the copy back), by group, and the share of
+    its wall time the card is busy under the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    for attempt in range(PROFILE_TRIES):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / n
+        # late in a long process a session can miss some launches: each
+        # operation's time a batch is its mean over the launches recorded
+        # times its launches a batch (recorded over n, rounded up)
+        kernels = [(e.self_device_time_total / e.count * -(-e.count // n) / 1e3,
+                    -(-e.count // n), e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        if kernels:
+            break
+        log(f"[profile] session {attempt + 1} recorded no device kernel; profiling again")
+    busy = sum(k[0] for k in kernels)
+    if not busy:
+        raise AssertionError("the profiler recorded no device time for an ONNX batch")
+    groups = {name: 0.0 for name, _ in _ONNX_GROUPS}
+    groups["other"] = 0.0
+    for ms, _, key in kernels:
+        name = next((g for g, pats in _ONNX_GROUPS if any(p in key.lower() for p in pats)),
+                    "other")
+        groups[name] += ms
+    log(f"[profile] onnx one ResNet-50 batch of {ONNX_BATCH} (transform of one partition): "
+        f"{wall_ms:.3f} ms wall, {busy:.3f} ms of device time ({100 * busy / wall_ms:.1f}% "
+        f"busy, {100 - 100 * busy / wall_ms:.1f}% idle), "
+        f"{sum(k[1] for k in kernels)} device operations | {card}")
+    for name, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        log(f"[profile] onnx group {name}: {ms:.4f} ms/batch ({100 * ms / busy:.1f}% of device "
+            f"time)")
+    for ms, count, key in sorted(kernels, reverse=True)[:12]:
+        log(f"[profile] onnx {100 * ms / busy:5.1f}%  {ms:8.4f} ms/batch  {count:4d}/batch  "
+            f"{key[:160]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy, "busy": busy / wall_ms, "groups": groups}
+
+
+def phase_onnx(device, card: str) -> dict:
+    """Main path 4: ``ONNXModel(device='cuda').transform`` scores 520
+    random 3 x 224 x 224 images with a torch-exported ResNet-50 (full width
+    and depth, weights from seed 0) over 3 partitions at mini_batch_size 64,
+    with softmax and argmax columns, and holds the result to the torch
+    module on the card, to the port on the CPU, to itself on a second
+    transform, and its features (the graph sliced at the Flatten output) to
+    the module's."""
+    model = _resnet50(seed=0)
+    t0 = time.perf_counter()
+    data = _export_onnx(model, torch.zeros(1, 3, 224, 224))
+    export_s = time.perf_counter() - t0
+    graph = onnx_proto.parse_model(data).graph
+    ops = {}
+    for node in graph.node:
+        ops[node.op_type] = ops.get(node.op_type, 0) + 1
+    log(f"[onnx] ResNet-50 exported by torch {torch.__version__}'s TorchScript exporter: "
+        f"{len(data)} bytes, {len(graph.initializer)} initializers, {len(graph.node)} nodes "
+        f"{ops}, in {export_s:.2f} s")
+    n = sum(ONNX_PARTS)
+    x = np.random.default_rng(0).standard_normal((n, 3, 224, 224), dtype=np.float32)
+
+    model = model.to(device)
+    want, want_feat = [], []
+    with torch.inference_mode():
+        for s in range(0, n, ONNX_BATCH):
+            feat = model.features(torch.from_numpy(x[s:s + ONNX_BATCH]).to(device))
+            want_feat.append(feat.cpu().numpy())
+            want.append(model.fc(feat).cpu().numpy())
+    want, want_feat = np.concatenate(want), np.concatenate(want_feat)
+    log(f"[onnx] the torch module's logits on the card: max |logit| {np.abs(want).max():.4f}, "
+        f"std {want.std():.4f}")
+
+    kw = dict(mini_batch_size=ONNX_BATCH, feed_dict={"input": "image"},
+              fetch_dict={"logits": "logits"}, softmax_dict={"logits": "probs"},
+              argmax_dict={"logits": "prediction"})
+    stage = ONNXModel(model_bytes=data, device=str(device), **kw)
+    t0 = time.perf_counter()
+    conv = stage.converted
+    convert_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    conv.weights_on(device)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    log(f"[onnx] parse + convert {len(data) / 1e6:.1f} MB: {convert_s:.3f} s host; weights "
+        f"to the card once: {upload_s:.3f} s")
+
+    parts, at = [], 0
+    for size in ONNX_PARTS:
+        parts.append({"image": x[at:at + size], "row": np.arange(at, at + size)})
+        at += size
+    df = DataFrame(parts)
+    rungs = sorted({b for size in ONNX_PARTS
+                    for *_, b in cb.default_bucketer().slices(size, ONNX_BATCH)})
+    cache = cb.get_compiled_cache()
+    misses0 = cache.miss_count("onnx_model")
+    _zero_port_kernel_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out1 = stage.transform(df)
+    first_s = time.perf_counter() - t0
+    misses = cache.miss_count("onnx_model") - misses0
+    t0 = time.perf_counter()
+    out2 = stage.transform(df)
+    second_s = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts = _port_kernel_counts()
+    log(f"[onnx] transform of {n} images: {first_s:.3f} s first ({n / first_s:.1f} images/s), "
+        f"{second_s:.3f} s second ({n / second_s:.1f} images/s, host clock); peak device "
+        f"memory {peak_gib:.3f} GiB | {card}")
+    log(f"[onnx] CompiledCache misses: {misses:.0f} on the first transform (rungs used "
+        f"{rungs}), {cache.miss_count('onnx_model') - misses0 - misses:.0f} on the second; "
+        f"the port's kernels launched on this path: {counts}")
+    if misses != len(rungs) or cache.miss_count("onnx_model") - misses0 != len(rungs):
+        raise AssertionError("ONNXModel did not take one callable per rung from CompiledCache")
+    if any(counts.values()):
+        raise AssertionError(f"the ONNX path launched a kernel of the port's: {counts}")
+
+    logits = _onnx_column(out1, "logits")
+    err = float(np.abs(logits - want).max())
+    top2 = np.sort(want, axis=-1)[:, -2:]
+    clear = top2[:, 1] - top2[:, 0] > ONNX_TIE
+    pred = _onnx_column(out1, "prediction")
+    probs = _onnx_column(out1, "probs")
+    agree = int((pred[clear] == want.argmax(-1)[clear]).sum())
+    log(f"[onnx] logits against the torch module: max |diff| {err:.3e} (limit {ONNX_TOL}); "
+        f"argmax equal on {agree} of the {int(clear.sum())} images whose top two logits "
+        f"differ by more than {ONNX_TIE} ({n} images); rows sum of probs within "
+        f"{np.abs(probs.sum(-1) - 1).max():.2e} of 1")
+    if not (logits.shape == (n, 1000) and np.isfinite(logits).all() and err <= ONNX_TOL):
+        raise AssertionError("ONNXModel's ResNet-50 logits disagree with the torch module")
+    if agree != int(clear.sum()) or pred.dtype != np.int32:
+        raise AssertionError("ONNXModel's argmax disagrees with the torch module's")
+    if not (np.isfinite(probs).all() and np.abs(probs.sum(-1) - 1).max() <= 1e-5):
+        raise AssertionError("ONNXModel's softmax column is not a distribution")
+    if not (_onnx_column(out1, "row") == np.arange(n)).all():
+        raise AssertionError("ONNXModel lost the rows' order")
+    same = all(np.array_equal(p[c], q[c]) for p, q in zip(out1.partitions, out2.partitions)
+               for c in p)
+    log(f"[onnx] a second transform bitwise the first: {same}")
+    if not same:
+        raise AssertionError("a second ONNXModel transform differs from the first")
+
+    cpu = ONNXModel(model_bytes=data, device="cpu", **kw)
+    got_cpu = _onnx_column(cpu.transform(DataFrame([{"image": x[:ONNX_CPU_N]}])), "logits")
+    err_cpu = float(np.abs(got_cpu - logits[:ONNX_CPU_N]).max())
+    log(f"[onnx] {ONNX_CPU_N} images through the port on the CPU against the card: max |diff| "
+        f"{err_cpu:.3e} (limit {ONNX_CPU_TOL})")
+    if err_cpu > ONNX_CPU_TOL:
+        raise AssertionError("ONNXModel on the CPU disagrees with the card")
+
+    flat = next(node.output[0] for node in graph.node if node.op_type == "Flatten")
+    feat_stage = ONNXModel(model_bytes=data, device=str(device), mini_batch_size=ONNX_BATCH,
+                           feed_dict={"input": "image"}, fetch_dict={"features": flat})
+    sliced = feat_stage.slice_at_outputs([flat])
+    feats = _onnx_column(sliced.transform(df), "features")
+    err_feat = float(np.abs(feats - want_feat).max())
+    log(f"[onnx] slice_at_outputs([{flat!r}]): features {feats.shape} (max |feature| "
+        f"{np.abs(want_feat).max():.4f}), max |diff| from the module's avgpool output "
+        f"{err_feat:.3e} (limit {ONNX_TOL})")
+    if feats.shape != want_feat.shape or err_feat > ONNX_TOL:
+        raise AssertionError("the sliced ResNet-50's features disagree with the module's")
+
+    xb = x[:ONNX_BATCH]
+    xb_dev = torch.from_numpy(xb).to(device)
+    # the control: one batch through both graphs with TF32 allowed in the
+    # convolutions and matmuls must fail the limits, else they could not
+    # tell a TF32 path from the strict f32 one
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with torch.inference_mode():
+            tf32 = conv.run({"input": xb_dev}, device)["logits"].cpu().numpy()
+            tf32_feat = sliced.converted.run({"input": xb_dev}, device)[flat].cpu().numpy()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    ctl = float(np.abs(tf32 - want[:ONNX_BATCH]).max())
+    ctl_feat = float(np.abs(tf32_feat - want_feat[:ONNX_BATCH]).max())
+    log(f"[onnx] control, one batch of {ONNX_BATCH} with TF32 allowed: max |diff| from the "
+        f"module's f32 logits {ctl:.3e}, features {ctl_feat:.3e} (each must exceed the limit "
+        f"{ONNX_TOL}) | {card}")
+    if not (ctl > ONNX_TOL and ctl_feat > ONNX_TOL):
+        raise AssertionError("the ONNX limits pass a TF32 run: they cannot tell it from f32")
+
+    def graph_batch():
+        with torch.inference_mode():
+            conv.run({"input": xb_dev}, device)
+
+    def module_batch():
+        with torch.inference_mode():
+            model(xb_dev)
+
+    batch_ms = device_ms(graph_batch, warmup=3, iters=20)
+    module_ms = device_ms(module_batch, warmup=3, iters=20)
+    copy_ms = cuda_ms(lambda: torch.from_numpy(xb).to(device), warmup=3, iters=20)
+    log(f"[onnx] a full batch of {ONNX_BATCH}: graph {batch_ms:.3f} ms device time "
+        f"({1e3 * ONNX_BATCH / batch_ms:.1f} images/s), the torch module (BatchNorm unfolded) "
+        f"{module_ms:.3f} ms; one batch's input copy ({xb.nbytes / 1e6:.1f} MB, pageable) "
+        f"{copy_ms:.3f} ms ({xb.nbytes / copy_ms / 1e6:.2f} GB/s) | {card}")
+    one = DataFrame([{"image": xb}])
+    prof = _profile_onnx_batch(lambda: stage.transform(one), card)
+    del model, conv, xb_dev
+    _free_card()
+    return {"images_s": n / second_s, "images_s_first": n / first_s, "batch_ms": batch_ms,
+            "module_ms": module_ms, "copy_ms": copy_ms, "peak_gib": peak_gib,
+            "convert_s": convert_s, "upload_s": upload_s, "export_s": export_s,
+            "busy": prof["busy"], "max_abs_err": err, "max_abs_err_feat": err_feat,
+            "tf32_err": ctl, "tf32_err_feat": ctl_feat, "launches": counts}
+
+
 def main() -> None:
     t0 = time.perf_counter()
 
@@ -2237,6 +2616,8 @@ def main() -> None:
     done("bert-tiny, CPU against the card")
     long_t = phase_train_long(device, card)
     done("long-T step")
+    phase_onnx(device, card)
+    done("main path 4")
     # the flash kernels' launches on the paths, each counted from 0 just
     # before it ran: scoring (path 1), fine-tuning through flash and both
     # fitted models' scoring (path 3), bert-tiny f32 through flash on the

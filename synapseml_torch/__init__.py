@@ -11,6 +11,8 @@ slice, mirroring its layout so each file names its counterpart:
                DeepTextClassifier fine-tuning and DeepTextModel scoring
   gbdt/        LightGBM-style GBDT training and scoring, with the CUDA
                level-histogram kernel
+  onnx/        the ONNX wire codec, the converter to torch ops,
+               ONNXModel batch scoring and the ONNXHub model-zoo client
 
 It imports torch and numpy, never JAX. Entry points run on the CUDA card
 unless the caller asks for the CPU.

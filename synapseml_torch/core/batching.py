@@ -32,7 +32,7 @@ from . import observability as obs
 
 __all__ = ["ShapeBucketer", "default_bucketer", "pad_rows", "unpad_rows",
            "round_up_to_multiple", "CompiledCache", "get_compiled_cache",
-           "instance_token"]
+           "instance_token", "invalidate_token"]
 
 _AOT = "ROADMAP.md queue A item 10 (the deploy plane's AOT tier)"
 
@@ -346,3 +346,12 @@ def instance_token(obj: Any) -> str:
             if tok is None:
                 tok = obj.__dict__[_TOKEN_SLOT] = uuid.uuid4().hex
     return tok
+
+
+def invalidate_token(obj: Any) -> None:
+    """Drop ``obj``'s token, so that the next :func:`instance_token` mints a
+    fresh one, and evict the old token's entries from the default cache (a
+    dead configuration's callables would pin its weights otherwise)."""
+    tok = obj.__dict__.pop(_TOKEN_SLOT, None)
+    if tok is not None:
+        get_compiled_cache().evict_instance(tok)

@@ -33,6 +33,8 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from ..core import device as core_device
+from ..core.device import device_type
 from ..core.instrumentation import InstrumentationMeasures
 from . import objectives as obj
 from . import trees as T
@@ -45,23 +47,11 @@ __all__ = ["Booster", "train_booster", "train_booster_from_source",
 _PREDICT_ROW_CHUNK = 1 << 17  # rows per forest walk: bounds the (rows, trees) index tensors
 
 
-def device_type(spec) -> str | None:
-    """The type of ``torch.device(spec)``, or None if it names no device."""
-    try:
-        return torch.device(spec).type
-    except RuntimeError:
-        return None
-
-
 def resolve_device(spec) -> torch.device:
     """``torch.device(spec)``, refusing ``cuda`` on a host without a card."""
     if device_type(spec) not in ("cuda", "cpu"):
         raise ValueError(f"device must be 'cuda', 'cuda:N' or 'cpu', got {spec!r}")
-    device = torch.device(spec)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device={str(device)!r} but this host has no CUDA device; "
-                           "pass device='cpu' to run on the CPU")
-    return device
+    return core_device.resolve_device("Booster", spec)
 
 
 def train_booster_from_source(source, **kwargs) -> "Booster":

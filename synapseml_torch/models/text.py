@@ -42,11 +42,12 @@ import torch
 
 from ..core import DataFrame, Estimator, Model
 from ..core import batching as cb
+from ..core.device import device_type, resolve_device
 from ..core.params import ComplexParam, Param, TypeConverters
 from .convert_jax import bert_state_dict_from_flax, init_flax_bert_params
 from .nets.bert import BertClassifier, bert_base, bert_tiny
 from .tokenizer import resolve_tokenizer
-from .trainer import Trainer, TrainerConfig, _resolve_device, fit_arrays, plan_fit
+from .trainer import Trainer, TrainerConfig, fit_arrays, plan_fit
 
 __all__ = ["DeepTextClassifier", "DeepTextModel", "legacy_prenorm_fixup"]
 
@@ -74,13 +75,6 @@ def _unported(what: str, item: str) -> NotImplementedError:
                                f"synapseml_torch yet: ROADMAP.md queue A item {item}")
 
 
-def _device_type(spec: str) -> str | None:
-    try:
-        return torch.device(spec).type
-    except RuntimeError:
-        return None
-
-
 def legacy_prenorm_fixup(cfg, state_dict):
     """Saved artifacts from before the BERT post-norm change carry pre-norm
     param layouts (an encoder-level final norm) with no arch_config; rebuild
@@ -105,7 +99,7 @@ class _TextParams:
                        converter=TypeConverters.to_int)
     device = Param("device", "torch device: 'cuda' (default), 'cuda:N' or 'cpu'",
                    default="cuda", converter=TypeConverters.to_string,
-                   validator=lambda v: _device_type(v) in ("cuda", "cpu"))
+                   validator=lambda v: device_type(v) in ("cuda", "cpu"))
 
 
 class DeepTextClassifier(Estimator, _TextParams):
@@ -181,7 +175,7 @@ class DeepTextClassifier(Estimator, _TextParams):
         module and ``TrainerConfig``, the keywords those of the reference
         stage's ``fit_arrays`` call (its default ``scan_chunk``)."""
         self._refuse_unported()
-        device = _resolve_device("DeepTextClassifier", self.get("device"))
+        device = resolve_device("DeepTextClassifier", self.get("device"))
         tok = resolve_tokenizer(self.get("tokenizer"))
         cfg = self._make_config(tok.vocab_size)
         if self.get("attn_impl"):
@@ -280,7 +274,7 @@ class DeepTextModel(Model, _TextParams):
             if tok.vocab_size > cfg.vocab_size:
                 raise ValueError(f"tokenizer vocab {tok.vocab_size} exceeds the "
                                  f"model's embedding table ({cfg.vocab_size})")
-            device = _resolve_device("DeepTextModel", self.get("device"))
+            device = resolve_device("DeepTextModel", self.get("device"))
             with torch.device("meta"):
                 module = BertClassifier(cfg, num_classes=self.get("num_classes"))
             state = {k: torch.as_tensor(np.asarray(v)).to(device=device,

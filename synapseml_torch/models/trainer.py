@@ -55,6 +55,7 @@ from torch import nn
 
 from ..core import batching as cb
 from ..core import observability as obs
+from ..core.device import resolve_device
 from ..core.instrumentation import chip_peak_tflops
 from ..ops import attention as att
 
@@ -317,14 +318,6 @@ _GUARD_METRICS = obs.HandleCache(lambda reg: {
 })
 
 
-def _resolve_device(owner: str, spec) -> torch.device:
-    device = torch.device(spec)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"{owner}: device={str(spec)!r} but this host has no CUDA "
-                           "device; pass device='cpu' to run on the CPU")
-    return device
-
-
 def _shape_key(batch: dict) -> tuple:
     """A batch's (key, shape, dtype) triples, sorted: the JAX package's
     ``shape_key`` of ``_fit_chunked``."""
@@ -450,7 +443,7 @@ class Trainer:
                  *, device: str | torch.device = "cuda", mesh=None):
         if mesh is not None:
             raise _unported("a mesh", _MULTI_GPU)
-        self.device = _resolve_device("Trainer", device)
+        self.device = resolve_device("Trainer", device)
         self.module = module.eval()  # dropout stays off, as in the JAX step
         self.cfg = cfg
         self._loss_fn = loss_fn

@@ -34,7 +34,9 @@ def test_the_scan_covers_the_package():
     assert {"chip_smoke.py", "synapseml_torch/ops/attention.py",
             "synapseml_torch/models/text.py", "synapseml_torch/gbdt/trees.py",
             "synapseml_torch/gbdt/hist.py", "synapseml_torch/models/trainer.py",
-            "synapseml_torch/data/loader.py"} <= names
+            "synapseml_torch/data/loader.py", "synapseml_torch/onnx/proto.py",
+            "synapseml_torch/onnx/convert.py", "synapseml_torch/onnx/model.py",
+            "synapseml_torch/onnx/hub.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
