@@ -107,8 +107,33 @@ the kernels are built for sm_90a). Phases, each of which raises on failure:
    2048-wide features of the module's avgpool within 1e-5; a control
    batch with TF32 allowed must exceed both limits; then images/s,
    device ms a batch of 64 beside the torch module's, the input copy, peak
-   memory, and a profile of one batch by group;
-9. times: each kernel beside its bound, its plain version and the one
+   memory, and a profile of one batch by group; and ImageFeaturizer on
+   that export cut at its Flatten output, over raw images of varied sizes,
+   against the module's avgpool features of the same preprocessing within
+   1e-5 (part of main path 5);
+9. main path 5, vision: (a) ViT-B/16 fine-tuning at full width and depth
+   (batch 64 at 224 x 224, 197 tokens, 1000 classes, weights from seed 0,
+   TrainerConfig(learning_rate=1e-4, total_steps=1000) as
+   benchmarks/vit_finetune.py), with attn_impl='flash' and then einsum,
+   each as two chunks of 16 steps through Trainer.train_steps_scan (an
+   eager warm-up, then a capture and its replay) and twice as the eager
+   per-step loop: the graph run bitwise the eager one leaf by leaf but
+   where two eager runs differ, the flash kernels 12 times a step forward
+   and backward, replayed steps included, step 1's loss and gradient norm
+   flash against einsum within 3e-2; the median step in device time (a
+   replay of the 16-step graph), samples/s, MFU, peak memory, the busy
+   share of a profiled replay and its device time by group; (b) the flash
+   forward and backward at the ViT-B/16 shape (B*H = 768, T = 197, D = 64,
+   no mask), bf16 and f32, against their plain versions under the limits
+   of phase 3 and bitwise on a second launch, then in device time beside
+   scaled_dot_product_attention, the plain version and the bound; (c)
+   DeepVisionClassifier(backbone='vit_b16') and (backbone='resnet50', the
+   BatchNorm path) fitting 16 steps at batch 32 as the stage's graph fit,
+   the ResNet also twice eagerly (parameters and running statistics
+   bitwise but where the two eager fits differ), each fitted model
+   scoring 256 images twice (bitwise, one CompiledCache callable a
+   bucket) and 4 in f32 compute on the card and on the CPU within 1e-4;
+10. times: each kernel beside its bound, its plain version and the one
    PyTorch call that computes the same function (device time, with the
    host's enqueue hidden behind a spin kernel; the library call's device
    kernels named from the profiler); flash_attention from the projection
@@ -146,13 +171,20 @@ import torch.nn.functional as F
 
 from synapseml_torch import DataFrame
 from synapseml_torch.core import batching as cb
-from synapseml_torch.models.convert_jax import bert_state_dict_from_flax, init_flax_bert_params
+from synapseml_torch.image import ImageTransformer
+from synapseml_torch.models.convert_jax import (bert_state_dict_from_flax, init_flax_bert_params,
+                                                init_flax_vit_params, vit_state_dict_from_flax)
 from synapseml_torch.models.nets.bert import bert_base
+from synapseml_torch.models.nets.resnet import resnet50
+from synapseml_torch.models.nets.vit import ViTClassifier, vit_b16
 from synapseml_torch.models import text as text_stage
 from synapseml_torch.models import trainer as trainer_mod
+from synapseml_torch.models import vision as vision_stage
 from synapseml_torch.models.text import DeepTextClassifier, DeepTextModel
 from synapseml_torch.models.tokenizer import HashingTokenizer
-from synapseml_torch.onnx import ONNXModel
+from synapseml_torch.models.vision import DeepVisionClassifier
+from synapseml_torch.onnx import ImageFeaturizer, ONNXModel
+from synapseml_torch.onnx.featurizer import IMAGENET_MEANS, IMAGENET_STDS
 from synapseml_torch.onnx import proto as onnx_proto
 from synapseml_torch.ops import _build
 from synapseml_torch.ops import attention as att
@@ -1351,14 +1383,15 @@ def _score_flash_vs_einsum(model, score_df, batches: int,
 TOL_STEP1_LOSS, TOL_STEP1_GRAD_NORM = 1e-2, 1e-2
 
 
-def _check_step1(loss_fl, loss_ein, gn_fl, gn_ein, tag: str) -> None:
+def _check_step1(loss_fl, loss_ein, gn_fl, gn_ein, tag: str, tol_loss=TOL_STEP1_LOSS,
+                 tol_norm=TOL_STEP1_GRAD_NORM) -> None:
     d_loss = abs(float(loss_fl) - float(loss_ein))
     d_norm = abs(float(gn_fl) - float(gn_ein)) / float(gn_ein)
     log(f"{tag} step 1 (same init, same batch, before any update): flash loss "
         f"{float(loss_fl):.6f}, einsum {float(loss_ein):.6f}, |d| {d_loss:.3e} (tol "
-        f"{TOL_STEP1_LOSS:g}); gradient norm flash {float(gn_fl):.6f}, einsum "
-        f"{float(gn_ein):.6f}, |d| over einsum's {d_norm:.3e} (tol {TOL_STEP1_GRAD_NORM:g})")
-    if not (d_loss <= TOL_STEP1_LOSS and d_norm <= TOL_STEP1_GRAD_NORM):
+        f"{tol_loss:g}); gradient norm flash {float(gn_fl):.6f}, einsum "
+        f"{float(gn_ein):.6f}, |d| over einsum's {d_norm:.3e} (tol {tol_norm:g})")
+    if not (d_loss <= tol_loss and d_norm <= tol_norm):
         raise AssertionError(f"{tag} the flash step 1 disagrees with einsum's")
 
 
@@ -2423,6 +2456,49 @@ def _profile_onnx_batch(fn, card: str, n=3) -> dict:
     return {"wall_ms": wall_ms, "busy_ms": busy, "busy": busy / wall_ms, "groups": groups}
 
 
+FEAT_PARTS = (20, 12)  # raw images of 230-330 pixels a side through ImageFeaturizer
+
+
+def _check_image_featurizer(model, data: bytes, flat: str, device, card: str) -> float:
+    """Main path 5 (c): ImageFeaturizer(device='cuda') on the ResNet-50
+    export cut at its Flatten output, over raw images of varied sizes
+    (resize of the short side to 256, center crop 224, ImageNet
+    normalisation on the host), against the torch module's avgpool features
+    of the same preprocessing (this package's ImageTransformer) on the card,
+    both strict f32: within ONNX_TOL."""
+    rs = np.random.default_rng(3)
+    parts = []
+    for n in FEAT_PARTS:
+        col = np.empty(n, dtype=object)
+        col[:] = [rs.integers(0, 256, size=(int(rs.integers(230, 330)),
+                                            int(rs.integers(230, 330)), 3)).astype(np.float32)
+                  for _ in range(n)]
+        parts.append({"image": col})
+    df = DataFrame(parts)
+    feat = ImageFeaturizer(input_col="image", output_col="features", feature_tensor_name=flat,
+                           mini_batch_size=ONNX_BATCH, device=str(device)).set(model_payload=data)
+    _zero_port_kernel_counts()
+    t0 = time.perf_counter()
+    got = _onnx_column(feat.transform(df), "features")
+    secs = time.perf_counter() - t0
+    counts = _port_kernel_counts()
+    it = (ImageTransformer(input_col="image", output_col="x")
+          .resize(size=256, keep_aspect_ratio=True).center_crop(224, 224)
+          .normalize(means=IMAGENET_MEANS, stds=IMAGENET_STDS, color_scale_factor=1 / 255.0))
+    x = _onnx_column(it.transform(df), "x")
+    with torch.inference_mode():
+        want = model.features(torch.from_numpy(x).to(device)).cpu().numpy()
+    err = float(np.abs(got - want).max()) if got.shape == want.shape else float("inf")
+    log(f"[vision] ImageFeaturizer on the ResNet-50 export cut at {flat!r}: {sum(FEAT_PARTS)} "
+        f"raw images in {len(FEAT_PARTS)} partitions, {secs:.3f} s host clock "
+        f"(preprocessing included); features {got.shape} against the torch module's avgpool "
+        f"output: max |diff| {err:.3e} (limit {ONNX_TOL}); the port's kernels launched: "
+        f"{counts} | {card}")
+    if err > ONNX_TOL or any(counts.values()):
+        raise AssertionError("ImageFeaturizer's features disagree with the torch module's")
+    return err
+
+
 def phase_onnx(device, card: str) -> dict:
     """Main path 4: ``ONNXModel(device='cuda').transform`` scores 520
     random 3 x 224 x 224 images with a torch-exported ResNet-50 (full width
@@ -2584,13 +2660,535 @@ def phase_onnx(device, card: str) -> dict:
         f"{copy_ms:.3f} ms ({xb.nbytes / copy_ms / 1e6:.2f} GB/s) | {card}")
     one = DataFrame([{"image": xb}])
     prof = _profile_onnx_batch(lambda: stage.transform(one), card)
+    feat_err = _check_image_featurizer(model, data, flat, device, card)
     del model, conv, xb_dev
     _free_card()
     return {"images_s": n / second_s, "images_s_first": n / first_s, "batch_ms": batch_ms,
             "module_ms": module_ms, "copy_ms": copy_ms, "peak_gib": peak_gib,
             "convert_s": convert_s, "upload_s": upload_s, "export_s": export_s,
             "busy": prof["busy"], "max_abs_err": err, "max_abs_err_feat": err_feat,
-            "tf32_err": ctl, "tf32_err_feat": ctl_feat, "launches": counts}
+            "tf32_err": ctl, "tf32_err_feat": ctl_feat, "launches": counts,
+            "featurizer_err": feat_err}
+
+
+# ---------------- main path 5: vision ----------------
+
+# ViT-B/16 fine-tuning as benchmarks/vit_finetune.py:16-27 runs it: batch 64
+# at 224 x 224, 1000 classes, TrainerConfig(learning_rate=1e-4,
+# total_steps=1000), chunks of 16 steps through Trainer.train_steps_scan
+VIT_B, VIT_HW, VIT_CLASSES, VIT_PATCH = 64, 224, 1000, 16
+VIT_K = 16
+VIT_CHUNKS = 2  # a fit's chunks: the eager warm-up, then the capture and its replay
+VIT_POOL = 4    # distinct random batches, cycled over a chunk's steps
+VIT_LR, VIT_TOTAL = 1e-4, 1000
+VIT_EAGER_SKIP = 3  # eager steps left out of the step time
+VIT_REPLAYS = 3     # timed replays of a fitted chunk graph
+# flash against einsum at step 1 of ViT-B/16 (loss, and the gradient norm
+# relative to einsum's): the limit of main path 3's scores (3e-2)
+TOL_VIT_STEP1 = 3e-2
+# the flash kernels at the ViT-B/16 shape: B*H = 64 x 12, 197 tokens, no mask
+VIT_H, VIT_T, VIT_D = 12, 1 + (VIT_HW // VIT_PATCH) ** 2, 64
+VIT_BH = VIT_B * VIT_H
+# the stages: DeepVisionClassifier fits of a few steps at batch 32 (the
+# stage's default), then each fitted model scores the images of STAGE_PARTS
+STAGE_ROWS, STAGE_STEPS, STAGE_BATCH = 256, 16, 32
+STAGE_PARTS = (150, 106)  # images scored a fitted model, by partition: 4 x 32 + 22, 3 x 32 + 10
+VISION_CPU_N, VISION_CPU_TOL = 4, 1e-4  # f32 scores, the card against the port on the CPU
+
+
+class _GraphRecorder:
+    """Keeps the _ChunkGraph that a fit replays, for timing and profiling its
+    replay after the fit. Restores the method on exit."""
+
+    def __init__(self):
+        self.runner = None
+
+    def __enter__(self):
+        orig = self._orig = trainer_mod._ChunkGraph.__call__
+        rec = self
+
+        def call(runner, *args, **kwargs):
+            rec.runner = runner
+            return orig(runner, *args, **kwargs)
+
+        trainer_mod._ChunkGraph.__call__ = call
+        return self
+
+    def __exit__(self, *exc):
+        trainer_mod._ChunkGraph.__call__ = self._orig
+
+
+def _vit_data(seed: int = 0):
+    """VIT_POOL random batches of VIT_B images (N(0, 1) pixels) and labels
+    from ``seed``, cycled over VIT_K steps; and those steps stacked."""
+    rs = np.random.default_rng(seed)
+    pool = [{"x": rs.standard_normal((VIT_B, VIT_HW, VIT_HW, 3), dtype=np.float32),
+             "labels": rs.integers(0, VIT_CLASSES, VIT_B).astype(np.int32)}
+            for _ in range(VIT_POOL)]
+    batches = [pool[i % VIT_POOL] for i in range(VIT_K)]
+    return batches, {k: np.stack([b[k] for b in batches]) for k in batches[0]}
+
+
+def _vit_trainer(attn_impl: str, init: dict, device):
+    with torch.device("meta"):
+        module = ViTClassifier(vit_b16(attn_impl=attn_impl), num_classes=VIT_CLASSES,
+                               patch=VIT_PATCH)
+    trainer = trainer_mod.Trainer(module.to_empty(device="cpu"),
+                                  trainer_mod.TrainerConfig(learning_rate=VIT_LR,
+                                                            total_steps=VIT_TOTAL),
+                                  device=device)
+    return trainer, trainer.init_state(init_params=init)
+
+
+def _profile_replay(runner, card: str, tag: str, want_flash, steps: int) -> dict:
+    """One replay of a fitted chunk graph under the profiler (traced from a
+    warm-up cycle before it, as _ChunkTimer does): its wall time, busy share
+    and device time by group. A session that recorded no kernel, or other
+    flash kernel counts than ``want_flash``, lost records: it is taken again,
+    up to PROFILE_TRIES sessions."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    for attempt in range(PROFILE_TRIES):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+            torch.cuda._sleep(SPIN // 10)
+            torch.cuda.synchronize()
+            prof.step()
+            t0 = time.perf_counter()
+            runner.graph.replay()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        kernels = [(e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+                   and not e.key.startswith("ProfilerStep")]
+        if kernels and _flash_named(kernels) == tuple(want_flash):
+            busy = sum(k[0] for k in kernels)
+            log(f"[profile] one replayed {tag} chunk of {steps} steps: {wall_ms:.3f} ms wall, "
+                f"{busy:.3f} ms of device kernels ({100 * busy / wall_ms:.1f}% busy, "
+                f"{100 - 100 * busy / wall_ms:.1f}% idle under the profiler), "
+                f"{sum(k[1] for k in kernels)} device kernels; flash forward and backward "
+                f"kernels {_flash_named(kernels)} | {card}")
+            groups = _log_groups(kernels, busy, tag, steps)
+            return {"busy": busy / wall_ms, "groups": groups, "flash": _flash_named(kernels)}
+        log(f"[profile] session {attempt + 1} of a {tag} replay recorded "
+            f"{_flash_named(kernels) if kernels else 'no'} flash kernels of {tuple(want_flash)}; "
+            f"profiling again")
+    raise AssertionError(f"no profile of a {tag} replay recorded its kernels")
+
+
+def _vit_graph_fit(init, stacked, device, card: str, attn_impl: str, n_params: int) -> dict:
+    """ViT-B/16 through Trainer.train_steps_scan, VIT_CHUNKS chunks of VIT_K
+    steps (an eager warm-up on the side stream, then a capture and its
+    replay), the flash counts set to 0 just before and read just after; then
+    the captured graph's replay timed in device time and profiled (those
+    replays train on, so the parameters are read first)."""
+    trainer, state = _vit_trainer(attn_impl, init, device)
+    cache = cb.get_compiled_cache()
+    misses0 = cache.miss_count("train_steps_scan")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events, losses, norms = [], [], []
+    _zero_flash_counts()
+    with _GraphRecorder() as rec:
+        for _ in range(VIT_CHUNKS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, m = trainer.train_steps_scan(state, stacked)
+            end.record()
+            events.append((start, end))
+            losses.append(m["loss"])
+            norms.append(m["grad_norm"])
+    launches = _flash_counts()
+    torch.cuda.synchronize()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    captures = cache.miss_count("train_steps_scan") - misses0
+    losses = torch.cat(losses).float().cpu().numpy()
+    params = {k: v.detach().cpu().numpy() for k, v in state.params.items()}
+    still = [k for k in params if np.array_equal(params[k], init[k])]
+    chunk_ms = [s.elapsed_time(e) for s, e in events]
+    log(f"[vision] ViT-B/16 {attn_impl} graph fit: per-step loss {np.round(losses, 4).tolist()}; "
+        f"parameters that did not move: {still or 'none'}; captures {captures:g} (want 1); "
+        f"chunks of {VIT_K} steps {[round(c, 3) for c in chunk_ms]} ms by CUDA events (the "
+        f"eager warm-up, then the capture and its replay, host copies included); flash "
+        f"launches {launches} | {card}")
+    if not np.isfinite(losses).all() or still or captures != 1 or rec.runner is None:
+        raise AssertionError(f"ViT-B/16 {attn_impl} graph fit: non-finite losses, parameters "
+                             f"that did not move ({still}) or {captures} captures")
+    # the fit's last chunk replayed the graph already: each timed replay alone
+    replays = [cuda_ms(rec.runner.graph.replay, warmup=0, iters=1, spin_cycles=SPIN)
+               for _ in range(VIT_REPLAYS)]
+    step_ms = statistics.median(replays) / VIT_K
+    n_flash = vit_b16().n_layers * VIT_K if attn_impl == "flash" else 0
+    prof = _profile_replay(rec.runner, card, f"ViT-B/16 {attn_impl}", (n_flash, n_flash),
+                           VIT_K)
+    out = _vit_numbers(f"{attn_impl} graph", step_ms, peak_gib, n_params, card,
+                       f"a replay of the {VIT_K}-step graph / {VIT_K}, median of "
+                       f"{VIT_REPLAYS}: {[round(r, 3) for r in replays]} ms")
+    out.update(params=params, losses=losses, launches=launches, busy=prof["busy"],
+               prof_flash=prof["flash"], grad_norm1=float(norms[0][0]), groups=prof["groups"])
+    trainer.release_graphs()
+    del trainer, state, rec
+    _free_card()
+    return out
+
+
+def _vit_eager_fit(init, batches, device, attn_impl: str, n_params: int, card: str,
+                   timed: bool = True) -> dict:
+    """The same VIT_CHUNKS x VIT_K steps through Trainer.train_step, one at a
+    time, from the same init and batches, the flash counts set to 0 just
+    before and read just after."""
+    trainer, state = _vit_trainer(attn_impl, init, device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events, losses, norms = [], [], []
+    _zero_flash_counts()
+    for _ in range(VIT_CHUNKS):
+        for b in batches:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, m = trainer.train_step(state, b)
+            end.record()
+            events.append((start, end))
+            losses.append(m["loss"])
+            norms.append(m["grad_norm"])
+    launches = _flash_counts()
+    torch.cuda.synchronize()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    out = {"params": {k: v.detach().cpu().numpy() for k, v in state.params.items()},
+           "launches": launches, "losses": torch.stack(losses).float().cpu().numpy(),
+           "grad_norm1": float(norms[0])}
+    del trainer, state
+    _free_card()
+    if not np.isfinite(out["losses"]).all():
+        raise AssertionError(f"ViT-B/16 {attn_impl} eager fit: non-finite losses")
+    if timed:
+        steps = [s.elapsed_time(e) for s, e in events]
+        out.update(_vit_numbers(
+            f"{attn_impl} eager", statistics.median(steps[VIT_EAGER_SKIP:]), peak_gib, n_params,
+            card, f"steps {VIT_EAGER_SKIP + 1}-{len(steps)} by CUDA events, host copies "
+            f"included, min {min(steps[VIT_EAGER_SKIP:]):.3f}, max "
+            f"{max(steps[VIT_EAGER_SKIP:]):.3f}; first step {steps[0]:.3f}"))
+    return out
+
+
+def _vit_numbers(tag: str, step_ms: float, peak_gib: float, n_params: int, card: str,
+                 how: str) -> dict:
+    tokens = VIT_B * VIT_T
+    flops = 6 * n_params * tokens
+    mfu = flops / (step_ms / 1e3) / 989e12
+    log(f"[vision] ViT-B/16 {tag}: median step {step_ms:.3f} ms ({how}) = "
+        f"{VIT_B / step_ms * 1e3:.1f} samples/s; 6ND = {flops / 1e12:.3f} TFLOP a step "
+        f"({n_params:,} params x {tokens} tokens) = MFU {mfu:.4f} of 989 TFLOP/s bf16 dense; "
+        f"peak device memory {peak_gib:.2f} GiB | {card}")
+    return {"step_ms": step_ms, "samples_s": VIT_B / step_ms * 1e3, "mfu": mfu,
+            "peak_gib": peak_gib}
+
+
+def phase_vit_train(device, card: str) -> dict:
+    """Main path 5 (a): ViT-B/16 at full width and depth, weights from
+    init_flax_vit_params(seed=0) through the bridge, random images from seed
+    0; with attn_impl='flash' (the flash forward and backward kernels at
+    T = 197, no mask) and then with einsum, each as the chunk graph and twice
+    as the eager per-step loop: the graph fit bitwise the eager one leaf by
+    leaf (but where two eager fits differ), the flash kernels 12 times a
+    step forward and backward, replayed steps included, step 1 of flash
+    against einsum."""
+    t0 = time.perf_counter()
+    cfg = vit_b16()
+    init = vit_state_dict_from_flax(init_flax_vit_params(cfg, VIT_CLASSES, VIT_PATCH, seed=0))
+    n_params = sum(a.size for a in init.values())
+    batches, stacked = _vit_data(seed=0)
+    log(f"[vision] ViT-B/16 (hidden {cfg.hidden}, {cfg.n_layers} layers, {cfg.n_heads} heads, "
+        f"MLP {cfg.mlp_dim}, patch {VIT_PATCH}, {VIT_HW} x {VIT_HW}, {VIT_CLASSES} classes): "
+        f"{n_params:,} params from seed 0, {VIT_POOL} random batches of {VIT_B} in "
+        f"{time.perf_counter() - t0:.1f} s; {VIT_CHUNKS} chunks of {VIT_K} steps, lr {VIT_LR}, "
+        f"bf16 compute; flash, then einsum")
+    runs = {}
+    for attn_impl in ("flash", "einsum"):
+        graph = _vit_graph_fit(init, stacked, device, card, attn_impl, n_params)
+        eager = _vit_eager_fit(init, batches, device, attn_impl, n_params, card)
+        eager2 = _vit_eager_fit(init, batches, device, attn_impl, n_params, card, timed=False)
+        tag = f"[vision] ViT-B/16 {attn_impl}:"
+        _graph_against_eager(graph["params"], eager["params"], eager2["params"], tag)
+        d_loss = float(np.abs(graph["losses"] - eager["losses"]).max())
+        n = cfg.n_layers * VIT_K * VIT_CHUNKS if attn_impl == "flash" else 0
+        want = {"fwd": {"bf16": n, "f32": 0}, "bwd": {"bf16": n, "f32": 0}}
+        log(f"{tag} per-step losses of the graph fit against the eager fit: max |d| "
+            f"{d_loss:.3e}; flash launches graph {graph['launches']}, eager {eager['launches']} "
+            f"(want {want}); graph vs eager: median step {graph['step_ms']:.3f} vs "
+            f"{eager['step_ms']:.3f} ms, busy share of a profiled replay "
+            f"{100 * graph['busy']:.1f}% | {card}")
+        if not graph["launches"] == eager["launches"] == eager2["launches"] == want:
+            raise AssertionError(f"{tag} flash launched {graph['launches']} / "
+                                 f"{eager['launches']}, want {want}")
+        runs[attn_impl] = {"graph": graph, "eager": eager}
+        del eager2
+    for kind in ("graph", "eager"):
+        _check_step1(runs["flash"][kind]["losses"][0], runs["einsum"][kind]["losses"][0],
+                     runs["flash"][kind]["grad_norm1"], runs["einsum"][kind]["grad_norm1"],
+                     f"[vision] ViT-B/16 {kind}", tol_loss=TOL_VIT_STEP1,
+                     tol_norm=TOL_VIT_STEP1)
+    log("[vision] main path 5 (a), ViT-B/16 batch 64 x 224 x 224 (197 tokens), bf16: " + "; ".join(
+        f"{impl} {kind} {r[kind]['samples_s']:.1f} samples/s, median step "
+        f"{r[kind]['step_ms']:.3f} ms, MFU {r[kind]['mfu']:.4f}, peak {r[kind]['peak_gib']:.2f} GiB"
+        for impl, r in runs.items() for kind in ("graph", "eager"))
+        + f"; busy share of a replay flash {100 * runs['flash']['graph']['busy']:.1f}%, einsum "
+        f"{100 * runs['einsum']['graph']['busy']:.1f}% | {card}")
+    fl = runs["flash"]
+    return {"launches": {k: fl["graph"]["launches"]["fwd"][k] + fl["eager"]["launches"]["fwd"][k]
+                         for k in ("bf16", "f32")},
+            "bwd_launches": {k: fl["graph"]["launches"]["bwd"][k]
+                             + fl["eager"]["launches"]["bwd"][k] for k in ("bf16", "f32")},
+            **{f"{k}_{impl}_{kind}": r[kind][k] for impl, r in runs.items()
+               for kind in ("graph", "eager") for k in ("step_ms", "samples_s", "mfu",
+                                                         "peak_gib")}}
+
+
+def _vit_shape_bound(dtype, backward: bool) -> tuple[float, str, str]:
+    """The least time of the flash forward (or backward) at the ViT-B/16
+    shape: bytes read and written once (q, k, v, out; the backward also
+    dout, dq, dk, dv; the int32 mask and the f32 LSE) over HBM_BYTES_PER_S,
+    against the products of every (q, k) pair (2 for the forward, 5 for the
+    backward, 2 BH T^2 D operations each) over the type's peak."""
+    elt = torch.finfo(dtype).bits // 8
+    n_bytes = (8 if backward else 4) * VIT_BH * VIT_T * VIT_D * elt + 2 * VIT_BH * VIT_T * 4
+    flops = (5 if backward else 2) * 2 * VIT_BH * VIT_T * VIT_T * VIT_D
+    passes = MMA_PASSES[dtype]
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = passes * flops / PEAK_FLOPS[dtype] * 1e3
+    bound, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return bound, by, (f"{n_bytes / 1e6:.1f} MB = {t_bytes:.4f} ms; {passes} x "
+                       f"{flops / 1e9:.2f} GFLOP at {PEAK_FLOPS[dtype] / 1e12:g} TFLOP/s = "
+                       f"{t_ops:.4f} ms")
+
+
+def phase_vit_kernels(device, card: str) -> dict:
+    """Main path 5 (b): the flash forward and backward at the ViT-B/16 shape
+    (B*H = 768, T = 197, no mask; T a ragged 64-row and 128-row tile count),
+    bf16 and f32, against their plain versions under the limits of the
+    kernel phase and bitwise on a second launch; then each in device time
+    beside scaled_dot_product_attention's forward or backward, its plain
+    version and its bound."""
+    scale = 1.0 / VIT_D ** 0.5
+    out = {}
+    for i, dtype in enumerate((torch.bfloat16, torch.float32)):
+        tag = KERNEL_NAMES[dtype]
+        name = f"ViT-B/16 [B*H={VIT_BH}, T={VIT_T}, D={VIT_D}] no mask {tag}"
+        q, k, v = _inputs(VIT_BH, VIT_T, VIT_T, VIT_D, dtype, device, seed=160 + i)
+        mask = torch.ones((VIT_BH, VIT_T), dtype=torch.int32, device=device)
+        o, lse = att.flash_attention_fwd(q, k, v, mask, False, scale)
+        o2, lse2 = att.flash_attention_fwd(q, k, v, mask, False, scale)
+        torch.cuda.synchronize()
+        ref_o, ref_lse = att.flash_attention_fwd_plain(q, k, v, mask, False, scale)
+        err = (o.float() - ref_o.float()).abs().max().item()
+        err_lse = (lse - ref_lse).abs().max().item()
+        same = torch.equal(o, o2) and torch.equal(lse, lse2)
+        log(f"[kernel] flash_fwd {name}: max|dout| {err:.3e} (tol {TOL_OUT[dtype]:g}), "
+            f"max|dlse| {err_lse:.3e} (tol {TOL_LSE:g}), two launches bitwise equal: {same}")
+        if not (err <= TOL_OUT[dtype] and err_lse <= TOL_LSE and same
+                and bool(torch.isfinite(o.float()).all())):
+            raise AssertionError(f"flash_fwd disagrees with its plain version on {name}")
+        err_bwd = _bwd_case(name, q, k, v, mask, False, scale, 0, seed=162 + i)
+        out[tag] = {"fwd_err": err, "bwd_err": err_bwd}
+
+        q4, k4, v4 = (x.view(VIT_B, VIT_H, VIT_T, VIT_D) for x in (q, k, v))
+        kernel = lambda: att.flash_attention_fwd(q, k, v, mask, False, scale)  # noqa: E731
+        sdpa = lambda: F.scaled_dot_product_attention(q4, k4, v4)  # noqa: E731
+        ms, lib_ms, ms2, lib_ms2 = (device_ms(f) for f in (kernel, sdpa, kernel, sdpa))
+        plain_ms = device_ms(lambda: att.flash_attention_fwd_plain(q, k, v, mask, False, scale),
+                             warmup=2, iters=10)
+        bound, by, how = _vit_shape_bound(dtype, backward=False)
+        log(f"[times] flash_fwd {name}: kernel {ms:.4f} / {ms2:.4f} ms (device time, two turns; "
+            f"{statistics.median([ms, ms2]) / bound:.2f}x the bound), bound {bound:.4f} ms "
+            f"({by}: {how}), plain {plain_ms:.4f} ms, scaled_dot_product_attention "
+            f"{lib_ms:.4f} / {lib_ms2:.4f} ms, its device kernels "
+            f"{[key[:80] for key, *_ in _device_kernels(sdpa)]} | {card}")
+        out[tag].update(fwd_ms=statistics.median([ms, ms2]), fwd_sdpa_ms=statistics.median(
+            [lib_ms, lib_ms2]), fwd_plain_ms=plain_ms, fwd_bound_ms=bound, fwd_bound_by=by)
+
+        g = torch.Generator(device=device).manual_seed(170 + i)
+        dout = torch.randn(o.shape, generator=g, device=device).to(dtype)
+        args = (q, k, v, mask, o, lse, dout, False, scale)
+        leaves = [x.detach().requires_grad_() for x in (q4, k4, v4)]
+        sdpa_out = F.scaled_dot_product_attention(*leaves)
+        dout4 = dout.view(VIT_B, VIT_H, VIT_T, VIT_D)
+        bwd = lambda: att.flash_attention_bwd(*args)  # noqa: E731
+        sdpa_bwd = lambda: torch.autograd.grad(sdpa_out, leaves, dout4,  # noqa: E731
+                                               retain_graph=True)
+        ms, lib_ms, ms2, lib_ms2 = (device_ms(f) for f in (bwd, sdpa_bwd, bwd, sdpa_bwd))
+        plain_ms = device_ms(lambda: att.flash_attention_bwd_plain(*args), warmup=2, iters=10)
+        sdpa_kernels = _device_kernels(sdpa_bwd, n=10)
+        summed = sum(t for _, _, t, *_ in sdpa_kernels)
+        bound, by, how = _vit_shape_bound(dtype, backward=True)
+        log(f"[times] flash_bwd {name}: kernel {ms:.4f} / {ms2:.4f} ms (device time, two turns; "
+            f"{statistics.median([ms, ms2]) / bound:.2f}x the bound), bound {bound:.4f} ms "
+            f"({by}: {how}), plain {plain_ms:.4f} ms, scaled_dot_product_attention's backward "
+            f"{lib_ms:.4f} / {lib_ms2:.4f} ms by CUDA events, its device kernels summed "
+            f"{summed:.4f} ms: {[(key[:60], c) for key, c, *_ in sdpa_kernels]} | {card}")
+        out[tag].update(bwd_ms=statistics.median([ms, ms2]), bwd_sdpa_ms=summed,
+                        bwd_sdpa_events_ms=statistics.median([lib_ms, lib_ms2]),
+                        bwd_plain_ms=plain_ms, bwd_bound_ms=bound, bwd_bound_by=by)
+        del q, k, v, o, lse, dout, leaves, sdpa_out, q4, k4, v4, dout4
+        _free_card()
+    return out
+
+
+class _VisionInitOnce:
+    """Within a phase, ``vision._init_variables`` (the JAX initialisers drawn
+    with numpy: seconds of host time at full size) computed once per
+    (architecture, seed) and handed to every fit that asks; the fits only
+    read it. Restores the function on exit."""
+
+    def __enter__(self):
+        orig = self._orig = vision_stage._init_variables
+        memo = {}
+
+        def once(module, seed):
+            key = (type(module).__name__,
+                   tuple((n, tuple(p.shape)) for n, p in module.named_parameters()), seed)
+            if key not in memo:
+                memo[key] = orig(module, seed)
+            return memo[key]
+
+        vision_stage._init_variables = once
+        return self
+
+    def __exit__(self, *exc):
+        vision_stage._init_variables = self._orig
+
+
+class _F32Backbones:
+    """The stages' ViT-B/16 and ResNet-50 presets in f32 compute, for the
+    check of the card's scores against the port's on the CPU: a bf16 model
+    rounds differently on either device. Restores them on exit."""
+
+    def __enter__(self):
+        self._saved = dict(vision_stage._BACKBONES)
+        vision_stage._BACKBONES.update({
+            "vit_b16": lambda n: (ViTClassifier(vit_b16(dtype=torch.float32), num_classes=n,
+                                                patch=16), False),
+            "resnet50": lambda n: (resnet50(num_classes=n, dtype=torch.float32), True)})
+        return self
+
+    def __exit__(self, *exc):
+        vision_stage._BACKBONES.clear()
+        vision_stage._BACKBONES.update(self._saved)
+
+
+def _vision_stage(backbone: str, device) -> DeepVisionClassifier:
+    return DeepVisionClassifier(backbone=backbone, num_classes=VIT_CLASSES,
+                                batch_size=STAGE_BATCH, max_steps=STAGE_STEPS,
+                                learning_rate=1e-4, seed=0, device=str(device))
+
+
+def _score_vision_model(model, df, card: str, tag: str) -> None:
+    """A fitted DeepVisionModel scores ``df`` twice (the second bitwise the
+    first, one CompiledCache miss a bucket, finite distributions), and a few
+    images in f32 compute on the card and on the CPU within VISION_CPU_TOL."""
+    cache = cb.get_compiled_cache()
+    misses0 = cache.miss_count("deep_vision_model")
+    t0 = time.perf_counter()
+    first = np.stack(list(model.transform(df).collect_column("scores")))
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    second = np.stack(list(model.transform(df).collect_column("scores")))
+    second_s = time.perf_counter() - t0
+    misses = cache.miss_count("deep_vision_model") - misses0
+    n = len(first)
+    buckets = {b for p in df.partitions
+               for *_, b in cb.default_bucketer().slices(len(p["image"]), STAGE_BATCH)}
+    same = np.array_equal(first, second)
+    log(f"[vision] {tag} model scores {n} images: {first_s:.3f} s first, {second_s:.3f} s second "
+        f"({n / second_s:.1f} images/s, host clock); a second transform bitwise the first: "
+        f"{same}; CompiledCache misses {misses:g} (want {len(buckets)}, one a bucket); rows sum "
+        f"of scores within {np.abs(first.sum(-1) - 1).max():.2e} of 1 | {card}")
+    if not (same and first.shape == (n, VIT_CLASSES) and np.isfinite(first).all()
+            and np.abs(first.sum(-1) - 1).max() <= 1e-3 and misses == len(buckets)):
+        raise AssertionError(f"{tag}: the fitted model's scores are not repeatable "
+                             "distributions, or it took other callables than one a bucket")
+    small = DataFrame([{"image": df.partitions[0]["image"][:VISION_CPU_N]}])
+    with _F32Backbones():
+        card32 = np.stack(list(model.copy({"device": str(model.get("device"))})
+                               .transform(small).collect_column("scores")))
+        cpu32 = np.stack(list(model.copy({"device": "cpu"}).transform(small)
+                              .collect_column("scores")))
+    err = float(np.abs(card32 - cpu32).max())
+    log(f"[vision] {tag} model in f32 compute, {VISION_CPU_N} images on the card against the "
+        f"port on the CPU: max|dprob| {err:.3e} (limit {VISION_CPU_TOL}); against its bf16 "
+        f"scores {np.abs(card32 - first[:VISION_CPU_N]).max():.3e}")
+    if err > VISION_CPU_TOL:
+        raise AssertionError(f"{tag}: the card's scores disagree with the CPU's")
+
+
+def phase_vision_stages(device, card: str) -> dict:
+    """Main path 5 (c): DeepVisionClassifier(backbone='vit_b16') fits
+    STAGE_STEPS steps (einsum, the stage's own attention), and
+    DeepVisionClassifier(backbone='resnet50') the same steps through the
+    BatchNorm path: as the stage's graph fit and twice as the eager loop,
+    the graph fit's parameters and running statistics bitwise the eager
+    one's but where two eager fits differ (there within TOL_SPREAD); each
+    fitted model scores the sum(STAGE_PARTS) images of two partitions."""
+    rs = np.random.default_rng(2)
+    images = rs.standard_normal((STAGE_ROWS, VIT_HW, VIT_HW, 3), dtype=np.float32)
+    labels = rs.integers(0, VIT_CLASSES, STAGE_ROWS).astype(np.int32)
+    df = DataFrame.from_dict({"image": images, "label": labels}, num_partitions=2)
+    score_df = DataFrame([{"image": images[:STAGE_PARTS[0]]},
+                          {"image": images[STAGE_PARTS[0]:sum(STAGE_PARTS)]}])
+    out = {}
+    with _VisionInitOnce():
+        for backbone in ("vit_b16", "resnet50"):
+            stage = _vision_stage(backbone, device)
+            cache = cb.get_compiled_cache()
+            misses0 = cache.miss_count("train_steps_scan")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _zero_flash_counts()
+            t0 = time.perf_counter()
+            model = stage.fit(df)
+            fit_s = time.perf_counter() - t0
+            launches = _flash_counts()
+            peak_gib = torch.cuda.max_memory_allocated() / 2**30
+            captures = cache.miss_count("train_steps_scan") - misses0
+            (metrics,) = model.get("train_metrics")
+            params = model.get("model_params")
+            stats = model.get("batch_stats")
+            module, _ = vision_stage._build_module(backbone, VIT_CLASSES)
+            init, init_stats = vision_stage._init_variables(module, 0)
+            still = [k for k in params if np.array_equal(params[k], init[k])]
+            moved = (sorted(k for k in stats if not np.array_equal(stats[k], init_stats[k]))
+                     if stats is not None else [])
+            log(f"[vision] DeepVisionClassifier(backbone={backbone!r}) graph fit of "
+                f"{STAGE_STEPS} steps at batch {STAGE_BATCH}: {fit_s:.2f} s host clock, "
+                f"train_metrics {json.dumps(metrics)}, captures {captures:g} (want 1), "
+                f"parameters that did not move: {still or 'none'}, running statistics moved: "
+                f"{len(moved)} of {len(stats or {})}, flash launches {launches} (want none: "
+                f"einsum), peak device memory {peak_gib:.2f} GiB | {card}")
+            flat = {"fwd": {"bf16": 0, "f32": 0}, "bwd": {"bf16": 0, "f32": 0}}
+            if (not np.isfinite(metrics["loss"]) or metrics["step"] != STAGE_STEPS or still
+                    or captures != 1 or launches != flat
+                    or (stats is not None and len(moved) != len(stats))):
+                raise AssertionError(f"DeepVisionClassifier({backbone}) graph fit failed its "
+                                     "checks")
+            if stats is not None:  # the BatchNorm path against the eager loop
+                eager = []
+                for _ in range(2):
+                    trainer, data, kw = stage._fit_plan(df)
+                    state = trainer_mod.fit_arrays(trainer, data, scan_chunk=1, **kw)
+                    eager.append({k: v.detach().cpu().numpy() for k, v in
+                                  {**state.params, **state.batch_stats}.items()})
+                    del trainer, state
+                    _free_card()
+                spread = _graph_against_eager({**params, **stats}, eager[0], eager[1],
+                                              f"[vision] {backbone} (parameters and running "
+                                              "statistics):")
+                out[f"{backbone}_spread"] = spread
+            _score_vision_model(model, score_df, card, backbone)
+            out[backbone] = {"fit_s": fit_s, "peak_gib": peak_gib}
+            del model, module
+            _free_card()
+    return out
 
 
 def main() -> None:
@@ -2618,11 +3216,18 @@ def main() -> None:
     done("long-T step")
     phase_onnx(device, card)
     done("main path 4")
+    vit = phase_vit_train(device, card)
+    done("main path 5 (a), ViT-B/16 fine-tuning")
+    phase_vit_kernels(device, card)
+    done("main path 5 (b), the flash kernels at the ViT shape")
+    phase_vision_stages(device, card)
+    done("main path 5 (c), the vision stages")
     # the flash kernels' launches on the paths, each counted from 0 just
     # before it ran: scoring (path 1), fine-tuning through flash and both
     # fitted models' scoring (path 3), bert-tiny f32 through flash on the
-    # card, and the long-T flash steps in bf16 and in f32
-    paths = (train, {"launches": tiny["fwd"], "bwd_launches": tiny["bwd"]},
+    # card, the long-T flash steps in bf16 and in f32, and ViT-B/16
+    # fine-tuning through flash (path 5)
+    paths = (train, vit, {"launches": tiny["fwd"], "bwd_launches": tiny["bwd"]},
              *({"launches": long_t[tag]["launches"]["fwd"],
                 "bwd_launches": long_t[tag]["launches"]["bwd"]} for tag in ("flash", "flash f32")))
     launches = {k: v + sum(p["launches"][k] for p in paths)

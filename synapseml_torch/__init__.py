@@ -7,12 +7,17 @@ slice, mirroring its layout so each file names its counterpart:
   data/        sharded sources, the prefetching DataLoader, iterator state
   parallel/    token-sequence padding (the rest with the multi-GPU slice)
   ops/         hand-written CUDA kernels (``csrc/``) with plain versions
-  models/      BERT nets, the Flax weight bridge, the single-device trainer,
-               DeepTextClassifier fine-tuning and DeepTextModel scoring
+  image/       image preprocessing stages on the host (ImageTransformer,
+               augmenter, unroll, superpixels)
+  models/      BERT, ViT and ResNet nets, the Flax weight bridge, the
+               single-device trainer (BatchNorm state included),
+               DeepTextClassifier / DeepTextModel and DeepVisionClassifier /
+               DeepVisionModel
   gbdt/        LightGBM-style GBDT training and scoring, with the CUDA
                level-histogram kernel
   onnx/        the ONNX wire codec, the converter to torch ops,
-               ONNXModel batch scoring and the ONNXHub model-zoo client
+               ONNXModel batch scoring, ImageFeaturizer and the ONNXHub
+               model-zoo client
 
 It imports torch and numpy, never JAX. Entry points run on the CUDA card
 unless the caller asks for the CPU.

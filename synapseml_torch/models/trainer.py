@@ -32,7 +32,12 @@ go through ``train_steps_scan``; a callback, a ``skip_fn`` or
 ``scan_chunk <= 1`` run the per-step loop.
 
 ``TrainState.params`` holds the module's own parameters, updated in place.
-Not ported yet, each refused with ``NotImplementedError`` naming its
+With ``has_batch_stats`` (the JAX package's, for BatchNorm nets) the step
+calls the module with ``train=True``, whose BatchNorm layers normalise with
+the batch's statistics and update their running statistics in place, and
+``TrainState.batch_stats`` holds those buffers by ``state_dict`` name: a
+captured chunk updates them on every replay, and nothing is read back to
+the host. Not ported yet, each refused with ``NotImplementedError`` naming its
 ``ROADMAP.md`` item: checkpointing (``checkpointer``, ``checkpoint_every``,
 ``resume_from``), gang training (``gang``, ``fit_gang_source``), a mesh
 and ``partition_rules``/``zero_shard``.
@@ -290,6 +295,27 @@ class _Optimizer:
         self.apply(grads, state, params, _scalars_on(table, device)[0], micro[0])
 
 
+def _init_buffers(module: nn.Module, values: dict | None) -> None:
+    """A BatchNorm net's running statistics at their initial values, or at
+    ``values`` (host arrays by buffer name, every buffer given)."""
+    for m in module.modules():
+        if hasattr(m, "reset_running_stats"):
+            m.reset_running_stats()
+    if values is None:
+        return
+    named = dict(module.named_buffers())
+    if set(values) != set(named):
+        raise ValueError(f"init_batch_stats do not match the module's buffers: missing "
+                         f"{sorted(set(named) - set(values))[:8]}, unused "
+                         f"{sorted(set(values) - set(named))[:8]}")
+    for name, buf in named.items():
+        v = torch.tensor(np.asarray(values[name]))
+        if tuple(v.shape) != tuple(buf.shape):
+            raise ValueError(f"shape mismatch for {name!r}: given {tuple(v.shape)}, module "
+                             f"{tuple(buf.shape)}")
+        buf.copy_(v.to(buf.dtype))
+
+
 def _scalars_on(table: np.ndarray, device: torch.device) -> torch.Tensor:
     """A host scalar table on ``device``: on a CUDA device through pinned
     memory with a copy that does not wait for the host."""
@@ -308,6 +334,8 @@ class TrainState:
     params: dict[str, torch.Tensor]  # the module's parameters, by state_dict name
     opt_state: OptState
     step: int = 0
+    # with has_batch_stats: the module's BatchNorm buffers, by state_dict name
+    batch_stats: dict[str, torch.Tensor] | None = None
 
 
 _GUARD_METRICS = obs.HandleCache(lambda reg: {
@@ -436,16 +464,20 @@ class Trainer:
 
     ``loss_fn(module, batch) -> loss`` replaces the default masked cross
     entropy of the module's logits against ``labels``. ``device`` defaults
-    to the card and raises on a host without one."""
+    to the card and raises on a host without one. ``has_batch_stats``: the
+    module takes a ``train`` keyword (True in the step) and keeps running
+    statistics in its buffers."""
 
     def __init__(self, module: nn.Module, cfg: TrainerConfig,
                  loss_fn: Callable[[nn.Module, dict], torch.Tensor] | None = None,
-                 *, device: str | torch.device = "cuda", mesh=None):
+                 *, device: str | torch.device = "cuda", mesh=None,
+                 has_batch_stats: bool = False):
         if mesh is not None:
             raise _unported("a mesh", _MULTI_GPU)
         self.device = resolve_device("Trainer", device)
         self.module = module.eval()  # dropout stays off, as in the JAX step
         self.cfg = cfg
+        self.has_batch_stats = has_batch_stats
         self._loss_fn = loss_fn
         self._tx = _Optimizer(cfg, [n for n, _ in module.named_parameters()])
         self._metrics: list[dict] = []
@@ -457,12 +489,16 @@ class Trainer:
         self._warm: set = set()
         weakref.finalize(self, _release_graphs, cb.instance_token(self))
 
-    def init_state(self, seed: int = 0, init_params: dict | None = None) -> TrainState:
+    def init_state(self, seed: int = 0, init_params: dict | None = None,
+                   init_batch_stats: dict | None = None) -> TrainState:
         """Fresh state. ``init_params`` (a ``state_dict`` of host arrays)
         replaces the module's values, every parameter by name and shape;
-        without it the module's own initialisers run under ``seed``. The
-        module's tensors move, so the trainer's captured graphs are dropped
-        (:meth:`release_graphs`)."""
+        without it the module's own initialisers run under ``seed``. With
+        ``has_batch_stats`` the running statistics start from their initial
+        values (each module's ``reset_running_stats``), or from
+        ``init_batch_stats`` (host arrays by buffer name, each buffer given).
+        The module's tensors move, so the trainer's captured graphs are
+        dropped (:meth:`release_graphs`)."""
         self.release_graphs()
         module = self.module.to("cpu")
         named = dict(module.named_parameters())
@@ -485,9 +521,13 @@ class Trainer:
                     for m in module.modules():
                         if hasattr(m, "reset_parameters"):
                             m.reset_parameters()
+            if self.has_batch_stats:
+                _init_buffers(module, init_batch_stats)
         self.module = module.to(self.device)
         params = dict(self.module.named_parameters())
-        return TrainState(params=params, opt_state=self._tx.init(list(params.values())))
+        stats = dict(self.module.named_buffers()) if self.has_batch_stats else None
+        return TrainState(params=params, opt_state=self._tx.init(list(params.values())),
+                          batch_stats=stats)
 
     def _model_inputs(self, batch: dict) -> dict:
         drop = {"labels", "label", "mask", "_valid"}
@@ -497,8 +537,13 @@ class Trainer:
         return {k: torch.as_tensor(np.asarray(v)).to(self.device) for k, v in batch.items()}
 
     def default_loss(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
-        """(masked cross entropy, logits) of one device batch."""
-        logits = self.module(**self._model_inputs(batch))
+        """(masked cross entropy, logits) of one device batch; with
+        ``has_batch_stats`` the module runs with ``train=True`` (batch
+        statistics, running statistics updated)."""
+        inputs = self._model_inputs(batch)
+        if self.has_batch_stats:
+            inputs["train"] = True
+        logits = self.module(**inputs)
         labels = batch.get("labels", batch.get("label"))
         return cross_entropy_loss(logits, labels, batch.get("_valid")), logits
 
@@ -874,7 +919,7 @@ def plan_fit(n: int, batch_size: int, epochs: int, max_steps: int) -> tuple[int,
 
 
 def fit_source(trainer: Trainer, source, *, batch_size: int, total_steps: int,
-               seed: int, init_params=None, scan_chunk: int = 8,
+               seed: int, init_params=None, init_batch_stats=None, scan_chunk: int = 8,
                checkpointer=None, checkpoint_every: int = 0,
                state: TrainState | None = None, data_state: dict | str | None = None,
                epochs: int | None = None, drop_remainder: bool = True,
@@ -888,7 +933,8 @@ def fit_source(trainer: Trainer, source, *, batch_size: int, total_steps: int,
 
     The data plane supplies seeded shard and row shuffles, bucket-ladder
     batch shapes and a bounded background prefetcher; this function
-    initialises the state (``trainer.init_state(seed, init_params)``) unless
+    initialises the state (``trainer.init_state(seed, init_params,
+    init_batch_stats)``) unless
     ``state`` is given, and runs ``trainer.fit``.
 
     ``total_steps`` is the total optimizer-step target: from a ``state`` at
@@ -924,7 +970,8 @@ def fit_source(trainer: Trainer, source, *, batch_size: int, total_steps: int,
         state=IteratorState.from_tree(data_state) if data_state is not None else None)
     try:
         if state is None:
-            state = trainer.init_state(seed=seed, init_params=init_params)
+            state = trainer.init_state(seed=seed, init_params=init_params,
+                                       init_batch_stats=init_batch_stats)
         return trainer.fit(state, iter(loader), max_steps=remaining,
                            scan_chunk=scan_chunk, skip_fn=skip_fn, callback=callback)
     finally:
@@ -936,8 +983,9 @@ def fit_gang_source(*args, **kwargs):
 
 
 def fit_arrays(trainer: Trainer, data: dict, *, batch_size: int, total_steps: int,
-               seed: int, init_params=None, scan_chunk: int = 8, checkpointer=None,
-               checkpoint_every: int = 0, shard_rows: int | None = None) -> TrainState:
+               seed: int, init_params=None, init_batch_stats=None, scan_chunk: int = 8,
+               checkpointer=None, checkpoint_every: int = 0,
+               shard_rows: int | None = None) -> TrainState:
     """Fit over host arrays: they go behind a
     :class:`synapseml_torch.data.MemorySource` into :func:`fit_source`.
     ``shard_rows`` sets the shard layout (None = one shard)."""
@@ -946,6 +994,6 @@ def fit_arrays(trainer: Trainer, data: dict, *, batch_size: int, total_steps: in
     n = next(iter(data.values())).shape[0]
     return fit_source(trainer, MemorySource(data, shard_rows=shard_rows),
                       batch_size=batch_size, total_steps=total_steps, seed=seed,
-                      init_params=init_params, scan_chunk=scan_chunk,
-                      checkpointer=checkpointer, checkpoint_every=checkpoint_every,
-                      drop_remainder=n >= batch_size)
+                      init_params=init_params, init_batch_stats=init_batch_stats,
+                      scan_chunk=scan_chunk, checkpointer=checkpointer,
+                      checkpoint_every=checkpoint_every, drop_remainder=n >= batch_size)

@@ -7,7 +7,9 @@ port's writer (within 1e-5 in f32), real torch exports of a small ResNet
 and of a 2-layer BERT encoder (within 1e-5 of the JAX converter, 2e-4 of
 the torch module), and ``ONNXModel.transform`` with partial rungs, an
 empty partition, softmax and argmax columns and ``slice_at_outputs``
-(within 1e-5, the same columns, dtypes and empty-partition shapes). Where
+(within 1e-5, the same columns, dtypes and empty-partition shapes), and
+``ImageFeaturizer`` on ragged images, headless at the ResNet's Flatten
+output and whole (within 1e-5, the same columns). Where
 the port follows the ONNX spec past the reference (``ceil_mode``,
 LayerNormalization over ``[axis, rank)``, several negative Unsqueeze axes)
 it is held to torch or numpy instead.
@@ -643,3 +645,74 @@ def test_hub_reads_the_ports_environment(monkeypatch, tmp_path):
     monkeypatch.setenv("SYNAPSEML_TORCH_HUB_URL", "http://localhost:1/zoo/")
     hub = ONNXHub()
     assert hub.hub_dir == str(tmp_path) and hub.base_url == "http://localhost:1/zoo"
+
+
+# ---------------------------------------------------------------------------
+# ImageFeaturizer
+# ---------------------------------------------------------------------------
+
+def _featurizers(data, **kw):
+    from synapseml_torch.onnx import ImageFeaturizer
+    from synapseml_tpu.onnx import ImageFeaturizer as JImageFeaturizer
+
+    kw = dict(input_col="image", output_col="features", image_height=32, image_width=32,
+              mini_batch_size=4, **kw)
+    return (ImageFeaturizer(device="cpu", **kw).set(model_payload=data),
+            JImageFeaturizer(**kw).set(model_payload=data))
+
+
+def _raw_images(seed=0):
+    rs = _rng(seed)
+    return [rs.integers(0, 256, size=(36 + 4 * i, 40 - 2 * i, 3)).astype(np.float32)
+            for i in range(7)]
+
+
+@pytest.mark.parametrize("head_less,center_crop", [(True, True), (True, False),
+                                                   (False, True)])
+def test_image_featurizer_matches_the_jax_stage(small_resnet, head_less, center_crop):
+    """Ragged uint8-valued images through resize (and center crop),
+    normalisation and the small ResNet cut at its Flatten output (or whole)
+    in both packages: the same columns and shapes, features within 1e-5."""
+    data = small_resnet[1]
+    graph = P.parse_model(data).graph
+    flat = next(n.output[0] for n in graph.node if n.op_type == "Flatten")
+    kw = dict(head_less=head_less, center_crop=center_crop)
+    if head_less:
+        kw["feature_tensor_name"] = flat
+    ours, theirs = _featurizers(data, **kw)
+    imgs = _raw_images()
+    parts = [{"image": _obj(imgs[:5]), "row": np.arange(5)},
+             {"image": _obj(imgs[5:]), "row": np.arange(5, 7)}]
+    got = ours.transform(pt.DataFrame([dict(p) for p in parts]))
+    want = theirs.transform(JDataFrame([dict(p) for p in parts]))
+    for p, q in zip(got.partitions, want.partitions):
+        assert list(p) == list(q) == ["image", "row", "features"]
+        assert all(np.array_equal(a, b) for a, b in zip(p["image"], q["image"]))
+    _assert_same_frames(got.drop("image"), want.drop("image"))
+    feats = np.concatenate([p["features"] for p in got.partitions])
+    assert feats.shape == (7, 64 if head_less else 10) and feats.dtype == np.float32
+
+
+def _obj(images):
+    col = np.empty(len(images), dtype=object)
+    col[:] = images
+    return col
+
+
+def test_image_featurizer_params_and_refusals(small_resnet):
+    from synapseml_torch.onnx import ImageFeaturizer
+    from synapseml_tpu.onnx import ImageFeaturizer as JImageFeaturizer
+
+    ours = {k: v.default for k, v in ImageFeaturizer.params().items()}
+    theirs = {k: v.default for k, v in JImageFeaturizer.params().items()}
+    assert ours.pop("device") == "cuda"
+    assert ours == theirs
+    df = pt.DataFrame.from_dict({"image": _obj(_raw_images()[:2])})
+    with pytest.raises(ValueError, match="feature_tensor_name"):
+        ImageFeaturizer(device="cpu").set(model_payload=small_resnet[1]).transform(df)
+    with pytest.raises(ValueError, match="model_payload not set"):
+        ImageFeaturizer(device="cpu").transform(df)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ImageFeaturizer(head_less=False, image_height=32, image_width=32).set(
+                model_payload=small_resnet[1]).transform(df)
