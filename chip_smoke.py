@@ -133,7 +133,24 @@ the kernels are built for sm_90a). Phases, each of which raises on failure:
    bitwise but where the two eager fits differ), each fitted model
    scoring 256 images twice (bitwise, one CompiledCache callable a
    bucket) and 4 in f32 compute on the card and on the CPU within 1e-4;
-10. times: each kernel beside its bound, its plain version and the one
+10. main path 6, Llama-2-7B batch inference (synapseml_tpu's
+   llama2_7b() at full width and depth, f32 weights from
+   init_llama_params(seed=0) on the card, bf16 compute, the hashing
+   tokenizer at vocab 32000): (a) HuggingFaceCausalLM(batch_size=8,
+   prompt_bucket=64, max_new_tokens=32) over 16 prompts in 2 partitions,
+   dense then paged, each transform twice and bitwise the first, one
+   CompiledCache callable a rung and none on the repeat; dense against
+   paged tokens reported; prefill ms, ms a decode step (CUDA events) beside
+   the byte bound, a profiled step by group, peak memory; the mixed stream
+   of benchmarks/llama_decode.py (seed 0, 32 requests) through
+   run-to-completion batches of 8 and PagedDecodeEngine (8 slots), tokens/s
+   and TTFT; (b) the same weights in f32 compute (TF32 off), dense and
+   paged greedy tokens on 4 prompts over 3 rungs, identical up to each
+   row's first top-2 margin under 1e-3, at least 48 tokens compared; (c)
+   llama_tiny in f32 on the card and the CPU under the same rule, sampling
+   with top-k / top-p bitwise on a second run and inside the top-k support;
+   no kernel of the port's launched on the path;
+11. times: each kernel beside its bound, its plain version and the one
    PyTorch call that computes the same function (device time, with the
    host's enqueue hidden behind a spin kernel; the library call's device
    kernels named from the profiler); flash_attention from the projection
@@ -3191,6 +3208,505 @@ def phase_vision_stages(device, card: str) -> dict:
     return out
 
 
+
+# ---------------- main path 6: Llama-2-7B batch inference ----------------
+
+# HuggingFaceCausalLM on llama2_7b() (synapseml_tpu/models/flax_nets/llama.py:24-29:
+# vocab 32000, hidden 4096, 32 layers, 32 heads, MLP 11008, max_len 4096) at full
+# width and depth, f32 params, bf16 compute, weights from init_llama_params(seed=0)
+LLM_ROWS, LLM_PARTS = 16, 2
+LLM_BATCH, LLM_BUCKET, LLM_NEW = 8, 64, 32
+LLM_STREAM = 32               # requests of benchmarks/llama_decode.py's mixed stream
+LLM_SLOTS, LLM_BLOCK = 8, 16
+LLM_F32_LENS, LLM_F32_NEW = (12, 24, 40, 60), 16   # seq-ladder rungs 16, 32, 64
+LLM_MARGIN = 1e-3             # greedy tokens are compared up to a top-2 margin under this
+LLM_MIN_COMPARED = 48
+LLM_TINY_LENS, LLM_TINY_NEW = (5, 9, 14, 27, 33, 50), 16
+LLM_TOP_K, LLM_TOP_P, LLM_TEMP = 20, 0.9, 0.8
+LLM_SPIN = 200_000_000  # clock cycles, about 100 ms: longer than a 7B step's host enqueue
+_LLM_WORDS = ("the a of and to in is was for on that with as by at from it this be are "
+              "model token paged cache decode prefill batch stream request page block "
+              "slot layer head weight").split()
+
+_LLM_GROUPS = (("flash kernels", ("flash_",)),  # matched in lower case, first match wins
+               ("matmul", ("nvjet", "gemm", "gemv", "cutlass", "sm90_", "cublas")),
+               ("K/V gather and page writes", ("index", "gather", "scatter")),
+               ("softmax", ("softmax",)),
+               ("dtype casts and copies", ("copy", "memcpy", "cat")),
+               ("reductions", ("reduce",)),
+               ("elementwise", ("elementwise", "vectorized")))
+
+
+def _llm_texts(n: int, seed: int) -> list[str]:
+    """Prompts of 8-60 words: 9-61 tokens with the [CLS], one bucket of 64."""
+    rs = np.random.default_rng(seed)
+    return [" ".join(rs.choice(_LLM_WORDS, size=int(rs.integers(8, 61)))) for _ in range(n)]
+
+
+def _mixed_stream(rng, n_requests: int, vocab: int):
+    """(prompt_ids, n_new) per request, as benchmarks/llama_decode.py:82-97
+    draws them: prompt lengths over three seq-ladder rungs (16/32/64),
+    budgets heavy-tailed (80 % of 4-24 tokens, 20 % of 48 or 64)."""
+    reqs = []
+    for _ in range(n_requests):
+        plen = int(rng.choice([6, 12, 20, 30, 44, 56]))
+        if rng.random() < 0.2:
+            n_new = int(rng.choice([48, 64]))
+        else:
+            n_new = int(rng.choice([4, 6, 8, 12, 16, 24]))
+        reqs.append((rng.integers(2, vocab, (plen,)).tolist(), n_new))
+    return reqs
+
+
+def _llm_ids(prompts: list, P: int, device):
+    """Right-padded ``[B, P]`` ids and mask on ``device``."""
+    ids = np.zeros((len(prompts), P), np.int64)
+    mask = np.zeros((len(prompts), P), np.int64)
+    for i, p in enumerate(prompts):
+        ids[i, :len(p)] = p
+        mask[i, :len(p)] = 1
+    return torch.from_numpy(ids).to(device), torch.from_numpy(mask).to(device)
+
+
+def _teacher_margins(model, prompts: list, generated: list) -> list[np.ndarray]:
+    """Per row, the top-2 logit margin at each generated position (the
+    logits that chose it), from one forward of the model over prompt +
+    generated tokens; and whether each token is in that position's top-k."""
+    out = []
+    with torch.no_grad():
+        for p, g in zip(prompts, generated):
+            seq = torch.as_tensor([list(p) + list(g)], device=model.device)
+            logits = model(seq)[0, len(p) - 1:len(p) - 1 + len(g)].float()
+            top = torch.topk(logits, LLM_TOP_K, dim=-1)
+            in_top = (top.indices == torch.as_tensor(list(g), device=model.device)[:, None])
+            out.append(((top.values[:, 0] - top.values[:, 1]).cpu().numpy(),
+                        in_top.any(-1).cpu().numpy()))
+    return out
+
+
+def _margin_rule(a: list, b: list, ma: list, mb: list, tag: str) -> int:
+    """Greedy tokens of two runs, row by row, identical up to the first step
+    where either run's top-2 margin is under LLM_MARGIN; returns the tokens
+    compared (the steps before that one)."""
+    compared = 0
+    for i, (ra, rb, xa, xb) in enumerate(zip(a, b, ma, mb)):
+        n = min(len(ra), len(rb))
+        low = np.nonzero(np.minimum(xa[0][:n], xb[0][:n]) < LLM_MARGIN)[0]
+        horizon = int(low[0]) if len(low) else n
+        same = list(ra[:horizon]) == list(rb[:horizon])
+        log(f"[llm] {tag} row {i}: {horizon} of {n} tokens before a margin under "
+            f"{LLM_MARGIN} (least margins {np.min(xa[0][:n]):.3e} / {np.min(xb[0][:n]):.3e}), "
+            f"equal there: {same}; first differing step "
+            f"{next((j for j in range(n) if ra[j] != rb[j]), None)}")
+        if not same:
+            raise AssertionError(f"{tag}: greedy tokens differ before a near-tie (row {i})")
+        compared += horizon
+    return compared
+
+
+def _profile_llm_step(fn, card: str, tag: str, n=3) -> dict:
+    """Where the device time of one decode step goes, by group, and the
+    share of its wall time the card is busy under the profiler (device
+    activity only: a 7B step runs over 2000 host operations)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    kernels = []
+    for attempt in range(PROFILE_TRIES):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / n
+        kernels = [(e.self_device_time_total / e.count * -(-e.count // n) / 1e3,
+                    -(-e.count // n), e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        if kernels:
+            break
+        log(f"[profile] session {attempt + 1} recorded no device kernel; profiling again")
+    busy = sum(k[0] for k in kernels)
+    if not busy:
+        raise AssertionError(f"the profiler recorded no device time for a {tag} step")
+    groups = {name: 0.0 for name, _ in _LLM_GROUPS}
+    groups["other"] = 0.0
+    for ms, _, key in kernels:
+        name = next((g for g, pats in _LLM_GROUPS if any(p in key.lower() for p in pats)),
+                    "other")
+        groups[name] += ms
+    log(f"[profile] llm {tag} decode step: {wall_ms:.3f} ms wall, {busy:.3f} ms of device "
+        f"time ({100 * busy / wall_ms:.1f}% busy, {100 - 100 * busy / wall_ms:.1f}% idle), "
+        f"{sum(k[1] for k in kernels)} device operations | {card}")
+    for name, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        log(f"[profile] llm {tag} group {name}: {ms:.4f} ms/step ({100 * ms / busy:.1f}% of "
+            f"device time)")
+    for ms, count, key in sorted(kernels, reverse=True)[:10]:
+        log(f"[profile] llm {tag} {100 * ms / busy:5.1f}%  {ms:8.4f} ms/step  {count:4d}/step  "
+            f"{key[:160]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy, "busy": busy / wall_ms, "groups": groups}
+
+
+def _step_bound_ms(cfg, batch: int, kv_len: int) -> tuple[float, float]:
+    """The least time of one decode step by bytes: the bf16 dense weights,
+    the f32 lm_head and norms read once, and ``batch`` rows of K and V over
+    ``kv_len`` slots in every layer. Returns (ms, GB)."""
+    hid, H, KV, D, mlp, L = (cfg.hidden, cfg.n_heads, cfg.kv_heads, cfg.head_dim,
+                             cfg.mlp_dim, cfg.n_layers)
+    dense = L * (hid * (H + 2 * KV) * D + H * D * hid + 3 * hid * mlp)
+    size = torch.finfo(cfg.dtype).bits // 8
+    weights = dense * size + cfg.vocab_size * hid * 4 + (2 * L + 1) * hid * 4
+    kv = 2 * L * batch * KV * kv_len * D * size
+    total = weights + kv
+    return 1e3 * total / HBM_BYTES_PER_S, total / 1e9
+
+
+def _completions(df) -> list[list[int]]:
+    return [np.asarray(r).tolist() for r in df.collect_column("completions")]
+
+
+def _run_stream(engine, requests) -> dict:
+    """The paged arm of the mixed stream: every request submitted at once,
+    slots refilled as sequences finish; per request its TTFT and tokens."""
+    seqs = [engine.submit(p, n) for p, n in requests]
+    t0 = time.perf_counter()
+    while any(not s.done for s in seqs):
+        engine.admit()
+        engine.step()
+    wall = time.perf_counter() - t0
+    ttft = [(s.first_token_at - t0) * 1e3 for s in seqs]
+    return {"wall_s": wall, "ttft_ms": ttft, "tokens": [list(s.generated) for s in seqs]}
+
+
+def phase_llm_bf16(device, card: str, sd: dict) -> dict:
+    """(a) Llama-2-7B in bf16 compute through HuggingFaceCausalLM, dense and
+    then paged, each transform twice, and the mixed stream through both."""
+    from synapseml_torch.hf import HuggingFaceCausalLM
+    from synapseml_torch.models.nets.llama import generate, llama2_7b
+    from synapseml_torch.models.paged_engine import PagedDecodeEngine
+
+    cfg = llama2_7b()
+    texts = _llm_texts(LLM_ROWS, seed=0)
+    df = DataFrame.from_dict({"prompt": np.asarray(texts, dtype=object)},
+                             num_partitions=LLM_PARTS)
+    tok = HashingTokenizer(vocab_size=cfg.vocab_size)
+    kw = dict(model_name="llama2-7b", model_params=sd, tokenizer=tok, batch_size=LLM_BATCH,
+              prompt_bucket=LLM_BUCKET, max_new_tokens=LLM_NEW, device=str(device))
+    cache = cb.get_compiled_cache()
+    useful = LLM_ROWS * LLM_NEW
+    out = {}
+    t_part = time.perf_counter()
+
+    # ---- dense ----
+    stage = HuggingFaceCausalLM(**kw)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, _ = stage._model_and_tokenizer()
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    m0 = cache.miss_count("hf_causal_lm")
+    t0 = time.perf_counter()
+    dense1 = stage.transform(df)
+    dense_s = time.perf_counter() - t0
+    m1 = cache.miss_count("hf_causal_lm") - m0
+    t0 = time.perf_counter()
+    dense2 = stage.transform(df)
+    dense_s2 = time.perf_counter() - t0
+    m2 = cache.miss_count("hf_causal_lm") - m0 - m1
+    peak_dense = torch.cuda.max_memory_allocated() / 2 ** 30
+    a, a2 = _completions(dense1), _completions(dense2)
+    log(f"[llm] (a) dense transforms done at {time.perf_counter() - t_part:.1f} s")
+    log(f"[llm] dense: model load (decoder weights cast to bf16 in place) {load_s:.3f} s; transform "
+        f"of {LLM_ROWS} prompts x {LLM_NEW} tokens {dense_s:.3f} s ({useful / dense_s:.1f} "
+        f"tokens/s), second {dense_s2:.3f} s ({useful / dense_s2:.1f} tokens/s); "
+        f"CompiledCache misses {m1:.0f} then {m2:.0f}; peak {peak_dense:.3f} GiB | {card}")
+    if not (all(len(r) == LLM_NEW for r in a) and a == a2):
+        raise AssertionError("the dense transform's second run differs from its first")
+    keys = {(LLM_BATCH, np.asarray(tok(list(p["prompt"]), max_len=cfg.max_len - LLM_NEW,
+                                       multiple_of=LLM_BUCKET)["input_ids"]).shape[1])
+            for p in df.partitions}
+    if not (m1 == len(keys) and m2 == 0):
+        raise AssertionError("the dense transform did not take one callable per (bucket, "
+                             "prompt rung) from CompiledCache")
+
+    enc = tok(texts[:LLM_BATCH], max_len=cfg.max_len - LLM_NEW, multiple_of=LLM_BUCKET)
+    ids = torch.as_tensor(np.asarray(enc["input_ids"]), device=device).long()
+    mask = torch.as_tensor(np.asarray(enc["attention_mask"]), device=device).long()
+    prefill_ms = cuda_ms(lambda: generate(model, ids, 1, prompt_mask=mask), warmup=1, iters=3)
+    full_ms = cuda_ms(lambda: generate(model, ids, LLM_NEW, prompt_mask=mask), warmup=0,
+                      iters=1)
+    loop_ms = (full_ms - prefill_ms) / (LLM_NEW - 1)
+    # one decode step on its own: device time (behind a spin) and profile
+    from synapseml_torch.models.nets.transformer import KVCache
+
+    kvc = KVCache.zeros(cfg, LLM_BATCH, device)
+    kv_mask = torch.ones((LLM_BATCH, cfg.max_len), dtype=torch.long, device=device)
+    kvc.index = ids.shape[1]
+    tok1 = ids[:, :1]
+    pos = mask.sum(-1, keepdim=True)
+    with torch.no_grad():
+        step = lambda: model(tok1, positions=pos, attention_mask=kv_mask, cache=kvc)  # noqa: E731
+        step_dev_ms = cuda_ms(step, warmup=2, iters=5, spin_cycles=LLM_SPIN)
+        prof_dense = _profile_llm_step(step, card, "dense")
+    log(f"[llm] (a) dense step timed and profiled at {time.perf_counter() - t_part:.1f} s")
+    bound_ms, bound_gb = _step_bound_ms(cfg, LLM_BATCH, cfg.max_len)
+    live_ms, _ = _step_bound_ms(cfg, LLM_BATCH, ids.shape[1] + LLM_NEW)
+    log(f"[llm] dense batch of {LLM_BATCH} x {ids.shape[1]}: prefill (generate of 1 token) "
+        f"{prefill_ms:.3f} ms; decode {loop_ms:.3f} ms a step in the loop (CUDA events, host "
+        f"included), one step {step_dev_ms:.3f} ms of device time (behind a spin; the "
+        f"profiler's kernels {prof_dense['busy_ms']:.3f} ms, "
+        f"{100 * prof_dense['busy_ms'] / loop_ms:.1f}% of the loop's step); bound {bound_ms:.3f} ms "
+        f"({bound_gb:.2f} GB: bf16 weights + K/V over all {cfg.max_len} slots; "
+        f"{live_ms:.3f} ms over the live {ids.shape[1] + LLM_NEW}) | {card}")
+    log(f"[llm] (a) dense part done at {time.perf_counter() - t_part:.1f} s")
+    out["dense"] = {"tokens_s": useful / dense_s2, "prefill_ms": prefill_ms,
+                    "step_ms": loop_ms, "step_dev_ms": step_dev_ms, "peak_gib": peak_dense,
+                    "busy": prof_dense["busy"], "bound_ms": bound_ms, "load_s": load_s}
+    del kvc, step
+    _free_card()
+
+    # ---- the mixed stream, run-to-completion batches ----
+    requests = _mixed_stream(np.random.default_rng(0), LLM_STREAM, cfg.vocab_size)
+    want = sum(n for _, n in requests)
+    bucketer = cb.default_bucketer()
+    groups = [requests[i:i + LLM_SLOTS] for i in range(0, len(requests), LLM_SLOTS)]
+    ttft_rtc, rtc_tokens = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for g in groups:
+        P = bucketer.seq_bucket_for(max(len(p) for p, _ in g), cap=cfg.max_len)
+        gi, gm = _llm_ids([p for p, _ in g], P, device)
+        first = generate(model, gi, 1, prompt_mask=gm).cpu()  # the group's first tokens
+        ttft_rtc += [(time.perf_counter() - t0) * 1e3] * len(g)
+        res = generate(model, gi, max(n for _, n in g), prompt_mask=gm).cpu().numpy()
+        rtc_tokens += [res[i, P:P + n].tolist() for i, (_, n) in enumerate(g)]
+        if not (res[:, P] == first.numpy()[:, P]).all():
+            raise AssertionError("a group's first tokens differ between two generate calls")
+    rtc_s = time.perf_counter() - t0
+    log(f"[llm] mixed stream of {LLM_STREAM} requests ({want} tokens asked), run-to-completion "
+        f"batches of {LLM_SLOTS}: {rtc_s:.3f} s, {want / rtc_s:.1f} useful tokens/s (each group "
+        f"prefilled twice: its TTFT, then the whole generate); TTFT p50 "
+        f"{np.percentile(ttft_rtc, 50):.1f} ms, p99 {np.percentile(ttft_rtc, 99):.1f} ms | {card}")
+    stage.release()
+    del model, dense1, dense2
+    _free_card()
+    log(f"[llm] (a) run-to-completion stream done at {time.perf_counter() - t_part:.1f} s")
+
+    # ---- paged ----
+    blocks = 1 + LLM_BATCH * -(-(LLM_BUCKET + LLM_NEW) // LLM_BLOCK)
+    pstage = HuggingFaceCausalLM(**kw, engine="paged", kv_blocks=blocks)
+    torch.cuda.reset_peak_memory_stats()
+    pmodel, _ = pstage._model_and_tokenizer()
+    ids_fn = ("llama_paged_prefill", "llama_paged_decode")
+    p0 = {f: cache.miss_count(f) for f in ids_fn}
+    t0 = time.perf_counter()
+    paged1 = pstage.transform(df)
+    paged_s = time.perf_counter() - t0
+    p1 = {f: cache.miss_count(f) - p0[f] for f in ids_fn}
+    t0 = time.perf_counter()
+    paged2 = pstage.transform(df)
+    paged_s2 = time.perf_counter() - t0
+    p2 = {f: cache.miss_count(f) - p0[f] - p1[f] for f in ids_fn}
+    peak_paged = torch.cuda.max_memory_allocated() / 2 ** 30
+    b, b2 = _completions(paged1), _completions(paged2)
+    eng = next(iter(pstage.__dict__["_cache_engines"].values()))
+    n_rungs = len(eng.bucketer.seq_buckets_upto(eng.max_len))
+    same = sum(x == y for ra, rb in zip(a, b) for x, y in zip(ra, rb))
+    log(f"[llm] paged ({blocks} pages of {LLM_BLOCK}): transform {paged_s:.3f} s "
+        f"({useful / paged_s:.1f} tokens/s), second {paged_s2:.3f} s ({useful / paged_s2:.1f} "
+        f"tokens/s); CompiledCache misses {p1} then {p2} (ladders: {n_rungs} prompt rungs, "
+        f"slot rungs {eng.slot_rungs}); peak {peak_paged:.3f} GiB | {card}")
+    log(f"[llm] bf16 dense against paged: {same} of {LLM_ROWS * LLM_NEW} tokens equal "
+        f"({100 * same / (LLM_ROWS * LLM_NEW):.1f} %; bf16 may flip a near-tie, a report, not "
+        f"a check); rows equal {sum(x == y for x, y in zip(a, b))} of {LLM_ROWS}")
+    if not (all(len(r) == LLM_NEW for r in b) and b == b2):
+        raise AssertionError("the paged transform's second run differs from its first")
+    if not (0 < p1["llama_paged_prefill"] <= n_rungs
+            and 0 < p1["llama_paged_decode"] <= len(eng.slot_rungs) and not any(p2.values())):
+        raise AssertionError("the paged engine's CompiledCache misses exceed the ladders")
+    pstage.release()
+    del paged1, paged2, eng
+    _free_card()
+    log(f"[llm] (a) paged transforms done at {time.perf_counter() - t_part:.1f} s")
+
+    # ---- the mixed stream through PagedDecodeEngine, and one profiled step ----
+    need = max(-(-(len(p) + n) // LLM_BLOCK) for p, n in requests)
+    engine = PagedDecodeEngine(pmodel, block_len=LLM_BLOCK, max_slots=LLM_SLOTS,
+                               prefill_batch=2, n_blocks=1 + LLM_SLOTS * need)
+    torch.cuda.synchronize()
+    run = _run_stream(engine, requests)
+    paged_tokens = run["tokens"]
+    same_stream = sum(x == y for ra, rb in zip(rtc_tokens, paged_tokens)
+                      for x, y in zip(ra, rb))
+    log(f"[llm] mixed stream through PagedDecodeEngine.generate's loop, {LLM_SLOTS} slots: "
+        f"{run['wall_s']:.3f} s, {want / run['wall_s']:.1f} useful tokens/s "
+        f"({rtc_s / run['wall_s']:.2f}x the run-to-completion arm); TTFT p50 "
+        f"{np.percentile(run['ttft_ms'], 50):.1f} ms, p99 "
+        f"{np.percentile(run['ttft_ms'], 99):.1f} ms; {same_stream} of {want} tokens equal "
+        f"to the run-to-completion arm's | {card}")
+    if [len(t) for t in paged_tokens] != [n for _, n in requests]:
+        raise AssertionError("the paged engine did not generate each request's budget")
+    seqs = [engine.submit(p, LLM_NEW) for p in [r[0] for r in requests[:LLM_SLOTS]]]
+    engine.admit()
+    engine.step()
+    paged_step_ms = cuda_ms(engine.step, warmup=1, iters=5)
+    prof_paged = _profile_llm_step(engine.step, card, "paged")
+    pbound_ms, pbound_gb = _step_bound_ms(cfg, LLM_SLOTS, eng_len := engine.max_blocks
+                                          * LLM_BLOCK)
+    log(f"[llm] paged decode step, {LLM_SLOTS} active: {paged_step_ms:.3f} ms (CUDA events, "
+        f"host included; the profiler's kernels {prof_paged['busy_ms']:.3f} ms, "
+        f"{100 * prof_paged['busy_ms'] / paged_step_ms:.1f}% of it); bound {pbound_ms:.3f} ms ({pbound_gb:.2f} GB over the {eng_len} "
+        f"slots of a block table) | {card}")
+    engine.abort_all()
+    engine.release()
+    del seqs, engine, pmodel
+    _free_card()
+    out["paged"] = {"tokens_s": useful / paged_s2, "step_ms": paged_step_ms,
+                    "peak_gib": peak_paged, "busy": prof_paged["busy"], "bound_ms": pbound_ms,
+                    "ttft_p50_ms": float(np.percentile(run["ttft_ms"], 50)),
+                    "stream_tokens_s": want / run["wall_s"]}
+    out["rtc"] = {"stream_tokens_s": want / rtc_s,
+                  "ttft_p50_ms": float(np.percentile(ttft_rtc, 50))}
+    out["equal_share"] = same / (LLM_ROWS * LLM_NEW)
+    return out
+
+
+def phase_llm_f32(device, card: str, sd: dict) -> int:
+    """(b) The same weights in f32 compute (TF32 off): dense generate and the
+    paged engine on 4 prompts over 3 prompt rungs, 16 new tokens each, held
+    to each other by the margin rule."""
+    from synapseml_torch.hf.causal_lm import load_llama
+    from synapseml_torch.models.nets.llama import generate, llama2_7b
+    from synapseml_torch.models.paged_engine import PagedDecodeEngine
+
+    cfg = llama2_7b(dtype=torch.float32)
+    model = load_llama(cfg, sd, device)
+    rs = np.random.default_rng(1)
+    prompts = [rs.integers(2, cfg.vocab_size, (n,)).tolist() for n in LLM_F32_LENS]
+    ids, mask = _llm_ids(prompts, cb.default_bucketer().seq_bucket_for(max(LLM_F32_LENS)),
+                         device)
+    t0 = time.perf_counter()
+    dense = generate(model, ids, LLM_F32_NEW, prompt_mask=mask).cpu().numpy()[:, ids.shape[1]:]
+    dense_s = time.perf_counter() - t0
+    _free_card()
+    engine = PagedDecodeEngine(model, block_len=LLM_BLOCK, max_slots=len(prompts),
+                               n_blocks=1 + len(prompts) * -(-(max(LLM_F32_LENS) + LLM_F32_NEW)
+                                                            // LLM_BLOCK))
+    t0 = time.perf_counter()
+    paged = engine.generate(prompts, LLM_F32_NEW)
+    paged_s = time.perf_counter() - t0
+    engine.release()
+    dense = [r.tolist() for r in dense]
+    md = _teacher_margins(model, prompts, dense)
+    mp = _teacher_margins(model, prompts, paged)
+    log(f"[llm] f32 Llama-2-7B, TF32 off: dense generate {dense_s:.3f} s, paged "
+        f"{paged_s:.3f} s; top-2 margins (dense run) "
+        + "; ".join(" ".join(f"{v:.2e}" for v in m[0]) for m in md))
+    compared = _margin_rule(dense, paged, md, mp, "f32 dense against paged")
+    log(f"[llm] f32 dense = paged on {compared} tokens compared (need >= {LLM_MIN_COMPARED}) | "
+        f"{card}")
+    if compared < LLM_MIN_COMPARED:
+        raise AssertionError("too few f32 tokens compared under the margin rule")
+    del model, engine
+    _free_card()
+    return compared
+
+
+def phase_llm_tiny(device, card: str) -> dict:
+    """(c) llama_tiny in f32 on the card and on the CPU (same weights): dense
+    and paged greedy held by the margin rule; sampling with top-k / top-p
+    bitwise reproducible on the card, every token in the top-k support."""
+    from synapseml_torch.hf.causal_lm import load_llama
+    from synapseml_torch.models.convert_jax import init_llama_params
+    from synapseml_torch.models.nets.llama import generate, llama_tiny
+    from synapseml_torch.models.paged_engine import PagedDecodeEngine
+
+    cfg = llama_tiny(dtype=torch.float32)
+    sd = init_llama_params(cfg, seed=0, device="cpu")
+    on = {d: load_llama(cfg, sd, d) for d in ("cpu", str(device))}
+    rs = np.random.default_rng(2)
+    prompts = [rs.integers(2, cfg.vocab_size, (n,)).tolist() for n in LLM_TINY_LENS]
+    runs = {}
+    for d, model in on.items():
+        ids, mask = _llm_ids(prompts, 64, d)
+        runs[d, "dense"] = [r.tolist() for r in
+                            generate(model, ids, LLM_TINY_NEW, prompt_mask=mask).cpu().numpy()[:, 64:]]
+        eng = PagedDecodeEngine(model, block_len=LLM_BLOCK, max_slots=4)
+        runs[d, "paged"] = eng.generate(prompts, LLM_TINY_NEW)
+        eng.release()
+    card_d = str(device)
+    compared = 0
+    for kind in ("dense", "paged"):
+        m_cpu = _teacher_margins(on["cpu"], prompts, runs["cpu", kind])
+        m_card = _teacher_margins(on[card_d], prompts, runs[card_d, kind])
+        compared += _margin_rule(runs["cpu", kind], runs[card_d, kind], m_cpu, m_card,
+                                 f"llama_tiny {kind}, CPU against the card")
+    model = on[card_d]
+    ids, mask = _llm_ids(prompts, 64, device)
+    samp = dict(temperature=LLM_TEMP, top_k=LLM_TOP_K, top_p=LLM_TOP_P)
+    s1 = generate(model, ids, LLM_TINY_NEW, prompt_mask=mask, rng=7, **samp).cpu().numpy()
+    s2 = generate(model, ids, LLM_TINY_NEW, prompt_mask=mask, rng=7, **samp).cpu().numpy()
+    s3 = generate(model, ids, LLM_TINY_NEW, prompt_mask=mask, rng=8, **samp).cpu().numpy()
+    engs = [PagedDecodeEngine(model, block_len=LLM_BLOCK, max_slots=4, seed=5, **samp)
+            for _ in range(2)]
+    e1, e2 = (e.generate(prompts, LLM_TINY_NEW, uids=range(10, 10 + len(prompts)))
+              for e in engs)
+    for e in engs:
+        e.release()
+    dense_s = [r[64:].tolist() for r in s1]
+    support = [m[1] for m in _teacher_margins(model, prompts, dense_s)]
+    support += [m[1] for m in _teacher_margins(model, prompts, e1)]
+    n_in = int(sum(s.sum() for s in support))
+    n_all = int(sum(s.size for s in support))
+    log(f"[llm] llama_tiny f32, CPU against the card: {compared} greedy tokens compared; "
+        f"sampling (T {LLM_TEMP}, top-k {LLM_TOP_K}, top-p {LLM_TOP_P}) on the card: dense "
+        f"bitwise on a second run {np.array_equal(s1, s2)}, another seed differs "
+        f"{not np.array_equal(s1, s3)}; paged bitwise {e1 == e2}; {n_in} of {n_all} sampled "
+        f"tokens in the top-{LLM_TOP_K} support | {card}")
+    if not (np.array_equal(s1, s2) and e1 == e2 and not np.array_equal(s1, s3)):
+        raise AssertionError("sampling on the card is not reproducible for a seed")
+    if n_in != n_all:
+        raise AssertionError("a sampled token lies outside the top-k support")
+    del on, model
+    _free_card()
+    return {"compared": compared}
+
+
+def phase_llm(device, card: str) -> dict:
+    """Main path 6: (a) Llama-2-7B bf16 through both engines, (b) f32 parity
+    of the engines at full width, (c) llama_tiny card against CPU and
+    sampling; no kernel of the port's may launch on the path."""
+    from synapseml_torch.models.convert_jax import init_llama_params
+    from synapseml_torch.models.nets.llama import llama2_7b
+
+    t_start = time.perf_counter()
+    _zero_port_kernel_counts()
+    cfg = llama2_7b()
+    t0 = time.perf_counter()
+    sd = init_llama_params(cfg, seed=0, device=device)
+    torch.cuda.synchronize()
+    n_params = sum(v.numel() for v in sd.values())
+    log(f"[llm] Llama-2-7B weights from init_llama_params(seed=0) on the card: {n_params} "
+        f"parameters, {sum(v.numel() * v.element_size() for v in sd.values()) / 1e9:.2f} GB "
+        f"f32, in {time.perf_counter() - t0:.3f} s")
+    out = phase_llm_bf16(device, card, sd)
+    log(f"[llm] (a) done at {time.perf_counter() - t_start:.1f} s")
+    out["f32_compared"] = phase_llm_f32(device, card, sd)
+    del sd
+    _free_card()
+    log(f"[llm] (b) done at {time.perf_counter() - t_start:.1f} s")
+    out["tiny"] = phase_llm_tiny(device, card)
+    counts = _port_kernel_counts()
+    log(f"[llm] the port's kernels launched on main path 6: {counts} (want none)")
+    if any(counts.values()):
+        raise AssertionError(f"main path 6 launched a kernel of the port's: {counts}")
+    out["seconds"] = time.perf_counter() - t_start
+    log(f"[llm] main path 6: {out['seconds']:.1f} s of the script's clock")
+    return out
+
+
 def main() -> None:
     t0 = time.perf_counter()
 
@@ -3222,6 +3738,8 @@ def main() -> None:
     done("main path 5 (b), the flash kernels at the ViT shape")
     phase_vision_stages(device, card)
     done("main path 5 (c), the vision stages")
+    phase_llm(device, card)
+    done("main path 6, Llama-2-7B batch inference")
     # the flash kernels' launches on the paths, each counted from 0 just
     # before it ran: scoring (path 1), fine-tuning through flash and both
     # fitted models' scoring (path 3), bert-tiny f32 through flash on the

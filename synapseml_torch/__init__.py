@@ -9,7 +9,7 @@ slice, mirroring its layout so each file names its counterpart:
   ops/         hand-written CUDA kernels (``csrc/``) with plain versions
   image/       image preprocessing stages on the host (ImageTransformer,
                augmenter, unroll, superpixels)
-  models/      BERT, ViT and ResNet nets, the Flax weight bridge, the
+  models/      BERT, ViT, ResNet and Llama nets, the Flax weight bridge, the
                single-device trainer (BatchNorm state included),
                DeepTextClassifier / DeepTextModel and DeepVisionClassifier /
                DeepVisionModel
@@ -18,6 +18,9 @@ slice, mirroring its layout so each file names its counterpart:
   onnx/        the ONNX wire codec, the converter to torch ops,
                ONNXModel batch scoring, ImageFeaturizer and the ONNXHub
                model-zoo client
+  hf/          HuggingFaceCausalLM: Llama batch generation through the
+               dense KV-cache decode or the paged decode engine
+               (models/paged_engine.py, models/prefix_cache.py)
 
 It imports torch and numpy, never JAX. Entry points run on the CUDA card
 unless the caller asks for the CPU.

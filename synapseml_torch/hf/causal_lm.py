@@ -1,0 +1,387 @@
+"""HuggingFaceCausalLM: batch LLM generation as a DataFrame transformer.
+
+Counterpart of ``synapseml_tpu/hf/causal_lm.py`` (reference
+``hf/HuggingFaceCausalLMTransform.py:103-331``), with the same Params and
+defaults plus ``device``: prompts (or chat message lists) -> tokenize ->
+pad to a prompt bucket -> prefill + decode -> completions (token ids with
+the hashing tokenizer, which cannot decode). ``engine="dense"`` runs
+:func:`..models.nets.llama.generate` (a KV cache of ``max_len`` slots,
+early EOS exit) a batch bucket at a time; ``engine="paged"`` runs the
+token-granular :class:`..models.paged_engine.PagedDecodeEngine`, where
+early-EOS rows free their pages and slots mid-batch. Greedy output is
+token-identical between them in f32.
+
+The model is built once a stage, on ``device`` (default ``"cuda"``; a host
+without a card must ask for ``"cpu"``): ``model_params`` is this package's
+``LlamaLM`` state_dict (tensors or numpy arrays; ``convert_jax.
+llama_state_dict_from_flax`` maps a Flax tree), or None for
+``init_llama_params(seed=0)``. Tensors already on the device in the
+parameter dtype are used as they are, not copied. The decoder's dense
+weights are cast to the compute dtype in place, once, when the model
+loads, and the dense path and every engine share them. Callables come through
+``CompiledCache`` under the JAX package's fn ids (``hf_causal_lm``,
+``llama_paged_*``) and run eagerly.
+
+Not ported yet, each refused with ``NotImplementedError`` naming its
+``ROADMAP.md`` item: ``mesh_config`` / ``partition_rules`` (9), a local
+checkpoint directory as ``model_name`` or ``drafter_ref`` and a
+``transformers`` tokenizer (4), ``serving_engine()`` / ``serve_llm`` (10).
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..core import batching as cb
+from ..core.dataframe import DataFrame
+from ..core.device import device_type, resolve_device
+from ..core.params import ComplexParam, Param, TypeConverters
+from ..core.pipeline import Transformer
+from ..models.convert_jax import init_llama_params
+from ..models.nets.llama import LlamaLM, fold_in, generate, llama2_7b, llama_tiny
+from ..models.tokenizer import HashingTokenizer, resolve_tokenizer
+
+__all__ = ["HuggingFaceCausalLM", "default_chat_template", "load_llama"]
+
+_ARCHS = {"llama2-7b": llama2_7b, "llama-tiny": llama_tiny}
+
+
+def _unported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"HuggingFaceCausalLM: {what} is not ported to "
+                               f"synapseml_torch yet: ROADMAP.md queue A item {item}")
+
+
+def default_chat_template(messages) -> str:
+    """Minimal chat template (the reference applies the HF tokenizer's)."""
+    parts = [f"<|{m['role']}|>\n{m['content']}" for m in messages]
+    return "\n".join(parts) + "\n<|assistant|>\n"
+
+
+def _resolve_model_source(name, tokenizer_spec):
+    """The preset branch of the JAX ``convert_hf.resolve_model_source``:
+    ``(cfg, tokenizer)``, the vocab taken from the tokenizer."""
+    if name in _ARCHS:
+        if not (tokenizer_spec is None or isinstance(tokenizer_spec, (HashingTokenizer, dict))):
+            raise _unported(f"the tokenizer {tokenizer_spec!r} (transformers)",
+                            "4 (the HuggingFace tokenizer adapter)")
+        tok = resolve_tokenizer(tokenizer_spec)
+        return _ARCHS[name](vocab_size=tok.vocab_size), tok
+    if isinstance(name, (str, os.PathLike)) and os.path.isdir(str(name)):
+        raise _unported("a local checkpoint directory", "4 (convert_hf)")
+    raise ValueError(f"unknown model_name {name!r}; presets: {sorted(_ARCHS)} "
+                     f"or a local HF checkpoint dir")
+
+
+def load_llama(cfg, state_dict: dict, device) -> LlamaLM:
+    """A :class:`LlamaLM` on ``device`` for inference, holding
+    ``state_dict`` (tensors already there in ``cfg.param_dtype`` are
+    assigned, not copied). The decoder's ``nn.Linear`` weights are then cast
+    to ``cfg.dtype`` in place, once: ``dense``'s per-call cast becomes a
+    no-op, bitwise the same, and the ``state_dict`` given keeps its own
+    tensors. The embedding, the norms and the f32 ``lm_head`` stay in
+    ``cfg.param_dtype``."""
+    with torch.device("meta"):
+        model = LlamaLM(cfg)
+    state = {k: (torch.from_numpy(np.array(v)) if not isinstance(v, torch.Tensor) else v)
+             .to(device=device, dtype=cfg.param_dtype) for k, v in state_dict.items()}
+    model.load_state_dict(state, assign=True)
+    for layer in model.decoder.modules():
+        if isinstance(layer, nn.Linear):
+            layer.to(cfg.dtype)
+    return model.eval()
+
+
+class HuggingFaceCausalLM(Transformer):
+    feature_name = "hf"
+
+    model_name = Param("model_name", "architecture preset or local HF checkpoint dir",
+                       default="llama-tiny")
+    model_params = ComplexParam("model_params", "this package's LlamaLM state_dict "
+                                "(None = init_llama_params, seed 0)", default=None)
+    tokenizer = ComplexParam("tokenizer", "tokenizer spec/object", default=None)
+    input_col = Param("input_col", "prompt text column (completion mode)",
+                      default="prompt")
+    messages_col = Param("messages_col", "chat messages column (chat mode, "
+                         "takes precedence when set)", default=None)
+    output_col = Param("output_col", "generated text column", default="completions")
+    max_new_tokens = Param("max_new_tokens", "tokens to generate", default=32,
+                           converter=TypeConverters.to_int)
+    prompt_bucket = Param("prompt_bucket", "pad prompts to multiples of this",
+                          default=64, converter=TypeConverters.to_int)
+    batch_size = Param("batch_size", "rows per padded device batch", default=8,
+                       converter=TypeConverters.to_int)
+    eos_id = Param("eos_id", "stop token id", default=None)
+    do_sample = Param("do_sample", "sample instead of greedy decode", default=False,
+                      converter=TypeConverters.to_bool)
+    temperature = Param("temperature", "softmax temperature when sampling",
+                        default=1.0, converter=TypeConverters.to_float)
+    top_k = Param("top_k", "restrict sampling to the k most likely tokens "
+                  "(None = no limit)", default=None)
+    top_p = Param("top_p", "nucleus sampling: smallest token set with "
+                  "cumulative probability >= top_p (None = no limit)",
+                  default=None)
+    seed = Param("seed", "RNG seed for sampling; a fixed seed makes sampled "
+                 "generation deterministic on a device", default=0,
+                 converter=TypeConverters.to_int)
+    mesh_config = ComplexParam("mesh_config", "MeshConfig for sharded inference "
+                               "(not ported yet: must stay None)", default=None)
+    partition_rules = ComplexParam("partition_rules", "PartitionRules placing the "
+                                   "params on the mesh (not ported yet: must stay "
+                                   "None)", default=None)
+    generation_params_col = Param(
+        "generation_params_col", "optional column of per-row dicts of "
+        "generate kwargs (max_new_tokens/do_sample/temperature/top_k/top_p/"
+        "seed/eos_id) overriding the transformer-level params; rows are "
+        "bucketed by identical config", default=None)
+    engine = Param("engine", "decode engine: 'dense' (run-to-completion generate) "
+                   "or 'paged' (token-granular paged-KV continuous batching)",
+                   default="dense")
+    kv_block_len = Param("kv_block_len", "paged engine: tokens per KV page",
+                         default=16, converter=TypeConverters.to_int)
+    kv_blocks = Param("kv_blocks", "paged engine: physical KV pages in the "
+                      "pool (None = enough for decode_slots x max_len)",
+                      default=None)
+    decode_slots = Param("decode_slots", "paged engine: max concurrently "
+                         "decoding sequences (None = batch_size)",
+                         default=None)
+    prefix_cache = Param("prefix_cache", "paged engine: content-hash full KV pages so "
+                         "sequences sharing a prompt prefix reuse resident pages",
+                         default=False, converter=TypeConverters.to_bool)
+    draft_tokens = Param("draft_tokens", "paged engine: greedy speculative decoding, "
+                         "this many draft tokens a step (0 = off)", default=0,
+                         converter=TypeConverters.to_int)
+    drafter_ref = Param("drafter_ref", "paged engine: who drafts when draft_tokens > 0 "
+                        "— None/'self' early exit at half the layers, 'self:<n>' at "
+                        "layer n, or an architecture preset", default=None)
+    device = Param("device", "torch device: 'cuda' (default), 'cuda:N' or 'cpu'",
+                   default="cuda", converter=TypeConverters.to_string,
+                   validator=lambda v: device_type(v) in ("cuda", "cpu"))
+
+    _CACHE_KEYS = frozenset({"model_name", "model_params", "tokenizer",
+                             "mesh_config", "partition_rules",
+                             "max_new_tokens", "eos_id",
+                             "do_sample", "temperature", "top_k", "top_p",
+                             "seed", "engine", "kv_block_len", "kv_blocks",
+                             "decode_slots", "prefix_cache", "draft_tokens",
+                             "drafter_ref", "device"})
+
+    def set(self, **kw):
+        out = super().set(**kw)
+        if self._CACHE_KEYS & kw.keys():
+            self.release()
+        return out
+
+    def release(self) -> None:
+        """Drop the built model and every paged engine (their page pools)."""
+        for eng in self.__dict__.pop("_cache_engines", {}).values():
+            eng.release()
+        self.__dict__.pop("_cache_model", None)
+        cb.invalidate_token(self)  # cached callables captured old state
+
+    # ---- lazy model/tokenizer ----
+    def _model_and_tokenizer(self):
+        if self.__dict__.get("_cache_model") is None:
+            if self.get("mesh_config") is not None or self.get("partition_rules") is not None:
+                raise _unported("mesh_config / partition_rules", "9 (multi-GPU)")
+            device = resolve_device("HuggingFaceCausalLM", self.get("device"))
+            cfg, tok = _resolve_model_source(self.get("model_name"), self.get("tokenizer"))
+            params = self.get("model_params")
+            if params is None:
+                params = init_llama_params(cfg, seed=0, device=device)
+            self.__dict__["_cache_model"] = (load_llama(cfg, params, device), tok)
+        return self.__dict__["_cache_model"]
+
+    _GEN_KEYS = ("max_new_tokens", "eos_id", "do_sample", "temperature",
+                 "top_k", "top_p", "seed")
+
+    def _effective_gen_cfg(self, overrides=None) -> dict:
+        """Transformer-level generation params overlaid with a per-row
+        override dict."""
+        eff = {k: self.get(k) for k in self._GEN_KEYS}
+        if overrides:
+            unknown = sorted(set(overrides) - set(self._GEN_KEYS))
+            if unknown:
+                raise ValueError(f"unsupported generation params {unknown}; "
+                                 f"supported: {list(self._GEN_KEYS)}")
+            eff.update(overrides)
+        eff["max_new_tokens"] = int(eff["max_new_tokens"])
+        return eff
+
+    def _generate_fn(self, B: int, P: int, eff: dict):
+        """The (batch bucket, prompt bucket, generation config) callable
+        through the CompiledCache: ``fn(ids, mask, offset) -> [B, P + new]``
+        host int32 ids."""
+        eff_key = tuple(eff[k] for k in self._GEN_KEYS)
+
+        def build():
+            model, _tok = self._model_and_tokenizer()
+            sampling = eff["do_sample"]
+            temperature = float(eff["temperature"]) if sampling else 0.0
+            top_k, top_p = eff["top_k"], eff["top_p"]
+
+            def fn(ids, mask, offset):
+                # fold the batch's global row offset into the stream so that
+                # identical prompts in different batches draw different samples
+                rng = fold_in(int(eff["seed"]), int(offset)) if sampling else None
+                return generate(model, torch.from_numpy(ids), eff["max_new_tokens"],
+                                eos_id=eff["eos_id"], prompt_mask=torch.from_numpy(mask),
+                                temperature=temperature,
+                                top_k=None if top_k is None else int(top_k),
+                                top_p=None if top_p is None else float(top_p),
+                                rng=rng).cpu().numpy()
+            return fn
+
+        return cb.get_compiled_cache().get(
+            "hf_causal_lm", (B, P) + eff_key, build,
+            instance=cb.instance_token(self), dtype="int32")
+
+    def _resolve_drafter(self):
+        """``drafter_ref`` -> engine knobs ``(draft_layers, drafter)``."""
+        if int(self.get("draft_tokens") or 0) <= 0:
+            return None, None
+        ref = self.get("drafter_ref")
+        if ref is None or ref == "self":
+            return None, None  # engine default: early exit at n_layers // 2
+        if isinstance(ref, str) and ref.startswith("self:"):
+            return int(ref.split(":", 1)[1]), None
+        model, _tok = self._model_and_tokenizer()
+        d_cfg, _ = _resolve_model_source(ref, self.get("tokenizer"))
+        return None, load_llama(d_cfg, init_llama_params(d_cfg, seed=1, device=model.device),
+                                model.device)
+
+    def _paged_engine(self, eff: dict):
+        """The stage's paged engine for one sampling config (greedy shares
+        one): one page pool and one set of callables, keyed by this stage's
+        instance token."""
+        key = (bool(eff["do_sample"]),
+               float(eff["temperature"]) if eff["do_sample"] else 0.0,
+               eff["top_k"], eff["top_p"], int(eff["seed"]), eff["eos_id"])
+        engines = self.__dict__.setdefault("_cache_engines", {})
+        eng = engines.get(key)
+        if eng is None or eng._released:
+            from ..models.paged_engine import PagedDecodeEngine
+
+            model, _tok = self._model_and_tokenizer()
+            sampling = bool(eff["do_sample"])
+            slots = self.get("decode_slots") or max(int(self.get("batch_size")), 2)
+            draft_layers, drafter = self._resolve_drafter()
+            eng = PagedDecodeEngine(
+                model, block_len=int(self.get("kv_block_len")),
+                n_blocks=self.get("kv_blocks"), max_slots=int(slots),
+                temperature=float(eff["temperature"]) if sampling else 0.0,
+                top_k=None if eff["top_k"] is None else int(eff["top_k"]),
+                top_p=None if eff["top_p"] is None else float(eff["top_p"]),
+                seed=int(eff["seed"]), eos_id=eff["eos_id"],
+                instance=cb.instance_token(self),
+                prefix_cache=bool(self.get("prefix_cache")),
+                draft_tokens=int(self.get("draft_tokens") or 0),
+                draft_layers=draft_layers, drafter=drafter)
+            engines[key] = eng
+            # each engine owns a device page pool: keep at most 4, releasing
+            # the oldest idle one
+            if len(engines) > 4:
+                for k in list(engines):
+                    if k != key and not engines[k].has_work():
+                        engines.pop(k).release()
+                        break
+        return eng
+
+    def serving_engine(self):
+        raise _unported("serving_engine() / serve_llm (CausalLMServingEngine)",
+                        "10 (io/serving.py)")
+
+    def _texts_of(self, p) -> list[str]:
+        mc = self.get("messages_col")
+        if mc:
+            return [default_chat_template(list(m)) for m in p[mc]]
+        return [str(t) for t in p[self.get("input_col")]]
+
+    def _transform(self, df: DataFrame) -> DataFrame:
+        mc = self.get("messages_col")
+        self.require_columns(df, mc if mc else self.get("input_col"))
+        if self.get("generation_params_col"):
+            self.require_columns(df, self.get("generation_params_col"))
+        engine_kind = self.get("engine")
+        if engine_kind not in ("dense", "paged"):
+            raise ValueError(f"engine must be 'dense' or 'paged', got {engine_kind!r}")
+        model, tok = self._model_and_tokenizer()
+        B = self.get("batch_size")
+        bucket = self.get("prompt_bucket")
+        bucketer = cb.default_bucketer()
+        pcol = self.get("generation_params_col")
+
+        def row_groups(p, n):
+            """[(override dict or None, row indices)]: rows bucketed by
+            identical per-row config."""
+            if pcol is None:
+                return [(None, np.arange(n))]
+            buckets: dict = {}
+            for i, d in enumerate(p[pcol]):
+                d = dict(d) if d else {}
+                key = tuple(sorted((k, tuple(v) if isinstance(v, list) else v)
+                                   for k, v in d.items()))
+                buckets.setdefault(key, (d, []))[1].append(i)
+            return [(d, np.asarray(ix)) for d, ix in buckets.values()]
+
+        def per_part(p, part_offset):
+            n = len(next(iter(p.values()))) if p else 0
+            if n == 0:
+                return None
+            texts = self._texts_of(p)
+            col = np.empty(n, dtype=object)
+            decode = getattr(tok, "decode", None)
+            for overrides, ix in row_groups(p, n):
+                eff = self._effective_gen_cfg(overrides)
+                enc = tok([texts[i] for i in ix],
+                          max_len=model.cfg.max_len - eff["max_new_tokens"],
+                          multiple_of=bucket)
+                ids = np.asarray(enc["input_ids"], np.int32)
+                mask = np.asarray(enc["attention_mask"], np.int32)
+                m = len(ix)
+                if engine_kind == "paged":
+                    prompts = [ids[j][mask[j] > 0].tolist() for j in range(m)]
+                    # a zero-token prompt gets an empty completion for its
+                    # row instead of failing the whole scan
+                    live = [j for j, pr in enumerate(prompts) if pr]
+                    gen_rows = [np.zeros(0, np.int32)] * m
+                    if live:
+                        for j, g in zip(live, self._paged_engine(eff).generate(
+                                [prompts[j] for j in live], eff["max_new_tokens"],
+                                uids=[part_offset + int(ix[j]) for j in live])):
+                            gen_rows[j] = g
+                else:
+                    P = ids.shape[1]
+                    outs = []
+                    for s, e, row_bucket in bucketer.slices(m, B):
+                        ib = cb.pad_rows(ids[s:e], row_bucket)
+                        mb = cb.pad_rows(mask[s:e], row_bucket, mode="constant", constant=1)
+                        fn = self._generate_fn(row_bucket, P, eff)
+                        gen = cb.unpad_rows(fn(ib, mb, np.int32(part_offset + int(ix[s]))),
+                                            e - s)
+                        outs.append(gen[:, P:])  # generated ids only
+                    gen_rows = list(np.concatenate(outs, axis=0))
+                for j, i in enumerate(ix):
+                    toks = np.asarray(gen_rows[j])
+                    if eff["eos_id"] is not None:
+                        stop = np.nonzero(toks == eff["eos_id"])[0]
+                        if len(stop):
+                            toks = toks[: stop[0]]
+                    col[i] = decode(toks.tolist()) if decode else toks
+            q = dict(p)
+            q[self.get("output_col")] = col
+            return q
+
+        offsets = np.cumsum([0] + [len(next(iter(p.values()))) if p else 0
+                                   for p in df.partitions[:-1]])
+        out_parts = []
+        for p, off in zip(df.partitions, offsets):
+            q = per_part(p, int(off))
+            if q is None:
+                q = dict(p)
+                q[self.get("output_col")] = np.empty(0, dtype=object)
+            out_parts.append(q)
+        return DataFrame(out_parts)

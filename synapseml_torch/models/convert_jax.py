@@ -22,15 +22,24 @@ arrays. They need no JAX: only the names and shapes of the tree.
 ``init_flax_{bert,vit,resnet}_params`` make seeded random trees in those
 Flax layouts with numpy alone, from the JAX modules' initialisers (the same
 distributions, not the same bits as ``jax.random``), so a full-width model
-can be built on a host without JAX.
+can be built on a host without JAX. :func:`init_llama_params` draws the
+Llama initialisers straight into a ``LlamaLM`` state_dict with a seeded
+``torch.Generator`` on the target device: at 7B a numpy draw on the host
+would take about a minute.
 """
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
+import torch
+
+from ..core.device import resolve_device
 
 __all__ = ["bert_state_dict_from_flax", "init_flax_bert_params", "vit_state_dict_from_flax",
-           "init_flax_vit_params", "resnet_state_dict_from_flax", "init_flax_resnet_params"]
+           "init_flax_vit_params", "resnet_state_dict_from_flax", "init_flax_resnet_params",
+           "llama_state_dict_from_flax", "init_llama_params"]
 
 
 def _arr(a) -> np.ndarray:
@@ -112,6 +121,22 @@ def vit_state_dict_from_flax(params: dict) -> dict[str, np.ndarray]:
            "cls": _arr(params["cls"]), "pos_embed": _arr(params["pos_embed"])}
     _encoder_state(out, "encoder", params["encoder"])
     _dense(out, "head", params["head"])
+    return out
+
+
+def llama_state_dict_from_flax(params: dict) -> dict[str, np.ndarray]:
+    """Flax ``LlamaLM`` params -> :class:`..nets.llama.LlamaLM`'s
+    ``state_dict``: ``embed`` (and ``wpe``) tables as they are, the decoder
+    as an encoder, ``lm_head`` transposed. The paged modules run the same
+    module, so one tree drives both engines."""
+    unknown = set(params) - {"embed", "wpe", "decoder", "lm_head"}
+    if unknown:
+        raise KeyError(f"not a LlamaLM param tree: unexpected {sorted(unknown)}")
+    out = {"embed.weight": _arr(params["embed"]["embedding"])}
+    if "wpe" in params:
+        out["wpe.weight"] = _arr(params["wpe"]["embedding"])
+    _encoder_state(out, "decoder", params["decoder"])
+    _dense(out, "lm_head", params["lm_head"])
     return out
 
 
@@ -291,3 +316,52 @@ def init_flax_resnet_params(stage_sizes=(3, 4, 6, 3), block: str = "bottleneck",
     params["head"] = {"kernel": _lecun_normal(rng, (c, num_classes), c),
                       "bias": np.zeros(num_classes, np.float32)}
     return {"params": params, "batch_stats": stats}
+
+
+def init_llama_params(cfg, seed: int = 0, device="cuda") -> dict[str, torch.Tensor]:
+    """A seeded random :class:`..nets.llama.LlamaLM` ``state_dict`` on
+    ``device`` in ``cfg.param_dtype``, with the JAX module's initialisers
+    (the distributions, not the bits of ``jax.random``): ``embed``, ``wpe``
+    and ``lm_head`` N(0, 0.02); attention and MLP kernels Xavier-uniform
+    over their flattened (in, out) fans, as ``_xavier``; biases 0, norm
+    scales 1. Drawn in order from one ``torch.Generator(device)`` seeded
+    with ``seed``. ``device`` defaults to the card; a host without one must
+    ask for ``"cpu"``."""
+    device = resolve_device("init_llama_params", device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+    pd = cfg.param_dtype
+    hid, H, KV, D, mlp = cfg.hidden, cfg.n_heads, cfg.kv_heads, cfg.head_dim, cfg.mlp_dim
+
+    def normal(shape):
+        return torch.empty(shape, dtype=pd, device=device).normal_(0.0, 0.02, generator=gen)
+
+    def xavier(n_in, n_out):  # a torch Linear weight [out, in]
+        lim = math.sqrt(6.0 / (n_in + n_out))
+        return torch.empty((n_out, n_in), dtype=pd, device=device).uniform_(
+            -lim, lim, generator=gen)
+
+    def zeros(n):
+        return torch.zeros(n, dtype=pd, device=device)
+
+    out = {"embed.weight": normal((cfg.vocab_size, hid))}
+    if cfg.learned_pos:
+        out["wpe.weight"] = normal((cfg.max_len, hid))
+    for i in range(cfg.n_layers):
+        pre = f"decoder.layers.{i}"
+        for proj, heads in (("q", H), ("k", KV), ("v", KV)):
+            out[f"{pre}.attn.{proj}.weight"] = xavier(hid, heads * D)
+            out[f"{pre}.attn.{proj}.bias"] = zeros(heads * D)
+        out[f"{pre}.attn.o.weight"] = xavier(H * D, hid)
+        out[f"{pre}.attn.o.bias"] = zeros(hid)
+        names = ("gate", "up") if cfg.gated_mlp else ("up",)
+        for name in names:
+            out[f"{pre}.mlp.{name}.weight"] = xavier(hid, mlp)
+            out[f"{pre}.mlp.{name}.bias"] = zeros(mlp)
+        out[f"{pre}.mlp.down.weight"] = xavier(mlp, hid)
+        out[f"{pre}.mlp.down.bias"] = zeros(hid)
+        out[f"{pre}.norm1.weight"] = torch.ones(hid, dtype=pd, device=device)
+        out[f"{pre}.norm2.weight"] = torch.ones(hid, dtype=pd, device=device)
+    out["decoder.norm.weight"] = torch.ones(hid, dtype=pd, device=device)
+    out["lm_head.weight"] = normal((cfg.vocab_size, hid))
+    return out

@@ -12,16 +12,29 @@ same numerics on the encoder path:
     masked row averages V); ``attn_impl='flash'``: the hand-written kernel
     of :mod:`synapseml_torch.ops.attention` (a fully masked row gives 0).
 
-Mixture-of-experts, rotary embeddings, the decode cache and the
-sequence-parallel backends arrive with the LLM and multi-GPU slices; the
-config has no fields for them until then.
+The decoder side of the JAX module (the Llama family):
+  * rotary embeddings (``use_rope``, ``rope_theta``) in the split-half form,
+    computed against f32 tables and cast back to the input's dtype, as
+    JAX's type promotion does; ``learned_pos`` (GPT-2 absolute positions)
+    is read by the LM wrapper;
+  * the decode cache: explicit state, a :class:`KVCache` (one K and one V
+    tensor a layer and an index) passed in and advanced, not hidden module
+    state. Its tensors are head-major ``[B, KV, max_len, D]`` so that the
+    decode products read them in place; a step attends over the whole
+    ``max_len`` under the offset causal mask, as the JAX cache does.
+
+Mixture-of-experts (``moe_experts > 0``) is refused until its port
+(ROADMAP.md queue A item 8); the sequence-parallel backends arrive with the
+multi-GPU slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -29,7 +42,9 @@ from torch import nn
 from ...ops.attention import flash_attention
 
 __all__ = ["TransformerConfig", "Attention", "MlpBlock", "Block", "Encoder",
-           "LayerNorm", "RMSNorm", "dense"]
+           "LayerNorm", "RMSNorm", "dense", "KVCache", "rope_frequencies",
+           "rope_tables", "apply_rope", "make_causal_mask",
+           "grouped_attention"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,6 +67,12 @@ class TransformerConfig:
     act: str = "gelu"
     norm_eps: float = 1e-6
     attn_impl: str = "einsum"  # or 'flash' (the CUDA kernel)
+    use_rope: bool = False
+    rope_theta: float = 10000.0
+    # learned absolute position embeddings added by the LM wrapper (GPT-2
+    # family); RoPE models leave this False
+    learned_pos: bool = False
+    moe_experts: int = 0  # > 0 is refused: MoE is not ported yet
 
     @property
     def head_dim(self) -> int:
@@ -94,9 +115,9 @@ class RMSNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(dim, dtype=param_dtype))
 
     def forward(self, x):
-        x32 = x.float()
-        normed = x32 * torch.rsqrt(torch.mean(x32 * x32, dim=-1, keepdim=True) + self.eps)
-        return (normed * self.weight.float()).to(self.dtype)
+        # x * rsqrt(mean(x^2) + eps) * scale in f32, as the Flax module
+        return F.rms_norm(x.float(), (x.shape[-1],), self.weight.float(),
+                          self.eps).to(self.dtype)
 
 
 def _norm(cfg: TransformerConfig) -> nn.Module:
@@ -105,10 +126,82 @@ def _norm(cfg: TransformerConfig) -> nn.Module:
     return LayerNorm(cfg.hidden, cfg.norm_eps, cfg.dtype, cfg.param_dtype)
 
 
-def _causal_mask(q_len: int, kv_len: int, device) -> torch.Tensor:
-    q_pos = torch.arange(q_len, device=device)[:, None]
+def make_causal_mask(q_len: int, kv_len: int, offset: int = 0, device=None) -> torch.Tensor:
+    q_pos = torch.arange(q_len, device=device)[:, None] + offset
     kv_pos = torch.arange(kv_len, device=device)[None, :]
     return (kv_pos <= q_pos)[None, None]  # [1,1,Q,KV]
+
+
+def rope_frequencies(head_dim: int, max_len: int, theta: float) -> tuple[np.ndarray, np.ndarray]:
+    inv = 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float32) / head_dim))
+    t = np.arange(max_len, dtype=np.float32)
+    freqs = np.outer(t, inv)
+    return np.cos(freqs), np.sin(freqs)
+
+
+@functools.lru_cache(maxsize=16)
+def rope_tables(head_dim: int, max_len: int, theta: float, device: str):
+    """The f32 cos and sin tables of :func:`rope_frequencies`, each repeated
+    to the full head dim, ``[max_len, D]`` on ``device``."""
+    cos, sin = rope_frequencies(head_dim, max_len, theta)
+    return tuple(torch.from_numpy(np.concatenate([t, t], axis=-1)).to(device)
+                 for t in (cos, sin))
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+               positions: torch.Tensor) -> torch.Tensor:
+    """x: [B, T, H, D]; positions: [B, T] absolute positions; ``cos``,
+    ``sin``: :func:`rope_tables`. The split-half form ``[x1 c - x2 s, x2 c +
+    x1 s]``, written ``x * c + [-x2, x1] * s`` over the full-width tables
+    (the same arithmetic: the negation is exact). The products run in f32
+    (the tables' dtype) and the result is cast back to x's."""
+    c = cos[positions][:, :, None, :]  # [B,T,1,D]
+    s = sin[positions][:, :, None, :]
+    x1, x2 = x.chunk(2, dim=-1)
+    return (x * c + torch.cat([-x2, x1], dim=-1) * s).to(x.dtype)
+
+
+@dataclasses.dataclass
+class KVCache:
+    """The decode cache: per layer a K and a V tensor ``[B, KV, max_len,
+    D]`` in the compute dtype, and ``index``, the slot the next token
+    writes. An attention call with it writes its K/V at ``index`` in place;
+    the LM advances ``index``."""
+
+    k: list
+    v: list
+    index: int = 0
+
+    @classmethod
+    def zeros(cls, cfg: TransformerConfig, batch: int, device) -> "KVCache":
+        shape = (batch, cfg.kv_heads, cfg.max_len, cfg.head_dim)
+        return cls([torch.zeros(shape, dtype=cfg.dtype, device=device)
+                    for _ in range(cfg.n_layers)],
+                   [torch.zeros(shape, dtype=cfg.dtype, device=device)
+                    for _ in range(cfg.n_layers)])
+
+
+def grouped_attention(q, k, v, mask, sqrt_d: float, dtype: torch.dtype) -> torch.Tensor:
+    """The einsum core of GQA attention without repeating K/V: q ``[B, T,
+    H, D]``; k, v ``[B, KV, L, D]`` views; mask bool, broadcastable to
+    ``[B, H, T, L]``. The scores are divided by ``sqrt_d`` in ``dtype``,
+    masked with ``finfo(dtype).min`` and softmaxed in f32, as
+    :meth:`Attention._attend`'s einsum path; returns ``[B, T, H, D]``. The
+    products take the (B, KV) batch dims in k's storage order, so a
+    head-major cache (B outer) and a KV-major gather (KV outer) are both
+    read in place."""
+    B, T, H, D = q.shape
+    KV, L = k.shape[1], k.shape[2]
+    G = H // KV
+    perm = (1, 0, 2, 3) if k.stride(1) > k.stride(0) else (0, 1, 2, 3)  # its own inverse
+    # query head h reads kv head h // G, as jnp.repeat(k, G, axis=2) gives
+    qg = q.reshape(B, T, KV, G, D).permute(0, 2, 3, 1, 4).reshape(B, KV, G * T, D)
+    scores = torch.matmul(qg.permute(perm), k.permute(perm).transpose(-1, -2)) / sqrt_d
+    scores = scores.permute(perm).reshape(B, H, T, L)
+    scores = scores.masked_fill(~mask, torch.finfo(dtype).min)
+    probs = torch.softmax(scores.float(), dim=-1).to(dtype)
+    out = torch.matmul(probs.view(B, KV, G * T, L).permute(perm), v.permute(perm))
+    return out.permute(perm).reshape(B, KV, G, T, D).permute(0, 3, 1, 2, 4).reshape(B, T, H, D)
 
 
 class Attention(nn.Module):
@@ -132,6 +225,24 @@ class Attention(nn.Module):
         self._sqrt_d = torch.tensor(math.sqrt(D), dtype=torch.float32,
                                     device="cpu").to(cfg.dtype).item()
 
+    def project(self, x, positions=None):
+        """q ``[B, T, H, D]`` and k, v ``[B, T, KV, D]`` of ``x``, RoPE
+        applied at ``positions`` (default ``0..T-1``) when the config uses
+        it."""
+        cfg = self.cfg
+        B, T, _ = x.shape
+        H, KV, D = cfg.n_heads, cfg.kv_heads, cfg.head_dim
+        q = dense(self.q, x, cfg.dtype).view(B, T, H, D)
+        k = dense(self.k, x, cfg.dtype).view(B, T, KV, D)
+        v = dense(self.v, x, cfg.dtype).view(B, T, KV, D)
+        if cfg.use_rope:
+            if positions is None:
+                positions = torch.arange(T, device=x.device)[None, :].expand(B, T)
+            cos, sin = rope_tables(D, cfg.max_len, cfg.rope_theta, str(x.device))
+            qk = apply_rope(torch.cat([q, k], dim=2), cos, sin, positions)  # both in one pass
+            q, k = qk[:, :, :H], qk[:, :, H:]
+        return q, k, v
+
     def _attend(self, q, k, v, mask):
         cfg = self.cfg
         # flash takes padding (kv-position) masks; an arbitrary [.., Q, K]
@@ -143,7 +254,7 @@ class Attention(nn.Module):
             return flash_attention(q, k, v, kv_mask=kv_mask, causal=cfg.causal)
 
         if cfg.causal:
-            causal = _causal_mask(q.shape[1], k.shape[1], q.device)
+            causal = make_causal_mask(q.shape[1], k.shape[1], device=q.device)
             mask = causal if mask is None else mask & causal
         scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / self._sqrt_d
         if mask is not None:
@@ -151,13 +262,22 @@ class Attention(nn.Module):
         probs = torch.softmax(scores.float(), dim=-1).to(cfg.dtype)
         return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
-    def forward(self, x, mask=None):
+    def forward(self, x, mask=None, positions=None, kv=None):
+        """``kv``: ``(k_cache, v_cache, index)`` of this layer for a decode
+        call: this call's K/V land at ``index..index+T-1`` and the queries
+        attend over the whole cache under ``mask``, which then already holds
+        the causal mask at that offset (:meth:`Encoder.forward` combines
+        them once for every layer); never flash, as in the JAX module."""
         cfg = self.cfg
         B, T, _ = x.shape
         H, KV, D = cfg.n_heads, cfg.kv_heads, cfg.head_dim
-        q = dense(self.q, x, cfg.dtype).view(B, T, H, D)
-        k = dense(self.k, x, cfg.dtype).view(B, T, KV, D)
-        v = dense(self.v, x, cfg.dtype).view(B, T, KV, D)
+        q, k, v = self.project(x, positions)
+        if kv is not None:
+            ck, cv, start = kv
+            ck[:, :, start:start + T] = k.transpose(1, 2)
+            cv[:, :, start:start + T] = v.transpose(1, 2)
+            out = grouped_attention(q, ck, cv, mask, self._sqrt_d, cfg.dtype)
+            return dense(self.o, out.reshape(B, T, H * D), cfg.dtype)
         if KV != H:
             k = k.repeat_interleave(H // KV, dim=2)
             v = v.repeat_interleave(H // KV, dim=2)
@@ -188,18 +308,21 @@ class MlpBlock(nn.Module):
 class Block(nn.Module):
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
+        if cfg.moe_experts > 0:
+            raise NotImplementedError("moe_experts > 0 (MoEBlock) is not ported to "
+                                      "synapseml_torch yet: ROADMAP.md queue A item 8")
         self.post = cfg.norm_position == "post"
         self.attn = Attention(cfg)
         self.norm1 = _norm(cfg)
         self.mlp = MlpBlock(cfg)
         self.norm2 = _norm(cfg)
 
-    def forward(self, x, mask=None):
+    def forward(self, x, mask=None, positions=None, kv=None):
         if self.post:
             # original-BERT residual structure: add then norm
-            x = self.norm1(x + self.attn(x, mask))
+            x = self.norm1(x + self.attn(x, mask, positions, kv))
             return self.norm2(x + self.mlp(x))
-        x = x + self.attn(self.norm1(x), mask)
+        x = x + self.attn(self.norm1(x), mask, positions, kv)
         return x + self.mlp(self.norm2(x))
 
 
@@ -211,7 +334,12 @@ class Encoder(nn.Module):
         self.layers = nn.ModuleList(Block(cfg) for _ in range(cfg.n_layers))
         self.norm = _norm(cfg) if cfg.norm_position != "post" else None
 
-    def forward(self, x, mask=None):
-        for layer in self.layers:
-            x = layer(x, mask)
+    def forward(self, x, mask=None, positions=None, cache: KVCache | None = None):
+        if cache is not None:
+            causal = make_causal_mask(x.shape[1], cache.k[0].shape[2], offset=cache.index,
+                                      device=x.device)
+            mask = causal if mask is None else mask & causal
+        for i, layer in enumerate(self.layers):
+            kv = None if cache is None else (cache.k[i], cache.v[i], cache.index)
+            x = layer(x, mask, positions, kv)
         return x if self.norm is None else self.norm(x)
