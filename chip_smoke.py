@@ -150,7 +150,33 @@ the kernels are built for sm_90a). Phases, each of which raises on failure:
    llama_tiny in f32 on the card and the CPU under the same rule, sampling
    with top-k / top-p bitwise on a second run and inside the top-k support;
    no kernel of the port's launched on the path;
-11. times: each kernel beside its bound, its plain version and the one
+11. main path 7, pretrained checkpoint directories: HuggingFace-layout
+   directories (config.json, safetensors under HF key names) written here
+   from seeded numpy weights into a temporary directory removed at the end:
+   BERT-base BertForSequenceClassification, ViT-B/16, ResNet-50 in
+   microsoft/resnet-* naming and GPT-2 small (tied head) at full size in
+   F32, Llama-2-7B at full width with 4 of its 32 layers in F16 over two
+   shards. (a) every tensor read back bitwise by the package's own reader
+   (F32, F16 and I64, across shards), each directory's load timed from the
+   disk (host seconds, GB/s), the Llama load's peak host memory; a BF16
+   file, a tokenizer-less directory with tokenizer=None and an oversized
+   tokenizer vocab refused; (b) DeepTextClassifier(checkpoint=<BERT-base
+   dir>, attn_impl='flash') as the stage's graph fit of 24 steps at batch
+   32 x 128, bitwise the preset path's fit from the same mapped weights, the
+   flash forward and backward 12 times a step, the fitted model scoring
+   through the flash kernel and round-tripping save -> load bitwise; (c)
+   DeepVisionClassifier from the ViT-B/16 and the ResNet-50 directories:
+   the module the directory builds within 1e-5 of the preset module on the
+   same weights (f32 logits), a 16-step graph fit (the ResNet from the
+   checkpoint's BatchNorm statistics) and scoring as main path 5 (c); (d)
+   HuggingFaceCausalLM from the Llama directory (dense and paged) and from
+   the GPT-2 directory (dense; paged refused, as by the JAX engine): bf16
+   transforms twice, bitwise, tokens/s; f32 card tokens against the CPU's
+   under the margin rule, at least 48 compared; (e)
+   HuggingFaceSentenceEmbedder(model_name=<BERT-base dir>) in f32: a second
+   transform bitwise, one CompiledCache callable a (bucket, seq_len), 16
+   rows within 1e-4 of the CPU, rows/s;
+12. times: each kernel beside its bound, its plain version and the one
    PyTorch call that computes the same function (device time, with the
    host's enqueue hidden behind a spin kernel; the library call's device
    kernels named from the profiler); flash_attention from the projection
@@ -175,6 +201,7 @@ import importlib.machinery
 import importlib.util
 import io
 import json
+import os
 import re
 import shutil
 import statistics
@@ -3100,10 +3127,11 @@ def _vision_stage(backbone: str, device) -> DeepVisionClassifier:
                                 learning_rate=1e-4, seed=0, device=str(device))
 
 
-def _score_vision_model(model, df, card: str, tag: str) -> None:
+def _score_vision_model(model, df, card: str, tag: str, f32_params: dict | None = None) -> None:
     """A fitted DeepVisionModel scores ``df`` twice (the second bitwise the
     first, one CompiledCache miss a bucket, finite distributions), and a few
-    images in f32 compute on the card and on the CPU within VISION_CPU_TOL."""
+    images in f32 compute on the card and on the CPU within VISION_CPU_TOL:
+    the presets patched to f32, or the model copied with ``f32_params``."""
     cache = cb.get_compiled_cache()
     misses0 = cache.miss_count("deep_vision_model")
     t0 = time.perf_counter()
@@ -3127,9 +3155,9 @@ def _score_vision_model(model, df, card: str, tag: str) -> None:
                              "distributions, or it took other callables than one a bucket")
     small = DataFrame([{"image": df.partitions[0]["image"][:VISION_CPU_N]}])
     with _F32Backbones():
-        card32 = np.stack(list(model.copy({"device": str(model.get("device"))})
+        card32 = np.stack(list(model.copy({"device": str(model.get("device")), **(f32_params or {})})
                                .transform(small).collect_column("scores")))
-        cpu32 = np.stack(list(model.copy({"device": "cpu"}).transform(small)
+        cpu32 = np.stack(list(model.copy({"device": "cpu", **(f32_params or {})}).transform(small)
                               .collect_column("scores")))
     err = float(np.abs(card32 - cpu32).max())
     log(f"[vision] {tag} model in f32 compute, {VISION_CPU_N} images on the card against the "
@@ -3191,7 +3219,7 @@ def phase_vision_stages(device, card: str) -> dict:
             if stats is not None:  # the BatchNorm path against the eager loop
                 eager = []
                 for _ in range(2):
-                    trainer, data, kw = stage._fit_plan(df)
+                    trainer, data, kw, _ = stage._fit_plan(df)
                     state = trainer_mod.fit_arrays(trainer, data, scan_chunk=1, **kw)
                     eager.append({k: v.detach().cpu().numpy() for k, v in
                                   {**state.params, **state.batch_stats}.items()})
@@ -3707,6 +3735,754 @@ def phase_llm(device, card: str) -> dict:
     return out
 
 
+# ---------------- main path 7: pretrained checkpoint directories ----------------
+
+# Checkpoint directories in HuggingFace's layout (config.json, safetensors
+# under HF key names), written here from seeded numpy weights into a
+# temporary directory removed at the end: BERT-base BertForSequenceClassification,
+# ViT-B/16 ViTForImageClassification, ResNet-50 in microsoft/resnet-* naming,
+# GPT-2 small (tied head) in F32, one file each; Llama-2-7B at full width with
+# its depth cut to CK_LLAMA_LAYERS of 32 layers, F16, in two shards.
+CK_LLAMA_LAYERS = 4
+CK_FIT_ROWS, CK_FIT_STEPS = 768, 24     # the BERT-base checkpoint fit: 3 chunks of 8 at batch 32
+CK_SCORE_ROWS = 200                     # texts scored by the fitted model (2 partitions)
+CK_EMBED_ROWS, CK_EMBED_CPU = 512, 16   # texts the embedder embeds; of them on the CPU too
+CK_EMBED_TOL = 1e-4                     # f32 embeddings, the card against the CPU
+CK_VISION_TOL = 1e-5                    # f32 logits, the directory's module against the preset's
+CK_LLM_LENS, CK_LLM_NEW = (12, 24, 40, 60), 16  # f32 prompts (rungs 16, 32, 64), new tokens
+CK_BERT = dict(vocab_size=30522, hidden_size=768, num_hidden_layers=12, num_attention_heads=12,
+               intermediate_size=3072, max_position_embeddings=512, type_vocab_size=2,
+               layer_norm_eps=1e-12, hidden_act="gelu")
+CK_VIT = dict(image_size=224, patch_size=16, num_channels=3, hidden_size=768,
+              num_hidden_layers=12, num_attention_heads=12, intermediate_size=3072,
+              layer_norm_eps=1e-12, hidden_act="gelu")
+CK_RESNET = dict(embedding_size=64, hidden_sizes=[256, 512, 1024, 2048], depths=[3, 4, 6, 3],
+                 layer_type="bottleneck")
+CK_GPT2 = dict(vocab_size=50257, n_embd=768, n_layer=12, n_head=12, n_positions=1024,
+               layer_norm_epsilon=1e-5, activation_function="gelu_new")
+CK_LLAMA = dict(vocab_size=32000, hidden_size=4096, num_hidden_layers=CK_LLAMA_LAYERS,
+                num_attention_heads=32, num_key_value_heads=32, intermediate_size=11008,
+                max_position_embeddings=4096, rms_norm_eps=1e-5, rope_theta=10000.0,
+                tie_word_embeddings=False)
+_ST_NAMES = {np.dtype(np.float32): "F32", np.dtype(np.float16): "F16",
+             np.dtype(np.int64): "I64"}
+
+
+def _write_safetensors(path: str, tensors: dict) -> int:
+    """The safetensors format by hand (the package's reader is under test):
+    an 8-byte little-endian header length, the JSON header padded to 8
+    bytes, the raw bytes in header order. The file is synced and dropped
+    from the page cache, so that a load reads the disk. Returns its bytes."""
+    header, offset = {}, 0
+    for name, a in tensors.items():
+        header[name] = {"dtype": _ST_NAMES[a.dtype], "shape": list(a.shape),
+                        "data_offsets": [offset, offset + a.nbytes]}
+        offset += a.nbytes
+    raw = json.dumps({"__metadata__": {"format": "pt"}, **header}).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little"))
+        f.write(raw)
+        for a in tensors.values():
+            f.write(np.ascontiguousarray(a).reshape(-1).view(np.uint8))
+        f.flush()
+        os.fsync(f.fileno())
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+    finally:
+        os.close(fd)
+    return 8 + len(raw) + offset
+
+
+def _write_checkpoint(d: str, config: dict, tensors: dict, shards: int = 1) -> int:
+    """``d``/config.json and model.safetensors, or ``shards`` files split in
+    key order by size with model.safetensors.index.json; returns the bytes
+    of the weight files."""
+    os.makedirs(d)
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump(config, f, indent=2)
+    if shards == 1:
+        return _write_safetensors(os.path.join(d, "model.safetensors"), tensors)
+    total = sum(a.nbytes for a in tensors.values())
+    groups, acc = [[] for _ in range(shards)], 0
+    for name, a in tensors.items():
+        groups[min(acc * shards // total, shards - 1)].append(name)
+        acc += a.nbytes
+    weight_map, written = {}, 0
+    for i, names in enumerate(groups):
+        fname = f"model-{i + 1:05d}-of-{shards:05d}.safetensors"
+        written += _write_safetensors(os.path.join(d, fname), {k: tensors[k] for k in names})
+        weight_map.update(dict.fromkeys(names, fname))
+    with open(os.path.join(d, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total}, "weight_map": weight_map}, f, indent=2)
+    return written
+
+
+class _Draw:
+    """Seeded numpy weights: N(0, 0.02) tables, Xavier-uniform Linear weights
+    ``[out, in]``, small random biases, norm scales near 1, in ``dtype``."""
+
+    def __init__(self, seed: int, dtype=np.float32):
+        self.rs, self.dtype = np.random.default_rng(seed), np.dtype(dtype)
+
+    def normal(self, *shape, std=0.02):
+        x = self.rs.standard_normal(shape, dtype=np.float32)
+        x *= np.float32(std)
+        return x.astype(self.dtype, copy=False)
+
+    def linear(self, n_out, n_in, *kernel):
+        lim = np.float32(np.sqrt(6.0 / (n_in + n_out)))
+        u = self.rs.random((n_out, n_in, *kernel), dtype=np.float32)
+        u *= 2 * lim
+        u -= lim
+        return u.astype(self.dtype, copy=False)
+
+    def bias(self, n):
+        return self.normal(n, std=0.01)
+
+    def scale(self, n):
+        return (1 + self.normal(n, std=0.05)).astype(self.dtype, copy=False)
+
+
+def _bert_checkpoint(seed: int) -> tuple[dict, dict]:
+    """BertForSequenceClassification (2 labels) at CK_BERT, F32, with the
+    int64 ``position_ids`` buffer older checkpoints carry."""
+    c, w = CK_BERT, _Draw(seed)
+    hid, mlp = c["hidden_size"], c["intermediate_size"]
+    t = {"bert.embeddings.position_ids": np.arange(c["max_position_embeddings"],
+                                                   dtype=np.int64)[None],
+         "bert.embeddings.word_embeddings.weight": w.normal(c["vocab_size"], hid),
+         "bert.embeddings.position_embeddings.weight": w.normal(c["max_position_embeddings"],
+                                                                hid),
+         "bert.embeddings.token_type_embeddings.weight": w.normal(c["type_vocab_size"], hid),
+         "bert.embeddings.LayerNorm.weight": w.scale(hid),
+         "bert.embeddings.LayerNorm.bias": w.bias(hid)}
+    for i in range(c["num_hidden_layers"]):
+        p = f"bert.encoder.layer.{i}"
+        for name, (n_out, n_in) in (("attention.self.query", (hid, hid)),
+                                    ("attention.self.key", (hid, hid)),
+                                    ("attention.self.value", (hid, hid)),
+                                    ("attention.output.dense", (hid, hid)),
+                                    ("intermediate.dense", (mlp, hid)),
+                                    ("output.dense", (hid, mlp))):
+            t[f"{p}.{name}.weight"], t[f"{p}.{name}.bias"] = w.linear(n_out, n_in), w.bias(n_out)
+        for name in ("attention.output.LayerNorm", "output.LayerNorm"):
+            t[f"{p}.{name}.weight"], t[f"{p}.{name}.bias"] = w.scale(hid), w.bias(hid)
+    t["bert.pooler.dense.weight"], t["bert.pooler.dense.bias"] = w.linear(hid, hid), w.bias(hid)
+    t["classifier.weight"], t["classifier.bias"] = w.linear(2, hid), w.bias(2)
+    return {"model_type": "bert", "architectures": ["BertForSequenceClassification"],
+            "num_labels": 2, **c}, t
+
+
+def _vit_checkpoint(seed: int) -> tuple[dict, dict]:
+    """ViTForImageClassification (VIT_CLASSES labels) at CK_VIT, F32."""
+    c, w = CK_VIT, _Draw(seed)
+    hid, mlp, p_ = c["hidden_size"], c["intermediate_size"], c["patch_size"]
+    t = {"vit.embeddings.cls_token": w.normal(1, 1, hid),
+         "vit.embeddings.position_embeddings": w.normal(1, 1 + (c["image_size"] // p_) ** 2, hid),
+         "vit.embeddings.patch_embeddings.projection.weight": w.linear(hid, c["num_channels"],
+                                                                      p_, p_),
+         "vit.embeddings.patch_embeddings.projection.bias": w.bias(hid)}
+    for i in range(c["num_hidden_layers"]):
+        p = f"vit.encoder.layer.{i}"
+        for name, (n_out, n_in) in (("attention.attention.query", (hid, hid)),
+                                    ("attention.attention.key", (hid, hid)),
+                                    ("attention.attention.value", (hid, hid)),
+                                    ("attention.output.dense", (hid, hid)),
+                                    ("intermediate.dense", (mlp, hid)),
+                                    ("output.dense", (hid, mlp))):
+            t[f"{p}.{name}.weight"], t[f"{p}.{name}.bias"] = w.linear(n_out, n_in), w.bias(n_out)
+        for name in ("layernorm_before", "layernorm_after"):
+            t[f"{p}.{name}.weight"], t[f"{p}.{name}.bias"] = w.scale(hid), w.bias(hid)
+    t["vit.layernorm.weight"], t["vit.layernorm.bias"] = w.scale(hid), w.bias(hid)
+    t["classifier.weight"], t["classifier.bias"] = w.linear(VIT_CLASSES, hid), w.bias(VIT_CLASSES)
+    return {"model_type": "vit", "architectures": ["ViTForImageClassification"], **c}, t
+
+
+def _resnet_checkpoint(seed: int) -> tuple[dict, dict]:
+    """ResNetForImageClassification (VIT_CLASSES labels) at CK_RESNET in HF
+    naming, F32: convolutions He-scaled, BatchNorm with running statistics
+    (and the int64 num_batches_tracked each carries)."""
+    c, w = CK_RESNET, _Draw(seed)
+    t = {}
+
+    def conv(name, c_out, c_in, k):
+        t[f"{name}.convolution.weight"] = (w.rs.standard_normal((c_out, c_in, k, k),
+                                                                dtype=np.float32)
+                                           * np.float32(np.sqrt(2.0 / (c_in * k * k))))
+        bn = f"{name}.normalization"
+        t[f"{bn}.weight"], t[f"{bn}.bias"] = w.scale(c_out), w.bias(c_out)
+        t[f"{bn}.running_mean"] = w.normal(c_out, std=0.1)
+        t[f"{bn}.running_var"] = (0.5 + w.rs.random(c_out, dtype=np.float32))
+        t[f"{bn}.num_batches_tracked"] = np.asarray(1000, np.int64)
+
+    width = c["embedding_size"]
+    conv("resnet.embedder.embedder", width, 3, 7)
+    c_in = width
+    for s, (n_blocks, out) in enumerate(zip(c["depths"], c["hidden_sizes"])):
+        f = out // 4
+        for j in range(n_blocks):
+            p = f"resnet.encoder.stages.{s}.layers.{j}"
+            if j == 0:
+                conv(f"{p}.shortcut", out, c_in, 1)
+            conv(f"{p}.layer.0", f, c_in, 1)
+            conv(f"{p}.layer.1", f, f, 3)
+            conv(f"{p}.layer.2", out, f, 1)
+            c_in = out
+    t["classifier.1.weight"] = w.linear(VIT_CLASSES, c_in)
+    t["classifier.1.bias"] = w.bias(VIT_CLASSES)
+    return {"model_type": "resnet", "architectures": ["ResNetForImageClassification"],
+            "num_channels": 3, "hidden_act": "relu", "downsample_in_first_stage": False,
+            **c}, t
+
+
+def _gpt2_checkpoint(seed: int) -> tuple[dict, dict]:
+    """GPT2LMHeadModel at CK_GPT2, F32: Conv1D weights ``[in, out]``, the
+    fused c_attn, the LM head tied to wte (no lm_head tensor)."""
+    c, w = CK_GPT2, _Draw(seed)
+    hid = c["n_embd"]
+    t = {"transformer.wte.weight": w.normal(c["vocab_size"], hid),
+         "transformer.wpe.weight": w.normal(c["n_positions"], hid, std=0.01)}
+    for i in range(c["n_layer"]):
+        p = f"transformer.h.{i}"
+        for name, (n_in, n_out) in (("attn.c_attn", (hid, 3 * hid)), ("attn.c_proj", (hid, hid)),
+                                    ("mlp.c_fc", (hid, 4 * hid)), ("mlp.c_proj", (4 * hid, hid))):
+            t[f"{p}.{name}.weight"] = np.ascontiguousarray(w.linear(n_out, n_in).T)
+            t[f"{p}.{name}.bias"] = w.bias(n_out)
+        for name in ("ln_1", "ln_2"):
+            t[f"{p}.{name}.weight"], t[f"{p}.{name}.bias"] = w.scale(hid), w.bias(hid)
+    t["transformer.ln_f.weight"], t["transformer.ln_f.bias"] = w.scale(hid), w.bias(hid)
+    return {"model_type": "gpt2", "architectures": ["GPT2LMHeadModel"], **c}, t
+
+
+def _llama_checkpoint(seed: int) -> tuple[dict, dict]:
+    """LlamaForCausalLM at CK_LLAMA (no biases, an untied lm_head), F16."""
+    c, w = CK_LLAMA, _Draw(seed, np.float16)
+    hid, mlp = c["hidden_size"], c["intermediate_size"]
+    kv = hid // c["num_attention_heads"] * c["num_key_value_heads"]
+    t = {"model.embed_tokens.weight": w.normal(c["vocab_size"], hid)}
+    for i in range(c["num_hidden_layers"]):
+        p = f"model.layers.{i}"
+        for name, (n_out, n_in) in (("self_attn.q_proj", (hid, hid)), ("self_attn.k_proj", (kv, hid)),
+                                    ("self_attn.v_proj", (kv, hid)), ("self_attn.o_proj", (hid, hid)),
+                                    ("mlp.gate_proj", (mlp, hid)), ("mlp.up_proj", (mlp, hid)),
+                                    ("mlp.down_proj", (hid, mlp))):
+            t[f"{p}.{name}.weight"] = w.linear(n_out, n_in)
+        t[f"{p}.input_layernorm.weight"] = w.scale(hid)
+        t[f"{p}.post_attention_layernorm.weight"] = w.scale(hid)
+    t["model.norm.weight"] = w.scale(hid)
+    t["lm_head.weight"] = w.normal(c["vocab_size"], hid)
+    return {"model_type": "llama", "architectures": ["LlamaForCausalLM"],
+            "torch_dtype": "float16", **c}, t
+
+
+class _PeakRss:
+    """The process's resident memory, sampled every 2 ms from
+    /proc/self/statm on a thread while the block runs: (before, peak,
+    after) in GiB."""
+
+    def __init__(self):
+        import threading
+
+        self._page = os.sysconf("SC_PAGE_SIZE")
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+
+    def rss(self) -> float:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * self._page / 2 ** 30
+
+    def _sample(self):
+        while not self._stop.wait(0.002):
+            self.peak = max(self.peak, self.rss())
+
+    def __enter__(self):
+        self.before = self.peak = self.rss()
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.after = self.rss()
+        self.peak = max(self.peak, self.after)
+
+
+class _Checkpoints:
+    """The directories of main path 7 under one temporary root, each written
+    on first use, read back bitwise (F32, F16 and I64, across shards) and
+    timed; the root goes on close."""
+
+    def __init__(self, card: str):
+        import tempfile
+
+        self.root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+        self.card, self.dirs, self.loads, self.bytes = card, {}, {}, {}
+
+    def get(self, name: str, make, seed: int, shards: int = 1) -> str:
+        if name in self.dirs:
+            return self.dirs[name]
+        from synapseml_torch.models.convert_hf import load_checkpoint
+
+        t0 = time.perf_counter()
+        config, tensors = make(seed)
+        draw_s = time.perf_counter() - t0
+        d = os.path.join(self.root, name)
+        t0 = time.perf_counter()
+        nbytes = _write_checkpoint(d, config, tensors, shards)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got_cfg, sd = load_checkpoint(d)
+        bad = sorted(set(tensors) ^ set(sd))
+        bad += [k for k in tensors if k in sd and not (
+            sd[k].dtype == tensors[k].dtype and sd[k].shape == tensors[k].shape
+            and np.array_equal(sd[k], tensors[k]))]
+        check_s = time.perf_counter() - t0
+        kinds = sorted({_ST_NAMES[a.dtype] for a in tensors.values()})
+        log(f"[ckpt] {name}: {len(tensors)} tensors ({', '.join(kinds)}), "
+            f"{nbytes / 1e9:.3f} GB in {shards} file(s): drawn {draw_s:.1f} s, written "
+            f"{write_s:.1f} s; read back bitwise: {not bad and got_cfg == config} "
+            f"({check_s:.1f} s){f', differing {bad[:5]}' if bad else ''}")
+        if bad or got_cfg != config:
+            raise AssertionError(f"{name}: the reader does not read back what was written")
+        self.dirs[name] = d
+        self.bytes[name] = nbytes
+        del tensors, sd
+        return d
+
+    def timed_load(self, name: str, load, device) -> tuple:
+        """``load(dir)`` (a ``pretrained_*`` call) and every mapped tensor's
+        copy to the device, cast there to float32 as the stages cast it, from
+        the disk (the files dropped from the page cache again): host seconds
+        and GB/s of the weight files."""
+        d = self.dirs[name]
+        for f in os.listdir(d):
+            fd = os.open(os.path.join(d, f), os.O_RDONLY)
+            try:
+                os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+            finally:
+                os.close(fd)
+        t0 = time.perf_counter()
+        out = load(d)
+        state = out[-1] if isinstance(out[-1], dict) and "params" not in out[-1] \
+            else {**out[-1]["params"], **(out[-1].get("batch_stats") or {})}
+        on_card = {k: torch.from_numpy(v).to(device) for k, v in state.items()}
+        on_card = {k: t.float() if t.is_floating_point() else t for k, t in on_card.items()}
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        gbs = self.bytes[name] / 1e9 / s
+        self.loads[name] = {"s": s, "gb_s": gbs}
+        log(f"[ckpt] {name} loaded from disk (mapping and every tensor to the card): {s:.3f} s "
+            f"host clock, {gbs:.2f} GB/s of {self.bytes[name] / 1e9:.3f} GB | {self.card}")
+        del on_card
+        return out
+
+    def close(self) -> None:
+        shutil.rmtree(self.root, ignore_errors=True)
+
+
+def _ckpt_reader_refusals(ck: _Checkpoints, device) -> None:
+    """(a) What the reader refuses: a BF16 tensor (numpy has no bfloat16,
+    as safetensors.numpy), a tokenizer-less directory with tokenizer=None
+    (the "pass tokenizer=" ValueError, never an ImportError on a host without
+    transformers), an oversized tokenizer vocab (the guard)."""
+    from synapseml_torch.hf import HuggingFaceCausalLM
+    from synapseml_torch.models import convert_hf
+
+    path = os.path.join(ck.root, "bf16.safetensors")
+    raw = json.dumps({"w": {"dtype": "BF16", "shape": [4], "data_offsets": [0, 8]}}).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little") + raw + b"\x80\x3f" * 4)
+    outcomes = {}
+    try:
+        convert_hf.load_safetensors(path)
+        outcomes["bf16"] = "read"
+    except TypeError as e:
+        outcomes["bf16"] = f"TypeError: {e}"
+    d = ck.dirs["bert_base"]
+    try:
+        convert_hf.tokenizer_for_checkpoint(None, d, CK_BERT["vocab_size"])
+        outcomes["no tokenizer"] = "resolved"
+    except ValueError as e:
+        outcomes["no tokenizer"] = f"ValueError: {e}"
+    try:
+        HuggingFaceCausalLM(model_name=ck.dirs["gpt2"], device=str(device),
+                            tokenizer=HashingTokenizer(vocab_size=60000))._model_and_tokenizer()
+        outcomes["vocab guard"] = "accepted"
+    except ValueError as e:
+        outcomes["vocab guard"] = f"ValueError: {e}"
+    for k, v in outcomes.items():
+        log(f"[ckpt] (a) refused, {k}: {v}")
+    if not (outcomes["bf16"].startswith("TypeError") and "BF16" in outcomes["bf16"]
+            and "pass tokenizer=" in outcomes["no tokenizer"]
+            and "exceeds the checkpoint" in outcomes["vocab guard"]):
+        raise AssertionError(f"main path 7 (a): a refusal did not happen: {outcomes}")
+
+
+def _ckpt_text(ck: _Checkpoints, device, card: str) -> dict:
+    """(b) DeepTextClassifier(checkpoint=<BERT-base dir>, attn_impl='flash'):
+    the stage's graph fit of CK_FIT_STEPS steps, bitwise the preset path's
+    fit from the same mapped initial state_dict; the flash forward and
+    backward 12 times a step; the fitted model scoring through the flash
+    kernel and round-tripping save -> load bitwise."""
+    import tempfile
+
+    from synapseml_torch.models.convert_hf import pretrained_text_classifier
+
+    d = ck.get("bert_base", _bert_checkpoint, seed=11)
+    _, init = ck.timed_load("bert_base", lambda p: pretrained_text_classifier(p, num_classes=2),
+                            device)
+    tok = HashingTokenizer(vocab_size=CK_BERT["vocab_size"])
+    df = DataFrame.from_rows(_labelled_texts(CK_FIT_ROWS, seed=7), num_partitions=2)
+    kw = dict(num_classes=2, batch_size=FT_BATCH, max_token_len=FT_LEN, max_steps=CK_FIT_STEPS,
+              learning_rate=FT_LR, seed=0, attn_impl="flash", tokenizer=tok.to_config(),
+              device=str(device))
+
+    def fit(checkpoint):
+        before = _flash_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = DeepTextClassifier(checkpoint=checkpoint, **kw).fit(df)
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        after = _flash_counts()
+        return model, s, {k: after[k]["bf16"] - before[k]["bf16"] for k in after}
+
+    model, fit_s, fit_launches = fit(d)
+    layers = model.get("arch_config").n_layers  # one flash call a layer a step
+    (metrics,) = model.get("train_metrics")
+    params = model.get("model_params")
+    moved = sum(not np.array_equal(params[k], init[k]) for k in params)
+    log(f"[ckpt] (b) DeepTextClassifier(checkpoint=<BERT-base dir>, attn_impl='flash') graph fit "
+        f"of {CK_FIT_STEPS} steps at batch {FT_BATCH} x {FT_LEN}: {fit_s:.2f} s host clock "
+        f"({CK_FIT_STEPS * FT_BATCH / fit_s:.1f} samples/s, capture and warm-up included), "
+        f"train_metrics {json.dumps(metrics)}; parameters moved {moved} of {len(params)}; "
+        f"flash launches in the fit {fit_launches} (want {layers * CK_FIT_STEPS} each) | {card}")
+    if not (np.isfinite(metrics["loss"]) and metrics["step"] == CK_FIT_STEPS
+            and moved == len(params)
+            and fit_launches == {"fwd": layers * CK_FIT_STEPS, "bwd": layers * CK_FIT_STEPS}
+            and model.get("arch_config") == dataclasses.replace(
+                bert_base(vocab_size=CK_BERT["vocab_size"]), attn_impl="flash")):
+        raise AssertionError("main path 7 (b): the checkpoint fit failed its checks")
+
+    # the preset path given the same mapped initial state_dict
+    orig = text_stage._init_params
+    text_stage._init_params = lambda cfg, num_classes, seed: init
+    try:
+        preset, _, _ = fit("bert-base")
+        differ = [k for k in params if not np.array_equal(params[k], preset.get("model_params")[k])]
+        spread = []
+        if differ:  # where two preset fits already differ, held within TOL_SPREAD
+            again, _, _ = fit("bert-base")
+            spread = _graph_against_eager(params, preset.get("model_params"),
+                                          again.get("model_params"),
+                                          "[ckpt] (b) checkpoint fit against the preset fit:")
+    finally:
+        text_stage._init_params = orig
+    log(f"[ckpt] (b) the checkpoint fit against the preset path's fit from the same mapped "
+        f"init: {len(params) - len(differ)} of {len(params)} parameters bitwise equal "
+        f"(differing {differ or 'none'}; two preset fits differ on {spread or 'none'})")
+
+    score_df = DataFrame.from_rows(_labelled_texts(CK_SCORE_ROWS, seed=8), num_partitions=2)
+    batches = sum(len(list(cb.default_bucketer().slices(len(p["text"]), FT_BATCH)))
+                  for p in score_df.partitions)
+    before = _flash_counts()["fwd"]["bf16"]
+    scores = np.stack(list(model.transform(score_df).collect_column("scores")))
+    score_launches = _flash_counts()["fwd"]["bf16"] - before
+    with tempfile.TemporaryDirectory(dir=ck.root) as tmp:
+        model.save(os.path.join(tmp, "m"))
+        loaded = DeepTextModel.load(os.path.join(tmp, "m"))
+        again = np.stack(list(loaded.transform(score_df).collect_column("scores")))
+    same = np.array_equal(scores, again)
+    log(f"[ckpt] (b) the fitted model scores {len(scores)} texts through the flash kernel: "
+        f"{score_launches} forward launches (want {layers * batches}: {layers} a batch of "
+        f"{batches}); "
+        f"a save -> load round trip bitwise: {same} | {card}")
+    if not (score_launches == layers * batches and same and np.isfinite(scores).all()):
+        raise AssertionError("main path 7 (b): the fitted model's scoring failed its checks")
+    del model, preset, loaded
+    _free_card()
+    return {"fit_s": fit_s, "samples_s": CK_FIT_STEPS * FT_BATCH / fit_s, "spread": spread}
+
+
+def _ckpt_embedder(ck: _Checkpoints, device, card: str) -> dict:
+    """(e) HuggingFaceSentenceEmbedder(model_name=<BERT-base dir>), f32
+    (TF32 off): a second transform bitwise the first, one CompiledCache
+    callable a (bucket, seq_len) and none on the repeat, CK_EMBED_CPU rows
+    on the card within CK_EMBED_TOL of the port on the CPU."""
+    from synapseml_torch.hf import HuggingFaceSentenceEmbedder
+
+    d = ck.get("bert_base", _bert_checkpoint, seed=11)
+    tok = HashingTokenizer(vocab_size=CK_BERT["vocab_size"])
+    texts = [r["text"] for r in _labelled_texts(CK_EMBED_ROWS, seed=9, n_words=(5, 150))]
+    half = CK_EMBED_ROWS // 2 + 7
+    df = DataFrame([{"text": np.asarray(texts[:half], dtype=object)},
+                    {"text": np.asarray(texts[half:], dtype=object)}])
+    kw = dict(model_name=d, tokenizer=tok.to_config(), batch_size=FT_BATCH, max_token_len=FT_LEN)
+    stage = HuggingFaceSentenceEmbedder(**kw, device=str(device))
+    cache = cb.get_compiled_cache()
+    m0 = cache.miss_count("hf_embedder")
+    t0 = time.perf_counter()
+    first = np.stack(list(stage.transform(df).collect_column("embeddings")))
+    first_s = time.perf_counter() - t0
+    m1 = cache.miss_count("hf_embedder") - m0
+    t0 = time.perf_counter()
+    second = np.stack(list(stage.transform(df).collect_column("embeddings")))
+    second_s = time.perf_counter() - t0
+    m2 = cache.miss_count("hf_embedder") - m0 - m1
+    keys = {(b, np.asarray(tok(list(p["text"]), max_len=FT_LEN)["input_ids"]).shape[1])
+            for p in df.partitions for *_, b in cb.default_bucketer().slices(len(p["text"]),
+                                                                             FT_BATCH)}
+    small = DataFrame.from_dict({"text": np.asarray(texts[:CK_EMBED_CPU], dtype=object)})
+    cpu = np.stack(list(HuggingFaceSentenceEmbedder(**kw, device="cpu").transform(small)
+                        .collect_column("embeddings")))
+    err = float(np.abs(cpu - first[:CK_EMBED_CPU]).max())
+    same = np.array_equal(first, second)
+    log(f"[ckpt] (e) HuggingFaceSentenceEmbedder(model_name=<BERT-base dir>) f32, mean pooling: "
+        f"{len(first)} texts, {first_s:.3f} s first (load included), {second_s:.3f} s second = "
+        f"{len(first) / second_s:.1f} rows/s (host clock); a second transform bitwise the first: "
+        f"{same}; CompiledCache misses {m1:g} then {m2:g} (want {len(keys)} then 0); "
+        f"{CK_EMBED_CPU} rows against the CPU: max|d| {err:.3e} (limit {CK_EMBED_TOL}) | {card}")
+    if not (same and m1 == len(keys) and m2 == 0 and err <= CK_EMBED_TOL
+            and first.shape == (CK_EMBED_ROWS, CK_BERT["hidden_size"])
+            and np.isfinite(first).all()):
+        raise AssertionError("main path 7 (e): the embedder failed its checks")
+    del stage
+    _free_card()
+    return {"rows_s": len(first) / second_s, "err": err}
+
+
+def _ckpt_vision(ck: _Checkpoints, device, card: str) -> dict:
+    """(c) DeepVisionClassifier from the ViT-B/16 and ResNet-50 directories:
+    before fitting, the module the directory's arch_spec builds against the
+    preset module on the same mapped weights, f32 logits (TF32 off) within
+    CK_VISION_TOL; then the stage's graph fit of STAGE_STEPS steps (for the
+    ResNet from the checkpoint's BatchNorm statistics), and the fitted
+    model's scoring as main path 5 (c) holds it."""
+    from synapseml_torch.models.convert_hf import pretrained_vision
+    from synapseml_torch.models.nets.resnet import ResNet
+
+    rs = np.random.default_rng(3)
+    images = rs.standard_normal((STAGE_ROWS, VIT_HW, VIT_HW, 3), dtype=np.float32)
+    labels = rs.integers(0, VIT_CLASSES, STAGE_ROWS).astype(np.int32)
+    df = DataFrame.from_dict({"image": images, "label": labels}, num_partitions=2)
+    score_df = DataFrame([{"image": images[:STAGE_PARTS[0]]},
+                          {"image": images[STAGE_PARTS[0]:sum(STAGE_PARTS)]}])
+    out = {}
+    for name, make, seed in (("vit_b16", _vit_checkpoint, 21), ("resnet50", _resnet_checkpoint, 22)):
+        d = ck.get(name, make, seed)
+        kind, info, variables = ck.timed_load(
+            name, lambda p: pretrained_vision(p, num_classes=VIT_CLASSES), device)
+        state = {**variables["params"], **(variables.get("batch_stats") or {})}
+        if kind == "vit":
+            cfg = dataclasses.replace(info["cfg"], dtype=torch.float32)
+            loaded = ViTClassifier(cfg, VIT_CLASSES, patch=info["patch"])
+            preset = ViTClassifier(vit_b16(dtype=torch.float32, norm_eps=cfg.norm_eps),
+                                   VIT_CLASSES, patch=VIT_PATCH)
+            f32_spec = ("vit", {**info, "cfg": cfg})
+        else:
+            loaded = ResNet(num_classes=VIT_CLASSES, dtype=torch.float32, **info)
+            preset = resnet50(num_classes=VIT_CLASSES, dtype=torch.float32)
+            f32_spec = ("resnet", {**info, "dtype": torch.float32})
+        x = torch.from_numpy(images[:8]).to(device)
+        logits = []
+        for module in (loaded, preset):
+            module.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+            with torch.no_grad():
+                logits.append(module.to(device).eval()(x=x).cpu().numpy())
+        err = float(np.abs(logits[0] - logits[1]).max())
+        log(f"[ckpt] (c) {name} directory ({kind}): the module its arch_spec builds against the "
+            f"{name} preset on the mapped weights, f32 logits of 8 images: max|d| {err:.3e} "
+            f"(limit {CK_VISION_TOL}; logits' scale {np.abs(logits[1]).max():.3e})")
+        if err > CK_VISION_TOL:
+            raise AssertionError(f"main path 7 (c): the {name} directory's module disagrees")
+        del loaded, preset, x
+        stage = DeepVisionClassifier(backbone=d, num_classes=VIT_CLASSES, batch_size=STAGE_BATCH,
+                                     max_steps=STAGE_STEPS, learning_rate=1e-4, seed=0,
+                                     device=str(device))
+        misses0 = cb.get_compiled_cache().miss_count("train_steps_scan")
+        before = _flash_counts()
+        t0 = time.perf_counter()
+        model = stage.fit(df)
+        fit_s = time.perf_counter() - t0
+        captures = cb.get_compiled_cache().miss_count("train_steps_scan") - misses0
+        (metrics,) = model.get("train_metrics")
+        params, stats = model.get("model_params"), model.get("batch_stats")
+        still = [k for k in params if np.array_equal(params[k], variables["params"][k])]
+        moved = (sum(not np.array_equal(stats[k], variables["batch_stats"][k]) for k in stats)
+                 if stats is not None else 0)
+        flash = _flash_counts() != before
+        log(f"[ckpt] (c) DeepVisionClassifier(backbone=<{name} dir>) graph fit of {STAGE_STEPS} "
+            f"steps at batch {STAGE_BATCH}: {fit_s:.2f} s host clock ({STAGE_STEPS * STAGE_BATCH / fit_s:.1f} "
+            f"images/s), train_metrics {json.dumps(metrics)}, captures {captures:g} (want 1), "
+            f"parameters that did not move: {still or 'none'}, running statistics moved from the "
+            f"checkpoint's: {moved} of {len(stats or {})}; flash launched: {flash} (want no: "
+            f"einsum) | {card}")
+        if (not np.isfinite(metrics["loss"]) or metrics["step"] != STAGE_STEPS or still
+                or captures != 1 or flash or model.get("arch_spec")[0] != kind
+                or (stats is not None and moved != len(stats))):
+            raise AssertionError(f"main path 7 (c): the {name} directory's fit failed its checks")
+        _score_vision_model(model, score_df, card, f"{name} directory",
+                            f32_params={"arch_spec": f32_spec})
+        out[name] = {"fit_s": fit_s, "logit_err": err}
+        del model, stage
+        _free_card()
+    return out
+
+
+def _ckpt_llm(ck: _Checkpoints, device, card: str) -> dict:
+    """(d) HuggingFaceCausalLM from the Llama directory (full width, depth
+    cut, F16 in two shards), dense and paged, and from the GPT-2 directory
+    (dense; the paged engine takes the RoPE family only, in both packages):
+    bf16 transforms twice, bitwise; f32 (TF32 off) card tokens against the
+    CPU's under the margin rule. The Llama load's host memory is read."""
+    from synapseml_torch.hf import HuggingFaceCausalLM
+    from synapseml_torch.hf.causal_lm import load_llama
+    from synapseml_torch.models.convert_hf import pretrained_causal_lm
+    from synapseml_torch.models.nets.llama import generate
+    from synapseml_torch.models.paged_engine import PagedDecodeEngine
+
+    out = {}
+    texts = _llm_texts(LLM_ROWS, seed=4)
+    df = DataFrame.from_dict({"prompt": np.asarray(texts, dtype=object)}, num_partitions=LLM_PARTS)
+    useful = LLM_ROWS * LLM_NEW
+    for name, make, seed, shards, vocab in (
+            ("llama", _llama_checkpoint, 31, 2, CK_LLAMA["vocab_size"]),
+            ("gpt2", _gpt2_checkpoint, 32, 1, CK_GPT2["vocab_size"])):
+        d = ck.get(name, make, seed, shards)
+        if name == "llama":  # the load's host memory: the mapped files, cast on the card
+            _free_card()
+            gc.collect()
+            with _PeakRss() as rss:
+                t0 = time.perf_counter()
+                cfg, sd = pretrained_causal_lm(d)
+                model = load_llama(cfg, sd, device)
+                torch.cuda.synchronize()
+                load_s = time.perf_counter() - t0
+                sd_gb = sum(v.nbytes for v in sd.values()) / 2 ** 30
+                del model, sd
+                gc.collect()
+            log(f"[ckpt] (d) Llama directory through pretrained_causal_lm + load_llama: "
+                f"{load_s:.3f} s (the files in the page cache); host RSS {rss.before:.2f} GiB "
+                f"before, peak {rss.peak:.2f} GiB (+{rss.peak - rss.before:.2f} GiB against the "
+                f"mapped files' {ck.bytes[name] / 2 ** 30:.2f} GiB, the mapped state_dict's "
+                f"{sd_gb:.2f}), {rss.after:.2f} GiB after | {card}")
+            out["rss_peak_gib"], out["rss_delta_gib"] = rss.peak, rss.peak - rss.before
+            _free_card()
+        ck.timed_load(name, pretrained_causal_lm, device)
+        tok = HashingTokenizer(vocab_size=vocab)
+        kw = dict(model_name=d, tokenizer=tok.to_config(), batch_size=LLM_BATCH,
+                  prompt_bucket=LLM_BUCKET, max_new_tokens=LLM_NEW, device=str(device))
+        runs = {}
+        for engine in ("dense", "paged"):
+            stage = HuggingFaceCausalLM(**kw, engine=engine)
+            if name == "gpt2" and engine == "paged":
+                try:
+                    stage.transform(df)
+                    refused = None
+                except ValueError as e:
+                    refused = str(e)
+                stage.release()
+                log(f"[ckpt] (d) gpt2 paged: refused ({refused}), as the JAX engine refuses it")
+                if not (refused and "paged engine supports" in refused):
+                    raise AssertionError("main path 7 (d): the paged engine took GPT-2")
+                continue
+            t0 = time.perf_counter()
+            first = _completions(stage.transform(df))
+            first_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            second = _completions(stage.transform(df))
+            second_s = time.perf_counter() - t0
+            runs[engine] = first
+            same = first == second
+            log(f"[ckpt] (d) {name} {engine} bf16: {LLM_ROWS} prompts x {LLM_NEW} tokens, "
+                f"{first_s:.3f} s first (load included), {second_s:.3f} s second = "
+                f"{useful / second_s:.1f} tokens/s (host clock); second bitwise the first: {same} "
+                f"| {card}")
+            if not (same and all(len(r) == LLM_NEW for r in first)):
+                raise AssertionError(f"main path 7 (d): {name} {engine} is not repeatable")
+            out[f"{name}_{engine}_tokens_s"] = useful / second_s
+            stage.release()
+            del stage
+            _free_card()
+        if "paged" in runs:
+            eq = sum(x == y for a, b in zip(runs["dense"], runs["paged"]) for x, y in zip(a, b))
+            log(f"[ckpt] (d) {name} bf16 dense against paged: {eq} of {useful} tokens equal "
+                f"(a report: bf16 may flip a near-tie)")
+        # f32, TF32 off: the card against the port on the CPU
+        cfg32, sd = pretrained_causal_lm(d, dtype=torch.float32)
+        rs = np.random.default_rng(seed)
+        prompts = [rs.integers(2, vocab, (n,)).tolist() for n in CK_LLM_LENS]
+        P = cb.default_bucketer().seq_bucket_for(max(CK_LLM_LENS))
+        gen, models = {}, {}
+        for where, dev in (("card", str(device)), ("cpu", "cpu")):
+            models[where] = m = load_llama(cfg32, sd, dev)
+            ids, mask = _llm_ids(prompts, P, dev)
+            t0 = time.perf_counter()
+            gen[where, "dense"] = [r.tolist() for r in generate(
+                m, ids, CK_LLM_NEW, prompt_mask=mask).cpu().numpy()[:, P:]]
+            gen_s = time.perf_counter() - t0
+            log(f"[ckpt] (d) {name} f32 dense generate on the {where}: {gen_s:.3f} s")
+        if name == "llama":
+            eng = PagedDecodeEngine(models["card"], block_len=LLM_BLOCK, max_slots=len(prompts))
+            gen["card", "paged"] = eng.generate(prompts, CK_LLM_NEW)
+            eng.release()
+        m_cpu = _teacher_margins(models["cpu"], prompts, gen["cpu", "dense"])
+        compared = {}
+        for (where, engine), toks in gen.items():
+            if where == "cpu":
+                continue
+            m_card = _teacher_margins(models[where], prompts, toks)
+            compared[engine] = _margin_rule(gen["cpu", "dense"], toks, m_cpu, m_card,
+                                            f"{name} f32 {engine} on the card against the CPU")
+        log(f"[ckpt] (d) {name} f32, the card against the CPU: tokens compared {compared} "
+            f"(need >= {LLM_MIN_COMPARED} each) | {card}")
+        if min(compared.values()) < LLM_MIN_COMPARED:
+            raise AssertionError(f"main path 7 (d): too few {name} f32 tokens compared")
+        out[f"{name}_f32_compared"] = compared
+        del models, sd
+        _free_card()
+    return out
+
+
+def phase_pretrained(device, card: str) -> dict:
+    """Main path 7: HuggingFace checkpoint directories written here (seeded),
+    through (a) the reader and its refusals, (b) DeepTextClassifier's
+    checkpoint fit and scoring through the flash kernels, (e) the sentence
+    embedder, (c) the vision stages, (d) HuggingFaceCausalLM; the flash
+    launches counted from 0 just before the path and read after it."""
+    t_start = time.perf_counter()
+    _zero_port_kernel_counts()
+    ck = _Checkpoints(card)
+    out = {}
+    try:
+        out["text"] = _ckpt_text(ck, device, card)
+        log(f"[ckpt] (b) done at {time.perf_counter() - t_start:.1f} s")
+        out["embed"] = _ckpt_embedder(ck, device, card)
+        log(f"[ckpt] (e) done at {time.perf_counter() - t_start:.1f} s")
+        out["vision"] = _ckpt_vision(ck, device, card)
+        log(f"[ckpt] (c) done at {time.perf_counter() - t_start:.1f} s")
+        out["llm"] = _ckpt_llm(ck, device, card)
+        log(f"[ckpt] (d) done at {time.perf_counter() - t_start:.1f} s")
+        _ckpt_reader_refusals(ck, device)
+    finally:
+        ck.close()
+    counts = _port_kernel_counts()
+    flash = _flash_counts()
+    log(f"[ckpt] the port's kernels launched on main path 7: {counts}; loads "
+        f"{json.dumps({k: {m: round(v, 3) for m, v in x.items()} for k, x in ck.loads.items()})}")
+    if counts["gbdt_hist"] or counts["gbdt_hist_scale"] or not counts["flash_fwd"]:
+        raise AssertionError(f"main path 7 launched other kernels than the flash ones, or no "
+                             f"flash forward: {counts}")
+    out["launches"], out["bwd_launches"] = flash["fwd"], flash["bwd"]
+    out["loads"] = ck.loads
+    out["seconds"] = time.perf_counter() - t_start
+    log(f"[ckpt] main path 7: {out['seconds']:.1f} s of the script's clock")
+    return out
+
+
 def main() -> None:
     t0 = time.perf_counter()
 
@@ -3740,12 +4516,15 @@ def main() -> None:
     done("main path 5 (c), the vision stages")
     phase_llm(device, card)
     done("main path 6, Llama-2-7B batch inference")
+    pretrained = phase_pretrained(device, card)
+    done("main path 7, pretrained checkpoint directories")
     # the flash kernels' launches on the paths, each counted from 0 just
     # before it ran: scoring (path 1), fine-tuning through flash and both
     # fitted models' scoring (path 3), bert-tiny f32 through flash on the
     # card, the long-T flash steps in bf16 and in f32, and ViT-B/16
-    # fine-tuning through flash (path 5)
-    paths = (train, vit, {"launches": tiny["fwd"], "bwd_launches": tiny["bwd"]},
+    # fine-tuning through flash (path 5), and the checkpoint fit and its
+    # model's scoring (path 7)
+    paths = (train, vit, pretrained, {"launches": tiny["fwd"], "bwd_launches": tiny["bwd"]},
              *({"launches": long_t[tag]["launches"]["fwd"],
                 "bwd_launches": long_t[tag]["launches"]["bwd"]} for tag in ("flash", "flash f32")))
     launches = {k: v + sum(p["launches"][k] for p in paths)

@@ -1,11 +1,13 @@
-"""HuggingFace-style LLM transformers: batch causal-LM generation as a
-DataFrame transformer.
+"""HuggingFace-style transformers: batch causal-LM generation and sentence
+embeddings as DataFrame transformers.
 
 Counterpart of ``synapseml_tpu/hf/``: :class:`HuggingFaceCausalLM` with the
-dense and paged decode engines. ``HuggingFaceSentenceEmbedder``
-(``hf/embedder.py`` there) is not ported yet (ROADMAP.md queue A item 8).
+dense and paged decode engines, and :class:`HuggingFaceSentenceEmbedder`
+(``hf/embedder.py`` there). Both take a preset or a local HuggingFace
+checkpoint directory.
 """
 
 from .causal_lm import HuggingFaceCausalLM
+from .embedder import HuggingFaceSentenceEmbedder
 
-__all__ = ["HuggingFaceCausalLM"]
+__all__ = ["HuggingFaceCausalLM", "HuggingFaceSentenceEmbedder"]

@@ -3,8 +3,9 @@
 Counterpart of ``synapseml_tpu/hf/causal_lm.py`` (reference
 ``hf/HuggingFaceCausalLMTransform.py:103-331``), with the same Params and
 defaults plus ``device``: prompts (or chat message lists) -> tokenize ->
-pad to a prompt bucket -> prefill + decode -> completions (token ids with
-the hashing tokenizer, which cannot decode). ``engine="dense"`` runs
+pad to a prompt bucket -> prefill + decode -> completions (text with a
+``transformers`` tokenizer, token ids with the hashing tokenizer, which
+cannot decode). ``engine="dense"`` runs
 :func:`..models.nets.llama.generate` (a KV cache of ``max_len`` slots,
 early EOS exit) a batch bucket at a time; ``engine="paged"`` runs the
 token-granular :class:`..models.paged_engine.PagedDecodeEngine`, where
@@ -12,10 +13,14 @@ early-EOS rows free their pages and slots mid-batch. Greedy output is
 token-identical between them in f32.
 
 The model is built once a stage, on ``device`` (default ``"cuda"``; a host
-without a card must ask for ``"cpu"``): ``model_params`` is this package's
-``LlamaLM`` state_dict (tensors or numpy arrays; ``convert_jax.
-llama_state_dict_from_flax`` maps a Flax tree), or None for
-``init_llama_params(seed=0)``. Tensors already on the device in the
+without a card must ask for ``"cpu"``). ``model_name`` is a preset or a
+local HuggingFace checkpoint directory (Llama, Mistral or GPT-2:
+:func:`..models.convert_hf.pretrained_causal_lm`, with the directory's
+tokenizer unless ``tokenizer`` is given); ``drafter_ref`` takes either too.
+``model_params`` is this package's ``LlamaLM`` state_dict (tensors or
+numpy arrays; ``convert_jax.llama_state_dict_from_flax`` maps a Flax
+tree); None means the directory's weights, or ``init_llama_params(seed=0)``
+for a preset. Tensors already on the device in the
 parameter dtype are used as they are, not copied. The decoder's dense
 weights are cast to the compute dtype in place, once, when the model
 loads, and the dense path and every engine share them. Callables come through
@@ -23,14 +28,11 @@ loads, and the dense path and every engine share them. Callables come through
 ``llama_paged_*``) and run eagerly.
 
 Not ported yet, each refused with ``NotImplementedError`` naming its
-``ROADMAP.md`` item: ``mesh_config`` / ``partition_rules`` (9), a local
-checkpoint directory as ``model_name`` or ``drafter_ref`` and a
-``transformers`` tokenizer (4), ``serving_engine()`` / ``serve_llm`` (10).
+``ROADMAP.md`` item: ``mesh_config`` / ``partition_rules`` (9), a Mixtral
+checkpoint (8), ``serving_engine()`` / ``serve_llm`` (10).
 """
 
 from __future__ import annotations
-
-import os
 
 import numpy as np
 import torch
@@ -41,9 +43,9 @@ from ..core.dataframe import DataFrame
 from ..core.device import device_type, resolve_device
 from ..core.params import ComplexParam, Param, TypeConverters
 from ..core.pipeline import Transformer
+from ..models.convert_hf import pretrained_causal_lm, resolve_model_source
 from ..models.convert_jax import init_llama_params
 from ..models.nets.llama import LlamaLM, fold_in, generate, llama2_7b, llama_tiny
-from ..models.tokenizer import HashingTokenizer, resolve_tokenizer
 
 __all__ = ["HuggingFaceCausalLM", "default_chat_template", "load_llama"]
 
@@ -61,21 +63,6 @@ def default_chat_template(messages) -> str:
     return "\n".join(parts) + "\n<|assistant|>\n"
 
 
-def _resolve_model_source(name, tokenizer_spec):
-    """The preset branch of the JAX ``convert_hf.resolve_model_source``:
-    ``(cfg, tokenizer)``, the vocab taken from the tokenizer."""
-    if name in _ARCHS:
-        if not (tokenizer_spec is None or isinstance(tokenizer_spec, (HashingTokenizer, dict))):
-            raise _unported(f"the tokenizer {tokenizer_spec!r} (transformers)",
-                            "4 (the HuggingFace tokenizer adapter)")
-        tok = resolve_tokenizer(tokenizer_spec)
-        return _ARCHS[name](vocab_size=tok.vocab_size), tok
-    if isinstance(name, (str, os.PathLike)) and os.path.isdir(str(name)):
-        raise _unported("a local checkpoint directory", "4 (convert_hf)")
-    raise ValueError(f"unknown model_name {name!r}; presets: {sorted(_ARCHS)} "
-                     f"or a local HF checkpoint dir")
-
-
 def load_llama(cfg, state_dict: dict, device) -> LlamaLM:
     """A :class:`LlamaLM` on ``device`` for inference, holding
     ``state_dict`` (tensors already there in ``cfg.param_dtype`` are
@@ -83,11 +70,12 @@ def load_llama(cfg, state_dict: dict, device) -> LlamaLM:
     to ``cfg.dtype`` in place, once: ``dense``'s per-call cast becomes a
     no-op, bitwise the same, and the ``state_dict`` given keeps its own
     tensors. The embedding, the norms and the f32 ``lm_head`` stay in
-    ``cfg.param_dtype``."""
+    ``cfg.param_dtype``. A tensor of another dtype (an F16 checkpoint's)
+    moves first and is cast on ``device``."""
     with torch.device("meta"):
         model = LlamaLM(cfg)
     state = {k: (torch.from_numpy(np.array(v)) if not isinstance(v, torch.Tensor) else v)
-             .to(device=device, dtype=cfg.param_dtype) for k, v in state_dict.items()}
+             .to(device).to(cfg.param_dtype) for k, v in state_dict.items()}
     model.load_state_dict(state, assign=True)
     for layer in model.decoder.modules():
         if isinstance(layer, nn.Linear):
@@ -156,7 +144,8 @@ class HuggingFaceCausalLM(Transformer):
                          converter=TypeConverters.to_int)
     drafter_ref = Param("drafter_ref", "paged engine: who drafts when draft_tokens > 0 "
                         "— None/'self' early exit at half the layers, 'self:<n>' at "
-                        "layer n, or an architecture preset", default=None)
+                        "layer n, or an architecture preset or local checkpoint dir",
+                        default=None)
     device = Param("device", "torch device: 'cuda' (default), 'cuda:N' or 'cpu'",
                    default="cuda", converter=TypeConverters.to_string,
                    validator=lambda v: device_type(v) in ("cuda", "cpu"))
@@ -188,8 +177,13 @@ class HuggingFaceCausalLM(Transformer):
             if self.get("mesh_config") is not None or self.get("partition_rules") is not None:
                 raise _unported("mesh_config / partition_rules", "9 (multi-GPU)")
             device = resolve_device("HuggingFaceCausalLM", self.get("device"))
-            cfg, tok = _resolve_model_source(self.get("model_name"), self.get("tokenizer"))
+            # a checkpoint directory or a preset (the reference's
+            # AutoModelForCausalLM.from_pretrained path)
+            cfg, loaded, tok = resolve_model_source(self.get("model_name"), _ARCHS,
+                                                    self.get("tokenizer"), pretrained_causal_lm)
             params = self.get("model_params")
+            if params is None:
+                params = loaded
             if params is None:
                 params = init_llama_params(cfg, seed=0, device=device)
             self.__dict__["_cache_model"] = (load_llama(cfg, params, device), tok)
@@ -249,9 +243,11 @@ class HuggingFaceCausalLM(Transformer):
         if isinstance(ref, str) and ref.startswith("self:"):
             return int(ref.split(":", 1)[1]), None
         model, _tok = self._model_and_tokenizer()
-        d_cfg, _ = _resolve_model_source(ref, self.get("tokenizer"))
-        return None, load_llama(d_cfg, init_llama_params(d_cfg, seed=1, device=model.device),
-                                model.device)
+        d_cfg, d_params, _ = resolve_model_source(ref, _ARCHS, self.get("tokenizer"),
+                                                  pretrained_causal_lm)
+        if d_params is None:
+            d_params = init_llama_params(d_cfg, seed=1, device=model.device)
+        return None, load_llama(d_cfg, d_params, model.device)
 
     def _paged_engine(self, eff: dict):
         """The stage's paged engine for one sampling config (greedy shares

@@ -9,13 +9,18 @@ tenth of the steps, then linear decay; AdamW; ``unfreeze_layers`` freezes
 all but the last N encoder layers and the head) at its default
 ``scan_chunk`` of 8, as the reference does: on the card, chunks of 8 steps
 run as captured CUDA graphs (``Trainer.train_steps_scan``), and returns a
-``DeepTextModel`` holding the fitted ``state_dict`` and the trainer's
-``train_metrics``. The initial weights come from ``_init_params``: the JAX
-package's initialisers drawn with numpy from ``seed``
-(:func:`..convert_jax.init_flax_bert_params`), the same distribution, not
-the same bits, as ``jax.random.PRNGKey(seed)``. Training runs either
-attention: ``attn_impl='flash'`` goes through the flash forward and
-backward kernels.
+``DeepTextModel`` holding the fitted ``state_dict``, the architecture it
+was trained as and the trainer's ``train_metrics``. ``checkpoint`` is a
+preset or a local HuggingFace checkpoint directory (``:117-137`` there):
+a directory gives the architecture and the pretrained initial weights
+(:func:`..convert_hf.pretrained_text_classifier`, a missing or mis-sized
+head seeded as the JAX mapping seeds it) and its own tokenizer unless
+``tokenizer`` is given. A preset's initial weights come from
+``_init_params``: the JAX package's initialisers drawn with numpy from
+``seed`` (:func:`..convert_jax.init_flax_bert_params`), the same
+distribution, not the same bits, as ``jax.random.PRNGKey(seed)``. Training
+runs either attention: ``attn_impl='flash'`` goes through the flash
+forward and backward kernels.
 
 ``DeepTextModel`` keeps the JAX stage's per-partition loop (tokenize,
 ``ShapeBucketer.slices``, ``pad_rows``, forward, softmax, ``unpad_rows``),
@@ -28,14 +33,13 @@ device must ask for ``"cpu"``). ``model_params`` is this package's
 ``state_dict`` as numpy arrays; :func:`..convert_jax.bert_state_dict_from_flax`
 maps a JAX model's Flax tree to it. Not ported yet, each refused with
 ``NotImplementedError`` naming its ``ROADMAP.md`` item: training
-checkpoints (``checkpoint_dir``), ``mesh_config``, ``ring``/``ulysses``
-attention, and a local HuggingFace checkpoint directory.
+checkpoints (``checkpoint_dir``), ``mesh_config`` and ``ring``/``ulysses``
+attention.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import os
 
 import numpy as np
 import torch
@@ -44,12 +48,14 @@ from ..core import DataFrame, Estimator, Model
 from ..core import batching as cb
 from ..core.device import device_type, resolve_device
 from ..core.params import ComplexParam, Param, TypeConverters
+from .convert_hf import (is_checkpoint_dir, legacy_prenorm_fixup, pretrained_text_classifier,
+                         tokenizer_for_checkpoint)
 from .convert_jax import bert_state_dict_from_flax, init_flax_bert_params
 from .nets.bert import BertClassifier, bert_base, bert_tiny
 from .tokenizer import resolve_tokenizer
 from .trainer import Trainer, TrainerConfig, fit_arrays, plan_fit
 
-__all__ = ["DeepTextClassifier", "DeepTextModel", "legacy_prenorm_fixup"]
+__all__ = ["DeepTextClassifier", "DeepTextModel"]
 
 _ARCHS = {"bert-base": bert_base, "bert-tiny": bert_tiny}
 
@@ -61,7 +67,8 @@ def _resolve_arch(name: str):
         return _ARCHS[name]
     except KeyError:
         raise ValueError(f"unknown checkpoint {name!r}; available presets: "
-                         f"{sorted(_ARCHS)}") from None
+                         f"{sorted(_ARCHS)} (or pass a local HF checkpoint "
+                         f"directory for pretrained weights)") from None
 
 
 def _init_params(cfg, num_classes: int, seed: int) -> dict:
@@ -75,22 +82,13 @@ def _unported(what: str, item: str) -> NotImplementedError:
                                f"synapseml_torch yet: ROADMAP.md queue A item {item}")
 
 
-def legacy_prenorm_fixup(cfg, state_dict):
-    """Saved artifacts from before the BERT post-norm change carry pre-norm
-    param layouts (an encoder-level final norm) with no arch_config; rebuild
-    the architecture they were trained as instead of silently mis-evaluating."""
-    if cfg.norm_position == "post" and "encoder.norm.weight" in state_dict:
-        return dataclasses.replace(cfg, norm_position="pre", norm_eps=1e-6,
-                                   act="gelu_tanh")
-    return cfg
-
-
 class _TextParams:
     text_col = Param("text_col", "input text column", default="text")
     label_col = Param("label_col", "label column", default="label")
     prediction_col = Param("prediction_col", "argmax output column", default="prediction")
     scores_col = Param("scores_col", "softmax scores output column", default="scores")
-    checkpoint = Param("checkpoint", "architecture preset", default="bert-tiny")
+    checkpoint = Param("checkpoint", "architecture preset or HF checkpoint name",
+                       default="bert-tiny")
     num_classes = Param("num_classes", "number of classes", default=2,
                         converter=TypeConverters.to_int)
     max_token_len = Param("max_token_len", "max sequence length (reference default 128)",
@@ -159,9 +157,6 @@ class DeepTextClassifier(Estimator, _TextParams):
         return frozen
 
     def _refuse_unported(self) -> None:
-        ck = self.get("checkpoint")
-        if isinstance(ck, (str, os.PathLike)) and os.path.isdir(str(ck)):
-            raise _unported("a local HuggingFace checkpoint directory", "4 (convert_hf)")
         if self.get("checkpoint_dir"):
             raise _unported("checkpoint_dir", "9 (parallel/checkpoint.py)")
         if self.get("mesh_config") is not None:
@@ -176,11 +171,20 @@ class DeepTextClassifier(Estimator, _TextParams):
         stage's ``fit_arrays`` call (its default ``scan_chunk``)."""
         self._refuse_unported()
         device = resolve_device("DeepTextClassifier", self.get("device"))
-        tok = resolve_tokenizer(self.get("tokenizer"))
-        cfg = self._make_config(tok.vocab_size)
+        ck, num_classes = self.get("checkpoint"), self.get("num_classes")
+        if is_checkpoint_dir(ck):
+            # a local HF checkpoint directory: pretrained weights and its
+            # tokenizer (the reference's AutoModelForSequenceClassification
+            # transfer-learning path, dl/DeepTextClassifier.py:27-288)
+            cfg, init = pretrained_text_classifier(ck, num_classes=num_classes,
+                                                   seed=self.get("seed"))
+            tok = tokenizer_for_checkpoint(self.get("tokenizer"), ck, cfg.vocab_size)
+        else:
+            tok = resolve_tokenizer(self.get("tokenizer"))
+            cfg = self._make_config(tok.vocab_size)
+            init = _init_params(cfg, num_classes, self.get("seed"))
         if self.get("attn_impl"):
             cfg = dataclasses.replace(cfg, attn_impl=self.get("attn_impl"))
-        num_classes = self.get("num_classes")
         with torch.device("meta"):
             module = BertClassifier(cfg, num_classes=num_classes)
         module = module.to_empty(device="cpu")
@@ -200,8 +204,7 @@ class DeepTextClassifier(Estimator, _TextParams):
             freeze_predicate=self._freeze_predicate(cfg.n_layers),
         )
         trainer = Trainer(module, tcfg, device=device)
-        kw = dict(batch_size=bs, total_steps=total, seed=self.get("seed"),
-                  init_params=_init_params(cfg, num_classes, self.get("seed")))
+        kw = dict(batch_size=bs, total_steps=total, seed=self.get("seed"), init_params=init)
         return trainer, data, kw, cfg, tok
 
     def _fit(self, df: DataFrame) -> "DeepTextModel":

@@ -1,9 +1,14 @@
 """Tokenizers for the text stages.
 
 Counterpart of ``synapseml_tpu/models/tokenizer.py``: the self-contained
-hashing tokenizer gives the same ids and masks for the same text. The
-HuggingFace adapter comes in a later slice; until then a HuggingFace
-tokenizer spec is refused with a clear error.
+hashing tokenizer gives the same ids and masks for the same text, and a
+``transformers`` tokenizer plugs in through :func:`from_huggingface` (a
+local checkpoint directory or a name in the local HuggingFace cache).
+
+``transformers`` is imported only inside :func:`from_huggingface`, and is
+asked for local files only: this package never downloads. On a host
+without it, a HuggingFace name ends in the same ``ValueError`` as a name
+that cannot be loaded.
 """
 
 from __future__ import annotations
@@ -14,9 +19,10 @@ from typing import Sequence
 
 import numpy as np
 
+from ..core.batching import round_up_to_multiple
 from ..parallel.batching import pad_sequences
 
-__all__ = ["HashingTokenizer", "resolve_tokenizer"]
+__all__ = ["HashingTokenizer", "from_huggingface", "resolve_tokenizer"]
 
 _WORD_RE = re.compile(r"[a-z0-9]+|[^\sa-z0-9]", re.IGNORECASE)
 
@@ -55,16 +61,50 @@ class HashingTokenizer:
         return HashingTokenizer(cfg["vocab_size"], cfg["lowercase"], cfg["add_cls"])
 
 
-def resolve_tokenizer(spec) -> HashingTokenizer:
-    """spec: None | HashingTokenizer | config dict."""
+class _HFTokenizerAdapter:
+    def __init__(self, tok, name: str):
+        self._tok = tok
+        self.name = name
+        self.vocab_size = tok.vocab_size
+
+    def __call__(self, texts, max_len: int = 128, multiple_of: int = 8):
+        L = round_up_to_multiple(max_len, multiple_of)
+        enc = self._tok(list(texts), padding="max_length", truncation=True, max_length=L,
+                        return_tensors="np")
+        return {"input_ids": enc["input_ids"].astype(np.int32),
+                "attention_mask": enc["attention_mask"].astype(np.int32)}
+
+    def decode(self, token_ids) -> str:
+        """Detokenize (the HF tokenizer can; the hashing one cannot): the
+        causal-LM transform probes for this."""
+        return self._tok.decode(list(token_ids), skip_special_tokens=True)
+
+    def to_config(self) -> dict:
+        return {"kind": "huggingface", "name": self.name}
+
+
+def from_huggingface(name: str) -> _HFTokenizerAdapter:
+    """``AutoTokenizer.from_pretrained(name)`` from local files only."""
+    from transformers import AutoTokenizer
+
+    return _HFTokenizerAdapter(AutoTokenizer.from_pretrained(name, local_files_only=True), name)
+
+
+def resolve_tokenizer(spec) -> HashingTokenizer | _HFTokenizerAdapter:
+    """spec: None | tokenizer obj | config dict | HF checkpoint dir or name."""
     if spec is None:
         return HashingTokenizer()
-    if isinstance(spec, HashingTokenizer):
+    if isinstance(spec, (HashingTokenizer, _HFTokenizerAdapter)):
         return spec
-    if isinstance(spec, dict) and spec.get("kind", "hashing") == "hashing":
+    if isinstance(spec, dict):
+        if spec.get("kind") == "huggingface":
+            return from_huggingface(spec["name"])
         return HashingTokenizer.from_config(spec)
-    if isinstance(spec, (dict, str)):
-        raise ValueError(f"tokenizer {spec!r}: only the hashing tokenizer is "
-                         "available in this package so far; pass None or a "
-                         "HashingTokenizer config")
+    if isinstance(spec, str):
+        try:
+            return from_huggingface(spec)
+        except Exception as e:
+            raise ValueError(
+                f"could not load HuggingFace tokenizer {spec!r} ({e}); pass "
+                "tokenizer=None for the self-contained HashingTokenizer") from e
     raise TypeError(f"cannot build tokenizer from {spec!r}")

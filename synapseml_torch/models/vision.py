@@ -5,13 +5,17 @@ same Param names, defaults and validators, plus ``device`` (default
 ``"cuda"``; a host without a CUDA device must ask for ``"cpu"``).
 
 ``DeepVisionClassifier`` fits a ViT (``vit_b16``, ``vit_tiny``) or a ResNet
-(``resnet50``, ``resnet18``, ``resnet_tiny``, the default) on an image
+(``resnet50``, ``resnet18``, ``resnet_tiny``, the default), or the
+architecture of a local HuggingFace checkpoint directory given as
+``backbone`` (``:93-107`` there; :func:`..convert_hf.pretrained_vision`:
+its weights, and for a ResNet its BatchNorm statistics, as the initial
+state, a missing or mis-sized head seeded as the JAX mapping seeds it), on an image
 column of ``[H, W, C]`` float arrays with :func:`..trainer.fit_arrays`
 (AdamW, linear warm-up over a tenth of the steps, then cosine decay) at its
 default ``scan_chunk`` of 8: on the card, chunks of 8 steps run as captured
 CUDA graphs. A ResNet trains with BatchNorm state (``has_batch_stats``):
 its running statistics update in the step and go to the model beside the
-weights. The initial weights come from ``_init_variables``: the JAX
+weights. A preset's initial weights come from ``_init_variables``: the JAX
 modules' initialisers drawn with numpy from ``seed``
 (:mod:`..convert_jax`), the same distribution, not the same bits, as
 ``jax.random.PRNGKey(seed)``.
@@ -22,17 +26,16 @@ statistics, softmax, ``unpad_rows``). Each (bucket, image shape) takes its
 callable from the process-wide ``CompiledCache`` under ``"deep_vision_model"``,
 keyed by the stage's ``instance_token``; the callables run eagerly under
 ``torch.inference_mode()`` on a module built once per stage. ``model_params``
-is this package's ``state_dict`` of parameters as numpy arrays, and
-``batch_stats`` the BatchNorm buffers (``None`` for a ViT).
+is this package's ``state_dict`` of parameters as numpy arrays,
+``batch_stats`` the BatchNorm buffers (``None`` for a ViT), and
+``arch_spec`` the ``(kind, info)`` a checkpoint directory's fit records,
+from which the model rebuilds its module.
 
 Not ported yet, each refused with ``NotImplementedError`` naming its
-``ROADMAP.md`` item: a local checkpoint directory as ``backbone`` (and the
-``arch_spec`` it yields), ``checkpoint_dir`` and ``mesh_config``.
+``ROADMAP.md`` item: ``checkpoint_dir`` and ``mesh_config``.
 """
 
 from __future__ import annotations
-
-import os
 
 import numpy as np
 import torch
@@ -41,6 +44,7 @@ from ..core import DataFrame, Estimator, Model
 from ..core import batching as cb
 from ..core.device import device_type, resolve_device
 from ..core.params import ComplexParam, Param, TypeConverters
+from .convert_hf import is_checkpoint_dir, pretrained_vision
 from .convert_jax import (init_flax_resnet_params, init_flax_vit_params,
                           resnet_state_dict_from_flax, vit_state_dict_from_flax)
 from .nets.resnet import ResNet, resnet18, resnet50, resnet_tiny
@@ -66,17 +70,22 @@ def _unported(stage: str, what: str, item: str) -> NotImplementedError:
 
 def _build_module(backbone: str, num_classes: int, arch_spec=None):
     """(module on the CPU with uninitialised tensors, has_batch_stats) for a
-    preset ``backbone``."""
-    if arch_spec is not None or (isinstance(backbone, (str, os.PathLike))
-                                 and os.path.isdir(str(backbone))):
-        raise _unported("DeepVision", "a local checkpoint directory as backbone",
-                        "4 (convert_hf.pretrained_vision)")
-    try:
-        build = _BACKBONES[backbone]
-    except KeyError:
-        raise ValueError(f"unknown backbone {backbone!r}; have "
-                         "vit_b16|vit_tiny|resnet50|resnet18|resnet_tiny "
-                         "or a local HF checkpoint directory") from None
+    preset ``backbone``, or for the ``arch_spec`` of a checkpoint directory
+    (:func:`..convert_hf.pretrained_vision`'s ``(kind, info)``)."""
+    if arch_spec is not None:
+        kind, info = arch_spec
+        if kind == "vit":
+            build = lambda n: (ViTClassifier(info["cfg"], num_classes=n,  # noqa: E731
+                                             patch=info["patch"]), False)
+        else:
+            build = lambda n: (ResNet(num_classes=n, **info), True)  # noqa: E731
+    else:
+        try:
+            build = _BACKBONES[backbone]
+        except KeyError:
+            raise ValueError(f"unknown backbone {backbone!r}; have "
+                             "vit_b16|vit_tiny|resnet50|resnet18|resnet_tiny "
+                             "or a local HF checkpoint directory") from None
     with torch.device("meta"):
         module, has_bn = build(num_classes)
     return module.to_empty(device="cpu"), has_bn
@@ -145,13 +154,22 @@ class DeepVisionClassifier(Estimator, _VisionParams):
             raise _unported("DeepVisionClassifier", "mesh_config", "9 (multi-GPU)")
 
     def _fit_plan(self, df: DataFrame):
-        """What the fit runs: ``(trainer, data, fit_arrays keywords)`` for
-        ``df``, the trainer on the stage's device with its module and
-        ``TrainerConfig``, the keywords those of the reference stage's
-        ``fit_arrays`` call (its default ``scan_chunk``)."""
+        """What the fit runs: ``(trainer, data, fit_arrays keywords,
+        arch_spec)`` for ``df``, the trainer on the stage's device with its
+        module and ``TrainerConfig``, the keywords those of the reference
+        stage's ``fit_arrays`` call (its default ``scan_chunk``), the
+        ``arch_spec`` that of a checkpoint directory (else None)."""
         self._refuse_unported()
         device = resolve_device("DeepVisionClassifier", self.get("device"))
-        module, has_bn = _build_module(self.get("backbone"), self.get("num_classes"))
+        arch_spec = None
+        if is_checkpoint_dir(self.get("backbone")):
+            # a local HF/torchvision-format checkpoint (the reference's
+            # torchvision-backbone transfer path, dl/DeepVisionClassifier.py)
+            kind, info, variables = pretrained_vision(
+                self.get("backbone"), num_classes=self.get("num_classes"),
+                seed=self.get("seed"))
+            arch_spec = (kind, info)
+        module, has_bn = _build_module(self.get("backbone"), self.get("num_classes"), arch_spec)
         labels = df.collect_column(self.get("label_col")).astype(np.int32)
         bs, total = plan_fit(len(labels), self.get("batch_size"),
                              self.get("num_train_epochs"), self.get("max_steps"))
@@ -160,13 +178,16 @@ class DeepVisionClassifier(Estimator, _VisionParams):
                                                 total_steps=total, lr_schedule="cosine",
                                                 warmup_steps=max(total // 10, 1)),
                           device=device, has_batch_stats=has_bn)
-        params, stats = _init_variables(module, self.get("seed"))
+        if arch_spec is None:
+            params, stats = _init_variables(module, self.get("seed"))
+        else:
+            params, stats = variables["params"], variables.get("batch_stats")
         kw = dict(batch_size=bs, total_steps=total, seed=self.get("seed"),
                   init_params=params, init_batch_stats=stats)
-        return trainer, {"x": images, "labels": labels}, kw
+        return trainer, {"x": images, "labels": labels}, kw, arch_spec
 
     def _fit(self, df: DataFrame) -> "DeepVisionModel":
-        trainer, data, kw = self._fit_plan(df)
+        trainer, data, kw, arch_spec = self._fit_plan(df)
         state = fit_arrays(trainer, data, **kw)
         trainer.release_graphs()  # the captured steps' memory pools
         host = lambda tensors: {k: v.detach().cpu().numpy()  # noqa: E731
@@ -174,7 +195,7 @@ class DeepVisionClassifier(Estimator, _VisionParams):
         return DeepVisionModel(
             model_params=host(state.params),
             batch_stats=host(state.batch_stats) if state.batch_stats is not None else None,
-            backbone=self.get("backbone"), num_classes=self.get("num_classes"),
+            arch_spec=arch_spec, backbone=self.get("backbone"), num_classes=self.get("num_classes"),
             image_col=self.get("image_col"), prediction_col=self.get("prediction_col"),
             scores_col=self.get("scores_col"), batch_size=self.get("batch_size"),
             device=self.get("device"), train_metrics=trainer.metrics,
@@ -188,8 +209,8 @@ class DeepVisionModel(Model, _VisionParams):
                                 "state_dict as numpy arrays")
     batch_stats = ComplexParam("batch_stats", "BN running stats: the module's "
                                "BatchNorm buffers as numpy arrays", default=None)
-    arch_spec = ComplexParam("arch_spec", "(kind, info) for pretrained-dir fits "
-                             "(not ported yet: must stay None)", default=None)
+    arch_spec = ComplexParam("arch_spec", "(kind, info) for pretrained-dir fits",
+                             default=None)
     mesh_config = ComplexParam("mesh_config", "MeshConfig for sharded inference "
                                "(not ported yet: must stay None)", default=None)
     train_metrics = ComplexParam("train_metrics", "loss/throughput trace", default=None)

@@ -218,9 +218,16 @@ def test_unported_params_are_refused(param):
 
 
 def test_local_checkpoint_directory_is_refused(tmp_path):
-    df = pt.DataFrame.from_rows(_rows(8))
-    with pytest.raises(NotImplementedError, match="item 4"):
-        ttext.DeepTextClassifier(device="cpu", checkpoint=str(tmp_path)).fit(df)
+    """A directory without model.safetensors[.index.json] is refused with
+    the JAX stage's own error (a checkpoint directory's fit is held to the
+    JAX stage in test_torch_convert_hf.py)."""
+    rows = _rows(8)
+    with pytest.raises(FileNotFoundError, match="no model.safetensors") as want:
+        jtext.DeepTextClassifier(checkpoint=str(tmp_path)).fit(JDataFrame.from_rows(rows))
+    with pytest.raises(FileNotFoundError, match="no model.safetensors") as got:
+        ttext.DeepTextClassifier(device="cpu", checkpoint=str(tmp_path)).fit(
+            pt.DataFrame.from_rows(rows))
+    assert str(got.value) == str(want.value)
 
 
 def test_default_device_is_the_card():

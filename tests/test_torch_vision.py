@@ -535,13 +535,32 @@ def test_unported_params_are_refused(param):
 
 
 def test_local_checkpoint_directory_and_arch_spec_are_refused(tmp_path):
+    """An empty directory as backbone is refused with the JAX stage's own
+    error; a model holding an ``arch_spec`` (what a checkpoint directory's
+    fit records) rebuilds that architecture and scores as the JAX model
+    does (a checkpoint directory's fit is held to the JAX stage in
+    test_torch_convert_hf.py); mesh_config and unknown backbones stay
+    refused."""
     data, _ = _resnet_rows()
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(FileNotFoundError, match="no model.safetensors") as want:
+        jvision.DeepVisionClassifier(backbone=str(tmp_path)).fit(JDataFrame.from_dict(data))
+    with pytest.raises(FileNotFoundError, match="no model.safetensors") as got:
         tvision.DeepVisionClassifier(device="cpu", backbone=str(tmp_path)).fit(
             pt.DataFrame.from_dict(data))
+    assert str(got.value) == str(want.value)
     df = pt.DataFrame.from_dict({"image": data["image"][:2]})
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tvision.DeepVisionModel(model_params={}, arch_spec=("vit", {}), device="cpu").transform(df)
+    jm, _ = _vit_pair(num_classes=2)
+    params = _np(jax.jit(jm.init)(jax.random.PRNGKey(0), data["image"][:1])["params"])
+    jscores = jvision.DeepVisionModel(
+        model_params=params, num_classes=2,
+        arch_spec=("vit", {"cfg": jvit.vit_tiny(dtype=jnp.float32), "patch": 8})).transform(
+        JDataFrame.from_dict({"image": data["image"][:2]})).collect_column("scores")
+    tmodel = tvision.DeepVisionModel(
+        model_params=convert_jax.vit_state_dict_from_flax(params), num_classes=2, device="cpu",
+        arch_spec=("vit", {"cfg": tvit.vit_tiny(dtype=torch.float32), "patch": 8}))
+    tscores = tmodel.transform(df).collect_column("scores")
+    np.testing.assert_allclose(np.stack(list(tscores)), np.stack(list(jscores)), atol=1e-5)
+    assert isinstance(tmodel._get_module(), tvit.ViTClassifier)
     with pytest.raises(NotImplementedError, match="item 9"):
         tvision.DeepVisionModel(model_params={}, mesh_config=object(),
                                 device="cpu").transform(df)
