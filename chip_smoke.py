@@ -159,8 +159,8 @@ the kernels are built for sm_90a). Phases, each of which raises on failure:
    shards. (a) every tensor read back bitwise by the package's own reader
    (F32, F16 and I64, across shards), each directory's load timed from the
    disk (host seconds, GB/s), the Llama load's peak host memory; a BF16
-   file, a tokenizer-less directory with tokenizer=None and an oversized
-   tokenizer vocab refused; (b) DeepTextClassifier(checkpoint=<BERT-base
+   file read back bitwise, a tokenizer-less directory with tokenizer=None
+   and an oversized tokenizer vocab refused; (b) DeepTextClassifier(checkpoint=<BERT-base
    dir>, attn_impl='flash') as the stage's graph fit of 24 steps at batch
    32 x 128, bitwise the preset path's fit from the same mapped weights, the
    flash forward and backward 12 times a step, the fitted model scoring
@@ -176,7 +176,32 @@ the kernels are built for sm_90a). Phases, each of which raises on failure:
    HuggingFaceSentenceEmbedder(model_name=<BERT-base dir>) in f32: a second
    transform bitwise, one CompiledCache callable a (bucket, seq_len), 16
    rows within 1e-4 of the CPU, rows/s;
-12. times: each kernel beside its bound, its plain version and the one
+12. main path 8, Mixtral-8x7B (mistralai/Mixtral-8x7B-v0.1's published
+   config through the port's llama_config_from_hf: full width, 8 of its 32
+   layers; dropless scatter MoE, 8 experts, top-2): (a) f32 weights from
+   init_llama_params(seed=0) on the card, first in f32 compute (TF32 off):
+   dense generate and PagedDecodeEngine greedy tokens identical up to each
+   row's first top-2 margin under 1e-3, at least 48 compared; then
+   load_llama in bf16 compute (the f32 draw dropped once loaded): dense
+   generate over 16 prompts in batches of 8 (prompt bucket 64, 32 new
+   tokens) and the paged engine, each twice and bitwise the first; prefill
+   ms, ms a decode step in the loop and in device time beside its byte
+   bound, a profiled step by group (routing its own group), peak memory,
+   path 6's mixed stream through the paged engine (tokens/s, TTFT); (b) a
+   Mixtral HuggingFace directory at full width with 1 layer in BF16 over
+   two shards (layer 0's experts split across them), drawn on the card and
+   read back bitwise; its load from the disk in GB/s and its peak host
+   memory, held to the mapped files plus one layer's stacked experts;
+   HuggingFaceCausalLM(model_name=<dir>) dense and paged, bf16 transforms
+   twice, bitwise, tokens/s; f32 card tokens against the port on the CPU
+   under the margin rule; (d) no kernel of the port's launched on (a) and
+   (b); (c) bert_tiny with 4 experts, top-2, through the flash kernels and
+   the port's Trainer with moe_aux_weight 0.01 and 0, for the einsum and
+   the scatter dispatch: 8 eager steps against train_steps_scan in chunks
+   of 4 (a warm-up, then one capture replayed), losses and every leaf
+   bitwise equal, the flash forward and backward once a layer a step, the
+   aux term raising the first loss;
+13. times: each kernel beside its bound, its plain version and the one
    PyTorch call that computes the same function (device time, with the
    host's enqueue hidden behind a spin kernel; the library call's device
    kernels named from the profiler); flash_attention from the projection
@@ -201,6 +226,7 @@ import importlib.machinery
 import importlib.util
 import io
 import json
+import math
 import os
 import re
 import shutil
@@ -216,6 +242,7 @@ import torch.nn.functional as F
 from synapseml_torch import DataFrame
 from synapseml_torch.core import batching as cb
 from synapseml_torch.image import ImageTransformer
+from synapseml_torch.models.convert_hf import host_tensor
 from synapseml_torch.models.convert_jax import (bert_state_dict_from_flax, init_flax_bert_params,
                                                 init_flax_vit_params, vit_state_dict_from_flax)
 from synapseml_torch.models.nets.bert import bert_base
@@ -3332,10 +3359,12 @@ def _margin_rule(a: list, b: list, ma: list, mb: list, tag: str) -> int:
     return compared
 
 
-def _profile_llm_step(fn, card: str, tag: str, n=3) -> dict:
-    """Where the device time of one decode step goes, by group, and the
-    share of its wall time the card is busy under the profiler (device
-    activity only: a 7B step runs over 2000 host operations)."""
+def _profile_llm_step(fn, card: str, tag: str, n=3, groups=_LLM_GROUPS) -> dict:
+    """Where the device time of one decode step goes, by ``groups`` (name,
+    patterns), and the share of its wall time the card is busy under the
+    profiler (device activity only: a 7B step runs over 2000 host
+    operations)."""
+    group_patterns = groups
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3359,10 +3388,10 @@ def _profile_llm_step(fn, card: str, tag: str, n=3) -> dict:
     busy = sum(k[0] for k in kernels)
     if not busy:
         raise AssertionError(f"the profiler recorded no device time for a {tag} step")
-    groups = {name: 0.0 for name, _ in _LLM_GROUPS}
+    groups = {name: 0.0 for name, _ in group_patterns}
     groups["other"] = 0.0
     for ms, _, key in kernels:
-        name = next((g for g, pats in _LLM_GROUPS if any(p in key.lower() for p in pats)),
+        name = next((g for g, pats in group_patterns if any(p in key.lower() for p in pats)),
                     "other")
         groups[name] += ms
     log(f"[profile] llm {tag} decode step: {wall_ms:.3f} ms wall, {busy:.3f} ms of device "
@@ -3378,14 +3407,16 @@ def _profile_llm_step(fn, card: str, tag: str, n=3) -> dict:
 
 
 def _step_bound_ms(cfg, batch: int, kv_len: int) -> tuple[float, float]:
-    """The least time of one decode step by bytes: the bf16 dense weights,
-    the f32 lm_head and norms read once, and ``batch`` rows of K and V over
-    ``kv_len`` slots in every layer. Returns (ms, GB)."""
+    """The least time of one decode step by bytes: the bf16 dense weights
+    (an MoE layer's every expert: a dropless step runs all of them), the
+    f32 lm_head, norms and routers read once, and ``batch`` rows of K and V
+    over ``kv_len`` slots in every layer. Returns (ms, GB)."""
     hid, H, KV, D, mlp, L = (cfg.hidden, cfg.n_heads, cfg.kv_heads, cfg.head_dim,
                              cfg.mlp_dim, cfg.n_layers)
-    dense = L * (hid * (H + 2 * KV) * D + H * D * hid + 3 * hid * mlp)
+    E = cfg.moe_experts
+    dense = L * (hid * (H + 2 * KV) * D + H * D * hid + 3 * hid * mlp * max(E, 1))
     size = torch.finfo(cfg.dtype).bits // 8
-    weights = dense * size + cfg.vocab_size * hid * 4 + (2 * L + 1) * hid * 4
+    weights = dense * size + (cfg.vocab_size * hid + (2 * L + 1) * hid + L * E * hid) * 4
     kv = 2 * L * batch * KV * kv_len * D * size
     total = weights + kv
     return 1e3 * total / HBM_BYTES_PER_S, total / 1e9
@@ -3606,11 +3637,23 @@ def phase_llm_f32(device, card: str, sd: dict) -> int:
     paged engine on 4 prompts over 3 prompt rungs, 16 new tokens each, held
     to each other by the margin rule."""
     from synapseml_torch.hf.causal_lm import load_llama
-    from synapseml_torch.models.nets.llama import generate, llama2_7b
+    from synapseml_torch.models.nets.llama import llama2_7b
+
+    model = load_llama(llama2_7b(dtype=torch.float32), sd, device)
+    compared = _f32_dense_against_paged(model, device, card, "Llama-2-7B")
+    del model
+    _free_card()
+    return compared
+
+
+def _f32_dense_against_paged(model, device, card: str, tag: str) -> int:
+    """Dense generate and the paged engine on ``model`` (f32 compute) over 4
+    prompts on 3 prompt rungs, 16 new tokens each, held to each other by the
+    margin rule; returns the tokens compared (at least LLM_MIN_COMPARED)."""
+    from synapseml_torch.models.nets.llama import generate
     from synapseml_torch.models.paged_engine import PagedDecodeEngine
 
-    cfg = llama2_7b(dtype=torch.float32)
-    model = load_llama(cfg, sd, device)
+    cfg = model.cfg
     rs = np.random.default_rng(1)
     prompts = [rs.integers(2, cfg.vocab_size, (n,)).tolist() for n in LLM_F32_LENS]
     ids, mask = _llm_ids(prompts, cb.default_bucketer().seq_bucket_for(max(LLM_F32_LENS)),
@@ -3629,15 +3672,15 @@ def phase_llm_f32(device, card: str, sd: dict) -> int:
     dense = [r.tolist() for r in dense]
     md = _teacher_margins(model, prompts, dense)
     mp = _teacher_margins(model, prompts, paged)
-    log(f"[llm] f32 Llama-2-7B, TF32 off: dense generate {dense_s:.3f} s, paged "
+    log(f"[llm] f32 {tag}, TF32 off: dense generate {dense_s:.3f} s, paged "
         f"{paged_s:.3f} s; top-2 margins (dense run) "
         + "; ".join(" ".join(f"{v:.2e}" for v in m[0]) for m in md))
-    compared = _margin_rule(dense, paged, md, mp, "f32 dense against paged")
-    log(f"[llm] f32 dense = paged on {compared} tokens compared (need >= {LLM_MIN_COMPARED}) | "
-        f"{card}")
+    compared = _margin_rule(dense, paged, md, mp, f"{tag} f32 dense against paged")
+    log(f"[llm] {tag} f32 dense = paged on {compared} tokens compared (need >= "
+        f"{LLM_MIN_COMPARED}) | {card}")
     if compared < LLM_MIN_COMPARED:
-        raise AssertionError("too few f32 tokens compared under the margin rule")
-    del model, engine
+        raise AssertionError(f"{tag}: too few f32 tokens compared under the margin rule")
+    del engine
     _free_card()
     return compared
 
@@ -3765,7 +3808,24 @@ CK_LLAMA = dict(vocab_size=32000, hidden_size=4096, num_hidden_layers=CK_LLAMA_L
                 max_position_embeddings=4096, rms_norm_eps=1e-5, rope_theta=10000.0,
                 tie_word_embeddings=False)
 _ST_NAMES = {np.dtype(np.float32): "F32", np.dtype(np.float16): "F16",
-             np.dtype(np.int64): "I64"}
+             np.dtype(np.int64): "I64", torch.bfloat16: "BF16"}
+
+
+def _raw_bytes(a) -> np.ndarray:
+    """The little-endian bytes of an array, or of a BF16 tensor (numpy has
+    no bfloat16: written from its bits)."""
+    if isinstance(a, torch.Tensor):
+        return a.contiguous().view(torch.int16).numpy().reshape(-1).view(np.uint8)
+    return np.ascontiguousarray(a).reshape(-1).view(np.uint8)
+
+
+def _same_tensor(got, want) -> bool:
+    """Dtype, shape and bits equal: numpy arrays, or BF16 tensors."""
+    if isinstance(want, torch.Tensor):
+        return (isinstance(got, torch.Tensor) and got.dtype == want.dtype
+                and got.shape == want.shape
+                and torch.equal(got.view(torch.int16), want.view(torch.int16)))
+    return got.dtype == want.dtype and got.shape == want.shape and np.array_equal(got, want)
 
 
 def _write_safetensors(path: str, tensors: dict) -> int:
@@ -3784,7 +3844,7 @@ def _write_safetensors(path: str, tensors: dict) -> int:
         f.write(len(raw).to_bytes(8, "little"))
         f.write(raw)
         for a in tensors.values():
-            f.write(np.ascontiguousarray(a).reshape(-1).view(np.uint8))
+            f.write(_raw_bytes(a))
         f.flush()
         os.fsync(f.fileno())
     fd = os.open(path, os.O_RDONLY)
@@ -4009,10 +4069,21 @@ class _PeakRss:
         self.peak = max(self.peak, self.after)
 
 
+def _drop_page_cache(d: str) -> None:
+    """Drop the files of directory ``d`` from the page cache, so that a
+    load reads the disk."""
+    for f in os.listdir(d):
+        fd = os.open(os.path.join(d, f), os.O_RDONLY)
+        try:
+            os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+        finally:
+            os.close(fd)
+
+
 class _Checkpoints:
-    """The directories of main path 7 under one temporary root, each written
-    on first use, read back bitwise (F32, F16 and I64, across shards) and
-    timed; the root goes on close."""
+    """The directories of main paths 7 and 8 under one temporary root, each
+    written on first use, read back bitwise (F32, F16, BF16 and I64, across
+    shards) and timed; the root goes on close."""
 
     def __init__(self, card: str):
         import tempfile
@@ -4035,9 +4106,7 @@ class _Checkpoints:
         t0 = time.perf_counter()
         got_cfg, sd = load_checkpoint(d)
         bad = sorted(set(tensors) ^ set(sd))
-        bad += [k for k in tensors if k in sd and not (
-            sd[k].dtype == tensors[k].dtype and sd[k].shape == tensors[k].shape
-            and np.array_equal(sd[k], tensors[k]))]
+        bad += [k for k in tensors if k in sd and not _same_tensor(sd[k], tensors[k])]
         check_s = time.perf_counter() - t0
         kinds = sorted({_ST_NAMES[a.dtype] for a in tensors.values()})
         log(f"[ckpt] {name}: {len(tensors)} tensors ({', '.join(kinds)}), "
@@ -4057,17 +4126,12 @@ class _Checkpoints:
         the disk (the files dropped from the page cache again): host seconds
         and GB/s of the weight files."""
         d = self.dirs[name]
-        for f in os.listdir(d):
-            fd = os.open(os.path.join(d, f), os.O_RDONLY)
-            try:
-                os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
-            finally:
-                os.close(fd)
+        _drop_page_cache(d)
         t0 = time.perf_counter()
         out = load(d)
         state = out[-1] if isinstance(out[-1], dict) and "params" not in out[-1] \
             else {**out[-1]["params"], **(out[-1].get("batch_stats") or {})}
-        on_card = {k: torch.from_numpy(v).to(device) for k, v in state.items()}
+        on_card = {k: host_tensor(v).to(device) for k, v in state.items()}
         on_card = {k: t.float() if t.is_floating_point() else t for k, t in on_card.items()}
         torch.cuda.synchronize()
         s = time.perf_counter() - t0
@@ -4082,11 +4146,12 @@ class _Checkpoints:
         shutil.rmtree(self.root, ignore_errors=True)
 
 
-def _ckpt_reader_refusals(ck: _Checkpoints, device) -> None:
-    """(a) What the reader refuses: a BF16 tensor (numpy has no bfloat16,
-    as safetensors.numpy), a tokenizer-less directory with tokenizer=None
-    (the "pass tokenizer=" ValueError, never an ImportError on a host without
-    transformers), an oversized tokenizer vocab (the guard)."""
+def _ckpt_reader_cases(ck: _Checkpoints, device) -> None:
+    """(a) A BF16 tensor read back bitwise (a torch.bfloat16 view of the
+    file's bits), and what the reader refuses: a tokenizer-less directory
+    with tokenizer=None (the "pass tokenizer=" ValueError, never an
+    ImportError on a host without transformers), an oversized tokenizer
+    vocab (the guard)."""
     from synapseml_torch.hf import HuggingFaceCausalLM
     from synapseml_torch.models import convert_hf
 
@@ -4096,11 +4161,9 @@ def _ckpt_reader_refusals(ck: _Checkpoints, device) -> None:
     with open(path, "wb") as f:
         f.write(len(raw).to_bytes(8, "little") + raw + b"\x80\x3f" * 4)
     outcomes = {}
-    try:
-        convert_hf.load_safetensors(path)
-        outcomes["bf16"] = "read"
-    except TypeError as e:
-        outcomes["bf16"] = f"TypeError: {e}"
+    w = convert_hf.load_safetensors(path)["w"]
+    bits = w.view(torch.int16).tolist()
+    outcomes["bf16"] = f"read as {w.dtype}, bits {[hex(b) for b in bits]}"
     d = ck.dirs["bert_base"]
     try:
         convert_hf.tokenizer_for_checkpoint(None, d, CK_BERT["vocab_size"])
@@ -4114,11 +4177,11 @@ def _ckpt_reader_refusals(ck: _Checkpoints, device) -> None:
     except ValueError as e:
         outcomes["vocab guard"] = f"ValueError: {e}"
     for k, v in outcomes.items():
-        log(f"[ckpt] (a) refused, {k}: {v}")
-    if not (outcomes["bf16"].startswith("TypeError") and "BF16" in outcomes["bf16"]
+        log(f"[ckpt] (a) {k}: {v}")
+    if not (w.dtype == torch.bfloat16 and bits == [0x3F80] * 4 and w.float().tolist() == [1.0] * 4
             and "pass tokenizer=" in outcomes["no tokenizer"]
             and "exceeds the checkpoint" in outcomes["vocab guard"]):
-        raise AssertionError(f"main path 7 (a): a refusal did not happen: {outcomes}")
+        raise AssertionError(f"main path 7 (a): a read or a refusal went wrong: {outcomes}")
 
 
 def _ckpt_text(ck: _Checkpoints, device, card: str) -> dict:
@@ -4341,8 +4404,6 @@ def _ckpt_llm(ck: _Checkpoints, device, card: str) -> dict:
     from synapseml_torch.hf import HuggingFaceCausalLM
     from synapseml_torch.hf.causal_lm import load_llama
     from synapseml_torch.models.convert_hf import pretrained_causal_lm
-    from synapseml_torch.models.nets.llama import generate
-    from synapseml_torch.models.paged_engine import PagedDecodeEngine
 
     out = {}
     texts = _llm_texts(LLM_ROWS, seed=4)
@@ -4412,39 +4473,55 @@ def _ckpt_llm(ck: _Checkpoints, device, card: str) -> dict:
             log(f"[ckpt] (d) {name} bf16 dense against paged: {eq} of {useful} tokens equal "
                 f"(a report: bf16 may flip a near-tie)")
         # f32, TF32 off: the card against the port on the CPU
-        cfg32, sd = pretrained_causal_lm(d, dtype=torch.float32)
-        rs = np.random.default_rng(seed)
-        prompts = [rs.integers(2, vocab, (n,)).tolist() for n in CK_LLM_LENS]
-        P = cb.default_bucketer().seq_bucket_for(max(CK_LLM_LENS))
-        gen, models = {}, {}
-        for where, dev in (("card", str(device)), ("cpu", "cpu")):
-            models[where] = m = load_llama(cfg32, sd, dev)
-            ids, mask = _llm_ids(prompts, P, dev)
-            t0 = time.perf_counter()
-            gen[where, "dense"] = [r.tolist() for r in generate(
-                m, ids, CK_LLM_NEW, prompt_mask=mask).cpu().numpy()[:, P:]]
-            gen_s = time.perf_counter() - t0
-            log(f"[ckpt] (d) {name} f32 dense generate on the {where}: {gen_s:.3f} s")
-        if name == "llama":
-            eng = PagedDecodeEngine(models["card"], block_len=LLM_BLOCK, max_slots=len(prompts))
-            gen["card", "paged"] = eng.generate(prompts, CK_LLM_NEW)
-            eng.release()
-        m_cpu = _teacher_margins(models["cpu"], prompts, gen["cpu", "dense"])
-        compared = {}
-        for (where, engine), toks in gen.items():
-            if where == "cpu":
-                continue
-            m_card = _teacher_margins(models[where], prompts, toks)
-            compared[engine] = _margin_rule(gen["cpu", "dense"], toks, m_cpu, m_card,
-                                            f"{name} f32 {engine} on the card against the CPU")
-        log(f"[ckpt] (d) {name} f32, the card against the CPU: tokens compared {compared} "
-            f"(need >= {LLM_MIN_COMPARED} each) | {card}")
-        if min(compared.values()) < LLM_MIN_COMPARED:
-            raise AssertionError(f"main path 7 (d): too few {name} f32 tokens compared")
-        out[f"{name}_f32_compared"] = compared
-        del models, sd
+        out[f"{name}_f32_compared"] = _f32_card_against_cpu(
+            d, seed, vocab, device, card, f"(d) {name}", paged=name == "llama")
         _free_card()
     return out
+
+
+def _f32_card_against_cpu(d: str, seed: int, vocab: int, device, card: str, tag: str,
+                          paged: bool) -> dict:
+    """A causal-LM directory in f32 compute (TF32 off): dense generate on the
+    card and on the CPU (the port's), and with ``paged`` the paged engine on
+    the card, over CK_LLM_LENS prompts; the card's tokens held to the CPU's
+    by the margin rule, at least LLM_MIN_COMPARED each. Returns the tokens
+    compared by engine."""
+    from synapseml_torch.hf.causal_lm import load_llama
+    from synapseml_torch.models.convert_hf import pretrained_causal_lm
+    from synapseml_torch.models.nets.llama import generate
+    from synapseml_torch.models.paged_engine import PagedDecodeEngine
+
+    cfg32, sd = pretrained_causal_lm(d, dtype=torch.float32)
+    rs = np.random.default_rng(seed)
+    prompts = [rs.integers(2, vocab, (n,)).tolist() for n in CK_LLM_LENS]
+    P = cb.default_bucketer().seq_bucket_for(max(CK_LLM_LENS))
+    gen, models = {}, {}
+    for where, dev in (("card", str(device)), ("cpu", "cpu")):
+        models[where] = m = load_llama(cfg32, sd, dev)
+        ids, mask = _llm_ids(prompts, P, dev)
+        t0 = time.perf_counter()
+        gen[where, "dense"] = [r.tolist() for r in generate(
+            m, ids, CK_LLM_NEW, prompt_mask=mask).cpu().numpy()[:, P:]]
+        gen_s = time.perf_counter() - t0
+        log(f"[ckpt] {tag} f32 dense generate on the {where}: {gen_s:.3f} s")
+    if paged:
+        eng = PagedDecodeEngine(models["card"], block_len=LLM_BLOCK, max_slots=len(prompts))
+        gen["card", "paged"] = eng.generate(prompts, CK_LLM_NEW)
+        eng.release()
+    m_cpu = _teacher_margins(models["cpu"], prompts, gen["cpu", "dense"])
+    compared = {}
+    for (where, engine), toks in gen.items():
+        if where == "cpu":
+            continue
+        m_card = _teacher_margins(models[where], prompts, toks)
+        compared[engine] = _margin_rule(gen["cpu", "dense"], toks, m_cpu, m_card,
+                                        f"{tag} f32 {engine} on the card against the CPU")
+    log(f"[ckpt] {tag} f32, the card against the CPU: tokens compared {compared} "
+        f"(need >= {LLM_MIN_COMPARED} each) | {card}")
+    if min(compared.values()) < LLM_MIN_COMPARED:
+        raise AssertionError(f"{tag}: too few f32 tokens compared")
+    del models, sd
+    return compared
 
 
 def phase_pretrained(device, card: str) -> dict:
@@ -4466,7 +4543,7 @@ def phase_pretrained(device, card: str) -> dict:
         log(f"[ckpt] (c) done at {time.perf_counter() - t_start:.1f} s")
         out["llm"] = _ckpt_llm(ck, device, card)
         log(f"[ckpt] (d) done at {time.perf_counter() - t_start:.1f} s")
-        _ckpt_reader_refusals(ck, device)
+        _ckpt_reader_cases(ck, device)
     finally:
         ck.close()
     counts = _port_kernel_counts()
@@ -4480,6 +4557,451 @@ def phase_pretrained(device, card: str) -> dict:
     out["loads"] = ck.loads
     out["seconds"] = time.perf_counter() - t_start
     log(f"[ckpt] main path 7: {out['seconds']:.1f} s of the script's clock")
+    return out
+
+
+# ---------------- main path 8: Mixtral-8x7B ----------------
+
+# mistralai/Mixtral-8x7B-v0.1's published config.json: vocab 32000, hidden
+# 4096, 32 heads, 8 KV heads, MLP 14336, 8 experts, top-2, rope theta 1e6,
+# max_len 32768 (the fields the mappings read, as published)
+MX_CONFIG = {"architectures": ["MixtralForCausalLM"], "model_type": "mixtral",
+             "vocab_size": 32000, "hidden_size": 4096, "intermediate_size": 14336,
+             "num_hidden_layers": 32, "num_attention_heads": 32, "num_key_value_heads": 8,
+             "num_local_experts": 8, "num_experts_per_tok": 2, "hidden_act": "silu",
+             "max_position_embeddings": 32768, "rms_norm_eps": 1e-5, "rope_theta": 1e6,
+             "sliding_window": None, "tie_word_embeddings": False,
+             "router_aux_loss_coef": 0.02, "output_router_logits": False,
+             "torch_dtype": "bfloat16"}
+# the depth cut: 32 layers are 93 GB of bf16, more than the card's 80 GB; 8
+# layers are 23.2 GB of bf16 decoder weights (47.5 GB while in f32)
+MX_LAYERS = 8
+MX_DIR_LAYERS = 1    # the BF16 directory of (b): 3.4 GB over two shards
+MX_RSS_SLACK_GIB = 1.0  # a load's host memory past the mapped files and one layer's experts
+MX_TRAIN_STEPS, MX_TRAIN_CHUNK, MX_TRAIN_BATCH = 8, 4, 8  # (c): an eager chunk, then a graph
+MX_TRAIN_CF = 1.0  # (c)'s capacity factor: an imbalanced batch drops assignments
+
+_MOE_GROUPS = (("flash kernels", ("flash_",)),  # matched in lower case, first match wins
+               ("routing (sort, top-k, cumsum)", ("sort", "topk", "cumsum", "scan")),
+               ("matmul", ("nvjet", "gemm", "gemv", "cutlass", "sm90_", "cublas")),
+               ("gathers and scatters (K/V, dispatch, combine)",
+                ("index", "gather", "scatter")),
+               ("softmax", ("softmax",)),
+               ("dtype casts and copies", ("copy", "memcpy", "cat")),
+               ("reductions", ("reduce",)),
+               ("elementwise", ("elementwise", "vectorized")))
+
+
+def _mx_prompts(cfg, seed: int):
+    """LLM_ROWS prompts of path 6's kind through the hashing tokenizer at
+    vocab 32000: the padded ``[n, 64]`` ids and mask, and each prompt's real
+    token ids."""
+    tok = HashingTokenizer(vocab_size=cfg.vocab_size)
+    enc = tok(_llm_texts(LLM_ROWS, seed=seed), max_len=cfg.max_len - LLM_NEW,
+              multiple_of=LLM_BUCKET)
+    ids, mask = np.asarray(enc["input_ids"]), np.asarray(enc["attention_mask"])
+    return ids, mask, [r[m > 0].tolist() for r, m in zip(ids, mask)]
+
+
+def _mx_bf16(model, device, card: str) -> dict:
+    """(a) bf16 compute: dense generate over the prompts in batches of 8 and
+    the paged engine (8 slots), each run twice and bitwise the first; the
+    dense batch's prefill, its decode step in the loop, in device time
+    (behind a spin) and profiled by group beside its byte bound; peak
+    memory; path 6's mixed stream through the paged engine."""
+    from synapseml_torch.models.nets.llama import generate
+    from synapseml_torch.models.nets.transformer import KVCache
+    from synapseml_torch.models.paged_engine import PagedDecodeEngine
+
+    cfg = model.cfg
+    ids_np, mask_np, prompts = _mx_prompts(cfg, seed=5)
+    P = ids_np.shape[1]
+    batches = [(torch.from_numpy(ids_np[i:i + LLM_BATCH]).long().to(device),
+                torch.from_numpy(mask_np[i:i + LLM_BATCH]).long().to(device))
+               for i in range(0, LLM_ROWS, LLM_BATCH)]
+    useful = LLM_ROWS * LLM_NEW
+    out = {}
+
+    def dense_run():
+        return [r.tolist() for ids, mask in batches
+                for r in generate(model, ids, LLM_NEW, prompt_mask=mask).cpu().numpy()[:, P:]]
+
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dense1 = dense_run()
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dense2 = dense_run()
+    dense_s = time.perf_counter() - t0
+    peak_dense = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[moe] (a) dense generate, {LLM_ROWS} prompts x {LLM_NEW} tokens in batches of "
+        f"{LLM_BATCH} (prompt bucket {P}, a KV cache of {cfg.max_len} slots): {first_s:.3f} s, "
+        f"second {dense_s:.3f} s = {useful / dense_s:.1f} tokens/s; second bitwise the first: "
+        f"{dense1 == dense2}; peak {peak_dense:.3f} GiB | {card}")
+    if not (dense1 == dense2 and all(len(r) == LLM_NEW for r in dense1)):
+        raise AssertionError("main path 8 (a): the dense run is not repeatable")
+
+    blocks = 1 + LLM_SLOTS * -(-(LLM_BUCKET + LLM_NEW) // LLM_BLOCK)
+    torch.cuda.reset_peak_memory_stats()
+    runs, times = [], []
+    for _ in range(2):
+        engine = PagedDecodeEngine(model, block_len=LLM_BLOCK, max_slots=LLM_SLOTS,
+                                   n_blocks=blocks)
+        t0 = time.perf_counter()
+        runs.append(engine.generate(prompts, LLM_NEW))
+        times.append(time.perf_counter() - t0)
+        engine.release()
+        del engine
+    peak_paged = torch.cuda.max_memory_allocated() / 2 ** 30
+    same = sum(x == y for a, b in zip(dense1, runs[0]) for x, y in zip(a, b))
+    log(f"[moe] (a) PagedDecodeEngine ({LLM_SLOTS} slots, {blocks} pages of {LLM_BLOCK}): "
+        f"{times[0]:.3f} s, second {times[1]:.3f} s = {useful / times[1]:.1f} tokens/s; second "
+        f"bitwise the first: {runs[0] == runs[1]}; peak {peak_paged:.3f} GiB | {card}")
+    log(f"[moe] (a) bf16 dense against paged: {same} of {useful} tokens equal "
+        f"({100 * same / useful:.1f} %; bf16 may flip a near-tie, a report, not a check); rows "
+        f"equal {sum(a == b for a, b in zip(dense1, runs[0]))} of {LLM_ROWS}")
+    if not (runs[0] == runs[1] and all(len(r) == LLM_NEW for r in runs[0])):
+        raise AssertionError("main path 8 (a): the paged run is not repeatable")
+    _free_card()
+
+    ids, mask = batches[0]
+    prefill_ms = cuda_ms(lambda: generate(model, ids, 1, prompt_mask=mask), warmup=1, iters=3)
+    full_ms = cuda_ms(lambda: generate(model, ids, LLM_NEW, prompt_mask=mask), warmup=0,
+                      iters=1)
+    loop_ms = (full_ms - prefill_ms) / (LLM_NEW - 1)
+    kvc = KVCache.zeros(cfg, LLM_BATCH, device)
+    kv_mask = torch.ones((LLM_BATCH, cfg.max_len), dtype=torch.long, device=device)
+    kvc.index = P
+    tok1, pos = ids[:, :1], mask.sum(-1, keepdim=True)
+    with torch.no_grad():
+        step = lambda: model(tok1, positions=pos, attention_mask=kv_mask, cache=kvc)  # noqa: E731
+        step_dev_ms = cuda_ms(step, warmup=2, iters=5, spin_cycles=LLM_SPIN)
+        prof = _profile_llm_step(step, card, "Mixtral dense", groups=_MOE_GROUPS)
+    bound_ms, bound_gb = _step_bound_ms(cfg, LLM_BATCH, cfg.max_len)
+    live_ms, _ = _step_bound_ms(cfg, LLM_BATCH, P + LLM_NEW)
+    log(f"[moe] (a) dense batch of {LLM_BATCH} x {P}: prefill (generate of 1 token) "
+        f"{prefill_ms:.3f} ms; decode {loop_ms:.3f} ms a step in the loop (CUDA events, host "
+        f"included), one step {step_dev_ms:.3f} ms of device time (behind a spin; the "
+        f"profiler's kernels {prof['busy_ms']:.3f} ms); bound {bound_ms:.3f} ms ({bound_gb:.2f} "
+        f"GB: bf16 attention and all {cfg.moe_experts} experts' weights, f32 routers, norms and "
+        f"lm_head, K/V over all {cfg.max_len} slots; {live_ms:.3f} ms over the live "
+        f"{P + LLM_NEW}) | {card}")
+    out.update(tokens_s=useful / dense_s, paged_tokens_s=useful / times[1],
+               prefill_ms=prefill_ms, step_ms=loop_ms, step_dev_ms=step_dev_ms,
+               bound_ms=bound_ms, busy=prof["busy"], peak_gib=max(peak_dense, peak_paged),
+               equal_share=same / useful)
+    del kvc, step
+    _free_card()
+
+    requests = _mixed_stream(np.random.default_rng(0), LLM_STREAM, cfg.vocab_size)
+    want = sum(n for _, n in requests)
+    need = max(-(-(len(p) + n) // LLM_BLOCK) for p, n in requests)
+    engine = PagedDecodeEngine(model, block_len=LLM_BLOCK, max_slots=LLM_SLOTS,
+                               prefill_batch=2, n_blocks=1 + LLM_SLOTS * need)
+    torch.cuda.synchronize()
+    run = _run_stream(engine, requests)
+    engine.release()
+    del engine
+    log(f"[moe] (a) mixed stream of {LLM_STREAM} requests ({want} tokens asked) through "
+        f"PagedDecodeEngine, {LLM_SLOTS} slots: {run['wall_s']:.3f} s, "
+        f"{want / run['wall_s']:.1f} useful tokens/s; TTFT p50 "
+        f"{np.percentile(run['ttft_ms'], 50):.1f} ms, p99 {np.percentile(run['ttft_ms'], 99):.1f} "
+        f"ms | {card}")
+    if [len(t) for t in run["tokens"]] != [n for _, n in requests]:
+        raise AssertionError("main path 8 (a): the paged engine did not generate each budget")
+    out.update(stream_tokens_s=want / run["wall_s"],
+               ttft_p50_ms=float(np.percentile(run["ttft_ms"], 50)))
+    _free_card()
+    return out
+
+
+def _mx_engines(device, card: str) -> dict:
+    """(a) Mixtral-8x7B at full width, MX_LAYERS of its 32 layers, weights
+    from init_llama_params(seed=0) on the card (f32): first f32 compute
+    (TF32 off) on the draw itself (nothing copied), dense against paged
+    under the margin rule; then load_llama in bf16 compute (attention and experts cast on the
+    card, routers, norms, embedding and lm_head kept f32), the f32 draw
+    dropped once loaded, and the bf16 engines."""
+    from synapseml_torch.hf.causal_lm import load_llama
+    from synapseml_torch.models.convert_hf import llama_config_from_hf
+    from synapseml_torch.models.convert_jax import init_llama_params
+
+    cfg = llama_config_from_hf({**MX_CONFIG, "num_hidden_layers": MX_LAYERS})
+    c = MX_CONFIG
+    if not (cfg.moe_experts, cfg.moe_top_k, cfg.moe_dispatch, cfg.moe_capacity_factor,
+            cfg.kv_heads, cfg.max_len, cfg.rope_theta) == (
+                8, 2, "scatter", 4.0, c["num_key_value_heads"], c["max_position_embeddings"],
+                c["rope_theta"]):
+        raise AssertionError(f"main path 8: the Mixtral config maps to {cfg}")
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    _free_card()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sd = init_llama_params(cfg, seed=0, device=device)
+    torch.cuda.synchronize()
+    n_params = sum(v.numel() for v in sd.values())
+    experts = sum(v.numel() for k, v in sd.items() if ".mlp.w_" in k)
+    decoder = sum(v.numel() for k, v in sd.items() if k.startswith("decoder.layers.")
+                  and ".router." not in k and "norm" not in k)
+    log(f"[moe] (a) Mixtral-8x7B, {MX_LAYERS} of 32 layers at full width, from "
+        f"init_llama_params(seed=0) on the card: {n_params} parameters ({experts} in experts), "
+        f"{sum(v.numel() * v.element_size() for v in sd.values()) / 1e9:.2f} GB f32, in "
+        f"{time.perf_counter() - t0:.3f} s; {2 * decoder / 1e9:.2f} GB of bf16 decoder weights "
+        f"once cast")
+    out = {"n_params": n_params}
+    model32 = load_llama(cfg32, sd, device)  # the draw's own tensors: nothing copied
+    out["f32_compared"] = _f32_dense_against_paged(model32, device, card, "Mixtral-8x7B")
+    del model32
+    _free_card()
+    t0 = time.perf_counter()
+    model = load_llama(cfg, sd, device)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    load_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del sd
+    _free_card()
+    log(f"[moe] (a) load_llama in bf16 compute: {load_s:.3f} s (casts on the card); peak "
+        f"{load_peak:.3f} GiB with the f32 draw, {torch.cuda.memory_allocated() / 2 ** 30:.3f} "
+        f"GiB once it is dropped | {card}")
+    out.update(_mx_bf16(model, device, card))
+    out["load_s"] = load_s
+    del model
+    _free_card()
+    return out
+
+
+def _mixtral_checkpoint(seed: int, device, layers: int = MX_DIR_LAYERS) -> tuple[dict, dict]:
+    """MixtralForCausalLM at MX_CONFIG's width with ``layers`` layers, BF16,
+    drawn on the card from a seeded generator and brought to the host, in the
+    published checkpoint's key order (so that a two-shard split falls inside
+    a layer's experts, as the published index splits them): N(0, 0.02)
+    tables, Xavier-uniform Linear weights, norm scales near 1; no biases."""
+    c = MX_CONFIG
+    hid, mlp, E = c["hidden_size"], c["intermediate_size"], c["num_local_experts"]
+    kv = hid // c["num_attention_heads"] * c["num_key_value_heads"]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+
+    def normal(*shape, std=0.02):
+        return (torch.empty(shape, device=device).normal_(0.0, std, generator=gen)
+                .to(torch.bfloat16).cpu())
+
+    def linear(n_out, n_in):
+        lim = math.sqrt(6.0 / (n_in + n_out))
+        return (torch.empty((n_out, n_in), device=device).uniform_(-lim, lim, generator=gen)
+                .to(torch.bfloat16).cpu())
+
+    def scale(n):
+        return (1 + torch.empty(n, device=device).normal_(0.0, 0.05, generator=gen)).to(
+            torch.bfloat16).cpu()
+
+    t = {"model.embed_tokens.weight": normal(c["vocab_size"], hid)}
+    for i in range(layers):
+        p = f"model.layers.{i}"
+        t[f"{p}.block_sparse_moe.gate.weight"] = linear(E, hid)
+        for e in range(E):
+            ex = f"{p}.block_sparse_moe.experts.{e}"
+            t[f"{ex}.w1.weight"], t[f"{ex}.w2.weight"] = linear(mlp, hid), linear(hid, mlp)
+            t[f"{ex}.w3.weight"] = linear(mlp, hid)
+        t[f"{p}.input_layernorm.weight"] = scale(hid)
+        t[f"{p}.post_attention_layernorm.weight"] = scale(hid)
+        for name, n_out in (("k_proj", kv), ("o_proj", hid), ("q_proj", hid), ("v_proj", kv)):
+            t[f"{p}.self_attn.{name}.weight"] = linear(n_out, hid)
+    t["model.norm.weight"] = scale(hid)
+    t["lm_head.weight"] = normal(c["vocab_size"], hid)
+    return {**c, "num_hidden_layers": layers}, t
+
+
+def _mx_directory(device, card: str) -> dict:
+    """(b) A BF16 Mixtral directory at full width, MX_DIR_LAYERS layer, in
+    two shards: every tensor read back bitwise; the load from the disk
+    (pretrained_causal_lm + load_llama) in GB/s and its peak host memory,
+    held to the mapped files plus one layer's stacked experts (BF16 is not
+    widened on the host); HuggingFaceCausalLM(model_name=<dir>) dense and
+    paged, bf16 transforms twice, bitwise, tokens/s; f32 card tokens against
+    the port on the CPU under the margin rule."""
+    from synapseml_torch.hf import HuggingFaceCausalLM
+    from synapseml_torch.hf.causal_lm import load_llama
+    from synapseml_torch.models.convert_hf import pretrained_causal_lm
+
+    ck = _Checkpoints(card)
+    out = {}
+    try:
+        d = ck.get("mixtral", lambda seed: _mixtral_checkpoint(seed, device), 41, shards=2)
+        with open(os.path.join(d, "model.safetensors.index.json")) as f:
+            shard_of = json.load(f)["weight_map"]
+        split = sorted({shard_of[f"model.layers.0.block_sparse_moe.experts.{e}.w1.weight"]
+                        for e in range(MX_CONFIG["num_local_experts"])})
+        log(f"[moe] (b) layer 0's experts lie in {split}")
+        if len(split) != 2:
+            raise AssertionError("main path 8 (b): the experts are not split across the shards")
+        _drop_page_cache(d)
+        _free_card()
+        gc.collect()
+        with _PeakRss() as rss:
+            t0 = time.perf_counter()
+            cfg, sd = pretrained_causal_lm(d)
+            model = load_llama(cfg, sd, device)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            stacked = sum(v.nbytes for k, v in sd.items() if ".mlp.w_" in k) / 2 ** 30
+            kinds = {str(v.dtype) for v in sd.values()}
+            del model, sd
+            gc.collect()
+        mapped = ck.bytes["mixtral"] / 2 ** 30
+        delta = rss.peak - rss.before
+        gbs = ck.bytes["mixtral"] / 1e9 / load_s
+        log(f"[moe] (b) the BF16 directory from the disk through pretrained_causal_lm + "
+            f"load_llama: {load_s:.3f} s, {gbs:.2f} GB/s of {ck.bytes['mixtral'] / 1e9:.3f} GB; "
+            f"the mapped state_dict's dtypes {sorted(kinds)}; host RSS {rss.before:.2f} GiB "
+            f"before, peak {rss.peak:.2f} GiB (+{delta:.2f} GiB against the mapped files' "
+            f"{mapped:.2f} GiB and the stacked experts' {stacked:.2f} GiB), {rss.after:.2f} "
+            f"GiB after | {card}")
+        if kinds != {"torch.bfloat16"} or delta > mapped + stacked + MX_RSS_SLACK_GIB:
+            raise AssertionError("main path 8 (b): the BF16 load widened on the host or held "
+                                 "more than the mapped files and one layer's experts")
+        out.update(load_s=load_s, load_gb_s=gbs, rss_delta_gib=delta, mapped_gib=mapped,
+                   stacked_gib=stacked)
+        _free_card()
+        texts = _llm_texts(LLM_ROWS, seed=6)
+        df = DataFrame.from_dict({"prompt": np.asarray(texts, dtype=object)},
+                                 num_partitions=LLM_PARTS)
+        useful = LLM_ROWS * LLM_NEW
+        kw = dict(model_name=d, tokenizer=HashingTokenizer(vocab_size=32000).to_config(),
+                  batch_size=LLM_BATCH, prompt_bucket=LLM_BUCKET, max_new_tokens=LLM_NEW,
+                  device=str(device))
+        runs = {}
+        for engine, extra in (("dense", {}), ("paged", {"kv_blocks": 1 + LLM_BATCH * -(
+                -(LLM_BUCKET + LLM_NEW) // LLM_BLOCK)})):
+            stage = HuggingFaceCausalLM(**kw, engine=engine, **extra)
+            t0 = time.perf_counter()
+            first = _completions(stage.transform(df))
+            first_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            second = _completions(stage.transform(df))
+            second_s = time.perf_counter() - t0
+            runs[engine] = first
+            log(f"[moe] (b) HuggingFaceCausalLM(model_name=<Mixtral dir>, engine={engine!r}) "
+                f"bf16: {LLM_ROWS} prompts x {LLM_NEW} tokens, {first_s:.3f} s first (load "
+                f"included), {second_s:.3f} s second = {useful / second_s:.1f} tokens/s; second "
+                f"bitwise the first: {first == second} | {card}")
+            if not (first == second and all(len(r) == LLM_NEW for r in first)):
+                raise AssertionError(f"main path 8 (b): the {engine} stage is not repeatable")
+            out[f"{engine}_tokens_s"] = useful / second_s
+            stage.release()
+            del stage
+            _free_card()
+        eq = sum(x == y for a, b in zip(runs["dense"], runs["paged"]) for x, y in zip(a, b))
+        log(f"[moe] (b) bf16 dense against paged: {eq} of {useful} tokens equal (a report)")
+        out["f32_compared"] = _f32_card_against_cpu(d, 41, 32000, device, card,
+                                                    "(b) mixtral", paged=True)
+    finally:
+        ck.close()
+    _free_card()
+    return out
+
+
+def _moe_train(device, card: str) -> dict:
+    """(c) bert_tiny with 4 experts, top-2, capacity factor MX_TRAIN_CF,
+    attn_impl='flash' (bf16), through the port's Trainer with moe_aux_weight
+    0.01 and 0, for each dispatch:
+    MX_TRAIN_STEPS eager steps, and train_steps_scan in chunks of
+    MX_TRAIN_CHUNK (the eager warm-up chunk, then one captured graph
+    replayed) from the same init and batches: losses and every leaf bitwise
+    equal, one capture, the flash forward and backward once a layer a step in
+    each run; the first loss with the aux term above the loss without.
+    Returns the flash launches of every run."""
+    from synapseml_torch.models.nets.bert import BertClassifier, bert_tiny
+
+    tok = HashingTokenizer(vocab_size=1024)
+    rows = _labelled_texts(MX_TRAIN_BATCH * MX_TRAIN_STEPS, seed=6, n_words=(5, 60))
+    enc = tok([r["text"] for r in rows], max_len=64)
+    data = {"input_ids": np.asarray(enc["input_ids"], np.int32),
+            "attention_mask": np.asarray(enc["attention_mask"], np.int32),
+            "labels": np.array([r["label"] for r in rows], np.int32)}
+    batches = [{k: v[i:i + MX_TRAIN_BATCH] for k, v in data.items()}
+               for i in range(0, len(rows), MX_TRAIN_BATCH)]
+    cache = cb.get_compiled_cache()
+    total = {"fwd": {"bf16": 0, "f32": 0}, "bwd": {"bf16": 0, "f32": 0}}
+    for dispatch in ("einsum", "scatter"):
+        cfg = bert_tiny(vocab_size=1024, moe_experts=4, moe_top_k=2, moe_dispatch=dispatch,
+                        moe_capacity_factor=MX_TRAIN_CF, attn_impl="flash")
+        init = text_stage._init_params(cfg, 2, seed=3)
+        first = {}
+        for weight in (0.01, 0.0):
+            losses, params, launches, captures = {}, {}, {}, None
+            for run in ("eager", "graph"):
+                trainer = trainer_mod.Trainer(
+                    BertClassifier(cfg, 2),
+                    trainer_mod.TrainerConfig(learning_rate=1e-3, total_steps=MX_TRAIN_STEPS,
+                                              moe_aux_weight=weight), device=device)
+                state = trainer.init_state(init_params=init)
+                _zero_flash_counts()
+                if run == "eager":
+                    seen = [trainer.train_step(state, b)[1]["loss"] for b in batches]
+                else:
+                    m0, seen = cache.miss_count("train_steps_scan"), []
+                    for c in range(0, MX_TRAIN_STEPS, MX_TRAIN_CHUNK):
+                        chunk = batches[c:c + MX_TRAIN_CHUNK]
+                        state, m = trainer.train_steps_scan(
+                            state, {k: np.stack([b[k] for b in chunk]) for k in chunk[0]})
+                        seen += list(m["loss"])
+                    captures = cache.miss_count("train_steps_scan") - m0
+                losses[run] = torch.stack(seen).cpu()
+                params[run] = {k: v.detach().cpu() for k, v in state.params.items()}
+                launches[run] = _flash_counts()
+                trainer.release_graphs()
+                del trainer, state
+            off = [k for k in params["eager"] if not torch.equal(params["eager"][k],
+                                                                  params["graph"][k])]
+            same_losses = torch.equal(losses["eager"], losses["graph"])
+            n = cfg.n_layers * MX_TRAIN_STEPS
+            want = {"fwd": {"bf16": n, "f32": 0}, "bwd": {"bf16": n, "f32": 0}}
+            log(f"[moe] (c) bert_tiny MoE (4 experts, top-2, {dispatch}) through flash, "
+                f"moe_aux_weight {weight}: losses {np.round(losses['eager'].numpy(), 5).tolist()}; "
+                f"the graph run (chunks of {MX_TRAIN_CHUNK}: a warm-up, then {captures:g} capture "
+                f"replayed) against {MX_TRAIN_STEPS} eager steps: losses bitwise {same_losses}, "
+                f"{len(params['eager']) - len(off)} of {len(params['eager'])} leaves bitwise "
+                f"equal; flash launches {launches['eager']} / {launches['graph']} | {card}")
+            if off or not same_losses or captures != 1:
+                raise AssertionError(f"main path 8 (c): the MoE graph run differs from the eager "
+                                     f"steps on {off} (losses equal {same_losses}) or captured "
+                                     f"{captures}")
+            if not all(launches[r] == want for r in launches):
+                raise AssertionError(f"main path 8 (c): flash launches {launches}, want {want} "
+                                     f"a run")
+            for d in total:
+                for k in total[d]:
+                    total[d][k] += launches["eager"][d][k] + launches["graph"][d][k]
+            first[weight] = float(losses["eager"][0])
+        log(f"[moe] (c) {dispatch}: first loss with moe_aux_weight 0.01 {first[0.01]:.6f}, "
+            f"with 0 {first[0.0]:.6f}")
+        if not first[0.01] > first[0.0]:
+            raise AssertionError("main path 8 (c): the aux loss did not raise the loss")
+    return total
+
+
+def phase_moe(device, card: str) -> dict:
+    """Main path 8: (a) Mixtral-8x7B at full width through both decode
+    engines, (b) a BF16 Mixtral directory through HuggingFaceCausalLM, (d)
+    no kernel of the port's launched on (a) and (b), (c) an MoE encoder
+    trained through the flash kernels, eagerly and as graphs."""
+    t_start = time.perf_counter()
+    _zero_port_kernel_counts()
+    out = {"engines": _mx_engines(device, card)}
+    log(f"[moe] (a) done at {time.perf_counter() - t_start:.1f} s")
+    out["directory"] = _mx_directory(device, card)
+    log(f"[moe] (b) done at {time.perf_counter() - t_start:.1f} s")
+    counts = _port_kernel_counts()
+    log(f"[moe] (d) the port's kernels launched on (a) and (b): {counts} (want none)")
+    if any(counts.values()):
+        raise AssertionError(f"main path 8 (a)-(b) launched a kernel of the port's: {counts}")
+    launches = _moe_train(device, card)
+    log(f"[moe] (c) done at {time.perf_counter() - t_start:.1f} s")
+    out["launches"], out["bwd_launches"] = launches["fwd"], launches["bwd"]
+    out["seconds"] = time.perf_counter() - t_start
+    log(f"[moe] main path 8: {out['seconds']:.1f} s of the script's clock")
     return out
 
 
@@ -4518,13 +5040,15 @@ def main() -> None:
     done("main path 6, Llama-2-7B batch inference")
     pretrained = phase_pretrained(device, card)
     done("main path 7, pretrained checkpoint directories")
+    moe = phase_moe(device, card)
+    done("main path 8, Mixtral-8x7B and MoE training")
     # the flash kernels' launches on the paths, each counted from 0 just
     # before it ran: scoring (path 1), fine-tuning through flash and both
     # fitted models' scoring (path 3), bert-tiny f32 through flash on the
     # card, the long-T flash steps in bf16 and in f32, and ViT-B/16
-    # fine-tuning through flash (path 5), and the checkpoint fit and its
-    # model's scoring (path 7)
-    paths = (train, vit, pretrained, {"launches": tiny["fwd"], "bwd_launches": tiny["bwd"]},
+    # fine-tuning through flash (path 5), the checkpoint fit and its model's
+    # scoring (path 7), and the MoE encoder's runs (path 8)
+    paths = (train, vit, pretrained, moe, {"launches": tiny["fwd"], "bwd_launches": tiny["bwd"]},
              *({"launches": long_t[tag]["launches"]["fwd"],
                 "bwd_launches": long_t[tag]["launches"]["bwd"]} for tag in ("flash", "flash f32")))
     launches = {k: v + sum(p["launches"][k] for p in paths)

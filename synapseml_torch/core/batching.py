@@ -14,8 +14,10 @@ Counterpart of ``synapseml_tpu/core/batching.py``:
   ``jax.jit`` wrapper, the port's builders return a runner whose first call
   captures a CUDA graph (``models/trainer.py``'s scanned step), so that
   histogram times the capture. The AOT tier of the deploy plane
-  (``install_aot_provider``, ``set_capture``) is refused until that plane
-  is ported.
+  (``install_aot_provider``, ``set_capture``) and ``release_executables``
+  (its hot-swap path) are refused until that plane is ported.
+* ``set_default_bucketer`` and ``reset_compiled_cache`` swap the
+  process-wide ladder and cache, as the JAX ones do.
 """
 
 from __future__ import annotations
@@ -30,9 +32,10 @@ import numpy as np
 
 from . import observability as obs
 
-__all__ = ["ShapeBucketer", "default_bucketer", "pad_rows", "unpad_rows",
-           "round_up_to_multiple", "CompiledCache", "get_compiled_cache",
-           "instance_token", "invalidate_token"]
+__all__ = ["ShapeBucketer", "default_bucketer", "set_default_bucketer", "pad_rows",
+           "unpad_rows", "round_up_to_multiple", "CompiledCache", "get_compiled_cache",
+           "reset_compiled_cache", "instance_token", "invalidate_token",
+           "release_executables"]
 
 _AOT = "ROADMAP.md queue A item 10 (the deploy plane's AOT tier)"
 
@@ -183,11 +186,23 @@ class ShapeBucketer:
 
 
 _DEFAULT_BUCKETER = ShapeBucketer()
+_DEFAULT_LOCK = threading.Lock()
 
 
 def default_bucketer() -> ShapeBucketer:
-    """The process-wide bucket ladder (pow-2 from 8 to 1024)."""
+    """The process-wide bucket ladder (pow-2 from 8 to 1024 unless
+    replaced)."""
     return _DEFAULT_BUCKETER
+
+
+def set_default_bucketer(bucketer: ShapeBucketer) -> ShapeBucketer:
+    """Swap the process-wide ladder (serving config, tests); returns the
+    previous one so that callers can restore it."""
+    global _DEFAULT_BUCKETER
+    with _DEFAULT_LOCK:
+        previous = _DEFAULT_BUCKETER
+        _DEFAULT_BUCKETER = bucketer
+        return previous
 
 
 def pad_rows(a: np.ndarray, bucket: int, mode: str = "zero",
@@ -326,13 +341,21 @@ class CompiledCache:
 
 
 _DEFAULT_CACHE = CompiledCache()
-_DEFAULT_LOCK = threading.Lock()
 _TOKEN_SLOT = "_compiled_cache_token"
 
 
 def get_compiled_cache() -> CompiledCache:
     """The process-wide cache."""
     return _DEFAULT_CACHE
+
+
+def reset_compiled_cache(capacity: int = 128) -> CompiledCache:
+    """A fresh process-wide cache (tests). The registry's counters are not
+    reset: ``observability.reset_registry()`` does that."""
+    global _DEFAULT_CACHE
+    with _DEFAULT_LOCK:
+        _DEFAULT_CACHE = CompiledCache(capacity)
+        return _DEFAULT_CACHE
 
 
 def instance_token(obj: Any) -> str:
@@ -355,3 +378,10 @@ def invalidate_token(obj: Any) -> None:
     tok = obj.__dict__.pop(_TOKEN_SLOT, None)
     if tok is not None:
         get_compiled_cache().evict_instance(tok)
+
+
+def release_executables(stage: Any) -> None:
+    """The hot-swap path's release of a replaced pipeline's callables comes
+    with the serving and deploy planes."""
+    raise NotImplementedError("release_executables is not ported to synapseml_torch yet: "
+                              "ROADMAP.md queue A item 10 (serving and deploy)")

@@ -14,22 +14,22 @@ token-identical between them in f32.
 
 The model is built once a stage, on ``device`` (default ``"cuda"``; a host
 without a card must ask for ``"cpu"``). ``model_name`` is a preset or a
-local HuggingFace checkpoint directory (Llama, Mistral or GPT-2:
+local HuggingFace checkpoint directory (Llama, Mistral, Mixtral or GPT-2:
 :func:`..models.convert_hf.pretrained_causal_lm`, with the directory's
 tokenizer unless ``tokenizer`` is given); ``drafter_ref`` takes either too.
 ``model_params`` is this package's ``LlamaLM`` state_dict (tensors or
 numpy arrays; ``convert_jax.llama_state_dict_from_flax`` maps a Flax
 tree); None means the directory's weights, or ``init_llama_params(seed=0)``
 for a preset. Tensors already on the device in the
-parameter dtype are used as they are, not copied. The decoder's dense
-weights are cast to the compute dtype in place, once, when the model
-loads, and the dense path and every engine share them. Callables come through
+dtype they are kept in are used as they are, not copied. The decoder's
+dense weights and expert tensors are cast to the compute dtype once, when
+the model loads, and the dense path and every engine share them. Callables come through
 ``CompiledCache`` under the JAX package's fn ids (``hf_causal_lm``,
 ``llama_paged_*``) and run eagerly.
 
 Not ported yet, each refused with ``NotImplementedError`` naming its
-``ROADMAP.md`` item: ``mesh_config`` / ``partition_rules`` (9), a Mixtral
-checkpoint (8), ``serving_engine()`` / ``serve_llm`` (10).
+``ROADMAP.md`` item: ``mesh_config`` / ``partition_rules`` (9),
+``serving_engine()`` / ``serve_llm`` (10).
 """
 
 from __future__ import annotations
@@ -46,6 +46,7 @@ from ..core.pipeline import Transformer
 from ..models.convert_hf import pretrained_causal_lm, resolve_model_source
 from ..models.convert_jax import init_llama_params
 from ..models.nets.llama import LlamaLM, fold_in, generate, llama2_7b, llama_tiny
+from ..models.nets.transformer import MoEBlock
 
 __all__ = ["HuggingFaceCausalLM", "default_chat_template", "load_llama"]
 
@@ -63,23 +64,38 @@ def default_chat_template(messages) -> str:
     return "\n".join(parts) + "\n<|assistant|>\n"
 
 
+def _compute_dtype_names(model: LlamaLM) -> set[str]:
+    """The parameters :func:`load_llama` holds in the compute dtype: the
+    decoder's ``nn.Linear`` weights and biases and the MoE blocks' expert
+    tensors, not a router (f32, as the JAX module keeps it)."""
+    out = set()
+    for prefix, m in model.decoder.named_modules(prefix="decoder"):
+        if isinstance(m, MoEBlock):
+            out.update(f"{prefix}.{n}" for n, _ in m.named_parameters(recurse=False))
+        elif isinstance(m, nn.Linear) and not prefix.endswith(".router"):
+            out.update(f"{prefix}.{n}" for n, _ in m.named_parameters())
+    return out
+
+
 def load_llama(cfg, state_dict: dict, device) -> LlamaLM:
     """A :class:`LlamaLM` on ``device`` for inference, holding
-    ``state_dict`` (tensors already there in ``cfg.param_dtype`` are
-    assigned, not copied). The decoder's ``nn.Linear`` weights are then cast
-    to ``cfg.dtype`` in place, once: ``dense``'s per-call cast becomes a
-    no-op, bitwise the same, and the ``state_dict`` given keeps its own
-    tensors. The embedding, the norms and the f32 ``lm_head`` stay in
-    ``cfg.param_dtype``. A tensor of another dtype (an F16 checkpoint's)
-    moves first and is cast on ``device``."""
+    ``state_dict`` (numpy arrays or tensors; tensors already there in
+    the dtype they are kept in are assigned, not copied). The decoder's
+    ``nn.Linear`` weights and an MoE block's expert tensors are held in
+    ``cfg.dtype``: ``dense``'s per-call cast and the experts' become no-ops,
+    bitwise the same. The embedding, the norms, the routers and the f32
+    ``lm_head`` stay in ``cfg.param_dtype``. Each tensor moves to ``device``
+    in its own dtype (an F16 or BF16 checkpoint's is not widened on the
+    host) and is cast there once, straight to the dtype it is kept in; the
+    ``state_dict`` given keeps its own tensors."""
     with torch.device("meta"):
         model = LlamaLM(cfg)
-    state = {k: (torch.from_numpy(np.array(v)) if not isinstance(v, torch.Tensor) else v)
-             .to(device).to(cfg.param_dtype) for k, v in state_dict.items()}
+    compute = _compute_dtype_names(model)
+    state = {}
+    for k, v in state_dict.items():
+        t = v if isinstance(v, torch.Tensor) else torch.from_numpy(np.array(v))
+        state[k] = t.to(device).to(cfg.dtype if k in compute else cfg.param_dtype)
     model.load_state_dict(state, assign=True)
-    for layer in model.decoder.modules():
-        if isinstance(layer, nn.Linear):
-            layer.to(cfg.dtype)
     return model.eval()
 
 

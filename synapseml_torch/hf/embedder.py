@@ -34,7 +34,8 @@ from ..core.dataframe import DataFrame
 from ..core.device import device_type, resolve_device
 from ..core.params import ComplexParam, Param, TypeConverters
 from ..core.pipeline import Transformer
-from ..models.convert_hf import legacy_prenorm_fixup, pretrained_encoder, resolve_model_source
+from ..models.convert_hf import (host_tensor, legacy_prenorm_fixup, pretrained_encoder,
+                                 resolve_model_source)
 from ..models.convert_jax import bert_state_dict_from_flax, init_flax_bert_params
 from ..models.nets.bert import BertEmbeddings, bert_base, bert_tiny
 from ..models.nets.transformer import Encoder
@@ -122,7 +123,7 @@ class HuggingFaceSentenceEmbedder(Transformer):
                 params = _init_encoder(cfg)
             with torch.device("meta"):
                 module = BertEncoder(cfg)
-            module.load_state_dict({k: torch.as_tensor(np.asarray(v)).to(device).to(
+            module.load_state_dict({k: host_tensor(v).to(device).to(
                 cfg.param_dtype) for k, v in params.items()}, assign=True)
             module.eval()
             cls_pool, normalize = self.get("pooling") == "cls", self.get("normalize")

@@ -16,18 +16,23 @@ data_offsets}}``, then the raw little-endian bytes. It maps the file
 (``numpy.memmap``, copy-on-write) and returns views of it. The mappings
 keep the file's dtype, as the JAX mapping does, and are views wherever the
 layout allows (every family but GPT-2, whose Conv1D weights are
-transposed), so a load holds little beyond the mapped file: the stages
-cast to their parameter dtype as they move each tensor to its device.
-Every dtype that ``safetensors.numpy.load_file`` reads is read; ``BF16``
-(and the float8 types) are refused as that reader refuses them in a
-process without ``ml_dtypes``: numpy has no such type.
+transposed, and Mixtral's experts, stacked a layer at a time), so a load
+holds little beyond the mapped file: the stages cast to their parameter
+dtype as they move each tensor to its device. Every dtype that
+``safetensors.numpy.load_file`` reads is read as numpy; ``BF16``, which
+numpy has no type for, is read as a ``torch.bfloat16`` view of the same
+mapped bytes (not widened on the host; the JAX reader gives the same
+values as ``ml_dtypes.bfloat16``), and the maps carry it through as torch
+tensors. The float8 types are refused, as ``safetensors.numpy`` refuses
+them in a process without ``ml_dtypes``.
 Neither ``safetensors`` nor ``transformers`` is imported; the tokenizer of
 a checkpoint directory comes through :func:`..tokenizer.from_huggingface`,
 which imports ``transformers`` only when called.
 
-Not ported: a Mixtral directory (``num_local_experts``) needs ``MoEBlock``
-(ROADMAP.md queue A item 8), and ``shard_pretrained_params`` the multi-GPU
-plane (item 9); both raise ``NotImplementedError`` naming their item.
+A Mixtral directory (``num_local_experts``) maps to dropless ``scatter``
+MoE layers, as the JAX mapping does. Not ported: ``shard_pretrained_params``,
+the multi-GPU plane (ROADMAP.md queue A item 9), raises
+``NotImplementedError`` naming its item.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ import json
 import os
 
 import numpy as np
+import torch
 
 from .nets.bert import BertConfig
 from .nets.llama import llama2_7b
@@ -53,10 +59,8 @@ __all__ = [
     "resnet_variables_from_torch", "resnet_arch_from_hf_config",
     "pretrained_text_classifier", "pretrained_encoder",
     "pretrained_vision", "pretrained_causal_lm",
-    "shard_pretrained_params",
+    "shard_pretrained_params", "host_tensor",
 ]
-
-_MOE = "ROADMAP.md queue A item 8 (MoEBlock)"
 
 
 # ---------------------------------------------------------------------------
@@ -68,7 +72,7 @@ _DTYPES = {"BOOL": np.dtype("?"), "U8": np.dtype("u1"), "I8": np.dtype("i1"),
            "U16": np.dtype("<u2"), "I16": np.dtype("<i2"), "F16": np.dtype("<f2"),
            "U32": np.dtype("<u4"), "I32": np.dtype("<i4"), "F32": np.dtype("<f4"),
            "U64": np.dtype("<u8"), "I64": np.dtype("<i8"), "F64": np.dtype("<f8")}
-_NO_NUMPY = {"BF16": "bfloat16", "F8_E4M3": "float8_e4m3fn", "F8_E5M2": "float8_e5m2"}
+_NO_NUMPY = {"F8_E4M3": "float8_e4m3fn", "F8_E5M2": "float8_e5m2"}
 
 
 def _read_safetensors_file(path: str) -> dict[str, np.ndarray]:
@@ -87,23 +91,32 @@ def _read_safetensors_file(path: str) -> dict[str, np.ndarray]:
     out: dict[str, np.ndarray] = {}
     for name, info in header.items():
         kind = info["dtype"]
-        if kind not in _DTYPES:
+        if kind not in _DTYPES and kind != "BF16":
             raise TypeError(f"{path!r}: tensor {name!r} is {kind}, which numpy has no "
                             "type for (safetensors.numpy refuses it too: data type "
-                            f"{_NO_NUMPY.get(kind, kind)!r} not understood; ROADMAP.md queue C)")
-        dtype, shape = _DTYPES[kind], tuple(info["shape"])
+                            f"{_NO_NUMPY.get(kind, kind)!r} not understood)")
+        # BF16: its bits as int16, viewed as torch.bfloat16 below
+        dtype, shape = _DTYPES.get(kind, np.dtype("<i2")), tuple(info["shape"])
         begin, end = info["data_offsets"]
         if not 0 <= begin <= end <= size - start or \
                 end - begin != dtype.itemsize * int(np.prod(shape, dtype=np.int64)):
             raise ValueError(f"{path!r}: tensor {name!r} has data_offsets {[begin, end]} "
                              f"that do not fit its {kind} shape {list(shape)}")
-        out[name] = data[begin:end].view(dtype).reshape(shape)
+        arr = data[begin:end].view(dtype).reshape(shape)
+        out[name] = torch.from_numpy(arr).view(torch.bfloat16) if kind == "BF16" else arr
     return out
 
 
-def load_safetensors(path: str) -> dict[str, np.ndarray]:
+def host_tensor(value) -> torch.Tensor:
+    """A state_dict value as a tensor: a tensor (a BF16 checkpoint's) as it
+    is, an array without a copy."""
+    return value if isinstance(value, torch.Tensor) else torch.as_tensor(np.asarray(value))
+
+
+def load_safetensors(path: str) -> dict:
     """Read one ``.safetensors`` file (or a sharded ``*.index.json``) into
-    a flat ``{key: np.ndarray}`` state dict of views of the mapped files."""
+    a flat ``{key: np.ndarray}`` state dict of views of the mapped files
+    (``torch.bfloat16`` tensors for BF16)."""
     if path.endswith(".index.json"):
         with open(path) as f:
             index = json.load(f)
@@ -208,6 +221,33 @@ def tokenizer_for_checkpoint(spec, ckpt_dir: str, model_vocab: int):
 # shared small helpers
 # ---------------------------------------------------------------------------
 
+def _zeros(shape: tuple, like):
+    """Zeros of ``like``'s dtype and kind (a BF16 tensor or an array)."""
+    if isinstance(like, torch.Tensor):
+        return torch.zeros(shape, dtype=like.dtype)
+    return np.zeros(shape, like.dtype)
+
+
+def _transposed(w):
+    """A contiguous copy of the 2-d ``w`` transposed."""
+    if isinstance(w, torch.Tensor):
+        return w.t().contiguous()
+    return np.ascontiguousarray(w.T)
+
+
+def _split(w, n: int, axis: int) -> list:
+    if isinstance(w, torch.Tensor):
+        return list(torch.chunk(w, n, dim=axis))
+    return np.split(w, n, axis=axis)
+
+
+def _stack_transposed(ws: list):
+    """``[len(ws), in, out]`` from ``[out, in]`` Linear weights: one copy."""
+    if isinstance(ws[0], torch.Tensor):
+        return torch.stack([w.t() for w in ws])
+    return np.stack([w.T for w in ws])
+
+
 def _linear(out: dict, dst: str, sd: dict, src: str, bias: bool = True) -> None:
     """A torch Linear ``src`` -> ``dst`` as it is (both ``[out, in]``); a
     missing bias is zeros when ``bias``, as the JAX mapping's zero biases."""
@@ -216,7 +256,7 @@ def _linear(out: dict, dst: str, sd: dict, src: str, bias: bool = True) -> None:
     if f"{src}.bias" in sd:
         out[f"{dst}.bias"] = sd[f"{src}.bias"]
     elif bias:
-        out[f"{dst}.bias"] = np.zeros(w.shape[0], w.dtype)
+        out[f"{dst}.bias"] = _zeros((w.shape[0],), w)
 
 
 def _norm(out: dict, dst: str, sd: dict, src: str, bias: bool = True) -> None:
@@ -364,10 +404,11 @@ def vit_params_from_hf(sd: dict[str, np.ndarray], num_classes: int | None = None
 # ---------------------------------------------------------------------------
 
 def llama_config_from_hf(config: dict, **overrides):
-    if config.get("num_local_experts"):  # Mixtral-family sparse-MoE decoder
-        raise NotImplementedError(
-            f"a Mixtral checkpoint (num_local_experts={config['num_local_experts']}) needs "
-            f"the sparse-MoE block, not ported to synapseml_torch yet: {_MOE}")
+    """HF llama / mistral / mixtral config.json -> TransformerConfig. A
+    Mixtral config (``num_local_experts``) gets MoE layers routed as HF
+    routes them: dropless, so ``cf = E / k`` makes ``C = S`` (a token's k
+    choices are distinct experts), through the ``scatter`` dispatch (the
+    einsum layout's ``[S, E, C]`` tensors are O(S^2 E) at ``C = S``)."""
     kw = dict(
         vocab_size=config.get("vocab_size", 32000),
         hidden=config.get("hidden_size", 4096),
@@ -379,21 +420,28 @@ def llama_config_from_hf(config: dict, **overrides):
         norm_eps=config.get("rms_norm_eps", 1e-5),
         rope_theta=config.get("rope_theta", 10000.0),
     )
+    if config.get("num_local_experts"):  # Mixtral-family sparse-MoE decoder
+        E = int(config["num_local_experts"])
+        k = int(config.get("num_experts_per_tok", 2))
+        kw.update(moe_experts=E, moe_top_k=k, moe_capacity_factor=float(E) / k,
+                  moe_dispatch="scatter")
     kw.update(overrides)
     return llama2_7b(**kw)
 
 
 def llama_params_from_hf(sd: dict[str, np.ndarray],
                          n_heads: int | None = None) -> dict[str, np.ndarray]:
-    """HF LlamaForCausalLM (or bare LlamaModel) -> ``LlamaLM``'s state_dict.
+    """HF LlamaForCausalLM / MixtralForCausalLM (or the bare models) ->
+    ``LlamaLM``'s state_dict.
 
     GQA needs nothing here (k/v keep their ``[KV * D, hidden]`` rows); a
     missing ``lm_head`` is the tied ``embed_tokens``; missing biases are
-    zeros, as the JAX mapping's."""
+    zeros, as the JAX mapping's. A Mixtral layer's ``block_sparse_moe``:
+    the router ``gate [E, H]`` as it is, each kind of expert weight
+    (``w1`` the SwiGLU gate, ``w3`` up, ``w2`` down) stacked over the
+    experts and transposed into ``[E, in, out]`` (one copy a layer, in the
+    file's dtype), expert biases zero."""
     body = _strip_prefix(sd, "model.")
-    if any(".block_sparse_moe." in k for k in body):
-        raise NotImplementedError("a Mixtral checkpoint (block_sparse_moe) needs the sparse-MoE "
-                                  f"block, not ported to synapseml_torch yet: {_MOE}")
     n_layers = _n_layers(body, "layers.", 1)
     embed = body["embed_tokens.weight"]
     out = {"embed.weight": embed}
@@ -401,8 +449,20 @@ def llama_params_from_hf(sd: dict[str, np.ndarray],
         p, q = f"layers.{i}", f"decoder.layers.{i}"
         for proj in ("q", "k", "v", "o"):
             _linear(out, f"{q}.attn.{proj}", body, f"{p}.self_attn.{proj}_proj")
-        for proj in ("gate", "up", "down"):
-            _linear(out, f"{q}.mlp.{proj}", body, f"{p}.mlp.{proj}_proj")
+        router = f"{p}.block_sparse_moe.gate.weight"
+        if router in body:
+            ex = f"{p}.block_sparse_moe.experts"
+            E = sum(1 for k in body if k.startswith(f"{ex}.") and k.endswith(".w1.weight"))
+            out[f"{q}.mlp.router.weight"] = body[router]
+            for dst, src in (("w_gate", "w1"), ("w_up", "w3"), ("w_dn", "w2")):
+                out[f"{q}.mlp.{dst}"] = _stack_transposed(
+                    [body[f"{ex}.{e}.{src}.weight"] for e in range(E)])
+            w_up, w_dn = out[f"{q}.mlp.w_up"], out[f"{q}.mlp.w_dn"]
+            out[f"{q}.mlp.b_up"] = _zeros((E, w_up.shape[2]), w_up)
+            out[f"{q}.mlp.b_dn"] = _zeros((E, w_dn.shape[2]), w_dn)
+        else:
+            for proj in ("gate", "up", "down"):
+                _linear(out, f"{q}.mlp.{proj}", body, f"{p}.mlp.{proj}_proj")
         _norm(out, f"{q}.norm1", body, f"{p}.input_layernorm", bias=False)
         _norm(out, f"{q}.norm2", body, f"{p}.post_attention_layernorm", bias=False)
     _norm(out, "decoder.norm", body, "norm", bias=False)
@@ -452,14 +512,14 @@ def gpt2_params_from_hf(sd: dict[str, np.ndarray], n_heads: int) -> dict[str, np
     out = {"embed.weight": body["wte.weight"], "wpe.weight": body["wpe.weight"]}
 
     def conv1d(dst, w, b):
-        out[f"{dst}.weight"] = np.ascontiguousarray(w.T)
+        out[f"{dst}.weight"] = _transposed(w)
         out[f"{dst}.bias"] = b
 
     for i in range(n_layers):
         p, q = f"h.{i}", f"decoder.layers.{i}"
         w = body[f"{p}.attn.c_attn.weight"]  # [H, 3H]
         b = body[f"{p}.attn.c_attn.bias"]
-        for proj, wi, bi in zip("qkv", np.split(w, 3, axis=1), np.split(b, 3)):
+        for proj, wi, bi in zip("qkv", _split(w, 3, 1), _split(b, 3, 0)):
             conv1d(f"{q}.attn.{proj}", wi, bi)
         conv1d(f"{q}.attn.o", body[f"{p}.attn.c_proj.weight"], body[f"{p}.attn.c_proj.bias"])
         conv1d(f"{q}.mlp.up", body[f"{p}.mlp.c_fc.weight"], body[f"{p}.mlp.c_fc.bias"])
@@ -609,8 +669,8 @@ def pretrained_causal_lm(ckpt_dir: str, **cfg_overrides):
     """(TransformerConfig, state_dict) for ``LlamaLM`` from a local HF dir.
 
     Dispatches on ``config.json``'s ``model_type``: llama and mistral take
-    the Llama mapping, ``gpt2`` the learned-position LayerNorm one; a
-    Mixtral directory is refused (queue A item 8)."""
+    the Llama mapping (Mixtral's MoE layers included), ``gpt2`` the
+    learned-position LayerNorm one."""
     config, sd = load_checkpoint(ckpt_dir)
     if config.get("model_type") == "gpt2":
         cfg = gpt2_config_from_hf(config, **cfg_overrides)

@@ -15,6 +15,9 @@ arrays. They need no JAX: only the names and shapes of the tree.
   * embedding tables, ``cls`` and ``pos_embed`` keep their shape;
   * ``Conv.kernel [kh, kw, in, out]`` (HWIO) -> ``Conv2d.weight [out, in,
     kh, kw]`` (OIHW);
+  * an ``MoEBlock``'s ``router.kernel [hidden, E]`` -> ``mlp.router.weight
+    [E, hidden]``; its expert arrays (``w_up``, ``w_gate``, ``w_dn``,
+    ``b_up``, ``b_dn``) keep their names and shapes;
   * ``BatchNorm`` ``scale``/``bias`` -> ``weight``/``bias``, and its
     ``batch_stats`` ``mean``/``var`` -> the buffers of the same names; a
     ResNet block ``stage<i>_block<j>`` -> ``blocks.stage<i>_block<j>``.
@@ -80,7 +83,10 @@ def _encoder_state(out: dict, prefix: str, encoder: dict) -> None:
             _dense(out, f"{pre}.attn.{proj}", sub["attn"][proj], "in_proj")
         _dense(out, f"{pre}.attn.o", sub["attn"]["o"], "out_proj")
         for mlp_name, mlp in sub["mlp"].items():
-            _dense(out, f"{pre}.mlp.{mlp_name}", mlp)
+            if isinstance(mlp, dict):  # a Dense; an MoE block's router too
+                _dense(out, f"{pre}.mlp.{mlp_name}", mlp)
+            else:  # an MoE block's expert arrays, as they are
+                out[f"{pre}.mlp.{mlp_name}"] = _arr(mlp)
         _norm(out, f"{pre}.norm1", _norm_key(sub, 0))
         _norm(out, f"{pre}.norm2", _norm_key(sub, 1))
     if any(k.endswith("Norm_0") for k in encoder):
@@ -198,12 +204,25 @@ def _lecun_normal(rng, shape, fan_in) -> np.ndarray:
 
 def _flax_encoder(cfg, rng) -> dict:
     """An ``Encoder``'s params: attention and MLP kernels Xavier-uniform,
-    biases 0, norm scales 1."""
+    biases 0, norm scales 1; an MoE layer's router and expert kernels
+    Xavier-uniform too, over the fans Flax gives an ``[E, in, out]`` kernel
+    (the expert axis a receptive field: ``E*in``, ``E*out``)."""
     hid, H, KV, D = cfg.hidden, cfg.n_heads, cfg.kv_heads, cfg.head_dim
 
     def dense(n_in, n_out):
         return {"kernel": _xavier(rng, (n_in, n_out), n_in, n_out),
                 "bias": np.zeros(n_out, np.float32)}
+
+    def moe():
+        E, M = cfg.moe_experts, cfg.mlp_dim
+        tree = {"router": {"kernel": _xavier(rng, (hid, E), hid, E)},
+                "w_up": _xavier(rng, (E, hid, M), E * hid, E * M),
+                "b_up": np.zeros((E, M), np.float32),
+                "w_dn": _xavier(rng, (E, M, hid), E * M, E * hid),
+                "b_dn": np.zeros((E, hid), np.float32)}
+        if cfg.gated_mlp:
+            tree["w_gate"] = _xavier(rng, (E, hid, M), E * hid, E * M)
+        return tree
 
     def norm():
         tree = {"scale": np.ones(hid, np.float32)}
@@ -219,9 +238,12 @@ def _flax_encoder(cfg, rng) -> dict:
                 for p, h in (("q", H), ("k", KV), ("v", KV))}
         attn["o"] = {"kernel": _xavier(rng, (H, D, hid), H * D, hid),
                      "bias": np.zeros(hid, np.float32)}
-        mlp = {"up": dense(hid, cfg.mlp_dim), "down": dense(cfg.mlp_dim, hid)}
-        if cfg.gated_mlp:
-            mlp["gate"] = dense(hid, cfg.mlp_dim)
+        if cfg.moe_experts > 0:
+            mlp = moe()
+        else:
+            mlp = {"up": dense(hid, cfg.mlp_dim), "down": dense(cfg.mlp_dim, hid)}
+            if cfg.gated_mlp:
+                mlp["gate"] = dense(hid, cfg.mlp_dim)
         tree[f"layer_{i}"] = {"attn": attn, "mlp": mlp, f"{norm_name}_0": norm(),
                               f"{norm_name}_1": norm()}
     if cfg.norm_position != "post":
@@ -323,10 +345,11 @@ def init_llama_params(cfg, seed: int = 0, device="cuda") -> dict[str, torch.Tens
     ``device`` in ``cfg.param_dtype``, with the JAX module's initialisers
     (the distributions, not the bits of ``jax.random``): ``embed``, ``wpe``
     and ``lm_head`` N(0, 0.02); attention and MLP kernels Xavier-uniform
-    over their flattened (in, out) fans, as ``_xavier``; biases 0, norm
-    scales 1. Drawn in order from one ``torch.Generator(device)`` seeded
-    with ``seed``. ``device`` defaults to the card; a host without one must
-    ask for ``"cpu"``."""
+    over their flattened (in, out) fans, as ``_xavier``; an MoE layer's
+    router likewise and its expert kernels over Flax's ``(E*in, E*out)``
+    fans; biases 0, norm scales 1. Drawn in order from one
+    ``torch.Generator(device)`` seeded with ``seed``. ``device`` defaults
+    to the card; a host without one must ask for ``"cpu"``."""
     device = resolve_device("init_llama_params", device)
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
@@ -341,8 +364,13 @@ def init_llama_params(cfg, seed: int = 0, device="cuda") -> dict[str, torch.Tens
         return torch.empty((n_out, n_in), dtype=pd, device=device).uniform_(
             -lim, lim, generator=gen)
 
-    def zeros(n):
-        return torch.zeros(n, dtype=pd, device=device)
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=pd, device=device)
+
+    def experts(E, n_in, n_out):  # an [E, in, out] kernel, the expert axis in the fans
+        lim = math.sqrt(6.0 / (E * n_in + E * n_out))
+        return torch.empty((E, n_in, n_out), dtype=pd, device=device).uniform_(
+            -lim, lim, generator=gen)
 
     out = {"embed.weight": normal((cfg.vocab_size, hid))}
     if cfg.learned_pos:
@@ -354,12 +382,21 @@ def init_llama_params(cfg, seed: int = 0, device="cuda") -> dict[str, torch.Tens
             out[f"{pre}.attn.{proj}.bias"] = zeros(heads * D)
         out[f"{pre}.attn.o.weight"] = xavier(H * D, hid)
         out[f"{pre}.attn.o.bias"] = zeros(hid)
-        names = ("gate", "up") if cfg.gated_mlp else ("up",)
-        for name in names:
-            out[f"{pre}.mlp.{name}.weight"] = xavier(hid, mlp)
-            out[f"{pre}.mlp.{name}.bias"] = zeros(mlp)
-        out[f"{pre}.mlp.down.weight"] = xavier(mlp, hid)
-        out[f"{pre}.mlp.down.bias"] = zeros(hid)
+        if cfg.moe_experts > 0:
+            E = cfg.moe_experts
+            out[f"{pre}.mlp.router.weight"] = xavier(hid, E)
+            for name in ("w_gate", "w_up") if cfg.gated_mlp else ("w_up",):
+                out[f"{pre}.mlp.{name}"] = experts(E, hid, mlp)
+            out[f"{pre}.mlp.w_dn"] = experts(E, mlp, hid)
+            out[f"{pre}.mlp.b_up"] = zeros(E, mlp)
+            out[f"{pre}.mlp.b_dn"] = zeros(E, hid)
+        else:
+            names = ("gate", "up") if cfg.gated_mlp else ("up",)
+            for name in names:
+                out[f"{pre}.mlp.{name}.weight"] = xavier(hid, mlp)
+                out[f"{pre}.mlp.{name}.bias"] = zeros(mlp)
+            out[f"{pre}.mlp.down.weight"] = xavier(mlp, hid)
+            out[f"{pre}.mlp.down.bias"] = zeros(hid)
         out[f"{pre}.norm1.weight"] = torch.ones(hid, dtype=pd, device=device)
         out[f"{pre}.norm2.weight"] = torch.ones(hid, dtype=pd, device=device)
     out["decoder.norm.weight"] = torch.ones(hid, dtype=pd, device=device)

@@ -23,9 +23,11 @@ The decoder side of the JAX module (the Llama family):
     decode products read them in place; a step attends over the whole
     ``max_len`` under the offset causal mask, as the JAX cache does.
 
-Mixture-of-experts (``moe_experts > 0``) is refused until its port
-(ROADMAP.md queue A item 8); the sequence-parallel backends arrive with the
-multi-GPU slice.
+Mixture-of-experts (``moe_experts > 0``): :class:`MoEBlock`, the switch
+MLP of the JAX module (``:314-462`` there), with its ``einsum`` and
+``scatter`` dispatches, capacity and drop order, f32 router and load-balance
+aux loss; see its docstring for where the port fixes an order the reference
+leaves free. The sequence-parallel backends arrive with the multi-GPU slice.
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ from torch import nn
 
 from ...ops.attention import flash_attention
 
-__all__ = ["TransformerConfig", "Attention", "MlpBlock", "Block", "Encoder",
+__all__ = ["TransformerConfig", "Attention", "MlpBlock", "MoEBlock", "Block", "Encoder",
            "LayerNorm", "RMSNorm", "dense", "KVCache", "rope_frequencies",
            "rope_tables", "apply_rope", "make_causal_mask",
            "grouped_attention"]
@@ -72,7 +74,14 @@ class TransformerConfig:
     # learned absolute position embeddings added by the LM wrapper (GPT-2
     # family); RoPE models leave this False
     learned_pos: bool = False
-    moe_experts: int = 0  # > 0 is refused: MoE is not ported yet
+    # mixture-of-experts MLP (switch routing): 0 = the dense MlpBlock
+    moe_experts: int = 0
+    moe_top_k: int = 1
+    moe_capacity_factor: float = 1.25
+    # 'einsum': [S, E, C] one-hot dispatch/combine (right for small C);
+    # 'scatter': assignments sorted by expert into [E, C, H] buffers (the
+    # only feasible layout at a dropless C = S, e.g. Mixtral)
+    moe_dispatch: str = "einsum"
 
     @property
     def head_dim(self) -> int:
@@ -305,16 +314,156 @@ class MlpBlock(nn.Module):
         return dense(self.down, h, cfg.dtype)
 
 
+def _xavier_experts_(w: torch.Tensor) -> None:
+    """Flax's ``xavier_uniform`` on an ``[E, in, out]`` expert kernel: the
+    expert axis counts as a receptive field, so the limit is ``sqrt(6 /
+    (E*in + E*out))``."""
+    E, n_in, n_out = w.shape
+    lim = math.sqrt(6.0 / (E * n_in + E * n_out))
+    with torch.no_grad():
+        w.uniform_(-lim, lim)
+
+
+class MoEBlock(nn.Module):
+    """Switch-transformer MoE MLP: top-k routing, capacity-bucketed dispatch,
+    per-expert MLPs; the counterpart of the JAX ``MoEBlock``.
+
+    * The router (``router.weight [E, H]``, no bias) runs in f32 on an f32
+      copy of the activations, keeps its f32 weight, and takes the top k of
+      its softmax, ties to the lowest expert index (``lax.top_k``'s order;
+      ``torch.topk`` orders ties otherwise), through a stable sort. Gates
+      are renormalised over the k chosen for k > 1; k = 1 keeps the raw
+      probability.
+    * Capacity ``C = max(ceil(cf * S * k / E), 1)`` on the host, the
+      reference's expression. First choices fill an expert before any
+      second choice; an assignment past C is dropped (its token's residual
+      carries it).
+    * ``scatter``: the S*k assignments choice-major, stably sorted by
+      expert, slot = position within the expert, rows past C to one extra
+      drop row; each token's k contributions come back through the inverse
+      permutation as ``[k, S, H]`` and are summed in choice order, so the
+      result does not depend on the order of atomic adds for any k.
+      ``einsum``: the ``[S, E, C]`` one-hot dispatch and combine tensors
+      built choice by choice.
+    * Experts: ``w_up``/``w_gate [E, H, M]``, ``w_dn [E, M, H]``, ``b_up
+      [E, M]``, ``b_dn [E, H]``; each product accumulates in f32 and rounds
+      to ``cfg.dtype`` once, the biases added there; SwiGLU when
+      ``gated_mlp``.
+    * The load-balance term ``E * sum_e f_e * P_e`` (``f_e`` averaged over
+      all k choices) is kept as ``aux_loss`` after a forward with grad
+      enabled (the JAX module's ``sow``), for the trainer to collect; it is
+      None after an inference forward. Padding rows route and take
+      capacity, as in the reference.
+    """
+
+    def __init__(self, cfg: TransformerConfig):
+        super().__init__()
+        if cfg.moe_dispatch not in ("einsum", "scatter"):
+            raise ValueError(f"moe_dispatch must be 'einsum' or 'scatter', got "
+                             f"{cfg.moe_dispatch!r}")
+        self.cfg = cfg
+        E, H, M, pd = cfg.moe_experts, cfg.hidden, cfg.mlp_dim, cfg.param_dtype
+        self.router = nn.Linear(H, E, bias=False, dtype=pd)
+        self.w_up = nn.Parameter(torch.empty(E, H, M, dtype=pd))
+        self.b_up = nn.Parameter(torch.zeros(E, M, dtype=pd))
+        if cfg.gated_mlp:
+            self.w_gate = nn.Parameter(torch.empty(E, H, M, dtype=pd))
+        self.w_dn = nn.Parameter(torch.empty(E, M, H, dtype=pd))
+        self.b_dn = nn.Parameter(torch.zeros(E, H, dtype=pd))
+        self.aux_loss: torch.Tensor | None = None
+        self.reset_parameters()
+
+    def reset_parameters(self) -> None:
+        """Expert kernels as Flax draws them, biases 0 (the router is an
+        ``nn.Linear`` with its own initialiser)."""
+        if self.w_up.is_meta:
+            return
+        for w in (self.w_up, getattr(self, "w_gate", None), self.w_dn):
+            if w is not None:
+                _xavier_experts_(w)
+        with torch.no_grad():
+            self.b_up.zero_()
+            self.b_dn.zero_()
+
+    def _experts(self, expert_in: torch.Tensor) -> torch.Tensor:
+        """``[E, C, H]`` rows through each expert's MLP, in ``cfg.dtype``."""
+        cfg = self.cfg
+        dt = cfg.dtype
+        up = torch.bmm(expert_in, self.w_up.to(dt)) + self.b_up[:, None, :].to(dt)
+        if cfg.gated_mlp:
+            h = _ACTS[cfg.act](torch.bmm(expert_in, self.w_gate.to(dt))) * up
+        else:
+            h = _ACTS[cfg.act](up)
+        return torch.bmm(h, self.w_dn.to(dt)) + self.b_dn[:, None, :].to(dt)
+
+    def forward(self, x):
+        cfg = self.cfg
+        E, k, dt = cfg.moe_experts, cfg.moe_top_k, cfg.dtype
+        B, T, H = x.shape
+        S = B * T
+        dev = x.device
+        xf = x.reshape(S, H)
+        probs = torch.softmax(F.linear(xf.float(), self.router.weight.float()), dim=-1)
+        C = max(int(math.ceil(cfg.moe_capacity_factor * S * k / E)), 1)
+        gate_idx = torch.sort(probs, dim=-1, descending=True, stable=True).indices[:, :k]
+        gate_vals = probs.gather(1, gate_idx)  # [S, k]
+        if k > 1:
+            gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
+        experts = torch.arange(E, device=dev)
+
+        if cfg.moe_dispatch == "scatter":
+            expert_flat = gate_idx.t().reshape(S * k)  # choice-major
+            order = torch.argsort(expert_flat, stable=True)
+            e_sorted = expert_flat[order]
+            # counted with a static-size reduction: bincount would read its
+            # length back from the card, which a captured step cannot do
+            counts = (expert_flat[:, None] == experts).sum(0)
+            starts = torch.cumsum(counts, 0) - counts
+            pos = torch.arange(S * k, device=dev) - starts[e_sorted]  # slot within the expert
+            buf_sorted = torch.where(pos < C, e_sorted * C + pos, E * C)
+            buf = torch.empty_like(buf_sorted).scatter_(0, order, buf_sorted)  # choice-major
+            expert_in = xf.new_zeros((E * C + 1, H), dtype=dt).index_copy(
+                0, buf, xf.to(dt).repeat(k, 1))
+            out_e = self._experts(expert_in[:E * C].view(E, C, H))
+            rows = out_e.reshape(E * C, H).index_select(0, buf.clamp_max(E * C - 1))
+            w = gate_vals.t() * (buf < E * C).view(k, S).float()  # [k, S]
+            contrib = rows.view(k, S, H).float() * w[..., None]
+            y = contrib[0]
+            for j in range(1, k):
+                y = y + contrib[j]
+        else:
+            slots = torch.arange(C, device=dev)
+            dispatch = torch.zeros((S, E, C), dtype=dt, device=dev)
+            combine = torch.zeros((S, E, C), dtype=torch.float32, device=dev)
+            fill = torch.zeros(E, dtype=torch.long, device=dev)
+            for j in range(k):
+                e_oh = (gate_idx[:, j, None] == experts).long()  # [S, E]
+                # position within the chosen expert, after earlier choices' slots
+                pos = (torch.cumsum(e_oh, 0) - e_oh + fill) * e_oh
+                pos_tok = pos.sum(1)  # [S]; past C its one-hot row is 0
+                slot = (pos_tok[:, None] == slots).to(dt)  # [S, C]
+                d = e_oh.to(dt)[:, :, None] * slot[:, None, :]
+                dispatch = dispatch + d
+                combine = combine + d.float() * gate_vals[:, j, None, None]
+                fill = fill + e_oh.sum(0)
+            expert_in = torch.einsum("sec,sh->ech", dispatch, xf.to(dt))
+            y = torch.einsum("sec,ech->sh", combine, self._experts(expert_in).float())
+
+        if torch.is_grad_enabled():
+            frac_tokens = (gate_idx[..., None] == experts).float().mean(dim=(0, 1))
+            self.aux_loss = E * torch.sum(frac_tokens * probs.mean(0))
+        else:
+            self.aux_loss = None
+        return y.reshape(B, T, H).to(dt)
+
+
 class Block(nn.Module):
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
-        if cfg.moe_experts > 0:
-            raise NotImplementedError("moe_experts > 0 (MoEBlock) is not ported to "
-                                      "synapseml_torch yet: ROADMAP.md queue A item 8")
         self.post = cfg.norm_position == "post"
         self.attn = Attention(cfg)
         self.norm1 = _norm(cfg)
-        self.mlp = MlpBlock(cfg)
+        self.mlp = MoEBlock(cfg) if cfg.moe_experts > 0 else MlpBlock(cfg)
         self.norm2 = _norm(cfg)
 
     def forward(self, x, mask=None, positions=None, kv=None):

@@ -48,8 +48,8 @@ from ..core import DataFrame, Estimator, Model
 from ..core import batching as cb
 from ..core.device import device_type, resolve_device
 from ..core.params import ComplexParam, Param, TypeConverters
-from .convert_hf import (is_checkpoint_dir, legacy_prenorm_fixup, pretrained_text_classifier,
-                         tokenizer_for_checkpoint)
+from .convert_hf import (host_tensor, is_checkpoint_dir, legacy_prenorm_fixup,
+                         pretrained_text_classifier, tokenizer_for_checkpoint)
 from .convert_jax import bert_state_dict_from_flax, init_flax_bert_params
 from .nets.bert import BertClassifier, bert_base, bert_tiny
 from .tokenizer import resolve_tokenizer
@@ -77,8 +77,8 @@ def _init_params(cfg, num_classes: int, seed: int) -> dict:
     return bert_state_dict_from_flax(init_flax_bert_params(cfg, num_classes, seed))
 
 
-def _unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"DeepTextClassifier: {what} is not ported to "
+def _unported(what: str, item: str, stage: str = "DeepTextClassifier") -> NotImplementedError:
+    return NotImplementedError(f"{stage}: {what} is not ported to "
                                f"synapseml_torch yet: ROADMAP.md queue A item {item}")
 
 
@@ -237,6 +237,8 @@ class DeepTextModel(Model, _TextParams):
     model_params = ComplexParam("model_params", "trained parameters: this "
                                 "package's BertClassifier state_dict as numpy "
                                 "arrays (convert_jax maps a Flax tree)")
+    mesh_config = ComplexParam("mesh_config", "MeshConfig for sharded inference "
+                               "(not ported yet: must stay None)", default=None)
     arch_config = ComplexParam("arch_config", "TransformerConfig (None = "
                                "resolve checkpoint preset)", default=None)
     tokenizer_config = ComplexParam("tokenizer_config", "tokenizer config dict")
@@ -247,7 +249,8 @@ class DeepTextModel(Model, _TextParams):
                       default=None,
                       validator=lambda v: v in (None, "einsum", "flash"))
     _APPLY_KEYS = frozenset({"model_params", "arch_config", "tokenizer_config",
-                             "checkpoint", "num_classes", "attn_impl", "device"})
+                             "checkpoint", "num_classes", "mesh_config", "attn_impl",
+                             "device"})
 
     def __init__(self, **kw):
         super().__init__(**kw)
@@ -265,6 +268,8 @@ class DeepTextModel(Model, _TextParams):
     def _get_module(self) -> BertClassifier:
         """The module on its device, built once per stage."""
         if self._module is None:
+            if self.get("mesh_config") is not None:
+                raise _unported("mesh_config", "9 (multi-GPU)", "DeepTextModel")
             tok = resolve_tokenizer(self.get("tokenizer_config"))
             params = self.get("model_params")
             cfg = self.get("arch_config")
@@ -280,8 +285,7 @@ class DeepTextModel(Model, _TextParams):
             device = resolve_device("DeepTextModel", self.get("device"))
             with torch.device("meta"):
                 module = BertClassifier(cfg, num_classes=self.get("num_classes"))
-            state = {k: torch.as_tensor(np.asarray(v)).to(device=device,
-                                                          dtype=cfg.param_dtype)
+            state = {k: host_tensor(v).to(device=device, dtype=cfg.param_dtype)
                      for k, v in params.items()}
             module.load_state_dict(state, assign=True)
             self._tok, self._device = tok, device

@@ -63,6 +63,7 @@ from ..core import observability as obs
 from ..core.device import resolve_device
 from ..core.instrumentation import chip_peak_tflops
 from ..ops import attention as att
+from .nets.transformer import MoEBlock
 
 __all__ = ["TrainerConfig", "Trainer", "TrainState", "NonFiniteLossError",
            "cross_entropy_loss", "plan_fit", "fit_source", "fit_arrays",
@@ -92,6 +93,10 @@ class TrainerConfig:
     # synapseml_train_nonfinite_total; "raise" aborts the fit with
     # NonFiniteLossError naming the poisoned step
     nonfinite_action: str = "count"  # count | raise
+    # weight on the switch-MoE load-balance aux loss (each MoEBlock's
+    # aux_loss, averaged over the layers); only consulted when the module's
+    # config has moe_experts > 0
+    moe_aux_weight: float = 0.01
     partition_rules: Any | None = None
     zero_shard: bool = False
 
@@ -510,7 +515,8 @@ class Trainer:
                     raise ValueError(f"init_params do not match the module: missing "
                                      f"{missing[:8]}, unused {extra[:8]}")
                 for name, p in named.items():
-                    v = torch.tensor(np.asarray(init_params[name]))
+                    v = init_params[name]  # an array, or a tensor (a BF16 checkpoint's)
+                    v = v if isinstance(v, torch.Tensor) else torch.tensor(np.asarray(v))
                     if tuple(v.shape) != tuple(p.shape):
                         raise ValueError(f"shape mismatch for {name!r}: given "
                                          f"{tuple(v.shape)}, module {tuple(p.shape)}")
@@ -537,15 +543,27 @@ class Trainer:
         return {k: torch.as_tensor(np.asarray(v)).to(self.device) for k, v in batch.items()}
 
     def default_loss(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
-        """(masked cross entropy, logits) of one device batch; with
-        ``has_batch_stats`` the module runs with ``train=True`` (batch
-        statistics, running statistics updated)."""
+        """(masked cross entropy, logits) of one device batch, the training
+        loss; with ``has_batch_stats`` the module runs with ``train=True``
+        (batch statistics, running statistics updated). A module whose
+        config has ``moe_experts > 0`` adds ``moe_aux_weight`` times the mean
+        over its MoE layers of their load-balance terms, as the JAX trainer
+        adds the sown ``moe_aux_loss``."""
         inputs = self._model_inputs(batch)
         if self.has_batch_stats:
             inputs["train"] = True
         logits = self.module(**inputs)
         labels = batch.get("labels", batch.get("label"))
-        return cross_entropy_loss(logits, labels, batch.get("_valid")), logits
+        loss = cross_entropy_loss(logits, labels, batch.get("_valid"))
+        if getattr(getattr(self.module, "cfg", None), "moe_experts", 0) > 0:
+            aux = []
+            for m in self.module.modules():
+                if isinstance(m, MoEBlock) and m.aux_loss is not None:
+                    aux.append(m.aux_loss)
+                    m.aux_loss = None
+            if aux:
+                loss = loss + self.cfg.moe_aux_weight * (sum(aux) / len(aux))
+        return loss, logits
 
     def _step(self, state: TrainState, batch: dict, scalars: torch.Tensor,
               micro: int) -> tuple[torch.Tensor, torch.Tensor]:

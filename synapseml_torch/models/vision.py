@@ -44,7 +44,7 @@ from ..core import DataFrame, Estimator, Model
 from ..core import batching as cb
 from ..core.device import device_type, resolve_device
 from ..core.params import ComplexParam, Param, TypeConverters
-from .convert_hf import is_checkpoint_dir, pretrained_vision
+from .convert_hf import host_tensor, is_checkpoint_dir, pretrained_vision
 from .convert_jax import (init_flax_resnet_params, init_flax_vit_params,
                           resnet_state_dict_from_flax, vit_state_dict_from_flax)
 from .nets.resnet import ResNet, resnet18, resnet50, resnet_tiny
@@ -245,7 +245,7 @@ class DeepVisionModel(Model, _VisionParams):
             state = dict(self.get("model_params"))
             if self.get("batch_stats") is not None:
                 state.update(self.get("batch_stats"))
-            module.load_state_dict({k: torch.as_tensor(np.asarray(v)).to(device)
+            module.load_state_dict({k: host_tensor(v).to(device)
                                     for k, v in state.items()}, assign=True)
             self._device = device
             self._module = module.to(device).eval()

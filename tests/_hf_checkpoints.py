@@ -110,3 +110,20 @@ def mixtral_dir(d):
                          max_position_embeddings=64, num_local_experts=2,
                          num_experts_per_tok=2, sliding_window=None)
     return save_ckpt(MixtralForCausalLM(tcfg), d, tcfg)
+
+
+def mixtral4_dir(d, dtype=None):
+    """tests/test_convert_hf.py::test_mixtral_parity_sparse_moe's Mixtral: 4
+    experts, top-2, GQA 4/2, 2 layers; saved in ``dtype`` (default f32)."""
+    from transformers import MixtralConfig, MixtralForCausalLM
+
+    torch.manual_seed(5)
+    tcfg = MixtralConfig(vocab_size=97, hidden_size=32, num_hidden_layers=2,
+                         num_attention_heads=4, num_key_value_heads=2, intermediate_size=48,
+                         max_position_embeddings=64, num_local_experts=4,
+                         num_experts_per_tok=2, rms_norm_eps=1e-5, attention_dropout=0.0,
+                         sliding_window=None, output_router_logits=False)
+    model = MixtralForCausalLM(tcfg)
+    if dtype is not None:
+        model = model.to(dtype)
+    return save_ckpt(model, d, tcfg), model

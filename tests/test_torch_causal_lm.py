@@ -213,9 +213,8 @@ def test_params_equal_the_jax_stage():
     (dict(tokenizer="meta-llama/Llama-2-7b-hf"), (ValueError, "could not load HuggingFace")),
 ], ids=["mesh_config", "partition_rules", "model_name-dir", "tokenizer-name"])
 def test_unported_params_are_refused_with_their_item(case, error):
-    """What is not ported is refused naming its item (a Mixtral directory,
-    item 8, in test_torch_convert_hf.py); what is ported but cannot load
-    raises the JAX stage's error."""
+    """What is not ported is refused naming its item; what is ported but
+    cannot load raises the JAX stage's error."""
     stage = HuggingFaceCausalLM(**{**_kw(device="cpu"), **case})
     with pytest.raises(error[0], match=error[1]):
         stage.transform(DataFrame.from_dict({"prompt": np.asarray(["a b"], dtype=object)}))

@@ -6,15 +6,18 @@ tests/test_convert_hf.py does, whose every case has its counterpart here or
 in test_torch_convert_hf_stages.py (the stages):
 
 * the port's reader is bitwise ``safetensors.numpy.load_file`` (every dtype
-  numpy has, 0-d and empty tensors, sharded index files); it refuses BF16,
-  as safetensors.numpy does without ml_dtypes;
+  numpy has, 0-d and empty tensors, sharded index files); BF16 as
+  ``torch.bfloat16`` views bitwise the JAX reader's ``ml_dtypes.bfloat16``;
+  the float8 types refused;
 * each family's mapped state_dict (BERT classifier and encoder, ViT, Llama
   with GQA, tied or not, GPT-2, ResNet in HF and torchvision naming, heads
   seeded where missing) is bitwise the JAX mapping's tree carried through
   ``convert_jax``; f32 logits within 1e-5 of the Flax module on those
   weights; GPT-2 greedy tokens identical to the JAX decode and to
   ``transformers``;
-* a Mixtral directory is refused naming queue A item 8; a bare BertModel's
+* a Mixtral directory maps bitwise to the JAX mapping (routers, stacked
+  experts, the dropless scatter config; logits and decoding in
+  test_torch_mixtral.py); a bare BertModel's
   pooler and head are seeded as the JAX mapping seeds them; a pre-norm
   artifact without arch_config is detected and scored as the JAX model.
 """
@@ -108,27 +111,37 @@ def test_reader_is_bitwise_safetensors_numpy(kind, tmp_path):
         assert got[k].tobytes() == want[k].tobytes(), k
 
 
-def test_reader_refuses_bf16_as_safetensors_numpy(tmp_path):
-    """numpy has no bfloat16: safetensors.numpy refuses BF16 in a process
-    without ml_dtypes, and so does the port's reader. Where jax has loaded
-    ml_dtypes (every process that imports the JAX package), the JAX reader
-    reads BF16 as ml_dtypes.bfloat16: a difference that waits (ROADMAP.md
-    queue C)."""
-    import subprocess
-    import sys
-
+def test_reader_reads_bf16_bitwise_as_the_jax_reader(tmp_path):
+    """BF16, which numpy has no type for, comes back as torch.bfloat16 views
+    of the mapped file, bitwise the JAX reader's ml_dtypes.bfloat16 values
+    (subnormals, infinities, a NaN payload, -0.0 included), 0-d and empty
+    tensors too, beside F32; the float8 types stay refused."""
     from safetensors.torch import save_file
 
+    bits = np.random.default_rng(4).integers(0, 2 ** 16, (7, 9), dtype=np.uint16)
+    bits[0, :5] = [0x0001, 0x7F80, 0xFF80, 0x7FC1, 0x8000]
+    t = {"w": torch.from_numpy(bits.view(np.int16)).view(torch.bfloat16),
+         "s": torch.tensor(1.5, dtype=torch.bfloat16), "e": torch.zeros(0, 3, dtype=torch.bfloat16),
+         "x": torch.arange(4, dtype=torch.float32)}
     path = str(tmp_path / "bf.safetensors")
-    save_file({"w": torch.ones(4, dtype=torch.bfloat16), "x": torch.ones(2)}, path)
-    alone = subprocess.run([sys.executable, "-c", "import sys; from safetensors.numpy import "
-                            "load_file; load_file(sys.argv[1])", path],
-                           capture_output=True, text=True, timeout=120)
-    assert alone.returncode != 0
-    assert "TypeError: data type 'bfloat16' not understood" in alone.stderr
-    with pytest.raises(TypeError, match="BF16.*bfloat16"):
-        T.load_safetensors(path)
-    assert J.load_safetensors(path)["w"].dtype.name == "bfloat16"
+    save_file(t, path)
+    got, want = T.load_safetensors(path), J.load_safetensors(path)
+    assert sorted(got) == sorted(want) == sorted(t)
+    for k in ("w", "s", "e"):
+        assert got[k].dtype == torch.bfloat16 and want[k].dtype.name == "bfloat16", k
+        assert tuple(got[k].shape) == want[k].shape, k
+        assert np.array_equal(got[k].view(torch.int16).numpy().view(np.uint16),
+                              want[k].view(np.uint16)), k
+    assert got["x"].dtype == np.float32 and np.array_equal(got["x"], want["x"])
+    # views of one mapping of the file, not widened copies: the tensors lie
+    # as far apart in memory as their data_offsets in the file
+    with open(path, "rb") as f:
+        header = json.loads(f.read(int.from_bytes(f.read(8), "little")))
+    off = {k: header[k]["data_offsets"][0] for k in ("w", "x")}
+    assert got["x"].ctypes.data - got["w"].data_ptr() == off["x"] - off["w"]
+    save_file({"f8": torch.zeros(2, dtype=torch.float8_e4m3fn)}, str(tmp_path / "f8.safetensors"))
+    with pytest.raises(TypeError, match="F8_E4M3.*float8_e4m3fn"):
+        T.load_safetensors(str(tmp_path / "f8.safetensors"))
 
 
 def test_sharded_safetensors_index(tmp_path, bert_ckpt):
@@ -318,18 +331,21 @@ def test_gpt2_greedy_decode_matches_torch_and_jax(tmp_path):
     assert dense == want_t == hf and paged is None
 
 
-def test_mixtral_is_refused_with_item_8(tmp_path):
+def test_mixtral_maps_bitwise_to_the_jax_mapping(tmp_path):
+    """A Mixtral directory: the config's dropless scatter MoE (cf = E / k)
+    as the JAX mapping's, and the state dict (routers as they are, w1 / w3
+    / w2 stacked over the experts into [E, in, out], zero biases) bitwise
+    the JAX tree carried through convert_jax."""
     d = mixtral_dir(tmp_path / "mixtral")
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
-        T.pretrained_causal_lm(d)
-    _, sd = T.load_checkpoint(d)
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
-        T.llama_params_from_hf(sd)
-    assert J.pretrained_causal_lm(d)[0].moe_experts == 2  # the JAX package maps it
-    lm = tcl.HuggingFaceCausalLM(model_name=d, tokenizer=HashingTokenizer(vocab_size=61),
-                                 max_new_tokens=4, prompt_bucket=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
-        lm.transform(pt.DataFrame.from_rows([{"prompt": "route me"}]))
+    jcfg, jparams = J.pretrained_causal_lm(d)
+    cfg, sd = T.pretrained_causal_lm(d)
+    for f in ("moe_experts", "moe_top_k", "moe_capacity_factor", "moe_dispatch", "n_layers",
+              "hidden", "mlp_dim", "kv_heads", "rope_theta", "max_len"):
+        assert getattr(cfg, f) == getattr(jcfg, f), f
+    assert (cfg.moe_experts, cfg.moe_top_k, cfg.moe_dispatch) == (2, 2, "scatter")
+    same_state(sd, convert_jax.llama_state_dict_from_flax(flax_np(jparams)))
+    assert sd["decoder.layers.0.mlp.w_up"].shape == (2, 16, 32)
+    assert sd["decoder.layers.0.mlp.w_dn"].shape == (2, 32, 16)
 
 
 def test_resnet_parity_hf(tmp_path):

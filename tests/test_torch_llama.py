@@ -326,9 +326,65 @@ def test_init_llama_params_has_the_flax_distribution():
             convert_jax.init_llama_params(cfg, seed=0)
 
 
-def test_moe_is_refused_with_its_item():
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
-        tl.LlamaLM(tl.llama_tiny(moe_experts=4))
+@pytest.mark.parametrize("dispatch", ["einsum", "scatter"])
+def test_moe_logits_match_jax(dispatch):
+    """llama_tiny with MoE layers (4 experts, top-2, SwiGLU experts; the
+    scatter case dropless as a Mixtral directory maps it): f32 logits within
+    1e-5 of the JAX LlamaLM on the same weights."""
+    moe = dict(moe_experts=4, moe_top_k=2, moe_dispatch=dispatch,
+               moe_capacity_factor=2.0 if dispatch == "scatter" else 1.25)
+    jcfg = jl.llama_tiny(dtype=jnp.float32, **moe)
+    params = _flax_params(jcfg, seed=5)
+    model = load_llama(tl.llama_tiny(dtype=torch.float32, **moe),
+                       convert_jax.llama_state_dict_from_flax(params), "cpu")
+    assert isinstance(model.decoder.layers[0].mlp, tt.MoEBlock)
+    ids, mask = _padded([20, 13, 7], 20, seed=6)
+    want = jax.jit(lambda i, m: jl.LlamaLM(jcfg).apply({"params": params}, i,
+                                                       attention_mask=m))(ids, mask)
+    with torch.no_grad():
+        got = model(torch.from_numpy(ids), attention_mask=torch.from_numpy(mask))
+    real = mask.astype(bool)
+    np.testing.assert_allclose(got.numpy()[real], np.asarray(want)[real], atol=TOL, rtol=0)
+
+
+def test_init_llama_params_moe_has_the_flax_distribution():
+    """MoE layers of init_llama_params and of the numpy Flax-layout draw
+    (convert_jax._flax_encoder, the text stages' init): the router
+    Xavier-uniform over (hidden, E), each expert kernel over Flax's fans
+    with the expert axis a receptive field, sqrt(6 / (E*in + E*out)) —
+    the limit a jax xavier_uniform draw reaches — expert biases 0, routers
+    and experts in f32."""
+    E, hid, mlp = 8, 64, 256
+    lim = np.sqrt(6.0 / (E * hid + E * mlp))
+    assert abs(lim - 0.04841) < 1e-5
+    jdraw = np.asarray(jax.nn.initializers.xavier_uniform()(jax.random.PRNGKey(0),
+                                                            (E, hid, mlp)))
+    assert lim * 0.99 < np.abs(jdraw).max() <= lim
+    cfg = tl.llama_tiny(hidden=hid, mlp_dim=mlp, moe_experts=E, moe_top_k=2)
+    sd = convert_jax.init_llama_params(cfg, seed=0, device="cpu")
+    enc = convert_jax._flax_encoder(cfg, np.random.default_rng(0))
+    for i in range(cfg.n_layers):
+        pre = f"decoder.layers.{i}.mlp"
+        flax = enc[f"layer_{i}"]["mlp"]
+        cases = [(sd[f"{pre}.router.weight"].numpy().T, flax["router"]["kernel"],
+                  np.sqrt(6.0 / (hid + E)))]
+        for name, shape in (("w_gate", (E, hid, mlp)), ("w_up", (E, hid, mlp)),
+                            ("w_dn", (E, mlp, hid))):
+            cases.append((sd[f"{pre}.{name}"].numpy(), flax[name], lim))
+            assert sd[f"{pre}.{name}"].shape == flax[name].shape == shape, name
+        for got_t, got_f, bound in cases:
+            for w in (got_t, got_f):
+                assert w.dtype == np.float32
+                assert bound * 0.95 < np.abs(w).max() <= bound
+                # U(-b, b) has variance b^2 / 3; its sample variance has a
+                # relative spread of sqrt(0.8 / n)
+                assert abs(w.var() / (bound * bound / 3) - 1) < 4 * np.sqrt(0.8 / w.size)
+        for name in ("b_up", "b_dn"):
+            assert not sd[f"{pre}.{name}"].any() and not flax[name].any()
+    with torch.device("meta"):
+        model = tl.LlamaLM(cfg)
+    assert {k: tuple(v.shape) for k, v in sd.items()} == {
+        k: tuple(v.shape) for k, v in model.state_dict().items()}
 
 
 def test_paged_modules_refuse_non_llama_configs():
