@@ -39,8 +39,11 @@ the kernels are built for sm_90a). Phases, each of which raises on failure:
    features, 10000 bins (a node split over tiles), N = 1 and N = 0, a feature whose rows all fall in one bin, the final totals
    (every row in one node too), the per-tree scale and scratch passed in
    against the scale computed inside, and one level launch running at most
-   2 device operations; the per-tree scale pass equal to its plain
-   version; segment_histogram against a float64 segment sum;
+   2 device operations; main path 9's shapes: 136 features (720,000 rows)
+   at widths 1, 16 and 32, a goss-shaped presence (about 28 % of rows, the
+   sampled ones amplified), and lambdarank gradients with the tree's scale
+   passed in; the per-tree scale pass equal to its plain version;
+   segment_histogram against a float64 segment sum;
 4. main path 1: DeepTextModel scoring with BERT-base (random weights from
    a seed) through attn_impl='flash': the bf16 kernel must launch 12 times
    per batch, every score must be finite and the scores must agree with
@@ -201,7 +204,34 @@ the kernels are built for sm_90a). Phases, each of which raises on failure:
    of 4 (a warm-up, then one capture replayed), losses and every leaf
    bitwise equal, the flash forward and backward once a layer a step, the
    aux term raising the first loss;
-13. times: each kernel beside its bound, its plain version and the one
+13. main path 9, LightGBM's surface through the histogram kernel (each
+   fit through a DataFrame stage with histogram_impl='pallas' on the card,
+   data from numpy seed 0): (a) LightGBMRanker at the MSLR-WEB10K shape
+   (6000 query groups of 40-200 documents, about 720,000 rows, 136
+   features, relevance 0-4 about half 0, from a hidden score) with
+   LightGBM's examples/lambdarank/train.conf parameters (100 trees, 31
+   leaves, 255 bins, min_data_in_leaf 50, min_sum_hessian 5.0): one level
+   launch a level and one scale pass a tree, a second fit bitwise, held-out
+   NDCG@5 over 1000 groups above a random ranking's, a 20-group slice with
+   the same splits on the CPU and the card, fit seconds and peak memory;
+   (b) Higgs-1M, 50 iterations in goss, dart, rf and gbdt with bagging and
+   feature_fraction: each fit bitwise a second fit, every tree's sampled
+   rows within 4 sigma of their expected fraction (goss's from each
+   iteration's gradients, ties at the cut included), exactly k_feat
+   features offered a tree, held-out AUC within limits of the bagged
+   gbdt's, rf's score the init plus the mean of its trees; (c) Higgs-1M
+   with 4 columns cut to 32 categories and a non-monotone category effect,
+   through categorical_slot_indexes: AUC above the numerical fit's, save ->
+   load bitwise, model.txt -> ImportedBooster within 1e-6, SHAP additivity
+   1e-4; (d) train_booster_from_source over a 250,000-row Higgs-width CSV
+   (cut from 1e6: the host writes and parses it) in 5 byte-range shards
+   and 8 spill chunks, under 3 injected read faults (retried and
+   counted), held-out AUC within 2e-3 of the in-memory 'segment' fit on
+   the rows read back, and a 20,000-row jsonl file; (e) continued training
+   of (b)'s gbdt booster through model_string, its 50 trees bitwise kept;
+   the histogram kernel's launches counted against the trees grown; then
+   the level launch at the ranker's shape in device time;
+14. times: each kernel beside its bound, its plain version and the one
    PyTorch call that computes the same function (device time, with the
    host's enqueue hidden behind a spin kernel; the library call's device
    kernels named from the profiler); flash_attention from the projection
@@ -2070,6 +2100,7 @@ def phase_gbdt_kernels(device) -> dict:
                 f"operation(s) {[key[:60] for key, *_ in ops]} (want at most 2)")
             if not (1 <= n_ops <= 2 and any("gbdt_hist_kernel" in k for k, *_ in ops)):
                 raise AssertionError("a level launch ran more than two device operations")
+    _surface_hist_cases(hist, device)
     log("[kernel] fixed_point_scales equal to its plain version in every case")
 
     rs = np.random.default_rng(7)  # the shapes of tests/test_gbdt.py:973
@@ -2086,6 +2117,53 @@ def phase_gbdt_kernels(device) -> dict:
         if not err <= 1e-5:
             raise AssertionError("segment_histogram disagrees with the segment sum")
     return {"gbdt_hist": main_err, "gbdt_hist_scale": float(scale_err)}
+
+
+def _surface_hist_cases(hist, device) -> None:
+    """The shapes main path 9 gives the kernel: 136 features (the ranker's
+    MSLR-WEB10K width) at widths 1, 16 and 32; a goss-shaped presence
+    (about 28 % of rows nonzero, their gradients amplified, the rest zero);
+    and a tree whose fixed-point scale comes from lambdarank gradients, the
+    scale and scratch passed in as grow_tree passes them. Each bitwise its
+    plain version and its second launch."""
+    from synapseml_torch.gbdt import objectives
+
+    for i, width in enumerate((1, 16, 32)):
+        args = _hist_inputs(MSLR_ROWS, MSLR_F, width, 256, torch.uint8, device, seed=40 + i)
+        _hist_case(hist, f"mslr width {width} u8 (N={MSLR_ROWS}, F={MSLR_F})",
+                   (*args, width - 1, width, 256))
+    bins, grad, hess, presence, node = _hist_inputs(HIGGS_N, HIGGS_F, 16, 256, torch.uint8,
+                                                    device, seed=43, outside=False)
+    g = torch.Generator(device=device).manual_seed(44)
+    keep = torch.rand(HIGGS_N, generator=g, device=device) < 0.28
+    amp = torch.where(torch.rand(HIGGS_N, generator=g, device=device) < 0.2, 1.0, 8.0)
+    goss = (grad * amp * keep, hess * amp * keep, keep.float())
+    _hist_case(hist, f"goss presence {keep.float().mean().item():.3f} width 16 (N={HIGGS_N})",
+               (bins, *goss, node, 15, 16, 256))
+    # lambdarank gradients of random relevance over MSLR-shaped groups
+    rs = np.random.default_rng(45)
+    sizes = rs.integers(40, 201, 600)
+    n = int(sizes.sum())
+    gslot, gmax = objectives.pad_groups(sizes)
+    scores = torch.from_numpy(rs.normal(size=n).astype(np.float32)).to(device)
+    labels = torch.from_numpy(rs.integers(0, 5, n).astype(np.float32)).to(device)
+    lg, lh = objectives.lambdarank_grad_hess(scores, labels, torch.from_numpy(gslot).to(device),
+                                             len(sizes), gmax)
+    bins, _, _, presence, node = _hist_inputs(n, MSLR_F, 8, 256, torch.uint8, device, seed=46,
+                                              outside=False)
+    presence = torch.ones_like(presence)
+    tree = hist.fixed_point_tree(lg, lh, presence, MSLR_F, 6, 256)
+    args = (bins, lg, lh, presence, node, 7, 8, 256)
+    got = hist.fixed_point_histogram(*args, *tree)
+    again = hist.fixed_point_histogram(*args, *tree)
+    torch.cuda.synchronize()
+    want = hist.fixed_point_histogram_plain(*args, scale=tree.scale)
+    same, same2 = torch.equal(got, want), torch.equal(got, again)
+    log(f"[kernel] gbdt_hist lambdarank gradients (600 groups, N={n}, F={MSLR_F}, width 8, "
+        f"scale exponents {tree.scale.tolist()}): bitwise equal to the plain version: {same}, "
+        f"to a second launch: {same2}")
+    if not (same and same2):
+        raise AssertionError("gbdt_hist disagrees on lambdarank gradients")
 
 
 def forest_digest(booster) -> str:
@@ -2255,18 +2333,17 @@ def _profile_gbdt_iteration(booster, X, y, device, depth, n=3) -> None:
             f"{key[:90]}")
 
 
-def phase_gbdt_times(device, card: str, launches: dict, max_err: dict) -> list[dict]:
-    """The kernel at each shape one tree of the main path gives it (levels of
-    width 1..32, then the final level's totals at width 64), called as
-    grow_tree calls it (the tree's scale and scratch passed in), beside its
-    bound, its plain version and one index_add_ on precomputed flat ids, all
-    in device time; ``call_ms`` is one call as the host sees it, its enqueue
-    included. Then the per-tree scale pass. The JSON rows carry the mean per
-    level launch over the 7 shapes, and the scale pass."""
+def _tree_level_times(device, card: str, n: int, nf: int, depth: int = 6,
+                      nb: int = 256) -> tuple[dict, int, int]:
+    """The kernel at each shape one tree gives it over ``n`` rows and ``nf``
+    features (levels of width 1..2^(depth-1), then the final level's totals
+    at width 2^depth), called as grow_tree calls it (the tree's scale and
+    scratch passed in), beside its bound, its plain version and one
+    index_add_ on precomputed flat ids, all in device time; ``call_ms`` is
+    one call as the host sees it, its enqueue included. Returns the sums
+    over the shapes, their bytes, and the count of shapes."""
     from synapseml_torch.gbdt import hist
 
-    n, nf, nb = HIGGS_N, HIGGS_F, 256
-    depth = 6
     keys = ("ms", "ms2", "plain_ms", "library_ms", "library_ms2", "call_ms")
     tot = dict.fromkeys(keys, 0.0)
     tot_bytes = 0
@@ -2307,6 +2384,19 @@ def phase_gbdt_times(device, card: str, launches: dict, max_err: dict) -> list[d
         for k in keys:
             tot[k] += t[k]
         tot_bytes += n_bytes
+        del ids, flat_data
+    return tot, tot_bytes, len(shapes)
+
+
+def phase_gbdt_times(device, card: str, launches: dict, max_err: dict) -> list[dict]:
+    """The kernel at each shape one tree of main path 2 gives it (levels of
+    width 1..32, then the final level's totals at width 64; see
+    :func:`_tree_level_times`), then the per-tree scale pass. The JSON rows
+    carry the mean per level launch over the 7 shapes, and the scale pass."""
+    from synapseml_torch.gbdt import hist
+
+    n = HIGGS_N
+    tot, tot_bytes, k = _tree_level_times(device, card, n, HIGGS_F)
 
     grad, hess, presence = _hist_inputs(n, 1, 1, 2, torch.uint8, device, seed=0)[1:4]
     scale_ms = device_ms(lambda: hist.fixed_point_scales(grad, hess, presence))
@@ -2319,7 +2409,6 @@ def phase_gbdt_times(device, card: str, launches: dict, max_err: dict) -> list[d
         f"kernel; one call with its host enqueue {scale_call_ms:.4f} ms), bound "
         f"{scale_bound:.4f} ms (bytes: {scale_bytes / 1e6:.1f} MB), plain "
         f"{scale_plain_ms:.4f} ms | {card}")
-    k = len(shapes)
     tree_ms = statistics.median([tot["ms"], tot["ms2"]]) + scale_ms
     tree_bound = (tot_bytes + scale_bytes) / HBM_BYTES_PER_S * 1e3
     log(f"[times] gbdt_hist one tree ({k} launches and the scale pass): kernel {tree_ms:.4f} ms "
@@ -5005,6 +5094,437 @@ def phase_moe(device, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# main path 9: LightGBM's surface (ranker, sampling modes, categorical,
+# out-of-core, continued training) through the histogram kernel
+# ---------------------------------------------------------------------------
+
+# MSLR-WEB10K's shape (Fold1's training part: three fifths of 1,200,192
+# documents over 10,000 queries): 136 features, relevance 0-4 skewed to 0
+MSLR_GROUPS, MSLR_TEST_GROUPS, MSLR_SIZES, MSLR_F = 6000, 1000, (40, 200), 136
+MSLR_ROWS = 720_000  # the kernel cases' row count (6000 groups of mean size 120)
+MSLR_SLICE = 20      # groups of the CPU-against-card fit
+# LightGBM's examples/lambdarank/train.conf
+MSLR_PARAMS = dict(num_iterations=100, learning_rate=0.1, num_leaves=31, max_bin=255,
+                   min_data_in_leaf=50, min_sum_hessian_in_leaf=5.0, eval_at=[1, 3, 5])
+MSLR_NDCG_MARGIN = 0.5  # NDCG@5 over a random ranking's, held out (run 1: 0.869 vs 0.134)
+SURFACE_ITERS = 50
+SURFACE_MODES = {  # (b): Higgs-1M in each sampling mode
+    "goss": dict(boosting_type="goss", top_rate=0.2, other_rate=0.1),
+    "dart": dict(boosting_type="dart", drop_rate=0.1),
+    "rf": dict(boosting_type="rf", bagging_fraction=0.632, bagging_freq=1,
+               feature_fraction=0.8),
+    "gbdt": dict(bagging_fraction=0.8, bagging_freq=5, feature_fraction=0.8),
+}
+SURFACE_AUC_DROP = {"goss": 0.01, "dart": 0.03, "rf": 0.08}  # below gbdt's, at most
+CAT_COLS, CAT_CODES = (0, 1, 2, 3), 32
+OOC_ROWS, OOC_JSONL_ROWS, OOC_ITERS, OOC_CHUNK = 250_000, 20_000, 30, 32_768
+OOC_AUC_TOL = 2e-3
+CONTINUE_ITERS = 20
+
+
+def mslr_data(n_groups: int, seed: int = 0):
+    """MSLR-WEB10K-shaped ranking data: group sizes uniform in 40-200,
+    float32 features, relevance 0-4 cut from a hidden score (a sparse
+    linear term, a per-query offset and noise) at the quantiles 0.5, 0.75,
+    0.9 and 0.97, so about half the documents are irrelevant."""
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(MSLR_SIZES[0], MSLR_SIZES[1] + 1, n_groups)
+    n = int(sizes.sum())
+    X = rng.standard_normal((n, MSLR_F), dtype=np.float32)
+    w = rng.normal(size=MSLR_F) * (rng.random(MSLR_F) < 0.25)
+    gid = np.repeat(np.arange(n_groups), sizes)
+    hidden = X @ w + rng.normal(size=n_groups)[gid] * 0.5 + rng.normal(size=n)
+    rel = np.digitize(hidden, np.quantile(hidden, [0.5, 0.75, 0.9, 0.97])).astype(np.float32)
+    return X, rel, gid, sizes
+
+
+def _ndcg(scores: np.ndarray, rel: np.ndarray, sizes: np.ndarray, k: int, device) -> float:
+    from synapseml_torch.gbdt import objectives
+
+    gslot, gmax = objectives.pad_groups(sizes)
+    return float(objectives.ndcg_at_k(torch.from_numpy(np.ascontiguousarray(scores, np.float32)).to(device),
+                                      torch.from_numpy(rel).to(device),
+                                      torch.from_numpy(gslot).to(device), len(sizes), gmax, k=k))
+
+
+def _hist_counts() -> tuple[int, int]:
+    from synapseml_torch.gbdt import hist
+
+    return hist.fixed_point_histogram.launches, hist.fixed_point_scales.launches
+
+
+class _Trees:
+    """The trees the card grew in main path 9, for the launch count: one
+    level launch a level (and one for the final totals) and one scale pass
+    a tree."""
+
+    def __init__(self, depth: int):
+        self.depth, self.trees = depth, 0
+
+    def add(self, booster, prefix: int = 0) -> None:
+        self.trees += (booster.num_iterations - prefix) * booster.num_model_out
+
+
+def _surface_ranker(device, card: str, grown: _Trees) -> dict:
+    """(a) LightGBMRanker(histogram_impl='pallas') at the MSLR-WEB10K shape."""
+    from synapseml_torch import DataFrame as DF
+    from synapseml_torch.gbdt import LightGBMRanker
+
+    X, rel, gid, sizes = mslr_data(MSLR_GROUPS + MSLR_TEST_GROUPS)
+    tr = gid < MSLR_GROUPS
+    n_tr = int(tr.sum())
+    train = DF.from_dict({"features": X[tr], "label": rel[tr], "group": gid[tr]})
+    est = LightGBMRanker(histogram_impl="pallas", device=str(device), **MSLR_PARAMS)
+    torch.cuda.reset_peak_memory_stats()
+    before = _hist_counts()
+    t0 = time.perf_counter()
+    model = est.fit(train)
+    fit_s = time.perf_counter() - t0
+    launches, scales = (a - b for a, b in zip(_hist_counts(), before))
+    booster = model.get_booster()
+    grown.add(booster)
+    m = model.get_train_measures()
+    want = booster.num_iterations * (grown.depth + 1)
+    log(f"[surface] (a) LightGBMRanker {MSLR_GROUPS} groups, {n_tr} x {MSLR_F}, "
+        f"{booster.num_iterations} trees: fit {fit_s:.2f} s (binning {m['binning_ms']:.0f} ms, "
+        f"training {m['training_ms']:.0f} ms), peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, gbdt_hist launches {launches} "
+        f"(want {want}), scale passes {scales} (want {booster.num_iterations}) | {card}")
+    if launches != want or scales != booster.num_iterations:
+        raise AssertionError("the ranker's fit launched the histogram kernel off its count")
+    if not np.isfinite(booster.leaf_value).all():
+        raise AssertionError("the ranker grew non-finite leaves")
+    second = est.fit(train).get_booster()
+    grown.add(second)
+    same = _same_forest(booster, second)
+    log(f"[surface] (a) a second ranker fit is bitwise the first: {same}")
+    if not same:
+        raise AssertionError("two ranker fits differ")
+
+    te = ~tr
+    te_sizes = sizes[MSLR_GROUPS:]
+    scores = booster.raw_score(X[te], device=device)[:, 0]
+    rand = np.random.default_rng(1).normal(size=int(te.sum()))
+    ndcg = {k: _ndcg(scores, rel[te], te_sizes, k, device) for k in (1, 3, 5)}
+    rnd = {k: _ndcg(rand, rel[te], te_sizes, k, device) for k in (1, 3, 5)}
+    log(f"[surface] (a) held out {MSLR_TEST_GROUPS} groups: NDCG@1/3/5 "
+        f"{ndcg[1]:.4f} / {ndcg[3]:.4f} / {ndcg[5]:.4f} against a random ranking's "
+        f"{rnd[1]:.4f} / {rnd[3]:.4f} / {rnd[5]:.4f} (want NDCG@5 above it by "
+        f"{MSLR_NDCG_MARGIN})")
+    if not ndcg[5] > rnd[5] + MSLR_NDCG_MARGIN:
+        raise AssertionError("the ranker ranks no better than chance")
+
+    sl = gid < MSLR_SLICE
+    small = DF.from_dict({"features": X[sl], "label": rel[sl], "group": gid[sl]})
+    small_est = est.copy({"num_iterations": 10, "min_data_in_leaf": 20,
+                          "min_sum_hessian_in_leaf": 1e-3})
+    on_card = small_est.fit(small).get_booster()
+    grown.add(on_card)
+    on_cpu = small_est.copy({"device": "cpu"}).fit(small).get_booster()
+    same_split = np.array_equal(on_card.feature, on_cpu.feature)
+    log(f"[surface] (a) {MSLR_SLICE} groups ({int(sl.sum())} rows), 10 trees, card (kernel) vs "
+        f"CPU (plain version): same split features in every tree: {same_split}, max|d leaf| "
+        f"{np.abs(on_card.leaf_value - on_cpu.leaf_value).max():.3e}")
+    if not same_split:
+        raise AssertionError("the ranker's card forest splits differently from the CPU's")
+    return {"fit_s": fit_s, "ndcg": ndcg, "rows": n_tr}
+
+
+def _root_fraction_ok(booster, n: int, p_of_tree) -> tuple[float, float]:
+    """Each tree's root cover (the rows it saw) over n against its expected
+    fraction within 4 standard deviations; returns the widest miss in
+    standard deviations and the mean fraction."""
+    worst, fracs = 0.0, booster.cover[:, 0, 0] / n
+    for t, frac in enumerate(fracs):
+        p, trials = p_of_tree(t)
+        if p is None:
+            continue
+        sigma = np.sqrt(p * (1 - p) / trials) * trials / n
+        worst = max(worst, abs(frac - ((n - trials) / n + p * trials / n)) / sigma)
+    return worst, float(fracs.mean())
+
+
+def _surface_modes(device, card: str, grown: _Trees, X, y) -> dict:
+    """(b) Higgs-1M, 50 iterations in each sampling mode, each fit twice."""
+    from synapseml_torch import DataFrame as DF
+    from synapseml_torch.gbdt import LightGBMClassifier
+    from synapseml_torch.gbdt import booster as tbooster
+
+    n = HIGGS_N
+    train = DF.from_dict({"features": X[:n], "label": y[:n]})
+    base = dict(HIGGS_PARAMS, num_iterations=SURFACE_ITERS)
+    offered = []
+    features = tbooster._Sampler.features
+
+    def recording(self, it):
+        mask = features(self, it)
+        offered.append(mask)
+        return mask
+
+    out = {}
+    for mode, kw in SURFACE_MODES.items():
+        est = LightGBMClassifier(histogram_impl="pallas", device=str(device), **base, **kw)
+        offered.clear()
+        tbooster._Sampler.features = recording
+        try:
+            t0 = time.perf_counter()
+            model = est.fit(train)
+            fit_s = time.perf_counter() - t0
+        finally:
+            tbooster._Sampler.features = features
+        k_offered = sorted({int(m.sum()) for m in offered})
+        b = model.get_booster()
+        grown.add(b)
+        second = est.fit(train).get_booster()
+        grown.add(second)
+        same = _same_forest(b, second)
+        prob = b.predict(X[n:], device=device)
+        auc_ = auc(y[n:], prob) if np.isfinite(prob).all() else float("nan")
+        if mode == "goss":
+            # expected rows a tree: the top_rate rows by |g| (more where |g|
+            # ties at the cut), plus other_rate of the rest, from each
+            # iteration's scores
+            def p_of_tree(t):
+                if t == 0:
+                    return None, n
+                s = torch.from_numpy(b.raw_score(X[:n], num_iterations=t, device=device)[:, 0])
+                g = (torch.sigmoid(s) - torch.from_numpy(y[:n])).abs()
+                k_top = int(round(kw["top_rate"] * n))
+                tops = int((g >= torch.sort(g).values[n - k_top]).sum())
+                return kw["other_rate"], n - tops
+        elif "bagging_fraction" in kw:
+            def p_of_tree(t, f=kw["bagging_fraction"]):
+                return f, n
+        else:
+            def p_of_tree(t):
+                return None, n
+        worst, mean_frac = _root_fraction_ok(b, n, p_of_tree)
+        k_feat = max(1, int(round(HIGGS_F * kw.get("feature_fraction", 1.0))))
+        log(f"[surface] (b) {mode} {kw}: fit {fit_s:.2f} s, a second fit bitwise: {same}, "
+            f"held-out AUC {auc_:.5f}, rows a tree {mean_frac:.4f} of {n} (widest miss of the "
+            f"expected fraction {worst:.2f} sigma, limit 4), features offered a tree "
+            f"{k_offered} (want [{k_feat}]) | {card}")
+        if not (same and np.isfinite(auc_) and worst <= 4.0 and k_offered == [k_feat]):
+            raise AssertionError(f"the {mode} fit failed a check")
+        out[mode] = {"booster": b, "auc": auc_, "fit_s": fit_s}
+    for mode, drop in SURFACE_AUC_DROP.items():
+        d = out["gbdt"]["auc"] - out[mode]["auc"]
+        log(f"[surface] (b) {mode} AUC {out[mode]['auc']:.5f} against the bagged gbdt's "
+            f"{out['gbdt']['auc']:.5f}: {d:+.5f} below (limit {drop})")
+        if d > drop:
+            raise AssertionError(f"{mode}'s held-out AUC falls too far below gbdt's")
+    rf = out["rf"]["booster"]
+    summed = tbooster.Booster(rf.feature, rf.threshold_value, rf.leaf_value, rf.gain,
+                              max_depth=rf.max_depth, num_model_out=1, objective=rf.objective,
+                              init_score=rf.init_score, num_features=rf.num_features,
+                              device=str(device))
+    x = X[n:n + 10_000]
+    avg, tot = rf.raw_score(x, device=device), summed.raw_score(x, device=device)
+    err = np.abs(avg - (rf.init_score + (tot - rf.init_score) / rf.num_iterations)).max()
+    log(f"[surface] (b) rf scores are the init plus the mean of its {rf.num_iterations} trees: "
+        f"max|d| {err:.2e} (tol 1e-5); probabilities in [{rf.predict(x, device=device).min():.3f}, "
+        f"{rf.predict(x, device=device).max():.3f}]")
+    if not (rf.average_output and err <= 1e-5):
+        raise AssertionError("rf's output is not averaged")
+    return out
+
+
+def _cat_higgs(seed: int = 0):
+    """Higgs-1M with CAT_COLS quantised to CAT_CODES integer categories
+    each (at the training rows' quantiles), and a label term that depends
+    on category membership non-monotonically (a random effect a code)."""
+    rng = np.random.default_rng(seed)
+    n, f = HIGGS_N + HIGGS_TEST, HIGGS_F
+    X = rng.normal(size=(n, f)).astype(np.float32)
+    w = rng.normal(size=f)
+    w[f // 2:] = 0
+    logits = X @ w * 0.5 + rng.normal(size=n) * 0.5
+    effect = rng.normal(size=(len(CAT_COLS), CAT_CODES))
+    for i, j in enumerate(CAT_COLS):
+        cuts = np.quantile(X[:HIGGS_N, j], np.linspace(0, 1, CAT_CODES + 1)[1:-1])
+        code = np.searchsorted(cuts, X[:, j])
+        X[:, j] = code
+        logits = logits + effect[i, code]
+    return X, (logits > 0).astype(np.float32)
+
+
+def _surface_categorical(device, card: str, grown: _Trees, tmp: str) -> dict:
+    """(c) categorical columns through categorical_slot_indexes."""
+    from synapseml_torch import DataFrame as DF
+    from synapseml_torch.gbdt import (Booster, LightGBMClassifier, parse_lightgbm_string,
+                                      to_lightgbm_string)
+
+    X, y = _cat_higgs()
+    n = HIGGS_N
+    train = DF.from_dict({"features": X[:n], "label": y[:n]})
+    kw = dict(HIGGS_PARAMS, num_iterations=SURFACE_ITERS, histogram_impl="pallas",
+              device=str(device))
+    t0 = time.perf_counter()
+    cat_model = LightGBMClassifier(categorical_slot_indexes=list(CAT_COLS), **kw).fit(train)
+    cat_s = time.perf_counter() - t0
+    num_model = LightGBMClassifier(**kw).fit(train)
+    cat_b, num_b = cat_model.get_booster(), num_model.get_booster()
+    grown.add(cat_b)
+    grown.add(num_b)
+    test = X[n:]
+    cat_auc = auc(y[n:], cat_b.predict(test, device=device))
+    num_auc = auc(y[n:], num_b.predict(test, device=device))
+    n_cat_nodes = int(cat_b.cat_mask.any(-1).sum())
+    log(f"[surface] (c) {len(CAT_COLS)} columns of {CAT_CODES} categories: categorical fit "
+        f"{cat_s:.2f} s, {n_cat_nodes} categorical splits, held-out AUC {cat_auc:.5f} against "
+        f"{num_auc:.5f} fitted as numerical | {card}")
+    if not cat_auc > num_auc:
+        raise AssertionError("the categorical fit does not beat the numerical one")
+    cat_b.save(os.path.join(tmp, "cat_booster"))
+    loaded = Booster.load(os.path.join(tmp, "cat_booster"), device=str(device))
+    raw = cat_b.raw_score(test, device=device)
+    same = np.array_equal(loaded.raw_score(test, device=device), raw)
+    imported = parse_lightgbm_string(to_lightgbm_string(cat_b))
+    # the export folds the init score into each class's first tree, so the
+    # import rounds once more: held to 1e-6 of the score's magnitude
+    imp_err = float((np.abs(imported.raw_score(test, device=device) - raw)
+                     / np.maximum(np.abs(raw), 1.0)).max())
+    contrib = cat_b.predict_contrib(test[:200])
+    shap_err = float(np.abs(contrib.sum(-1) - raw[:200]).max())
+    log(f"[surface] (c) save -> load scores bitwise: {same}; model.txt -> ImportedBooster "
+        f"max|d| / max(|score|, 1) {imp_err:.2e} (tol 1e-6); SHAP rows sum to the raw score within "
+        f"{shap_err:.2e} (tol 1e-4)")
+    if not (same and imp_err <= 1e-6 and shap_err <= 1e-4):
+        raise AssertionError("a categorical booster's round trip or SHAP failed")
+    return {"auc": cat_auc, "num_auc": num_auc}
+
+
+def _surface_out_of_core(device, card: str, tmp: str, X, y) -> dict:
+    """(d) train_booster_from_source over Higgs-width CSV byte-range shards
+    (cut to OOC_ROWS rows) under injected read faults, and a jsonl file."""
+    from synapseml_torch.core import FaultSpec, inject_faults
+    from synapseml_torch.core.resilience import RetryPolicy, resilience_measures
+    from synapseml_torch.data import ShardedSource
+    from synapseml_torch.gbdt import train_booster, train_booster_from_source
+
+    n = OOC_ROWS
+    path = os.path.join(tmp, "higgs.csv")
+    t0 = time.perf_counter()
+    names = [f"f{j}" for j in range(HIGGS_F)]
+    with open(path, "w") as f:
+        f.write(",".join(names) + ",label\n")
+        np.savetxt(f, np.column_stack([X[:n], y[:n]]), delimiter=",",
+                   fmt=["%.7f"] * HIGGS_F + ["%d"])
+    write_s = time.perf_counter() - t0
+    size = os.path.getsize(path)
+    retry = RetryPolicy(backoffs_ms=(1, 1, 1), jitter=False)
+    src = ShardedSource.csv(path, shard_bytes=size // 5 + 1, retry_policy=retry)
+    read = [cols for _, cols in src.iter_shards()]
+    rows = sum(len(c["label"]) for c in read)
+    Xr = np.column_stack([np.concatenate([c[k] for c in read]) for k in names]).astype(np.float32)
+    yr = np.concatenate([c["label"] for c in read]).astype(np.float32)
+    kw = dict(objective="binary", num_iterations=OOC_ITERS, learning_rate=0.1, num_leaves=31,
+              max_depth=6, max_bin=255)
+    retries0 = resilience_measures("data").to_dict()["retry_count"]
+    t0 = time.perf_counter()
+    with inject_faults([FaultSpec("connection_error", times=3, planes=("data",))]) as plan:
+        streamed = train_booster_from_source(src, label_col="label", feature_cols=names,
+                                             chunk_rows=OOC_CHUNK, device=str(device), **kw)
+    stream_s = time.perf_counter() - t0
+    retries = resilience_measures("data").to_dict()["retry_count"] - retries0
+    in_mem = train_booster(Xr, yr, histogram_impl="segment", device=str(device), **kw)
+    s_auc = auc(y[HIGGS_N:], streamed.predict(X[HIGGS_N:], device=device))
+    m_auc = auc(y[HIGGS_N:], in_mem.predict(X[HIGGS_N:], device=device))
+    chunks = -(-n // OOC_CHUNK) + src.num_shards
+    log(f"[surface] (d) out-of-core: {rows} rows read back of {n} written ({size / 1e6:.1f} MB "
+        f"CSV, written in {write_s:.1f} s), {src.num_shards} byte-range shards, about {chunks} "
+        f"spill chunks of {OOC_CHUNK} rows; streamed fit {stream_s:.2f} s "
+        f"({streamed.train_measures['stats_pass_ms']:.0f} ms stats pass, "
+        f"{streamed.train_measures['binning_ms']:.0f} ms bin+spill, "
+        f"{streamed.train_measures['training_ms']:.0f} ms training); injected read errors "
+        f"{len(plan.injected)}, retried {retries}; held-out AUC {s_auc:.5f} against the "
+        f"in-memory 'segment' fit's {m_auc:.5f} (|d| {abs(s_auc - m_auc):.2e}, tol "
+        f"{OOC_AUC_TOL}) | {card}")
+    if not (rows == n and src.num_shards >= 4 and n // OOC_CHUNK >= 4
+            and len(plan.injected) == 3 and retries == 3
+            and abs(s_auc - m_auc) <= OOC_AUC_TOL):
+        raise AssertionError("the out-of-core fit failed a check")
+    jpath = os.path.join(tmp, "higgs.jsonl")
+    with open(jpath, "w") as f:
+        for i in range(OOC_JSONL_ROWS):
+            f.write(json.dumps({"feat": X[i].tolist(), "label": float(y[i])}) + "\n")
+    jsrc = ShardedSource.jsonl(jpath, shard_bytes=os.path.getsize(jpath) // 4 + 1)
+    jb = train_booster_from_source(jsrc, label_col="label", feature_cols=["feat"],
+                                   device=str(device), **dict(kw, num_iterations=10))
+    j_rows = int(jb.cover[0, 0, 0])
+    log(f"[surface] (d) jsonl: {jsrc.num_shards} shards, {j_rows} rows in the first tree's "
+        f"root (want {OOC_JSONL_ROWS}), held-out AUC "
+        f"{auc(y[HIGGS_N:], jb.predict(X[HIGGS_N:], device=device)):.5f}")
+    if j_rows != OOC_JSONL_ROWS:
+        raise AssertionError("the jsonl fit lost rows")
+    return {"auc": s_auc, "in_memory_auc": m_auc, "stream_s": stream_s}
+
+
+def _surface_continue(device, card: str, grown: _Trees, X, y, source) -> None:
+    """(e) LightGBMClassifier(model_string=...) from (b)'s gbdt booster."""
+    from synapseml_torch import DataFrame as DF
+    from synapseml_torch.gbdt import LightGBMClassifier
+
+    train = DF.from_dict({"features": X[:HIGGS_N], "label": y[:HIGGS_N]})
+    est = LightGBMClassifier(histogram_impl="pallas", device=str(device), model_string=source,
+                             **dict(HIGGS_PARAMS, num_iterations=CONTINUE_ITERS))
+    b = est.fit(train).get_booster()
+    grown.add(b, prefix=source.num_iterations)
+    k = source.num_iterations
+    same = all(np.array_equal(getattr(b, name)[:k], getattr(source, name))
+               for name in ("feature", "threshold_value", "leaf_value"))
+    c_auc = auc(y[HIGGS_N:], b.predict(X[HIGGS_N:], device=device))
+    log(f"[surface] (e) continued training: {b.num_iterations} trees ({k} + {CONTINUE_ITERS}), "
+        f"the first {k} bitwise the source's: {same}, held-out AUC {c_auc:.5f} | {card}")
+    if not (same and b.num_iterations == k + CONTINUE_ITERS and np.isfinite(c_auc)):
+        raise AssertionError("continued training did not keep its source's trees")
+
+
+def phase_gbdt_surface(device, card: str) -> dict:
+    """Main path 9: (a) the ranker at the MSLR-WEB10K shape, (b) Higgs-1M in
+    each sampling mode, (c) categorical columns, (d) out-of-core training,
+    (e) continued training; then the level launch's device time at the
+    ranker's 136 features. Returns the histogram kernel's launches."""
+    import tempfile
+
+    from synapseml_torch.gbdt import hist
+    from synapseml_torch.gbdt.trees import derive_max_depth
+
+    t_start = time.perf_counter()
+    hist.fixed_point_histogram.launches = 0
+    hist.fixed_point_scales.launches = 0
+    grown = _Trees(derive_max_depth(-1, 31))
+    out = {"ranker": _surface_ranker(device, card, grown)}
+    log(f"[surface] (a) done at {time.perf_counter() - t_start:.1f} s")
+    X, y = higgs_data(HIGGS_N, HIGGS_TEST, HIGGS_F)
+    modes = _surface_modes(device, card, grown, X, y)
+    log(f"[surface] (b) done at {time.perf_counter() - t_start:.1f} s")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gbdt_") as tmp:
+        out["categorical"] = _surface_categorical(device, card, grown, tmp)
+        log(f"[surface] (c) done at {time.perf_counter() - t_start:.1f} s")
+        out["out_of_core"] = _surface_out_of_core(device, card, tmp, X, y)
+        log(f"[surface] (d) done at {time.perf_counter() - t_start:.1f} s")
+    _surface_continue(device, card, grown, X, y, modes["gbdt"]["booster"])
+    launches, scales = _hist_counts()
+    want = grown.trees * (grown.depth + 1)
+    log(f"[surface] main path 9 launched gbdt_hist {launches} times (want {grown.trees} trees "
+        f"x {grown.depth + 1} = {want}) and its scale pass {scales} (want {grown.trees})")
+    if launches != want or scales != grown.trees:
+        raise AssertionError("main path 9's histogram launches are off their count")
+    out.update(launches=launches, scale_launches=scales)
+    out["seconds"] = time.perf_counter() - t_start
+    log(f"[surface] main path 9: {out['seconds']:.1f} s of the script's clock")
+    tot, tot_bytes, k = _tree_level_times(device, card, out["ranker"]["rows"], MSLR_F)
+    ms = statistics.median([tot["ms"], tot["ms2"]]) / k
+    lib = statistics.median([tot["library_ms"], tot["library_ms2"]]) / k
+    log(f"[times] gbdt_hist at the ranker's shape [N={out['ranker']['rows']}, F={MSLR_F}]: "
+        f"{ms:.4f} ms a launch (mean of {k}; device time), bound "
+        f"{tot_bytes / k / HBM_BYTES_PER_S * 1e3:.4f} ms by bytes, plain "
+        f"{tot['plain_ms'] / k:.4f} ms, index_add_ {lib:.4f} ms | {card}")
+    return out
+
+
 def main() -> None:
     t0 = time.perf_counter()
 
@@ -5042,6 +5562,8 @@ def main() -> None:
     done("main path 7, pretrained checkpoint directories")
     moe = phase_moe(device, card)
     done("main path 8, Mixtral-8x7B and MoE training")
+    surface = phase_gbdt_surface(device, card)
+    done("main path 9, LightGBM's surface")
     # the flash kernels' launches on the paths, each counted from 0 just
     # before it ran: scoring (path 1), fine-tuning through flash and both
     # fitted models' scoring (path 3), bert-tiny f32 through flash on the
@@ -5056,9 +5578,11 @@ def main() -> None:
     launches.update({f"bwd_{k}": sum(p["bwd_launches"][k] for p in paths)
                      for k in ("bf16", "f32")})
     kernels = phase_times(device, card, launches, max_err)
-    kernels += phase_gbdt_times(device, card, {"gbdt_hist": gbdt["launches"],
-                                               "gbdt_hist_scale": gbdt["scale_launches"]},
-                                hist_err)
+    # the histogram kernel's launches: main paths 2 and 9, each counted from 0
+    kernels += phase_gbdt_times(device, card,
+                                {"gbdt_hist": gbdt["launches"] + surface["launches"],
+                                 "gbdt_hist_scale": gbdt["scale_launches"]
+                                 + surface["scale_launches"]}, hist_err)
     done("times")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

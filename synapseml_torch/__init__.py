@@ -3,8 +3,10 @@
 The JAX package stays the reference; this package grows beside it slice by
 slice, mirroring its layout so each file names its counterpart:
   core/        DataFrame, params, pipeline API, stage telemetry, bucketing,
-               metrics registry, retry policy
-  data/        sharded sources, the prefetching DataLoader, iterator state
+               metrics registry, retry policy, seeded fault injection
+  data/        sharded sources (in memory, and jsonl/csv/npy/image files),
+               the prefetching DataLoader, iterator state
+  io/          the input-path resolvers and JSONL line parser of the sources
   parallel/    token-sequence padding (the rest with the multi-GPU slice)
   ops/         hand-written CUDA kernels (``csrc/``) with plain versions
   image/       image preprocessing stages on the host (ImageTransformer,
@@ -13,8 +15,9 @@ slice, mirroring its layout so each file names its counterpart:
                single-device trainer (BatchNorm state included),
                DeepTextClassifier / DeepTextModel and DeepVisionClassifier /
                DeepVisionModel
-  gbdt/        LightGBM-style GBDT training and scoring, with the CUDA
-               level-histogram kernel
+  gbdt/        LightGBM-style GBDT training and scoring (every boosting mode,
+               categorical splits, the ranker, model.txt interop,
+               out-of-core training), with the CUDA level-histogram kernel
   onnx/        the ONNX wire codec, the converter to torch ops,
                ONNXModel batch scoring, ImageFeaturizer and the ONNXHub
                model-zoo client

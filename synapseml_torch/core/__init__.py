@@ -11,6 +11,7 @@ from .batching import (
     unpad_rows,
 )
 from .dataframe import DataFrame, Partition, concat_partitions, schema_of
+from .faults import FaultPlan, FaultSpec, active_fault_plan, inject_faults
 from .observability import MetricsRegistry, Span, Tracer, get_registry, get_tracer, reset_registry
 from .params import ComplexParam, GlobalParams, Param, Params, TypeConverters
 from .pipeline import Estimator, Model, Pipeline, PipelineModel, PipelineStage, Transformer, load_stage
@@ -26,4 +27,5 @@ __all__ = [
     "instance_token", "invalidate_token", "pad_rows", "unpad_rows",
     "MetricsRegistry", "get_registry", "reset_registry",
     "Tracer", "Span", "get_tracer",
+    "FaultSpec", "FaultPlan", "inject_faults", "active_fault_plan",
 ]

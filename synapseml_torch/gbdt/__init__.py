@@ -4,26 +4,37 @@ Counterpart of ``synapseml_tpu/gbdt/``: quantile binning on the host, then
 level-wise histogram tree growth on the device, where each level's
 histogram is one launch of the hand-written CUDA kernel
 ``csrc/gbdt_hist.cu`` (``histogram_impl='pallas'``) or plain torch
-(``'segment'``, ``'onehot'``). Ported: ``BinMapper``, the objectives but
-lambdarank, tree growth, ``Booster`` (scoring, TreeSHAP, leaf indices,
-importances, save/load in the JAX package's format) and the classifier and
-regressor estimators.
+(``'segment'``, ``'onehot'``). Ported: ``BinMapper`` (categorical
+features included), every objective (lambdarank too), tree growth with
+categorical splits, ``Booster`` (scoring, TreeSHAP, leaf indices,
+importances, save/load in the JAX package's format; ``TpuBooster`` is its
+JAX name), every boosting mode and sampling option, continued training,
+LightGBM ``model.txt`` both ways (:mod:`.interop`), out-of-core training
+from a ``ShardedSource`` (:mod:`.streaming`) and the classifier, regressor
+and ranker estimators. The fused sweep (``train_boosters_fused``) waits for
+ROADMAP.md queue A item 11, multi-device meshes for item 9.
 """
 
 from .binning import BinMapper
-from .booster import Booster, train_booster, train_booster_from_source
+from .booster import Booster, TpuBooster, train_booster, train_booster_from_source
 from .estimators import (
     LightGBMClassificationModel,
     LightGBMClassifier,
     LightGBMRanker,
+    LightGBMRankerModel,
     LightGBMRegressionModel,
     LightGBMRegressor,
 )
+from .interop import ImportedBooster, parse_lightgbm_string, to_lightgbm_string
 from .hist import fixed_point_histogram, level_histogram, segment_histogram
 
 __all__ = [
     "BinMapper",
     "Booster",
+    "TpuBooster",
+    "ImportedBooster",
+    "parse_lightgbm_string",
+    "to_lightgbm_string",
     "train_booster",
     "train_booster_from_source",
     "LightGBMClassifier",
@@ -31,6 +42,7 @@ __all__ = [
     "LightGBMRegressor",
     "LightGBMRegressionModel",
     "LightGBMRanker",
+    "LightGBMRankerModel",
     "fixed_point_histogram",
     "level_histogram",
     "segment_histogram",

@@ -8,7 +8,10 @@ with this one. Binned codes move to the device once and stay there for the
 whole boosting run.
 
 Missing values (NaN) get their own reserved bin (the last one), mirroring
-LightGBM's ``use_missing`` default behavior.
+LightGBM's ``use_missing`` default behavior. Categorical features bin by
+identity: the category code is the bin, and codes outside ``[0, max_bin)``
+or NaN go to the NaN bin (LightGBM's unseen-category rule: they route
+right).
 """
 
 from __future__ import annotations
@@ -26,12 +29,14 @@ class BinMapper:
     ``max_bin + 1``.
     """
 
-    def __init__(self, max_bin: int = 255, sample_count: int = 200_000, seed: int = 0):
+    def __init__(self, max_bin: int = 255, sample_count: int = 200_000, seed: int = 0,
+                 categorical: tuple = ()):
         if not 2 <= max_bin <= 65535:
             raise ValueError(f"max_bin must be in [2, 65535], got {max_bin}")
         self.max_bin = int(max_bin)
         self.sample_count = int(sample_count)
         self.seed = int(seed)
+        self.categorical = tuple(int(i) for i in categorical)
         self.boundaries_: np.ndarray | None = None  # (F, max_bin - 1) float64
 
     @property
@@ -79,12 +84,22 @@ class BinMapper:
         n, f = x.shape
         if f != self.boundaries_.shape[0]:
             raise ValueError(f"feature count {f} != fitted {self.boundaries_.shape[0]}")
+        if self.categorical and not all(0 <= i < f for i in self.categorical):
+            raise ValueError(f"categorical indices {sorted(self.categorical)} "
+                             f"out of range [0, {f})")
         out = np.empty((n, f), dtype=np.int32)
+        cat = set(self.categorical)
         for j in range(f):
-            out[:, j] = np.searchsorted(self.boundaries_[j], x[:, j], side="right")
+            if j in cat:
+                col = x[:, j]
+                code = np.floor(col)
+                valid = np.isfinite(col) & (code >= 0) & (code < self.max_bin)
+                out[:, j] = np.where(valid, code, self.nan_bin).astype(np.int32)
+            else:
+                out[:, j] = np.searchsorted(self.boundaries_[j], x[:, j], side="right")
         nan_mask = np.isnan(x)
         if nan_mask.any():
-            out[nan_mask] = self.nan_bin
+            out[nan_mask] = self.nan_bin  # a no-op on categorical columns
         if self.num_bins <= 256:
             return out.astype(np.uint8)
         return out
@@ -108,14 +123,14 @@ class BinMapper:
             "max_bin": self.max_bin,
             "sample_count": self.sample_count,
             "seed": self.seed,
+            "categorical": list(self.categorical),
             "boundaries": None if self.boundaries_ is None else self.boundaries_.tolist(),
         }
 
     @classmethod
     def from_dict(cls, d: dict) -> "BinMapper":
-        if d.get("categorical"):
-            raise NotImplementedError("categorical binning is not ported yet")
-        m = cls(d["max_bin"], d["sample_count"], d["seed"])
+        m = cls(d["max_bin"], d["sample_count"], d["seed"],
+                categorical=tuple(d.get("categorical", ())))
         if d.get("boundaries") is not None:
             m.boundaries_ = np.asarray(d["boundaries"], dtype=np.float64)
         return m

@@ -1,18 +1,20 @@
-"""LightGBMClassifier / LightGBMRegressor estimators.
+"""LightGBMClassifier / LightGBMRegressor / LightGBMRanker estimators.
 
 Counterpart of ``synapseml_tpu/gbdt/estimators.py`` (reference
-``LightGBMClassifier.scala``, ``LightGBMRegressor.scala`` and the shared
-param surface of ``params/LightGBMParams.scala``): the same Param names and
-defaults, mapped 1:1 onto :func:`.booster.train_booster` keywords, plus a
-``device`` Param (default ``"cuda"``; a host without a card must ask for
-``"cpu"``) on which the estimator trains and the fitted model scores.
-Partitions are concatenated host-side into one binned matrix that moves to
-the device once.
+``LightGBMClassifier.scala``, ``LightGBMRegressor.scala``,
+``LightGBMRanker.scala`` and the shared param surface of
+``params/LightGBMParams.scala``): the same Param names and defaults, mapped
+1:1 onto :func:`.booster.train_booster` keywords, plus a ``device`` Param
+(default ``"cuda"``; a host without a card must ask for ``"cpu"``) on which
+the estimator trains and the fitted model scores. Partitions are
+concatenated host-side into one binned matrix that moves to the device
+once. ``model_string`` continues training from a booster or a LightGBM
+model string; ``save_native_model`` writes LightGBM's ``model.txt`` beside
+the booster directory.
 
-Not ported yet, each refused with ``NotImplementedError``: the ranker,
-``model_string`` continuation, ``mesh_config``, the fused sweep
-(``_fit_fused``) and ``save_native_model`` (LightGBM model.txt interop),
-plus the booster's own refusals (see :mod:`.booster`).
+Not ported yet, each refused with ``NotImplementedError`` naming its
+ROADMAP.md item: ``mesh_config`` (queue A item 9) and the fused sweep
+``_fit_fused`` (item 11, with ``automl/``).
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ from .hist import HIST_IMPLS
 
 __all__ = [
     "LightGBMClassifier", "LightGBMClassificationModel",
-    "LightGBMRegressor", "LightGBMRegressionModel", "LightGBMRanker",
+    "LightGBMRegressor", "LightGBMRegressionModel",
+    "LightGBMRanker", "LightGBMRankerModel",
 ]
 
 
@@ -65,17 +68,14 @@ class _LightGBMParams:
                                     default=1e-3, converter=TypeConverters.to_float)
     min_gain_to_split = Param("min_gain_to_split", "min split gain", default=0.0,
                               converter=TypeConverters.to_float)
-    feature_fraction = Param("feature_fraction", "per-tree feature subsample "
-                             "(< 1 not ported yet)", default=1.0,
-                             converter=TypeConverters.to_float)
-    bagging_fraction = Param("bagging_fraction", "row subsample fraction "
-                             "(< 1 not ported yet)", default=1.0,
+    feature_fraction = Param("feature_fraction", "per-tree feature subsample",
+                             default=1.0, converter=TypeConverters.to_float)
+    bagging_fraction = Param("bagging_fraction", "row subsample fraction", default=1.0,
                              converter=TypeConverters.to_float)
     bagging_freq = Param("bagging_freq", "bagging every k iterations (0=off)",
                          default=0, converter=TypeConverters.to_int)
     boosting_type = Param("boosting_type", "gbdt | goss | dart | rf "
-                          "(reference boostingType; only gbdt is ported yet)",
-                          default="gbdt")
+                          "(reference boostingType)", default="gbdt")
     top_rate = Param("top_rate", "goss: keep fraction by |grad|", default=0.2,
                      converter=TypeConverters.to_float)
     other_rate = Param("other_rate", "goss: sample fraction of the rest",
@@ -91,7 +91,8 @@ class _LightGBMParams:
         "(reference monotoneConstraints; 'basic' method)", default=None)
     categorical_slot_indexes = ComplexParam(
         "categorical_slot_indexes", "feature indices treated as categorical "
-        "codes (reference categoricalSlotIndexes; not ported yet)", default=None)
+        "codes: LightGBM many-vs-many splits on sorted-gradient prefixes "
+        "(reference categoricalSlotIndexes)", default=None)
     early_stopping_round = Param("early_stopping_round", "stop after k rounds without "
                                  "validation improvement (0=off)", default=0,
                                  converter=TypeConverters.to_int)
@@ -105,10 +106,10 @@ class _LightGBMParams:
     verbosity = Param("verbosity", "print eval metrics when > 0", default=-1,
                       converter=TypeConverters.to_int)
     model_string = ComplexParam(
-        "model_string", "previous booster to continue training from "
-        "(reference modelString; not ported yet)", default=None)
+        "model_string", "previous booster (Booster or LightGBM model.txt "
+        "string) to continue training from (reference modelString)", default=None)
     mesh_config = ComplexParam("mesh_config", "mesh to shard rows over "
-                               "(not ported yet)", default=None)
+                               "(not ported yet: ROADMAP.md queue A item 9)", default=None)
     device = Param("device", "torch device to train and score on: 'cuda' (default), "
                    "'cuda:N' or 'cpu'", default="cuda",
                    converter=TypeConverters.to_string,
@@ -145,10 +146,9 @@ class _LightGBMParams:
         return train, valid
 
     def _train_kwargs(self) -> dict:
-        if self.get("model_string") is not None:
-            raise NotImplementedError("model_string (continued training) is not ported yet")
         if self.get("mesh_config") is not None:
-            raise NotImplementedError("mesh_config (multi-device training) is not ported yet")
+            raise NotImplementedError("mesh_config (multi-device training) is not ported "
+                                      "to synapseml_torch yet: ROADMAP.md queue A item 9")
         return dict(
             num_iterations=self.get("num_iterations"),
             learning_rate=self.get("learning_rate"),
@@ -167,15 +167,20 @@ class _LightGBMParams:
             boosting_type=self.get("boosting_type"),
             monotone_constraints=self.get("monotone_constraints"),
             categorical_features=self.get("categorical_slot_indexes"),
+            top_rate=self.get("top_rate"), other_rate=self.get("other_rate"),
+            drop_rate=self.get("drop_rate"), max_drop=self.get("max_drop"),
+            skip_drop=self.get("skip_drop"),
             seed=self.get("seed"),
             histogram_impl=self.get("histogram_impl"),
+            init_model=self.get("model_string"),
             verbose=self.get("verbosity") > 0,
             device=self.get("device"),
         )
 
     def _fit_fused(self, df: DataFrame, configs: list[dict]):
         raise NotImplementedError("the fused hyperparameter sweep (_fit_fused) is not "
-                                  "ported yet")
+                                  "ported to synapseml_torch yet: ROADMAP.md queue A "
+                                  "item 11, with automl/")
 
     def _fitted(self, model):
         model.set(**{k: v for k, v in self._param_values.items() if model.has_param(k)})
@@ -198,7 +203,13 @@ class _LightGBMModelBase(Model, _LightGBMParams):
 
     def predict_contrib(self, features) -> np.ndarray:
         """Exact TreeSHAP contributions (N, K, F+1), computed on the host."""
-        return self.get_booster().predict_contrib(features)
+        b = self.get_booster()
+        if not hasattr(b, "predict_contrib"):
+            raise NotImplementedError(
+                "TreeSHAP contributions need per-node cover statistics, which "
+                "boosters imported from LightGBM model strings don't carry; "
+                "retrain with this library (or score without features_shap_col)")
+        return b.predict_contrib(features)
 
     def _maybe_shap(self, out: dict, x) -> None:
         col = self.get("features_shap_col")
@@ -211,8 +222,19 @@ class _LightGBMModelBase(Model, _LightGBMParams):
         return self.get_booster().feature_importance(importance_type)
 
     def save_native_model(self, path: str) -> None:
-        raise NotImplementedError("save_native_model (LightGBM model.txt interop) is not "
-                                  "ported yet; Booster.save writes the package's own format")
+        """Reference ``saveNativeModel``: writes the booster directory (npz +
+        json) plus ``model.txt`` in LightGBM's own text format, loadable by
+        stock LightGBM tooling."""
+        import os
+
+        from .interop import to_lightgbm_string
+
+        b = self.get_booster()
+        os.makedirs(path, exist_ok=True)
+        if hasattr(b, "save"):  # an ImportedBooster persists as model.txt only
+            b.save(path)
+        with open(os.path.join(path, "model.txt"), "w") as f:
+            f.write(to_lightgbm_string(b))
 
 
 # ---------------- classification ----------------
@@ -273,7 +295,11 @@ class LightGBMClassificationModel(_LightGBMModelBase):
         def per_part(part):
             x = self._features(DataFrame([part]))
             # one forest walk for both the margins and the probabilities
-            raw, prob = b.raw_score_and_predict(x, device=self.get("device"))
+            if hasattr(b, "raw_score_and_predict"):
+                raw, prob = b.raw_score_and_predict(x, device=self.get("device"))
+            else:  # an ImportedBooster
+                raw = b.raw_score(x, device=self.get("device"))
+                prob = b.predict(x, device=self.get("device"))
             if b.objective == "binary":
                 prob2 = np.stack([1 - prob, prob], axis=1)
                 pred_idx = (prob >= 0.5).astype(int)
@@ -342,10 +368,46 @@ class LightGBMRegressionModel(_LightGBMModelBase):
 # ---------------- ranking ----------------
 
 class LightGBMRanker(Estimator, _LightGBMParams):
-    """Not ported yet: lambdarank's padded-group lambdas come in a later slice."""
-
     feature_name = "lightgbm"
 
-    def _fit(self, df: DataFrame):
-        raise NotImplementedError("LightGBMRanker (objective 'lambdarank') is not "
-                                  "ported yet")
+    group_col = Param("group_col", "query/group id column", default="group")
+    eval_at = Param("eval_at", "NDCG@k cutoffs", default=(5,),
+                    converter=TypeConverters.to_list)
+
+    def _fit(self, df: DataFrame) -> "LightGBMRankerModel":
+        train, valid = self._split_validation(df)
+        self.require_columns(train, self.get("label_col"), self.get("group_col"))
+        # group-contiguous ordering (the reference requires pre-grouped partitions)
+        train = train.sort(self.get("group_col"))
+        x = self._features(train)
+        y = np.asarray(train.collect_column(self.get("label_col")), np.float32)
+        gid = np.asarray(train.collect_column(self.get("group_col")))
+        _, sizes = np.unique(gid, return_counts=True)
+        vx = vy = vsizes = None
+        if valid is not None and valid.count() > 0:
+            valid = valid.sort(self.get("group_col"))
+            vx = self._features(valid)
+            vy = np.asarray(valid.collect_column(self.get("label_col")), np.float32)
+            _, vsizes = np.unique(np.asarray(valid.collect_column(self.get("group_col"))),
+                                  return_counts=True)
+        booster = train_booster(
+            x, y, objective="lambdarank", group_sizes=sizes,
+            valid_features=vx, valid_labels=vy, valid_group_sizes=vsizes,
+            **self._train_kwargs())
+        return self._fitted(LightGBMRankerModel(booster=booster))
+
+
+class LightGBMRankerModel(_LightGBMModelBase):
+    feature_name = "lightgbm"
+
+    def _transform(self, df: DataFrame) -> DataFrame:
+        b = self.get_booster()
+
+        def per_part(part):
+            x = self._features(DataFrame([part]))
+            out = dict(part)
+            out[self.get("prediction_col")] = b.predict(x, device=self.get("device"))
+            self._maybe_shap(out, x)
+            return out
+
+        return df.map_partitions(per_part)

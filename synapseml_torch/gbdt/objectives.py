@@ -2,19 +2,23 @@
 
 Counterpart of ``synapseml_tpu/gbdt/objectives.py`` (reference: LightGBM's
 native objective functions selected via the ``objective`` train param, and
-the metrics used for early stopping). Every objective of the JAX package
-but ``lambdarank`` (its ranker comes in a later slice). Scores are (N, K)
-float32, labels (N,) float32; everything stays float32 on the scores'
-device.
+the metrics used for early stopping), ``lambdarank`` included: its
+pairwise LambdaMART gradients and NDCG work on groups padded to (G, S),
+evaluated in chunks of groups so that the (groups, S, S) pair tensors stay
+bounded (each group's sums are independent of the others). Scores are
+(N, K) float32, labels (N,) float32; everything stays float32 on the
+scores' device.
 """
 
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
-__all__ = ["Objective", "get_objective"]
+__all__ = ["Objective", "get_objective", "pad_groups", "lambdarank_grad_hess",
+           "ndcg_at_k"]
 
 
 class Objective(NamedTuple):
@@ -152,6 +156,103 @@ def _multi_logloss(s, y, k):
     return -torch.mean(torch.log(torch.gather(p, 1, y.to(torch.int64)[:, None])[:, 0]))
 
 
+# ---------------- lambdarank ----------------
+
+# pair-tensor elements a chunk of groups may hold (G_chunk * S * S): 128 MB of
+# float32 a tensor, about seven alive at once
+_PAIR_ELEMENTS = 1 << 25
+
+
+def pad_groups(group_sizes) -> tuple[np.ndarray, int]:
+    """Row → (group, slot) scatter indices (N, 2) int32 for padding ragged
+    groups to (G, S), and S, the largest group."""
+    sizes = np.asarray(group_sizes, dtype=np.int64)
+    max_size = int(sizes.max()) if sizes.size else 1
+    group = np.repeat(np.arange(sizes.size), sizes)
+    starts = np.concatenate([[0], np.cumsum(sizes)[:-1]]) if sizes.size else sizes
+    slot = np.arange(group.size) - np.repeat(starts, sizes)
+    return np.stack([group, slot], axis=1).astype(np.int32).reshape(-1, 2), max_size
+
+
+def _padded(scores, labels, group_slot, num_groups: int, max_size: int):
+    dev = scores.device
+    g, s = group_slot[:, 0].to(torch.int64), group_slot[:, 1].to(torch.int64)
+    pad_s = torch.full((num_groups, max_size), -torch.inf, device=dev)
+    pad_s[g, s] = scores
+    pad_y = torch.zeros((num_groups, max_size), device=dev)
+    pad_y[g, s] = labels
+    valid = torch.zeros((num_groups, max_size), dtype=torch.bool, device=dev)
+    valid[g, s] = True
+    return pad_s, pad_y, valid, g, s
+
+
+def _group_chunks(num_groups: int, max_size: int):
+    step = max(_PAIR_ELEMENTS // max(max_size * max_size, 1), 1)
+    return [(a, min(a + step, num_groups)) for a in range(0, num_groups, step)]
+
+
+def _lambda_sums(pad_s, pad_y, valid, sigma: float):
+    """Per-slot gradient and hessian sums of one chunk of padded groups."""
+    G, S = pad_s.shape
+    dev = pad_s.device
+    gain = (2.0 ** pad_y - 1.0) * valid
+    # rank by score within group (descending, ties by slot); invalid slots
+    # sink with -inf
+    order = torch.argsort(-pad_s, dim=1, stable=True)
+    rank_of = torch.zeros_like(order).scatter_(
+        1, order, torch.arange(S, device=dev)[None, :].expand(G, S))
+    discount = 1.0 / torch.log2(rank_of + 2.0)
+    # ideal DCG per group, as the JAX package orders it (invalid slots first)
+    ideal_order = torch.argsort(-pad_y - valid * 0.0 + torch.where(valid, 0.0, -torch.inf),
+                                dim=1, stable=True)
+    ideal_gain = torch.gather(gain, 1, ideal_order)
+    idcg = torch.sum(ideal_gain / torch.log2(torch.arange(S, device=dev)[None, :] + 2.0), dim=1)
+    idcg = torch.clamp(idcg, min=1e-12)
+
+    sdiff = pad_s[:, :, None] - pad_s[:, None, :]  # (G, S, S)
+    ydiff = pad_y[:, :, None] - pad_y[:, None, :]
+    pair_valid = valid[:, :, None] & valid[:, None, :] & (ydiff > 0)
+    # |ΔNDCG| of swapping i and j
+    dgain = torch.abs((gain[:, :, None] - gain[:, None, :])
+                      * (discount[:, :, None] - discount[:, None, :])) / idcg[:, None, None]
+    rho = torch.sigmoid(-sigma * sdiff)  # P(j beats i) given i should rank higher
+    lam = torch.where(pair_valid, sigma * rho * dgain, 0.0)
+    hpair = torch.where(pair_valid, sigma * sigma * rho * (1 - rho) * dgain, 0.0)
+    g_pad = -torch.sum(lam, dim=2) + torch.sum(lam.transpose(1, 2), dim=2)
+    h_pad = torch.sum(hpair, dim=2) + torch.sum(hpair.transpose(1, 2), dim=2)
+    return g_pad, h_pad
+
+
+def lambdarank_grad_hess(scores, labels, group_slot, num_groups: int, max_size: int,
+                         sigma: float = 1.0):
+    """Pairwise LambdaMART gradients with |ΔNDCG| weighting, on padded
+    groups. ``scores``/``labels`` (N,) row-aligned; ``group_slot`` (N, 2)
+    int tensor from :func:`pad_groups`. Returns (grad, hess), (N,) each."""
+    n = scores.shape[0]
+    pad_s, pad_y, valid, g, s = _padded(scores, labels, group_slot, num_groups, max_size)
+    g_pad = torch.empty_like(pad_s)
+    h_pad = torch.empty_like(pad_s)
+    for a, b in _group_chunks(num_groups, max_size):
+        g_pad[a:b], h_pad[a:b] = _lambda_sums(pad_s[a:b], pad_y[a:b], valid[a:b], sigma)
+    grad = g_pad[g, s]
+    hess = torch.clamp(h_pad[g, s], min=1e-6)
+    return grad.reshape(n), hess.reshape(n)
+
+
+def ndcg_at_k(scores, labels, group_slot, num_groups: int, max_size: int, k: int = 10):
+    """Mean NDCG@k over the groups (ties in score by slot)."""
+    pad_s, pad_y, valid, _, _ = _padded(scores, labels, group_slot, num_groups, max_size)
+    dev = pad_s.device
+    gain = (2.0 ** pad_y - 1.0) * valid
+    topk = min(k, max_size)
+    disc = 1.0 / torch.log2(torch.arange(topk, device=dev) + 2.0)
+    order = torch.argsort(-pad_s, dim=1, stable=True)[:, :topk]
+    dcg = torch.sum(torch.gather(gain, 1, order) * disc[None, :], dim=1)
+    iorder = torch.argsort(torch.where(valid, -pad_y, torch.inf), dim=1, stable=True)[:, :topk]
+    idcg = torch.sum(torch.gather(gain, 1, iorder) * disc[None, :], dim=1)
+    return torch.mean(dcg / torch.clamp(idcg, min=1e-12))
+
+
 # ---------------- registry ----------------
 
 def _first(s):
@@ -207,7 +308,7 @@ def get_objective(name: str, num_class: int = 1, **kw) -> Objective:
                          lambda s: torch.softmax(s, dim=1),
                          lambda s, y: _multi_logloss(s, y, k), "multi_logloss")
     if name == "lambdarank":
-        raise NotImplementedError("objective 'lambdarank' (LightGBMRanker) is not "
-                                  "ported yet: its padded-group lambdas come in a "
-                                  "later slice")
+        # grad_hess is bound by the booster once the group structure is known
+        return Objective("lambdarank", 1, lambda y: torch.zeros(1, device=y.device),
+                         None, _first, None, "ndcg")
     raise ValueError(f"unknown objective {name!r}")

@@ -11,13 +11,17 @@ best-split search and row partition). The same design:
   LightGBM's ``num_leaves`` cap is honoured by ranking candidate splits by
   gain at each level and splitting only as many as the leaf budget allows;
 * missing values (NaN bin = last bin) route right; thresholds never cover
-  the NaN bin.
+  the NaN bin;
+* categorical features split LightGBM's many-vs-many way: a node's bins
+  sorted by ``g / (h + cat_smooth)`` (a stable sort, as ``jnp.argsort``),
+  prefixes of that order are the candidate left sets, at most
+  ``max_cat_threshold`` categories; the winning set is the node's
+  ``cat_mask`` row, and a row routes left iff its category is a member.
 
 Where the JAX package jits a level step and scans, this module runs the
 same tensor program eagerly, a Python loop over levels, and updates its own
 tree tensors in place. Every step stays on the tensors' device with no host
-sync. Categorical splits are not ported yet (``booster.train_booster``
-refuses them).
+sync.
 
 Histogram channels: (grad, hess, count).
 """
@@ -34,7 +38,8 @@ from .hist import fixed_point_tree, level_histogram, node_totals
 __all__ = ["GrowthConfig", "TreeArrays", "grow_tree", "traverse_binned",
            "predict_raw_forest", "leaf_index_forest", "level_cum_tables",
            "split_gain", "split_ok_mask", "select_level_splits",
-           "level_row_partition", "route_rows", "derive_max_depth", "max_nodes"]
+           "level_row_partition", "route_rows", "derive_max_depth", "max_nodes",
+           "cat_route_left"]
 
 
 class GrowthConfig(NamedTuple):
@@ -56,6 +61,11 @@ class GrowthConfig(NamedTuple):
     # histogram backend: 'segment' | 'onehot' | 'pallas' (the CUDA kernel,
     # .hist.fixed_point_histogram)
     hist_impl: str = "segment"
+    # categorical features (sorted feature indices; their bins ARE the raw
+    # category codes), split many-vs-many (reference categoricalSlotIndexes)
+    categorical_features: tuple = ()
+    max_cat_threshold: int = 32
+    cat_smooth: float = 10.0
 
 
 class TreeArrays(NamedTuple):
@@ -66,6 +76,11 @@ class TreeArrays(NamedTuple):
     leaf_value: torch.Tensor  # (M,) float32
     gain: torch.Tensor  # (M,) float32, split gain (0 at leaves) — feeds importance
     cover: torch.Tensor  # (M,) float32, rows reaching the node — feeds TreeSHAP
+    # (M, B) uint8 left-membership per bin of categorical splits; (M, 1)
+    # zeros when the config has no categorical features. A node is
+    # categorical iff its row has any nonzero (a valid categorical split
+    # always has a nonempty left set)
+    cat_mask: torch.Tensor | None = None
 
 
 def max_nodes(max_depth: int) -> int:
@@ -147,15 +162,18 @@ def select_level_splits(gain, c_tot, leaf_count, cfg, width: int, num_thresholds
 
 def level_row_partition(bins, node_of_row, do_split, best_feat, best_thr,
                         base: int, width: int):
-    """Row→child routing for one level: which rows sit in a splitting node,
-    and whether their winning feature's bin sends them left. Returns
-    ``(row_split, go_left)``."""
+    """Row→child routing ingredients for one level: which rows sit in a
+    splitting node, their winning feature's bin, and the numeric left/right
+    decision. Returns ``(rel, row_split, f_of_row, row_bin, go_left)``;
+    callers may override ``go_left`` (categorical membership) before
+    :func:`route_rows`."""
     here = (node_of_row >= base) & (node_of_row < base + width)
     rel = torch.where(here, node_of_row - base, 0).to(torch.int64)
     row_split = do_split[rel] & here
-    row_bin = torch.gather(bins, 1, best_feat[rel][:, None].to(torch.int64))[:, 0]
+    f_of_row = best_feat[rel].to(torch.int64)
+    row_bin = torch.gather(bins, 1, f_of_row[:, None])[:, 0].to(torch.int64)
     go_left = row_bin.to(torch.int32) <= best_thr[rel]
-    return row_split, go_left
+    return rel, row_split, f_of_row, row_bin, go_left
 
 
 def route_rows(node_of_row, row_split, go_left):
@@ -167,7 +185,7 @@ def route_rows(node_of_row, row_split, go_left):
 class _GrowState:
     """The tree tensors one growth updates in place, level by level."""
 
-    def __init__(self, m: int, n: int, device):
+    def __init__(self, m: int, n: int, cat_width: int, device):
         i32, f32 = dict(dtype=torch.int32, device=device), dict(dtype=torch.float32, device=device)
         self.feature = torch.full((m,), -1, **i32)
         self.threshold_bin = torch.zeros(m, **i32)
@@ -178,18 +196,69 @@ class _GrowState:
         self.node_hi = torch.full((m,), torch.inf, **f32)
         self.node_of_row = torch.zeros(n, **i32)
         self.leaf_count = torch.ones((), **i32)
+        self.cat_mask = torch.zeros((m, cat_width), dtype=torch.uint8, device=device)
+
+
+class _CatTables(NamedTuple):
+    """The categorical columns of a config, on the device."""
+
+    idx: torch.Tensor      # (Fc,) int64 feature indices
+    is_cat: torch.Tensor   # (F,) bool
+    pos: torch.Tensor      # (F,) int64 position of each feature within idx
+
+
+def _cat_tables(cfg: GrowthConfig, nf: int, device) -> _CatTables | None:
+    if not cfg.categorical_features:
+        return None
+    idx = torch.tensor(cfg.categorical_features, dtype=torch.int64, device=device)
+    is_cat = torch.zeros(nf, dtype=torch.bool, device=device)
+    is_cat[idx] = True
+    pos = torch.zeros(nf, dtype=torch.int64, device=device)
+    pos[idx] = torch.arange(len(cfg.categorical_features), device=device)
+    return _CatTables(idx, is_cat, pos)
+
+
+def _categorical_prefixes(hist, gl, hl, cl, cat: _CatTables, cfg: GrowthConfig,
+                          num_thresholds: int):
+    """LightGBM's many-vs-many candidates: per node and categorical feature,
+    bins sorted by ``g / (h + cat_smooth)`` (zero-count bins and the NaN
+    bin, last, are never members, so unseen and missing categories route
+    right); the prefix sums of that order overwrite the feature's left
+    tables in place. Returns the order (W, Fc, B) and the prefixes' validity
+    (W, Fc, num_thresholds): the prefix's last bin eligible, and at most
+    ``max_cat_threshold`` categories."""
+    B = hist.shape[2]
+    hist_c = hist[:, cat.idx]  # (W, Fc, B, 3)
+    gb, hb, cb = hist_c[..., 0], hist_c[..., 1], hist_c[..., 2]
+    bins = torch.arange(B, device=hist.device)
+    eligible = (cb > 0) & (bins != B - 1)[None, None, :]
+    ratio = torch.where(eligible, gb / (hb + cfg.cat_smooth), torch.inf)
+    order = torch.argsort(ratio, dim=2, stable=True)
+    for left, chan in ((gl, gb), (hl, hb), (cl, cb)):
+        sorted_chan = torch.gather(torch.where(eligible, chan, 0.0), 2, order)
+        left[:, cat.idx] = torch.cumsum(sorted_chan, dim=2)[:, :, :num_thresholds]
+    s_ok = torch.gather(eligible, 2, order)
+    valid_k = s_ok[:, :, :num_thresholds] & (
+        bins[:num_thresholds] < cfg.max_cat_threshold)[None, None, :]
+    return order, valid_k
 
 
 def _level_step(bins, grad, hess, presence, st: _GrowState, feat_mask, base: int,
-                width: int, cfg: GrowthConfig, mono, fp) -> None:
+                width: int, cfg: GrowthConfig, mono, fp, cat: _CatTables | None) -> None:
     """One level: histogram → best splits → budget → tree + row partition."""
     num_thresholds = cfg.num_bins - 1  # the NaN bin is never a left-inclusive cut
     hist = level_histogram(bins, grad, hess, presence, st.node_of_row, base, width,
                            cfg.num_bins, impl=cfg.hist_impl, tree=fp)
     g_tot, h_tot, c_tot, gl, hl, cl = level_cum_tables(hist, num_thresholds)
+    if cat is not None:
+        gl, hl, cl = gl.clone(), hl.clone(), cl.clone()  # views of the cumsum
+        cat_order, valid_k = _categorical_prefixes(hist, gl, hl, cl, cat, cfg,
+                                                   num_thresholds)
     gr, hr, gain = split_gain(g_tot, h_tot, gl, hl, cfg)
     cr = c_tot[:, None, None] - cl
     ok = split_ok_mask(cl, cr, hl, hr, cfg) & feat_mask[None, :, None]
+    if cat is not None:
+        ok[:, cat.idx] = ok[:, cat.idx] & valid_k
     if mono is not None:
         # monotone gating: a split on a constrained feature is only valid if
         # the would-be child values respect the direction
@@ -213,6 +282,16 @@ def _level_step(bins, grad, hess, presence, st: _GrowState, feat_mask, base: int
     st.gain[ids] = torch.where(do_split, best_gain, 0.0)
     st.cover[ids] = c_tot
     st.leaf_count = st.leaf_count + do_split.sum(dtype=torch.int32)
+    if cat is not None:
+        # the winning left set: bins whose rank in the node's sorted order
+        # falls inside the chosen prefix
+        best_feat64 = best_feat.to(torch.int64)
+        best_order = cat_order[torch.arange(width, device=bins.device),
+                               cat.pos[best_feat64]]  # (W, B)
+        inv_rank = torch.argsort(best_order, dim=-1)  # the inverse permutation
+        is_cat_best = cat.is_cat[best_feat64]
+        member = (inv_rank <= best_thr[:, None]) & (is_cat_best & do_split)[:, None]
+        st.cat_mask[ids] = member.to(torch.uint8)
 
     # propagate monotone bounds to children: on a +1 split the left subtree is
     # capped at the midpoint and the right floored (basic method);
@@ -236,8 +315,11 @@ def _level_step(bins, grad, hess, presence, st: _GrowState, feat_mask, base: int
     st.node_lo[kids] = torch.stack([l_lo, r_lo], dim=1).reshape(-1)
     st.node_hi[kids] = torch.stack([l_hi, r_hi], dim=1).reshape(-1)
 
-    row_split, go_left = level_row_partition(bins, st.node_of_row, do_split, best_feat,
-                                             best_thr, base, width)
+    rel, row_split, f_of_row, row_bin, go_left = level_row_partition(
+        bins, st.node_of_row, do_split, best_feat, best_thr, base, width)
+    if cat is not None:
+        in_set = member.reshape(-1)[rel * cfg.num_bins + row_bin]
+        go_left = torch.where(cat.is_cat[f_of_row], in_set, go_left)
     st.node_of_row = route_rows(st.node_of_row, row_split, go_left)
 
 
@@ -258,53 +340,89 @@ def grow_tree(bins, grad, hess, presence, cfg: GrowthConfig, feat_mask) -> TreeA
     float32 (sample weights already folded in); ``presence`` (N,) float32
     0/1 marks real vs padded rows (drives the count channel); ``feat_mask``
     (F,) bool."""
-    st = _GrowState(max_nodes(cfg.max_depth), bins.shape[0], bins.device)
+    cat_width = cfg.num_bins if cfg.categorical_features else 1
+    st = _GrowState(max_nodes(cfg.max_depth), bins.shape[0], cat_width, bins.device)
+    cat = _cat_tables(cfg, bins.shape[1], bins.device)
     mono = (torch.tensor(cfg.monotone_constraints, dtype=torch.int32, device=bins.device)
             if any(cfg.monotone_constraints) else None)
     # the kernel path's fixed-point scale and scratch, once a tree
     fp = (fixed_point_tree(grad, hess, presence, bins.shape[1], cfg.max_depth, cfg.num_bins)
           if cfg.hist_impl == "pallas" else None)
     for d in range(cfg.max_depth):
-        _level_step(bins, grad, hess, presence, st, feat_mask, 2 ** d - 1, 2 ** d, cfg, mono, fp)
+        _level_step(bins, grad, hess, presence, st, feat_mask, 2 ** d - 1, 2 ** d, cfg, mono,
+                    fp, cat)
     _final_level(grad, hess, presence, st, 2 ** cfg.max_depth - 1, 2 ** cfg.max_depth, cfg, fp)
-    return TreeArrays(st.feature, st.threshold_bin, st.leaf_value, st.gain, st.cover)
+    return TreeArrays(st.feature, st.threshold_bin, st.leaf_value, st.gain, st.cover,
+                      st.cat_mask)
 
 
 def traverse_binned(bins, tree: TreeArrays, max_depth: int):
-    """Leaf values for binned rows (used to update train scores incrementally)."""
+    """Leaf values for binned rows (used to update train scores
+    incrementally). A node routes categorically iff its cat_mask row is
+    nonempty."""
     node = torch.zeros(bins.shape[0], dtype=torch.int64, device=bins.device)
+    cm = tree.cat_mask
+    has_cat = cm is not None and cm.shape[1] > 1
+    if has_cat:
+        node_is_cat, cm_flat, nb = (cm > 0).any(dim=1), cm.reshape(-1), cm.shape[1]
     for _ in range(max_depth):
         f = tree.feature[node]
         b = torch.gather(bins, 1, torch.clamp(f, min=0)[:, None].to(torch.int64))[:, 0]
         go_left = b.to(torch.int32) <= tree.threshold_bin[node]
+        if has_cat:
+            in_set = cm_flat[node * nb + b.to(torch.int64)] > 0
+            go_left = torch.where(node_is_cat[node], in_set, go_left)
         child = 2 * node + torch.where(go_left, 1, 2)
         node = torch.where(f < 0, node, child)
     return tree.leaf_value[node]
 
 
-def leaf_index_forest(x, feature, threshold_value, max_depth: int):
+def cat_route_left(fv, go_left, node_is_cat, cat_masks, flat):
+    """Overlay categorical routing on a numerical go-left decision: where
+    ``node_is_cat``, a row goes left iff its raw value is a category code
+    in ``[0, B)`` that its node's row of ``cat_masks`` (nodes, B) holds
+    (``flat``: each row's node); NaN, out-of-range codes and non-members
+    route right. The one routing rule of raw prediction, leaf indexing and
+    the imported-model walk."""
+    B = cat_masks.shape[-1]
+    idx = torch.clamp(torch.nan_to_num(fv, nan=-1.0), -1, B).to(torch.int64).clamp(0, B - 1)
+    in_set = (cat_masks.reshape(-1)[flat * B + idx] > 0) & (fv >= 0) & (fv < B)
+    return torch.where(node_is_cat, in_set, go_left)
+
+
+def leaf_index_forest(x, feature, threshold_value, max_depth: int, cat_masks=None):
     """Per-tree leaf index for each row, shape (N, T): every tree walked at
-    once. ``feature``/``threshold_value`` (T, M). NaN features route right
-    (comparisons with NaN are False), matching training's NaN-bin rule."""
+    once. ``feature``/``threshold_value`` (T, M); ``cat_masks`` optional
+    (T, M, B) uint8 — for categorical nodes the raw value IS the category
+    code and membership routes left. NaN features route right (comparisons
+    with NaN are False), matching training's NaN-bin rule."""
     n, (t, m) = x.shape[0], feature.shape
     offset = torch.arange(t, device=x.device)[None, :] * m
     feat = feature.reshape(-1).to(torch.int64)
     thr = threshold_value.reshape(-1)
+    if cat_masks is not None:
+        cm = cat_masks.reshape(t * m, -1)
+        node_is_cat = (cm > 0).any(dim=1)
     node = torch.zeros((n, t), dtype=torch.int64, device=x.device)
     for _ in range(max_depth):
         flat = node + offset
         f = feat[flat]
         fv = torch.gather(x, 1, torch.clamp(f, min=0))
-        child = 2 * node + torch.where(fv <= thr[flat], 1, 2)
+        go_left = fv <= thr[flat]
+        if cat_masks is not None:
+            go_left = cat_route_left(fv, go_left, node_is_cat[flat], cm, flat)
+        child = 2 * node + torch.where(go_left, 1, 2)
         node = torch.where(f < 0, node, child)
     return node
 
 
-def predict_raw_forest(x, feature, threshold_value, leaf_value, max_depth: int):
+def predict_raw_forest(x, feature, threshold_value, leaf_value, max_depth: int,
+                       cat_masks=None):
     """Raw-feature forest prediction: per-tree leaf sums (N,), the trees
     added in order as the JAX package's scan adds them. ``x`` (N, F)
-    float32; ``feature``/``threshold_value``/``leaf_value`` (T, M)."""
-    node = leaf_index_forest(x, feature, threshold_value, max_depth)
+    float32; ``feature``/``threshold_value``/``leaf_value`` (T, M);
+    ``cat_masks`` optional (T, M, B) uint8."""
+    node = leaf_index_forest(x, feature, threshold_value, max_depth, cat_masks)
     m = feature.shape[1]
     vals = leaf_value.reshape(-1)[node + torch.arange(feature.shape[0], device=x.device) * m]
     out = torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
