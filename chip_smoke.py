@@ -231,7 +231,29 @@ the kernels are built for sm_90a). Phases, each of which raises on failure:
    of (b)'s gbdt booster through model_string, its 50 trees bitwise kept;
    the histogram kernel's launches counted against the trees grown; then
    the level launch at the ranker's shape in device time;
-14. times: each kernel beside its bound, its plain version and the one
+14. main path 10, ONNXModel over the reference's whole ONNX opset (no
+   kernel of the port's launched on it, counted from 0 before it): (a) an
+   ORT-fused BERT-base in the form ONNX Runtime's transformer optimizer
+   writes (EmbedLayerNormalization, then Attention, the output projection,
+   SkipLayerNormalization, MatMul + BiasGelu, MatMul,
+   SkipLayerNormalization a layer; main path 1's weights from seed 0)
+   scoring 512 rows of main path 1's lengths in batches of 32 x 128, a
+   second transform bitwise, its last hidden states within 1e-4 of the
+   port's own BERT encoder on the card in strict f32 and a TF32 control
+   past that limit, rows/s, ms a batch beside the encoder's, a profile by
+   group, peak memory; (b) a GPT-2-width causal decoder (vocab 50257, d
+   768, 12 layers, tests/_torch_gpt.py's layout, torch's initialisers from
+   seed 0) exported on the card by the TorchScript exporter (Trilu,
+   GatherElements, Not and Where in it), scored at 8 x 128 and 8 x 64,
+   logits within 1e-4 of the module in strict f32; (c) every op type the
+   slice ported once on the card against the port on the CPU: integer,
+   index, quantized, bitwise, NMS, NonZero, Compress and Unique bitwise,
+   floating ones within 1e-5 of max(1, |CPU|), the random ones within 4
+   sigma of their law and bitwise on a repeat; an If on a condition
+   computed on the card, a Loop exiting early with a scan output, a
+   bidirectional Scan and an LSTM + GRU stack at hidden 512, T 128,
+   batch 32;
+15. times: each kernel beside its bound, its plain version and the one
    PyTorch call that computes the same function (device time, with the
    host's enqueue hidden behind a spin kernel; the library call's device
    kernels named from the profiler); flash_attention from the projection
@@ -284,7 +306,7 @@ from synapseml_torch.models import vision as vision_stage
 from synapseml_torch.models.text import DeepTextClassifier, DeepTextModel
 from synapseml_torch.models.tokenizer import HashingTokenizer
 from synapseml_torch.models.vision import DeepVisionClassifier
-from synapseml_torch.onnx import ImageFeaturizer, ONNXModel
+from synapseml_torch.onnx import ImageFeaturizer, ONNXModel, convert_graph
 from synapseml_torch.onnx.featurizer import IMAGENET_MEANS, IMAGENET_STDS
 from synapseml_torch.onnx import proto as onnx_proto
 from synapseml_torch.ops import _build
@@ -2521,7 +2543,7 @@ def _resnet50(seed: int) -> torch.nn.Module:
     return model.eval()
 
 
-def _export_onnx(model, example) -> bytes:
+def _export_onnx(model, example, input_names=("input",), dynamic_axes=None) -> bytes:
     """``torch.onnx.export`` (the TorchScript exporter) with an ``onnx``
     stand-in backed by the port's codec: the exporter loads its own output
     back only to look for custom onnxscript functions, of which a convnet
@@ -2538,9 +2560,9 @@ def _export_onnx(model, example) -> bytes:
     sys.modules["onnx"] = stand_in
     try:
         buf = io.BytesIO()
-        torch.onnx.export(model, example, buf, dynamo=False, input_names=["input"],
+        torch.onnx.export(model, example, buf, dynamo=False, input_names=list(input_names),
                           output_names=["logits"],
-                          dynamic_axes={"input": {0: "N"}, "logits": {0: "N"}})
+                          dynamic_axes=dynamic_axes or {"input": {0: "N"}, "logits": {0: "N"}})
     finally:
         if saved is None:
             sys.modules.pop("onnx", None)
@@ -5525,6 +5547,762 @@ def phase_gbdt_surface(device, card: str) -> dict:
     return out
 
 
+# ---------------- main path 10: ONNX's whole opset ----------------
+
+FUSED_ROWS, FUSED_PARTS, FUSED_BATCH, FUSED_T = 512, 4, 32, 128
+# the last hidden states against the port's own BERT encoder on the same
+# weights, both strict f32 on the card; a TF32 run must fail it (the control)
+FUSED_TOL = 1e-4
+GPT_CFG = dict(vocab=50257, d=768, layers=12, heads=12, max_len=1024)  # GPT-2 small's widths
+GPT_SHAPES = ((8, 128), (8, 64))
+GPT_TOL = 1e-4     # logits against the torch module, both strict f32 on the card
+# the op sweep, card against the port on the CPU: integer, index, quantized,
+# bitwise, detection and data-dependent outputs bitwise; floating ones within
+# SWEEP_TOL of max(1, max |CPU output|); random draws within 4 sigma of their law
+SWEEP_TOL = 1e-5
+RNN_T, RNN_B, RNN_H = 128, 32, 512
+# the op types main path 10 holds to the CPU: the reference's registry less
+# the 64 ported with ONNXModel first, and the control-flow nodes the
+# executor runs
+ONNX_ADDED_OPS = frozenset("""
+Acos Acosh AffineGrid And ArgMin Asin Asinh Atan Atanh Attention Bernoulli BiasGelu BitShift
+BitwiseAnd BitwiseNot BitwiseOr BitwiseXor Ceil Celu CenterCropPad Col2Im Compress ConvTranspose
+Cosh CumSum DFT DepthToSpace DequantizeLinear DynamicQuantizeLinear Elu EmbedLayerNormalization
+EyeLike FastGelu Floor FusedMatMul GRU GatherElements GatherND GlobalLpPool GreaterOrEqual
+GridSample GroupNormalization Hardmax InstanceNormalization IsInf IsNaN LRN LSTM LessOrEqual
+LpNormalization MatMulInteger Max Mean MeanVarianceNormalization Min Mish Mod Multinomial
+NegativeLogLikelihoodLoss NonMaxSuppression NonZero OneHot Or PRelu QLinearConv QLinearMatMul
+QuantizeLinear QuickGelu RandomNormal RandomNormalLike RandomUniform RandomUniformLike Reciprocal
+ReduceL1 ReduceL2 ReduceLogSum ReduceLogSumExp ReduceSumSquare Resize ReverseSequence RoiAlign
+Round STFT ScatterElements ScatterND Selu Shrink Sign Sinh Size SkipLayerNormalization
+SoftmaxCrossEntropyLoss Softplus Softsign SpaceToDepth Sum Tan ThresholdedRelu Trilu Unique Xor
+If Loop Scan""".split())
+_OPSET_GROUPS = (("matmul", ("gemm", "nvjet", "cutlass", "cublas", "sm90_", "dot_kernel")),
+                 ("softmax", ("softmax",)),  # matched in lower case, first match wins
+                 ("layer norms", ("layer_norm", "reduce", "mean", "var", "rsqrt")),
+                 ("copies", ("copy", "memcpy", "cat", "index", "gather", "embedding")),
+                 ("elementwise", ("elementwise", "vectorized", "gelu", "erf", "add", "mul",
+                                  "where", "fill", "masked")))
+
+
+def _ms_node(op, inputs, outputs, domain="", **attrs):
+    return onnx_proto.NodeProto(input=list(inputs), output=list(outputs), op_type=op,
+                                domain=domain,
+                                attribute=[onnx_proto.AttributeProto.make(k, v)
+                                           for k, v in attrs.items()])
+
+
+def _fused_bert_bytes(params: dict, cfg) -> bytes:
+    """BERT's encoder in the form ONNX Runtime's transformer optimizer writes
+    for bert-base-uncased: EmbedLayerNormalization (word, position and
+    segment tables, the 2-D mask in, its 1-D mask_index out), then a layer:
+    Attention (q|k|v as one [H, 3H] weight, the mask_index), MatMul (the
+    output projection, its bias in the SkipLayerNormalization that follows),
+    SkipLayerNormalization, MatMul + BiasGelu, MatMul, SkipLayerNormalization
+    (the down projection's bias its bias input). ``params`` is the port's
+    BertClassifier state_dict; the output ``hidden`` is the encoder's last
+    hidden states."""
+    P = onnx_proto
+
+    def t(name):
+        return np.ascontiguousarray(np.asarray(params[name], np.float32))
+
+    def ms(op, ins, outs, **attrs):
+        return _ms_node(op, ins, outs, "com.microsoft", **attrs)
+
+    eps = float(cfg.norm_eps)
+    inits = {"word": t("embeddings.word.weight"), "pos": t("embeddings.position.weight"),
+             "seg": t("embeddings.segment.weight"), "emb_g": t("embeddings.norm.weight"),
+             "emb_b": t("embeddings.norm.bias")}
+    nodes = [ms("EmbedLayerNormalization", ["input_ids", "segment_ids", "word", "pos", "seg",
+                                            "emb_g", "emb_b", "mask"], ["h0", "mask_index"],
+                epsilon=eps)]
+    h = "h0"
+    for i in range(cfg.n_layers):
+        p = f"encoder.layers.{i}."
+        inits.update({
+            f"qkv_w{i}": np.concatenate([t(f"{p}attn.{n}.weight").T for n in "qkv"], axis=1),
+            f"qkv_b{i}": np.concatenate([t(f"{p}attn.{n}.bias") for n in "qkv"]),
+            f"o_w{i}": t(f"{p}attn.o.weight").T.copy(), f"o_b{i}": t(f"{p}attn.o.bias"),
+            f"g1_{i}": t(f"{p}norm1.weight"), f"b1_{i}": t(f"{p}norm1.bias"),
+            f"up_w{i}": t(f"{p}mlp.up.weight").T.copy(), f"up_b{i}": t(f"{p}mlp.up.bias"),
+            f"dn_w{i}": t(f"{p}mlp.down.weight").T.copy(), f"dn_b{i}": t(f"{p}mlp.down.bias"),
+            f"g2_{i}": t(f"{p}norm2.weight"), f"b2_{i}": t(f"{p}norm2.bias")})
+        out = "hidden" if i == cfg.n_layers - 1 else f"h{i + 1}"
+        nodes += [ms("Attention", [h, f"qkv_w{i}", f"qkv_b{i}", "mask_index"], [f"ctx{i}"],
+                     num_heads=cfg.n_heads),
+                  _ms_node("MatMul", [f"ctx{i}", f"o_w{i}"], [f"attn{i}"]),
+                  ms("SkipLayerNormalization", [f"attn{i}", h, f"g1_{i}", f"b1_{i}", f"o_b{i}"],
+                     [f"x{i}"], epsilon=eps),
+                  _ms_node("MatMul", [f"x{i}", f"up_w{i}"], [f"up{i}"]),
+                  ms("BiasGelu", [f"up{i}", f"up_b{i}"], [f"act{i}"]),
+                  _ms_node("MatMul", [f"act{i}", f"dn_w{i}"], [f"dn{i}"]),
+                  ms("SkipLayerNormalization", [f"dn{i}", f"x{i}", f"g2_{i}", f"b2_{i}",
+                                                f"dn_b{i}"], [out], epsilon=eps)]
+        h = out
+    ids = [P.ValueInfoProto(name=n, elem_type=P.INT64, dims=["N", "T"])
+           for n in ("input_ids", "segment_ids", "mask")]
+    g = P.GraphProto(name="bert_fused", node=nodes,
+                     initializer=[P.numpy_to_tensor(np.ascontiguousarray(v), k)
+                                  for k, v in inits.items()],
+                     input=ids, output=[P.ValueInfoProto(name="hidden", elem_type=P.FLOAT,
+                                                         dims=["N", "T", cfg.hidden])])
+    return P.ModelProto(ir_version=8, producer_name="onnxruntime.transformers", graph=g,
+                        opset_import=[P.OperatorSetId(version=17),
+                                      P.OperatorSetId(domain="com.microsoft", version=1)]
+                        ).encode()
+
+
+def _native_bert_encoder(params: dict, cfg, device):
+    """The port's own BERT (models/nets/bert.py) on ``params``, f32 compute,
+    einsum attention: ``fn(ids, mask) -> last hidden states``."""
+    from synapseml_torch.models.nets.bert import BertClassifier
+
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32, attn_impl="einsum")
+    net = BertClassifier(cfg32)
+    net.load_state_dict({k: host_tensor(v) for k, v in params.items()})
+    net = net.to(device).eval()
+
+    def fn(ids, mask):
+        with torch.inference_mode():
+            return net.encoder(net.embeddings(ids), mask[:, None, None, :].bool())
+
+    return fn
+
+
+def _profile_opset_batch(fn, card: str, tag: str, n=3) -> dict:
+    """Device time of one batch of ``fn`` by group (_OPSET_GROUPS) and the
+    card's busy share of its wall time, under the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    kernels = []
+    for attempt in range(PROFILE_TRIES):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / n
+        kernels = [(e.self_device_time_total / e.count * -(-e.count // n) / 1e3,
+                    -(-e.count // n), e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        if kernels:
+            break
+        log(f"[profile] session {attempt + 1} recorded no device kernel; profiling again")
+    busy = sum(k[0] for k in kernels)
+    if not busy:
+        raise AssertionError(f"the profiler recorded no device time for {tag}")
+    groups = {name: 0.0 for name, _ in _OPSET_GROUPS}
+    groups["other"] = 0.0
+    for ms, _, key in kernels:
+        name = next((g for g, pats in _OPSET_GROUPS if any(p in key.lower() for p in pats)),
+                    "other")
+        groups[name] += ms
+    log(f"[profile] {tag}: {wall_ms:.3f} ms wall, {busy:.3f} ms of device time "
+        f"({100 * busy / wall_ms:.1f}% busy), {sum(k[1] for k in kernels)} device operations "
+        f"| {card}")
+    log(f"[profile] {tag} by group: " + ", ".join(
+        f"{name} {ms:.4f} ms ({100 * ms / busy:.1f}%)"
+        for name, ms in sorted(groups.items(), key=lambda kv: -kv[1])))
+    for ms, count, key in sorted(kernels, reverse=True)[:6]:
+        log(f"[profile] {tag} {100 * ms / busy:5.1f}%  {ms:8.4f} ms  {count:4d}x  {key[:110]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy, "busy": busy / wall_ms, "groups": groups}
+
+
+def _fused_bert_rows(cfg) -> DataFrame:
+    """FUSED_ROWS texts as main path 1 draws them, hashed and padded to
+    FUSED_T tokens (right-padded: EmbedLayerNormalization's mask_index is
+    each row's length), in FUSED_PARTS partitions."""
+    tok = HashingTokenizer(vocab_size=cfg.vocab_size)
+    texts = _texts(FUSED_ROWS, FUSED_PARTS, seed=0)
+    enc = tok(texts, max_len=FUSED_T)
+    L = enc["input_ids"].shape[1]
+    ids = np.zeros((FUSED_ROWS, FUSED_T), np.int64)
+    mask = np.zeros((FUSED_ROWS, FUSED_T), np.int64)
+    ids[:, :L], mask[:, :L] = enc["input_ids"], enc["attention_mask"]
+    per = FUSED_ROWS // FUSED_PARTS
+    return DataFrame([{"input_ids": ids[s:s + per], "segment_ids": np.zeros_like(ids[s:s + per]),
+                       "attention_mask": mask[s:s + per]}
+                      for s in range(0, FUSED_ROWS, per)])
+
+
+def _onnx_fused_bert(device, card: str) -> dict:
+    """Main path 10 (a): an ORT-fused BERT-base through ONNXModel, held to
+    the port's own encoder on the same weights."""
+    cfg = bert_base()
+    t0 = time.perf_counter()
+    params = bert_state_dict_from_flax(init_flax_bert_params(cfg, num_classes=2, seed=0))
+    data = _fused_bert_bytes(params, cfg)
+    build_s = time.perf_counter() - t0
+    graph = onnx_proto.parse_model(data).graph
+    ops = {}
+    for n in graph.node:
+        ops[n.op_type] = ops.get(n.op_type, 0) + 1
+    log(f"[opset] (a) ORT-fused BERT-base from main path 1's weights (seed 0): {len(data)} "
+        f"bytes, {len(graph.node)} nodes {ops}, built in {build_s:.2f} s")
+    native = _native_bert_encoder(params, cfg, device)
+    df = _fused_bert_rows(cfg)
+    lengths = np.concatenate([p["attention_mask"].sum(1) for p in df.partitions])
+    stage = ONNXModel(model_bytes=data, device=str(device), mini_batch_size=FUSED_BATCH,
+                      feed_dict={"input_ids": "input_ids", "segment_ids": "segment_ids",
+                                 "mask": "attention_mask"},
+                      fetch_dict={"hidden": "hidden"})
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = stage.transform(df)          # converts, moves the weights, warms the libraries
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out2 = stage.transform(df)
+    second_s = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    got = _onnx_column(out, "hidden")
+    same = np.array_equal(got, _onnx_column(out2, "hidden"))
+    ids = np.concatenate([p["input_ids"] for p in df.partitions])
+    mask = np.concatenate([p["attention_mask"] for p in df.partitions])
+    err = 0.0
+    for s in range(0, FUSED_ROWS, FUSED_BATCH):
+        want = native(torch.from_numpy(ids[s:s + FUSED_BATCH]).to(device),
+                      torch.from_numpy(mask[s:s + FUSED_BATCH]).to(device))
+        err = max(err, float((torch.from_numpy(got[s:s + FUSED_BATCH]).to(device) - want)
+                             .abs().max()))
+    log(f"[opset] (a) ONNXModel over {FUSED_ROWS} rows ({FUSED_PARTS} partitions, batches of "
+        f"{FUSED_BATCH} x {FUSED_T}, lengths {int(lengths.min())}-{int(lengths.max())}): "
+        f"{first_s:.3f} s first, {second_s:.3f} s second ({FUSED_ROWS / second_s:.1f} rows/s, "
+        f"host clock), a second transform bitwise the first: {same}; peak device memory "
+        f"{peak_gib:.3f} GiB | {card}")
+    log(f"[opset] (a) last hidden states {got.shape} against the port's BERT encoder (f32, "
+        f"einsum): max |diff| {err:.3e} (limit {FUSED_TOL})")
+    if not (got.shape == (FUSED_ROWS, FUSED_T, cfg.hidden) and np.isfinite(got).all()
+            and err <= FUSED_TOL and same):
+        raise AssertionError("the ORT-fused BERT-base disagrees with the port's encoder")
+
+    conv = stage.converted
+    feeds = {"input_ids": torch.from_numpy(ids[:FUSED_BATCH]).to(device),
+             "segment_ids": torch.zeros((FUSED_BATCH, FUSED_T), dtype=torch.int64,
+                                        device=device),
+             "mask": torch.from_numpy(mask[:FUSED_BATCH]).to(device)}
+    want = native(feeds["input_ids"], feeds["mask"])
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with torch.inference_mode():
+            tf32 = conv.run(feeds, device)["hidden"]
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    ctl = float((tf32 - want).abs().max())
+    log(f"[opset] (a) control, one batch with TF32 allowed: max |diff| {ctl:.3e} (must exceed "
+        f"{FUSED_TOL}) | {card}")
+    if not ctl > FUSED_TOL:
+        raise AssertionError("the fused BERT limit passes a TF32 run: it cannot tell it from f32")
+
+    def graph_batch():
+        with torch.inference_mode():
+            conv.run(feeds, device)
+
+    batch_ms = cuda_ms(graph_batch, warmup=3, iters=10)
+    batch_dev_ms = device_ms(graph_batch, warmup=2, iters=10)
+    native_ms = device_ms(lambda: native(feeds["input_ids"], feeds["mask"]), warmup=2, iters=10)
+    log(f"[opset] (a) a batch of {FUSED_BATCH} x {FUSED_T}: the fused graph {batch_ms:.3f} ms "
+        f"(CUDA events, host enqueue included), {batch_dev_ms:.3f} ms device time; the port's "
+        f"encoder {native_ms:.3f} ms device time | {card}")
+    prof = _profile_opset_batch(graph_batch, card, "opset (a) one fused BERT-base batch")
+    del conv, stage, native, out, out2, got
+    _free_card()
+    return {"rows_s": FUSED_ROWS / second_s, "batch_ms": batch_ms, "batch_dev_ms": batch_dev_ms,
+            "native_ms": native_ms, "peak_gib": peak_gib, "max_abs_err": err, "tf32_err": ctl,
+            "busy": prof["busy"]}
+
+
+class _CausalBlock(torch.nn.Module):
+    """tests/_torch_gpt.py's CausalBlock."""
+
+    def __init__(self, d: int, h: int):
+        super().__init__()
+        nn = torch.nn
+        self.h, self.dk = h, d // h
+        self.qkv = nn.Linear(d, 3 * d)
+        self.o = nn.Linear(d, d)
+        self.ln1, self.ln2 = nn.LayerNorm(d), nn.LayerNorm(d)
+        self.mlp = nn.Sequential(nn.Linear(d, 4 * d), nn.GELU(), nn.Linear(4 * d, d))
+
+    def forward(self, x):
+        B, T, D = x.size(0), x.size(1), x.size(2)
+        q, k, v = self.qkv(self.ln1(x)).chunk(3, dim=-1)
+
+        def sp(t):
+            return t.view(B, T, self.h, self.dk).transpose(1, 2)
+
+        q, k, v = sp(q), sp(k), sp(v)
+        att = (q @ k.transpose(-2, -1)) / math.sqrt(self.dk)
+        mask = torch.tril(torch.ones(T, T, dtype=torch.bool, device=x.device))
+        att = att.masked_fill(~mask, float("-inf"))   # Not + Where export
+        y = torch.softmax(att, dim=-1) @ v
+        y = y.transpose(1, 2).reshape(B, T, D)
+        x = x + self.o(y)
+        return x + self.mlp(self.ln2(x))
+
+
+class _TorchGPT(torch.nn.Module):
+    """tests/_torch_gpt.py's TorchTinyGPT: a GPT-2-style causal decoder
+    whose export holds Trilu, Not/Where and GatherElements."""
+
+    def __init__(self, vocab: int, d: int, layers: int, heads: int, max_len: int):
+        super().__init__()
+        nn = torch.nn
+        self.tok = nn.Embedding(vocab, d)
+        self.pos = nn.Embedding(max_len, d)
+        self.blocks = nn.ModuleList(_CausalBlock(d, heads) for _ in range(layers))
+        self.lnf = nn.LayerNorm(d)
+        self.head = nn.Linear(d, vocab, bias=False)
+
+    def forward(self, ids, gather_idx):
+        T = ids.size(1)
+        x = self.tok(ids) + self.pos(torch.arange(T, device=ids.device)).unsqueeze(0)
+        for b in self.blocks:
+            x = b(x)
+        logits = self.head(self.lnf(x))
+        idx = gather_idx.unsqueeze(-1).unsqueeze(-1).expand(-1, 1, logits.size(-1))
+        return torch.gather(logits, 1, idx).squeeze(1)
+
+
+def _onnx_gpt_export(device, card: str) -> dict:
+    """Main path 10 (b): a GPT-2-width causal decoder exported by torch on
+    the card, scored through ONNXModel at two lengths, held to the module."""
+    from synapseml_torch.onnx.convert import _all_op_types
+
+    torch.manual_seed(0)
+    model = _TorchGPT(**GPT_CFG).to(device).eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    B0, T0 = GPT_SHAPES[0]
+    rs = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    data = _export_onnx(model, (torch.zeros((B0, T0), dtype=torch.int64, device=device),
+                                torch.zeros(B0, dtype=torch.int64, device=device)),
+                        input_names=["ids", "gather_idx"],
+                        dynamic_axes={"ids": {0: "N", 1: "T"}, "gather_idx": {0: "N"},
+                                      "logits": {0: "N"}})
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    stage = ONNXModel(model_bytes=data, device=str(device), mini_batch_size=B0,
+                      feed_dict={"ids": "ids", "gather_idx": "gather_idx"},
+                      fetch_dict={"logits": "logits"})
+    conv = stage.converted
+    convert_s = time.perf_counter() - t0
+    ops = _all_op_types(conv.model.graph)
+    log(f"[opset] (b) GPT-2-width decoder ({n_params:,} params, torch initialisers from seed "
+        f"0) exported on the card by torch {torch.__version__}'s TorchScript exporter: "
+        f"{len(data) / 1e6:.1f} MB, {len(conv.model.graph.node)} nodes, {len(ops)} op types, "
+        f"export {export_s:.2f} s, parse + convert {convert_s:.2f} s (host clock)")
+    if not {"Trilu", "GatherElements", "Not", "Where"} <= ops:
+        raise AssertionError(f"the decoder export lacks Trilu/GatherElements/Not/Where: {ops}")
+    out = {"export_s": export_s, "convert_s": convert_s, "max_abs_err": 0.0, "ms": {}}
+    for B, T in GPT_SHAPES:
+        ids = rs.integers(0, GPT_CFG["vocab"], (B, T)).astype(np.int64)
+        gi = rs.integers(0, T, B).astype(np.int64)
+        got = _onnx_column(stage.transform(DataFrame([{"ids": ids, "gather_idx": gi}])),
+                           "logits")
+        ids_d, gi_d = torch.from_numpy(ids).to(device), torch.from_numpy(gi).to(device)
+        with torch.inference_mode():
+            want = model(ids_d, gi_d).cpu().numpy()
+        err = float(np.abs(got - want).max()) if got.shape == want.shape else float("inf")
+
+        def graph_batch():
+            with torch.inference_mode():
+                conv.run({"ids": ids_d, "gather_idx": gi_d}, device)
+
+        ms = cuda_ms(graph_batch, warmup=2, iters=10)
+        log(f"[opset] (b) {B} x {T}: logits {got.shape} (max |logit| {np.abs(want).max():.3f}) "
+            f"against the torch module: max |diff| {err:.3e} (limit {GPT_TOL}); {ms:.3f} ms a "
+            f"batch (CUDA events) | {card}")
+        if not (np.isfinite(got).all() and err <= GPT_TOL):
+            raise AssertionError(f"the GPT export's logits disagree with the module at {B} x {T}")
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        out["ms"][f"{B}x{T}"] = ms
+    del model, conv, stage
+    _free_card()
+    return out
+
+
+def _one_node(op, inputs, attrs, n_out, init, domain=""):
+    """A one-node model (``inputs[i]`` an initializer when ``i`` is in
+    ``init``, None an omitted input) and its feeds."""
+    P = onnx_proto
+    names = [f"in{i}" if a is not None else "" for i, a in enumerate(inputs)]
+    present = [(i, n, np.asarray(a)) for i, (n, a) in enumerate(zip(names, inputs))
+               if a is not None]
+    g = P.GraphProto(
+        name=op, node=[_ms_node(op, names, [f"out{j}" for j in range(n_out)], domain, **attrs)],
+        initializer=[P.numpy_to_tensor(a, n) for i, n, a in present if i in init],
+        input=[P.ValueInfoProto(name=n, elem_type=P._NP_TO_DTYPE[a.dtype], dims=list(a.shape))
+               for i, n, a in present if i not in init],
+        output=[P.ValueInfoProto(name=f"out{j}") for j in range(n_out)])
+    return P.ModelProto(graph=g).encode(), {n: a for i, n, a in present if i not in init}
+
+
+def _sweep_cases():
+    """(op, inputs, attrs, init, n_out, exact) for every op type this slice
+    ported, on small inputs from numpy seed 0."""
+    rs = np.random.default_rng(0)
+    I64 = np.int64
+
+    def f(*shape, scale=1.0):
+        return (rs.standard_normal(shape) * scale).astype(np.float32)
+
+    def ints(lo, hi, shape, dtype):
+        return rs.integers(lo, hi, shape).astype(dtype)
+
+    x, y = f(8, 16, scale=3.0), f(8, 16, scale=3.0)
+    u = rs.uniform(-0.9, 0.9, (8, 16)).astype(np.float32)
+    img, ex = f(2, 8, 6, 10), ints(-4, 5, (6, 7), np.float32)
+    a8, b8 = ints(0, 255, (16, 64), np.uint8), ints(-128, 127, (64, 24), np.int8)
+    corner = rs.uniform(0, 10, (2, 40, 2))
+    boxes = np.concatenate([corner, corner + rs.uniform(0.5, 3, (2, 40, 2))], -1).astype(np.float32)
+    cases = [(o, [x], {}, (), 1, o in ("Floor", "Ceil", "Round", "Sign"))
+             for o in ("Floor", "Ceil", "Round", "Sign", "Softplus", "Softsign", "Mish", "Tan",
+                       "Atan", "Sinh", "Cosh", "Asinh")]
+    cases += [(o, [u], {}, (), 1, False) for o in ("Asin", "Acos", "Atanh")]
+    cases += [("Acosh", [1 + np.abs(x)], {}, (), 1, False),
+              ("Reciprocal", [np.abs(x) + 0.5], {}, (), 1, False),
+              ("IsNaN", [np.where(x > 2, np.nan, x).astype(np.float32)], {}, (), 1, True),
+              ("IsInf", [np.where(x > 2, np.inf, np.where(x < -2, -np.inf, x)).astype(np.float32)],
+               {}, (), 1, True)]
+    cases += [(o, [x, y, x], {}, (), 1, True) for o in ("Min", "Max")]
+    cases += [(o, [x, y, x], {}, (), 1, False) for o in ("Sum", "Mean")]
+    cases += [(o, [x > 0, y > 0, x > 1], {}, (), 1, True) for o in ("And", "Or", "Xor")]
+    cases += [(o, [x, y], {}, (), 1, True) for o in ("GreaterOrEqual", "LessOrEqual")]
+    ia, ib = ints(0, 255, (8, 16), np.int32), ints(0, 255, (8, 16), np.int32)
+    cases += [(o, [ia, ib], {}, (), 1, True) for o in ("BitwiseAnd", "BitwiseOr", "BitwiseXor")]
+    cases += [("BitwiseNot", [ia], {}, (), 1, True),
+              ("BitShift", [ia.astype(np.uint8), ints(0, 8, (8, 16), np.uint8)],
+               {"direction": "LEFT"}, (), 1, True),
+              ("Mod", [ints(-50, 50, (8, 16), I64), ints(1, 9, (8, 16), I64)], {}, (), 1, True),
+              ("Mod", [x, np.abs(y) + 0.5], {"fmod": 1}, (), 1, False),
+              ("PRelu", [x, f(16)], {}, (1,), 1, False),
+              ("Elu", [x], {"alpha": 0.5}, (), 1, False), ("Selu", [x], {}, (), 1, False),
+              ("Celu", [x], {"alpha": 2.0}, (), 1, False),
+              ("ThresholdedRelu", [x], {"alpha": 1.0}, (), 1, True),
+              ("Shrink", [x], {"lambd": 0.5, "bias": 0.2}, (), 1, False),
+              ("CumSum", [ex, np.array(1, I64)], {"exclusive": 1, "reverse": 1}, (1,), 1, True),
+              ("OneHot", [ints(-4, 6, (5, 3), I64), np.array(6, I64),
+                          np.array([0.5, 9.0], np.float32)], {"axis": 1}, (1,), 1, True),
+              ("ArgMin", [x], {"axis": 1}, (), 1, True)]
+    cases += [(o, [x, np.array([1], I64)], {}, (1,), 1, False)
+              for o in ("ReduceL1", "ReduceL2", "ReduceSumSquare", "ReduceLogSumExp")]
+    cases += [("ReduceLogSum", [np.abs(x) + 0.1, np.array([0], I64)], {}, (1,), 1, False),
+              ("DepthToSpace", [img], {"blocksize": 2, "mode": "CRD"}, (), 1, True),
+              ("SpaceToDepth", [img], {"blocksize": 2}, (), 1, True),
+              ("ReverseSequence", [f(5, 4, 3), np.array([5, 2, 1, 0], I64)], {}, (1,), 1, True),
+              ("EyeLike", [x], {"k": 2}, (), 1, True), ("Size", [img], {}, (), 1, True),
+              ("Hardmax", [x], {"axis": 0}, (), 1, True),
+              ("LRN", [img], {"size": 3, "alpha": 2e-4, "beta": 0.6, "bias": 1.5}, (), 1, False),
+              ("LpNormalization", [x], {"axis": 1, "p": 2}, (), 1, False),
+              ("GlobalLpPool", [img], {"p": 2}, (), 1, False),
+              ("Trilu", [f(3, 6, 6), np.array(-1, I64)], {"upper": 0}, (1,), 1, True),
+              ("GatherElements", [x, ints(-16, 16, (8, 5), I64)], {"axis": 1}, (), 1, True),
+              ("GatherND", [f(4, 5, 6), ints(0, 5, (4, 3, 1), I64)], {"batch_dims": 1}, (), 1,
+               True),
+              ("ScatterElements", [ex, ints(-7, 7, (6, 3), I64), ints(-3, 4, (6, 3), np.float32)],
+               {"axis": 1, "reduction": "add"}, (), 1, True),
+              ("ScatterND", [ex, np.array([[1, 2], [3, -1], [1, 2]], I64),
+                             np.array([2.0, -3.0, 5.0], np.float32)], {"reduction": "max"}, (),
+               1, True),
+              ("ConvTranspose", [img, f(8, 3, 3, 3), f(6)],
+               {"strides": [2, 2], "pads": [1, 1, 1, 1], "output_padding": [1, 1], "group": 2},
+               (1, 2), 1, False),
+              ("InstanceNormalization", [img, f(8), f(8)], {}, (1, 2), 1, False),
+              ("Resize", [img, np.zeros(0, np.float32), None, np.array([2, 8, 11, 17], I64)],
+               {"mode": "linear", "coordinate_transformation_mode": "pytorch_half_pixel"},
+               (1, 3), 1, False),
+              ("GroupNormalization", [img, f(8), f(8)], {"num_groups": 4}, (1, 2), 1, False),
+              ("MeanVarianceNormalization", [img], {}, (), 1, False),
+              ("GridSample", [img, rs.uniform(-1.2, 1.2, (2, 5, 7, 2)).astype(np.float32)],
+               {"mode": "bilinear", "padding_mode": "reflection"}, (), 1, False),
+              ("AffineGrid", [f(2, 2, 3), np.array([2, 8, 6, 10], I64)], {"align_corners": 1},
+               (1,), 1, False),
+              ("RoiAlign", [img, np.array([[1.0, 1.0, 8.0, 5.0], [0.0, 2.0, 9.5, 5.5]],
+                                          np.float32), np.array([0, 1], I64)],
+               {"output_height": 3, "output_width": 2, "sampling_ratio": 2, "mode": "max"}, (),
+               1, False),
+              ("CenterCropPad", [img, np.array([5, 12], I64)], {"axes": [2, 3]}, (1,), 1, True),
+              ("Col2Im", [f(2, 18, 20), np.array([8, 10], I64), np.array([3, 3], I64)],
+               {"strides": [2, 2], "pads": [1, 1, 1, 1]}, (1, 2), 1, False),
+              ("AveragePool", [img], {"kernel_shape": [3, 2], "dilations": [2, 2],
+                                      "pads": [1, 1, 1, 1]}, (), 1, False),
+              ("QuantizeLinear", [x, np.array([0.05, 0.02] * 4, np.float32),
+                                  ints(-5, 5, (8,), np.int8)], {"axis": 0}, (1, 2), 1, True),
+              ("DequantizeLinear", [a8, np.float32(0.05), np.uint8(128)], {}, (1, 2), 1, True),
+              ("DynamicQuantizeLinear", [x], {}, (), 3, True),
+              ("MatMulInteger", [a8, b8, np.uint8(113), np.int8(-7)], {}, (), 1, True),
+              ("QLinearMatMul", [a8, np.float32(0.02), np.uint8(120), ints(0, 255, (64, 24),
+                                                                           np.uint8),
+                                 np.float32(0.05), np.uint8(131), np.float32(0.4), np.uint8(7)],
+               {}, (1, 2, 4, 5, 6, 7), 1, True),
+              ("QLinearConv", [ints(0, 255, (2, 3, 9, 9), np.uint8), np.float32(0.03),
+                               np.uint8(110), ints(-100, 100, (5, 3, 3, 3), np.int8),
+                               rs.uniform(0.01, 0.05, 5).astype(np.float32),
+                               np.zeros(5, np.int8), np.float32(0.1), np.uint8(128),
+                               ints(-1000, 1000, (5,), np.int32)],
+               {"pads": [1, 1, 1, 1], "strides": [2, 2]}, (3, 4, 5, 8), 1, True),
+              ("NonMaxSuppression", [boxes, rs.uniform(0, 1, (2, 3, 40)).astype(np.float32),
+                                     np.array([6], I64), np.float32(0.4), np.float32(0.2)], {},
+               (2, 3, 4), 1, True),
+              ("NonZero", [x > 1], {}, (), 1, True),
+              ("Compress", [x, (y[0] > 0)], {"axis": 1}, (), 1, True),
+              ("Unique", [ints(0, 9, (40,), I64)], {"sorted": 0}, (), 4, True),
+              ("NegativeLogLikelihoodLoss", [np.log(rs.dirichlet(np.ones(5), 8)).astype(np.float32),
+                                             ints(0, 5, (8,), I64), np.abs(f(5)) + 0.5],
+               {"ignore_index": 2}, (2,), 1, False),
+              ("SoftmaxCrossEntropyLoss", [x, ints(0, 16, (8,), I64)], {"reduction": "none"},
+               (), 2, False),
+              ("DFT", [f(4, 32, 1)], {"axis": 1, "onesided": 1}, (), 1, False),
+              ("STFT", [f(2, 256), np.array(16, I64), np.hanning(64).astype(np.float32)],
+               {"onesided": 1}, (1, 2), 1, False),
+              ("LSTM", [f(6, 3, 5), f(2, 28, 5, scale=0.4), f(2, 28, 7, scale=0.4), f(2, 56)],
+               {"direction": "bidirectional", "hidden_size": 7}, (1, 2, 3), 3, False),
+              ("GRU", [f(6, 3, 5), f(1, 21, 5, scale=0.4), f(1, 21, 7, scale=0.4), f(1, 42),
+                       np.array([6, 3, 1], np.int32)],
+               {"linear_before_reset": 1, "hidden_size": 7}, (1, 2, 3), 2, False),
+              ("FastGelu", [x, f(16)], {}, (1,), 1, False),
+              ("BiasGelu", [x, f(16)], {}, (1,), 1, False),
+              ("QuickGelu", [x], {"alpha": 1.702}, (), 1, False),
+              ("SkipLayerNormalization", [f(2, 8, 16), f(2, 8, 16), f(16), f(16), f(16)],
+               {"epsilon": 1e-12}, (2, 3, 4), 4, False),
+              ("EmbedLayerNormalization", [ints(0, 30, (2, 8), I64), ints(0, 2, (2, 8), I64),
+                                           f(30, 16), f(8, 16), f(2, 16), f(16), f(16),
+                                           np.array([[1] * 8, [1] * 5 + [0] * 3], I64)],
+               {}, (2, 3, 4, 5, 6), 3, False),
+              ("FusedMatMul", [f(3, 4, 8), f(3, 5, 8)], {"transB": 1, "alpha": 0.5}, (), 1,
+               False),
+              ("Attention", [f(2, 8, 16), f(16, 48, scale=0.3), f(48),
+                             np.array([8, 5], np.int32)], {"num_heads": 4, "unidirectional": 1},
+               (1, 2), 1, False)]
+    return cases
+
+
+_CONTRIB = frozenset({"FastGelu", "BiasGelu", "QuickGelu", "SkipLayerNormalization",
+                      "EmbedLayerNormalization", "FusedMatMul", "Attention"})
+
+
+def _sweep_compare(op, got: dict, want: dict, exact: bool) -> float:
+    """Max |card - CPU| of one case's outputs (raises on a mismatch)."""
+    err = 0.0
+    for k in want:
+        g, w = got[k], want[k]
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{op} {k}: the card gives {g.dtype}{g.shape}, the CPU "
+                                 f"{w.dtype}{w.shape}")
+        if exact or w.dtype.kind in "biu":
+            if not np.array_equal(g, w, equal_nan=w.dtype.kind == "f"):
+                raise AssertionError(f"{op} {k}: the card is not bitwise the CPU")
+            continue
+        e = float(np.abs(g.astype(np.float64) - w).max()) if w.size else 0.0
+        scale = max(1.0, float(np.abs(w).max())) if w.size else 1.0
+        if not e <= SWEEP_TOL * scale:
+            raise AssertionError(f"{op} {k}: max |card - CPU| {e:.3e} over the limit "
+                                 f"{SWEEP_TOL} x {scale:.3g}")
+        err = max(err, e / scale)
+    return err
+
+
+def _sweep_random(device, card: str) -> set:
+    """The random ops on the card: each law within 4 sigma, the same seed
+    twice bitwise."""
+    n = 1 << 20
+    covered = set()
+
+    def run(op, inputs, **attrs):
+        data, feeds = _one_node(op, inputs, attrs, 1, ())
+        conv = convert_graph(data)
+        a, b = (conv.run(feeds, device)["out0"] for _ in range(2))
+        if a.device != device or not torch.equal(a, b):
+            raise AssertionError(f"{op}: the same seed twice is not bitwise equal on the card")
+        covered.add(op)
+        return a.double()
+
+    def near(tag, got, want, sigma, count):
+        z = abs(got - want) / (sigma / math.sqrt(count))
+        log(f"[opset] (c) {tag}: {got:.5f} against {want:.5f}, {z:.2f} sigma (limit 4)")
+        if z > 4:
+            raise AssertionError(f"{tag} is {z:.2f} sigma from its law")
+
+    a = run("RandomNormal", [], shape=[n], mean=3.0, scale=2.0, seed=1.0)
+    near("RandomNormal mean", float(a.mean()), 3.0, 2.0, n)
+    near("RandomNormal variance", float(a.var()), 4.0, 4.0 * math.sqrt(2), n)
+    u = run("RandomUniform", [], shape=[n], low=-1.0, high=5.0, seed=2.0)
+    near("RandomUniform mean", float(u.mean()), 2.0, 6.0 / math.sqrt(12), n)
+    if not (float(u.min()) >= -1.0 and float(u.max()) < 5.0):
+        raise AssertionError("RandomUniform left [low, high)")
+    zeros = np.zeros((1024, 1024), np.float32)
+    near("RandomNormalLike mean", float(run("RandomNormalLike", [zeros], seed=3.0).mean()),
+         0.0, 1.0, n)
+    near("RandomUniformLike mean", float(run("RandomUniformLike", [zeros], seed=4.0).mean()),
+         0.5, 1 / math.sqrt(12), n)
+    bern = run("Bernoulli", [np.full((n,), 0.3, np.float32)], seed=5.0)
+    near("Bernoulli mean", float(bern.mean()), 0.3, math.sqrt(0.21), n)
+    probs = np.array([0.2, 0.5, 0.3])
+    m = run("Multinomial", [np.log(np.tile(probs, (4, 1))).astype(np.float32)],
+            sample_size=1 << 16, seed=6.0)
+    freq = torch.bincount(m.long().reshape(-1), minlength=3).double().cpu().numpy() / m.numel()
+    for c, (fc, p) in enumerate(zip(freq, probs)):
+        near(f"Multinomial class {c} frequency", float(fc), p, math.sqrt(p * (1 - p)), m.numel())
+    return covered
+
+
+def _sweep_control_flow(device, card: str) -> dict:
+    """If on a condition computed on the card, a Loop that exits early on a
+    device condition with a scan output, a bidirectional Scan, and an LSTM
+    + GRU stack at hidden 512, T 128, batch 32: the card against the CPU."""
+    P = onnx_proto
+    rs = np.random.default_rng(1)
+
+    def vi(name, dtype=P.FLOAT, dims=()):
+        return P.ValueInfoProto(name=name, elem_type=dtype, dims=list(dims))
+
+    def model(nodes, inputs, outputs, inits=()):
+        g = P.GraphProto(name="g", node=nodes, input=inputs, output=[vi(o) for o in outputs],
+                         initializer=[P.numpy_to_tensor(np.asarray(v), k) for k, v in inits])
+        return P.ModelProto(graph=g).encode()
+
+    def tensor(v, k):
+        return P.numpy_to_tensor(np.asarray(v), k)
+
+    then_b = P.GraphProto(name="then", node=[_ms_node("Mul", ["x", "two"], ["yt"])],
+                          initializer=[tensor(np.float32(2.0), "two")], output=[vi("yt")])
+    else_b = P.GraphProto(name="else", node=[_ms_node("Concat", ["x", "x"], ["ye"], axis=0)],
+                          output=[vi("ye")])
+    if_model = model([_ms_node("ReduceMean", ["x"], ["m"], keepdims=0),
+                      _ms_node("Greater", ["m", "zero"], ["c"]),
+                      _ms_node("If", ["c"], ["y"], then_branch=then_b, else_branch=else_b)],
+                     [vi("x", dims=[64])], ["y"], [("zero", np.float32(0.0))])
+    body = P.GraphProto(
+        name="body",
+        node=[_ms_node("Cast", ["i"], ["i_f"], to=P.FLOAT),
+              _ms_node("Mul", ["i_f", "w"], ["step"]),
+              _ms_node("Add", ["s_in", "step"], ["s_out"]),
+              _ms_node("ReduceSum", ["s_out"], ["tot"], keepdims=0),
+              _ms_node("Less", ["tot", "limit"], ["cond_out"]),
+              _ms_node("Identity", ["s_out"], ["y_t"])],
+        input=[vi("i"), vi("cond_in"), vi("s_in")],
+        output=[vi("cond_out"), vi("s_out"), vi("y_t")],
+        initializer=[tensor(np.abs(rs.standard_normal(32)).astype(np.float32), "w"),
+                     tensor(np.float32(400.0), "limit")])
+    loop_model = model([_ms_node("Loop", ["M", "", "s0"], ["s", "ys"], body=body)],
+                       [vi("M", P.INT64), vi("s0", dims=[32])], ["s", "ys"])
+    scan_body = P.GraphProto(
+        name="scan_body",
+        node=[_ms_node("Add", ["h_in", "a_t"], ["h1"]), _ms_node("Mul", ["b_t", "k"], ["bk"]),
+              _ms_node("Add", ["h1", "bk"], ["h_out"]), _ms_node("Tanh", ["h_out"], ["o_t"])],
+        input=[vi("h_in"), vi("a_t"), vi("b_t")], output=[vi("h_out"), vi("o_t")],
+        initializer=[tensor(np.float32(0.5), "k")])
+    scan_model = model([_ms_node("Scan", ["h0", "xa", "xb"], ["h", "os"], body=scan_body,
+                                 num_scan_inputs=2, scan_input_directions=[0, 1],
+                                 scan_input_axes=[0, 1], scan_output_directions=[1],
+                                 scan_output_axes=[1])],
+                       [vi("h0", dims=[16]), vi("xa", dims=[24, 16]), vi("xb", dims=[16, 24])],
+                       ["h", "os"])
+    H, T, B = RNN_H, RNN_T, RNN_B
+    s = 1 / math.sqrt(H)
+
+    def w(*shape):
+        return (rs.standard_normal(shape) * s).astype(np.float32)
+
+    rnn_inits = [("lw", w(2, 4 * H, H)), ("lr", w(2, 4 * H, H)), ("lb", w(2, 8 * H)),
+                 ("gw", w(1, 3 * H, 2 * H)), ("gr", w(1, 3 * H, H)), ("gb", w(1, 6 * H)),
+                 ("perm_shape", np.array([T, B, 2 * H], np.int64))]
+    rnn_model = model(
+        [_ms_node("LSTM", ["x", "lw", "lr", "lb"], ["ly", "lh", "lc"], hidden_size=H,
+                  direction="bidirectional"),
+         _ms_node("Transpose", ["ly"], ["lyt"], perm=[0, 2, 1, 3]),
+         _ms_node("Reshape", ["lyt", "perm_shape"], ["gx"]),
+         _ms_node("GRU", ["gx", "gw", "gr", "gb"], ["gy", "gh"], hidden_size=H,
+                  linear_before_reset=1)],
+        [vi("x", dims=[T, B, H])], ["lh", "lc", "gy", "gh"], rnn_inits)
+    graphs = [("If (condition on the card, then-branch)", if_model,
+               {"x": np.abs(rs.standard_normal(64)).astype(np.float32)}),
+              ("If (else-branch, another shape)", if_model,
+               {"x": -np.abs(rs.standard_normal(64)).astype(np.float32)}),
+              ("Loop (early exit on a device condition, scan output)", loop_model,
+               {"M": np.int64(np.iinfo(np.int64).max), "s0": np.zeros(32, np.float32)}),
+              ("Scan (two inputs, forward and backward)", scan_model,
+               {"h0": np.zeros(16, np.float32), "xa": rs.standard_normal((24, 16), np.float32),
+                "xb": rs.standard_normal((16, 24), np.float32)}),
+              (f"LSTM (bidirectional) + GRU at hidden {H}, T {T}, batch {B}", rnn_model,
+               {"x": rs.standard_normal((T, B, H), np.float32)})]
+    out = {}
+    for tag, data, feeds in graphs:
+        conv = convert_graph(data)
+        with torch.inference_mode():
+            got = {k: v.cpu().numpy() for k, v in conv.run(feeds, device).items()}
+            want = {k: v.numpy() for k, v in conv.run(feeds, "cpu").items()}
+            err = _sweep_compare(tag, got, want, exact=False)
+            dev_feeds = {k: torch.from_numpy(np.asarray(v)).to(device) for k, v in feeds.items()}
+            ms = cuda_ms(lambda: conv.run(dev_feeds, device), warmup=1, iters=3)
+        log(f"[opset] (c) {tag}: outputs {[tuple(v.shape) for v in got.values()]}, max |card - "
+            f"CPU| {err:.3e} of max(1, |CPU|) (limit {SWEEP_TOL}); {ms:.3f} ms on the card "
+            f"(CUDA events) | {card}")
+        out[tag] = {"err": err, "ms": ms}
+    return out
+
+
+def _onnx_op_sweep(device, card: str) -> dict:
+    """Main path 10 (c): every op type this slice ported, once on the card
+    against the port on the CPU on the same inputs."""
+    from synapseml_torch.onnx.convert import OP_REGISTRY
+
+    t0 = time.perf_counter()
+    covered, worst, n_exact = set(), 0.0, 0
+    for op, inputs, attrs, init, n_out, exact in _sweep_cases():
+        data, feeds = _one_node(op, inputs, attrs, n_out, init,
+                                "com.microsoft" if op in _CONTRIB else "")
+        conv = convert_graph(data)
+        with torch.inference_mode():
+            got = conv.run(feeds, device)
+            if any(v.device != device for v in got.values()):
+                raise AssertionError(f"{op}: an output left the card")
+            got = {k: v.cpu().numpy() for k, v in got.items()}
+            want = {k: v.numpy() for k, v in conv.run(feeds, "cpu").items()}
+        worst = max(worst, _sweep_compare(op, got, want, exact))
+        n_exact += exact
+        covered.add(op)
+    covered |= _sweep_random(device, card)
+    flow = _sweep_control_flow(device, card)
+    covered |= {"If", "Loop", "Scan", "LSTM", "GRU"}
+    missing = sorted(ONNX_ADDED_OPS - covered)
+    if missing or not ONNX_ADDED_OPS - {"If", "Loop", "Scan"} <= set(OP_REGISTRY):
+        raise AssertionError(f"the sweep left out {missing}")
+    secs = time.perf_counter() - t0
+    log(f"[opset] (c) {len(covered & ONNX_ADDED_OPS)} of the {len(ONNX_ADDED_OPS)} op types this "
+        f"slice ported ran on the card: {n_exact} single-op cases bitwise the CPU, the floating "
+        f"ones within {worst:.3e} of max(1, |CPU|) (limit {SWEEP_TOL}), the random ones by law "
+        f"and repeat; {secs:.1f} s | {card}")
+    return {"seconds": secs, "worst": worst, "control_flow": flow}
+
+
+def phase_onnx_opset(device, card: str) -> dict:
+    """Main path 10: ONNXModel over the reference's whole ONNX opset: (a) an
+    ORT-fused BERT-base, (b) a GPT-2-width decoder exported by torch, (c)
+    every op type of the slice against the CPU; none of the port's kernels
+    launched."""
+    t0 = time.perf_counter()
+    _zero_port_kernel_counts()
+    fused = _onnx_fused_bert(device, card)
+    log(f"[opset] (a) done at {time.perf_counter() - t0:.1f} s")
+    gpt = _onnx_gpt_export(device, card)
+    log(f"[opset] (b) done at {time.perf_counter() - t0:.1f} s")
+    sweep = _onnx_op_sweep(device, card)
+    counts = _port_kernel_counts()
+    secs = time.perf_counter() - t0
+    log(f"[opset] main path 10 launched the port's kernels {counts} (want none); {secs:.1f} s "
+        f"of the script's clock (budget 90 s)")
+    if any(counts.values()):
+        raise AssertionError(f"main path 10 launched a kernel of the port's: {counts}")
+    return {"fused": fused, "gpt": gpt, "sweep": sweep, "seconds": secs}
+
+
 def main() -> None:
     t0 = time.perf_counter()
 
@@ -5564,6 +6342,8 @@ def main() -> None:
     done("main path 8, Mixtral-8x7B and MoE training")
     surface = phase_gbdt_surface(device, card)
     done("main path 9, LightGBM's surface")
+    phase_onnx_opset(device, card)
+    done("main path 10, ONNX's whole opset")
     # the flash kernels' launches on the paths, each counted from 0 just
     # before it ran: scoring (path 1), fine-tuning through flash and both
     # fitted models' scoring (path 3), bert-tiny f32 through flash on the

@@ -5,8 +5,10 @@ Counterpart of ``synapseml_tpu/onnx``: :mod:`proto` decodes and encodes
 model bytes (no ``onnx`` package), :mod:`convert` runs the graph as torch
 ops on one device, :mod:`model` is ``ONNXModel``, :mod:`hub` is
 ``ONNXHub``, :mod:`featurizer` is ``ImageFeaturizer`` (this package's
-``image.ImageTransformer`` in front of a sliced ``ONNXModel``). The
-``com.microsoft`` contrib ops wait for ROADMAP.md queue A item 6.
+``image.ImageTransformer`` in front of a sliced ``ONNXModel``), and
+:mod:`contrib` holds ONNX Runtime's ``com.microsoft`` transformer-fusion
+ops. The converter registers the reference's whole opset (165 op types)
+and runs ``If``/``Loop``/``Scan`` with its eager semantics.
 """
 
 from .convert import ConvertedModel, convert_graph

@@ -11,8 +11,10 @@ empty partition, softmax and argmax columns and ``slice_at_outputs``
 ``ImageFeaturizer`` on ragged images, headless at the ResNet's Flatten
 output and whole (within 1e-5, the same columns). Where
 the port follows the ONNX spec past the reference (``ceil_mode``,
-LayerNormalization over ``[axis, rank)``, several negative Unsqueeze axes)
-it is held to torch or numpy instead.
+LayerNormalization over ``[axis, rank)``, several negative Unsqueeze axes,
+AveragePool ``dilations``) it is held to torch or numpy instead. The
+registry equals the JAX package's; the ops this file does not cover are
+held to it in ``tests/test_torch_onnx_*.py``.
 """
 
 import hashlib
@@ -356,7 +358,8 @@ def test_slice_sentinel_survives_concat_cast_chain():
 def test_spec_semantics_past_the_reference():
     """ceil_mode that changes the output shape against torch's own pooling;
     LayerNormalization over [axis, rank); Unsqueeze with two negative axes
-    counted from the output's end."""
+    counted from the output's end; AveragePool with dilations against a
+    numpy window oracle."""
     x = _f32(1, 2, 6, 7)
     data, feeds = _model_bytes("MaxPool", [x], dict(kernel_shape=[3, 3], strides=[2, 2],
                                                     pads=[1, 1, 1, 1], ceil_mode=1))
@@ -379,20 +382,78 @@ def test_spec_semantics_past_the_reference():
     data, feeds = _model_bytes("Unsqueeze", [_f32(3), np.array([-1, -2], I64)], init=(1,))
     assert _port(data, feeds)["out0"].shape == (3, 1, 1)
 
+    # AveragePool with dilations (the reference's pooling ignores them):
+    # held to a numpy window oracle, with ceil_mode, pads and
+    # count_include_pad in turn
+    x = _f32(2, 3, 9, 8, seed=4)
+    for attrs in (dict(kernel_shape=[3, 2], dilations=[2, 3], strides=[1, 2]),
+                  dict(kernel_shape=[2, 2], dilations=[2, 2], strides=[2, 2], pads=[1, 0, 2, 1]),
+                  dict(kernel_shape=[2, 2], dilations=[2, 2], strides=[2, 2], pads=[1, 0, 2, 1],
+                       count_include_pad=1),
+                  dict(kernel_shape=[3, 3], dilations=[2, 1], strides=[2, 2], pads=[1, 1, 1, 1],
+                       ceil_mode=1)):
+        data, feeds = _model_bytes("AveragePool", [x], attrs)
+        want = _dilated_avgpool_oracle(x, **attrs)
+        got = _port(data, feeds)["out0"]
+        assert got.shape == want.shape, attrs
+        np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL, err_msg=str(attrs))
+
+
+def _dilated_avgpool_oracle(x, kernel_shape, dilations, strides, pads=(0, 0, 0, 0),
+                            count_include_pad=0, ceil_mode=0):
+    """The ONNX AveragePool by windows in float64: a window's cells are its
+    dilated kernel positions inside the input (and its explicit pads with
+    count_include_pad), never the ceil_mode extension."""
+    (kh, kw), (dh, dw), (sh, sw) = kernel_shape, dilations, strides
+    pt, pl, pb, pr = pads
+    H, W = x.shape[2:]
+
+    def n_out(size, b, e, k, d, s):
+        span = size + b + e - ((k - 1) * d + 1)
+        n = (-(-span // s) if ceil_mode else span // s) + 1
+        return n - 1 if ceil_mode and (n - 1) * s >= size + b else n
+
+    oh, ow = n_out(H, pt, pb, kh, dh, sh), n_out(W, pl, pr, kw, dw, sw)
+    out = np.zeros(x.shape[:2] + (oh, ow))
+    for i in range(oh):
+        for j in range(ow):
+            cells, count = [], 0
+            for a in range(kh):
+                for b in range(kw):
+                    r, c = i * sh - pt + a * dh, j * sw - pl + b * dw
+                    inside = 0 <= r < H and 0 <= c < W
+                    in_pads = -pt <= r < H + pb and -pl <= c < W + pr
+                    if inside:
+                        cells.append(x[:, :, r, c].astype(np.float64))
+                    count += inside or (count_include_pad and in_pads)
+            out[:, :, i, j] = np.sum(cells, axis=0) / count
+    return out
+
 
 def test_unsupported_ops_raise_at_conversion_with_their_roadmap_item():
-    for op in ("NonexistentOp", "Trilu", "Loop"):
+    """The port registers the JAX package's whole opset, its contrib ops
+    the same set; If/Loop/Scan run in both executors. An op in neither
+    registry is refused when the graph is converted, naming it, at the top
+    level and inside an If branch."""
+    from synapseml_torch.onnx import contrib
+    from synapseml_torch.onnx.convert import OP_REGISTRY
+    from synapseml_tpu.onnx import contrib as jcontrib
+    from synapseml_tpu.onnx.convert import OP_REGISTRY as JOP_REGISTRY
+
+    assert set(OP_REGISTRY) == set(JOP_REGISTRY) and len(OP_REGISTRY) == 165
+    assert contrib.CONTRIB_OPS == jcontrib.CONTRIB_OPS
+    for op in ("NonexistentOp", "CustomFusedThing"):
         data, _ = _model_bytes(op, [_f32(2)])
-        with pytest.raises(NotImplementedError, match=f"{op}.*queue A item 6"):
+        with pytest.raises(NotImplementedError, match=rf"\['{op}'\]"):
             convert_graph(data)
     # an op inside a subgraph is found too
-    sub = P.GraphProto(node=[P.NodeProto(input=["a"], output=["b"], op_type="Resize")])
+    sub = P.GraphProto(node=[P.NodeProto(input=["a"], output=["b"], op_type="NonexistentOp")])
     node = P.NodeProto(input=["c"], output=["y"], op_type="If",
                        attribute=[P.AttributeProto.make("then_branch", sub),
                                   P.AttributeProto.make("else_branch", sub)])
     data = P.ModelProto(graph=P.GraphProto(node=[node], input=[P.ValueInfoProto(name="c")],
                                            output=[P.ValueInfoProto(name="y")])).encode()
-    with pytest.raises(NotImplementedError, match=r"\['If', 'Resize'\]"):
+    with pytest.raises(NotImplementedError, match=r"\['NonexistentOp'\]"):
         convert_graph(data)
 
 
