@@ -253,7 +253,28 @@ the kernels are built for sm_90a). Phases, each of which raises on failure:
    computed on the card, a Loop exiting early with a scan output, a
    bidirectional Scan and an LSTM + GRU stack at hidden 512, T 128,
    batch 32;
-15. times: each kernel beside its bound, its plain version and the one
+15. main path 11, the multi-GPU plane at one card, under an NCCL group of
+   one process made here on a FileStore and destroyed at the end: (a) main
+   path 3's flash fit with an AsyncCheckpointer every 16 steps, 2 kept, a
+   second fit resumed from step 32 through fit_source(resume_from=), its
+   params and Adam moments bitwise the uninterrupted fit's and the
+   checkpointed fit bitwise a fit without, the newest payload truncated
+   and demoted to step 32; bytes a checkpoint, the write's ms and GB/s,
+   save()'s ms, host ms a step with and without; (b) the same fit on a
+   data=1 x fsdp=1 mesh with the port's transformer rule table and ZeRO,
+   bitwise the no-mesh fit, and DeepTextModel scoring with mesh_config
+   bitwise the scoring without; (c) Ulysses (its flash local step) and
+   ring attention on a seq axis of size 1 at BERT-base's heads, B 1, T =
+   32768, bf16, the last 1000 keys padded, non-causal and causal, forward
+   and backward against each other and the flash kernel called directly
+   within the bf16 limits, ms, peak memory and the flash bound; (d)
+   Higgs-1M with mesh_config (the histogram kernel's int64-out mode, the
+   all-reduce and the conversion) bitwise main path 2's forest; at each
+   level shape of one tree the int64 sums bitwise the plain version's
+   (int_out) and the scale pass over 2N and 4N rows (n_total) equal to its
+   plain version; one tree in the int64-out mode beside the one-process
+   mode;
+16. times: each kernel beside its bound, its plain version and the one
    PyTorch call that computes the same function (device time, with the
    host's enqueue hidden behind a spin kernel; the library call's device
    kernels named from the profiler); flash_attention from the projection
@@ -2286,7 +2307,7 @@ def phase_gbdt_main(device, card: str) -> dict:
 
     _profile_gbdt_iteration(booster, X[:HIGGS_N], y[:HIGGS_N], device, depth)
     return {"launches": launches, "scale_launches": scale_launches, "fit_s": fit_s,
-            "auc": held_out_auc}
+            "auc": held_out_auc, "digest": forest_digest(booster)}
 
 
 _GBDT_GROUPS = (("gbdt_hist kernel", ("gbdt_hist_kernel", "gbdt_scale_kernel")),
@@ -6303,6 +6324,340 @@ def phase_onnx_opset(device, card: str) -> dict:
     return {"fused": fused, "gpt": gpt, "sweep": sweep, "seconds": secs}
 
 
+# ---------------- main path 11: the multi-GPU plane at one card ----------------
+
+# (a) path 3's flash fit with checkpoints every 16 of its 48 steps, the last
+# two kept, and a second fit resumed from step 32
+MG_EVERY, MG_KEEP, MG_RESUME_AT = 16, 2, 32
+# (c) long context at BERT-base's heads: B = 1, T = 32768, the last 1000 keys
+# padded, bf16
+LC_B, LC_T, LC_H, LC_D, LC_PAD = 1, 32768, 12, 64, 1000
+
+
+def _state_leaves(state) -> dict:
+    """A train state's params and moments by name (host tensors)."""
+    out = {f"params/{k}": v.detach().cpu() for k, v in state.params.items()}
+    for kind in ("mu", "nu"):
+        for j, t in enumerate(getattr(state.opt_state, kind)):
+            out[f"{kind}/{j}"] = t.detach().cpu()
+    return out
+
+
+def _differing(a: dict, b: dict) -> list[str]:
+    return [k for k in a if not torch.equal(a[k], b[k])]
+
+
+def _mg_fit(df, device, tag: str, checkpointer=None, resume_from=None, mesh=None,
+            rules=None) -> tuple:
+    """Path 3's flash fit as the stage plans it (``_fit_plan``): its
+    ``fit_arrays`` call, or ``fit_source`` over the same MemorySource when
+    resuming; with ``mesh`` the stage's trainer config gains ``rules`` and
+    ``zero_shard``. Returns (state, host seconds, plan's cfg and tokenizer)."""
+    from synapseml_torch.data.source import MemorySource
+
+    trainer, data, kw, cfg, tok = _stage(device, "flash")._fit_plan(df)
+    if mesh is not None:
+        trainer = trainer_mod.Trainer(
+            trainer.module, dataclasses.replace(trainer.cfg, partition_rules=rules,
+                                                zero_shard=True),
+            device=device, mesh=mesh)
+    t0 = time.perf_counter()
+    if resume_from is not None:
+        n = next(iter(data.values())).shape[0]
+        state = trainer_mod.fit_source(trainer, MemorySource(data), resume_from=resume_from,
+                                       drop_remainder=n >= kw["batch_size"], **kw)
+    else:
+        state = trainer_mod.fit_arrays(trainer, data, checkpointer=checkpointer,
+                                       checkpoint_every=MG_EVERY if checkpointer else 0, **kw)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    trainer.release_graphs()
+    log(f"[mesh] {tag}: to step {state.step} in {fit_s:.2f} s on the host clock")
+    return state, fit_s, cfg, tok
+
+
+def _mg_checkpoints(df, device, card: str, tmp: str) -> dict:
+    """(a): the fit with an AsyncCheckpointer, a fit resumed from step 32
+    bitwise it, a torn newest step demoted; (b)'s no-mesh reference."""
+    from synapseml_torch import parallel as par
+
+    path = os.path.join(tmp, "ck")
+    ck = par.AsyncCheckpointer(path, keep=MG_KEEP)
+    save_s = []
+    inner_save = ck.save
+
+    def timed_save(tree, step):
+        t0 = time.perf_counter()
+        fut = inner_save(tree, step)
+        save_s.append(time.perf_counter() - t0)
+        return fut
+
+    ck.save = timed_save
+    with_ck, with_s, cfg, tok = _mg_fit(df, device, "fit with the checkpointer", checkpointer=ck)
+    ck.wait()
+    write_bytes, write_s = ck.last_write_bytes, ck.last_write_s
+    ck.close()
+    steps = sorted(int(n.split("_")[1]) for n in os.listdir(path) if n.startswith("step_"))
+    log(f"[mesh] checkpoints kept {steps} (every {MG_EVERY} steps, keep {MG_KEEP}); a checkpoint "
+        f"{write_bytes / 1e9:.3f} GB (params and Adam's m and v in f32, the loader cursor), "
+        f"written in {write_s * 1e3:.1f} ms on the writer thread ({write_bytes / write_s / 1e9:.2f} "
+        f"GB/s: the copy to pinned host memory, npz, digests); save() returned in "
+        f"{[round(t * 1e3, 1) for t in save_s]} ms (the device copy enqueued, the wait for the "
+        f"previous write included) | {card}")
+    if steps != [2 * MG_EVERY, 3 * MG_EVERY]:
+        raise AssertionError(f"checkpoint steps kept {steps}, want [32, 48]")
+    resume_dir = os.path.join(tmp, "resume")
+    shutil.copytree(os.path.join(path, f"step_{MG_RESUME_AT:010d}"),
+                    os.path.join(resume_dir, f"step_{MG_RESUME_AT:010d}"))
+    resumed, resumed_s, _, _ = _mg_fit(df, device, f"fit resumed from step {MG_RESUME_AT}",
+                                       resume_from=resume_dir)
+    ref, ref_s, _, _ = _mg_fit(df, device, "fit without the checkpointer")
+    a, b, r = _state_leaves(with_ck), _state_leaves(resumed), _state_leaves(ref)
+    off_resume, off_ck = _differing(a, b), _differing(a, r)
+    log(f"[mesh] resumed fit against the uninterrupted one: {len(a) - len(off_resume)} of "
+        f"{len(a)} leaves (params, m, v) bitwise; differing: {off_resume[:8] or 'none'}; the "
+        f"checkpointed fit against the fit without: differing {off_ck[:8] or 'none'}")
+    if off_resume or off_ck or resumed.step != with_ck.step:
+        raise AssertionError(f"resume not bitwise ({off_resume[:8]}) or the checkpointer "
+                             f"changed the fit ({off_ck[:8]})")
+    newest = os.path.join(path, f"step_{3 * MG_EVERY:010d}", "state.npz")
+    with open(newest, "r+b") as f:
+        f.truncate(os.path.getsize(newest) // 2)
+    demoted = par.latest_verified_step(path)
+    restored = int(np.asarray(par.restore_checkpoint(path)["step"]))
+    log(f"[mesh] the newest payload truncated: latest verified step {demoted}, restore gives "
+        f"step {restored} (want {2 * MG_EVERY})")
+    if demoted != 2 * MG_EVERY or restored != 2 * MG_EVERY:
+        raise AssertionError("a torn newest checkpoint was not demoted")
+    per_step = (with_s / FT_STEPS * 1e3, ref_s / FT_STEPS * 1e3)
+    log(f"[mesh] host ms a step over the fit (tokenization, init, warm-up and capture "
+        f"included): {per_step[0]:.2f} with the checkpointer, {per_step[1]:.2f} without "
+        f"({3} saves of {write_bytes / 1e9:.3f} GB overlapped with the steps) | {card}")
+    return {"ref": r, "ref_state": ref, "cfg": cfg, "tok": tok, "bytes": write_bytes,
+            "write_s": write_s, "step_ms": per_step}
+
+
+def _mg_mesh(df, score_df, device, card: str, ref: dict, cfg, tok) -> None:
+    """(b): the fit on a data=1 x fsdp=1 mesh with the transformer rule
+    table and ZeRO, and DeepTextModel scoring with mesh_config, each
+    bitwise its no-mesh counterpart."""
+    from synapseml_torch import parallel as par
+
+    shape = par.MeshConfig(data=1, fsdp=1)
+    mesh = par.create_mesh(shape)
+    log(f"[mesh] {mesh} over an NCCL group of {torch.distributed.get_world_size()} process, "
+        f"device mesh {mesh.device_mesh}")
+    state, _, _, _ = _mg_fit(df, device, "mesh fit (rules, zero_shard)", mesh=mesh,
+                             rules=par.default_transformer_rules(shape))
+    got = _state_leaves(state)
+    off = _differing(ref, got)
+    log(f"[mesh] mesh fit against the no-mesh fit: {len(ref) - len(off)} of {len(ref)} leaves "
+        f"bitwise; differing {off[:8] or 'none'}")
+    if off:
+        raise AssertionError(f"the mesh fit differs from the no-mesh fit on {off[:8]}")
+    params = {k[len("params/"):]: v.numpy() for k, v in got.items() if k.startswith("params/")}
+    model = DeepTextModel(model_params=params, arch_config=cfg, tokenizer_config=tok.to_config(),
+                          num_classes=2, max_token_len=FT_LEN, batch_size=FT_BATCH,
+                          attn_impl="flash", device=str(device))
+    plain = np.stack(list(model.transform(score_df).collect_column("scores")))
+    sharded = np.stack(list(model.copy({"mesh_config": shape}).transform(score_df)
+                            .collect_column("scores")))
+    same = np.array_equal(plain, sharded)
+    log(f"[mesh] DeepTextModel scoring {len(plain)} rows with mesh_config: bitwise the scoring "
+        f"without it: {same}")
+    if not same or not np.isfinite(plain).all():
+        raise AssertionError("sharded scoring differs from plain scoring")
+
+
+def _lc_inputs(device, seed: int):
+    g = torch.Generator(device=device).manual_seed(seed)
+    q, k, v, dout = (torch.randn((LC_B, LC_T, LC_H, LC_D), generator=g, device=device)
+                     .to(torch.bfloat16) for _ in range(4))
+    mask = torch.ones((LC_B, LC_T), dtype=torch.int32, device=device)
+    mask[:, LC_T - LC_PAD:] = 0
+    return q, k, v, dout, mask
+
+
+def _lc_run(fn, q, k, v, dout):
+    qs, ks, vs = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    out = fn(qs, ks, vs)
+    out.backward(dout)
+    return out.detach(), [x.grad for x in (qs, ks, vs)]
+
+
+def _mg_long_context(device, card: str) -> None:
+    """(c): Ulysses (its flash local step) and ring attention on a seq axis
+    of size 1 at T = 32768, forward and backward, against each other and
+    the flash kernel called directly."""
+    from synapseml_torch import parallel as par
+    from synapseml_torch.ops import ring_attention_sharded, ulysses_attention_sharded
+
+    mesh = par.create_mesh(par.MeshConfig(data=1, seq=1))
+    flops = 4 * LC_B * LC_H * LC_T * LC_T * LC_D
+    bound = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
+    for causal in (False, True):
+        q, k, v, dout, mask = _lc_inputs(device, seed=7 + causal)
+        fns = {
+            "ulysses": lambda a, b, c: ulysses_attention_sharded(mesh, a, b, c, kv_mask=mask,
+                                                                  causal=causal),
+            "ring": lambda a, b, c: ring_attention_sharded(mesh, a, b, c, kv_mask=mask,
+                                                           causal=causal),
+        }
+        before = _flash_counts()
+        ref_out, ref_grads = _lc_run(lambda a, b, c: att.flash_attention(
+            a, b, c, kv_mask=mask, causal=causal), q, k, v, dout)
+        # the direct call is the comparison's reference: its launches do not count
+        att.flash_attention_fwd.launches, att.flash_attention_bwd.launches = (
+            dict(before["fwd"]), dict(before["bwd"]))
+        results = {}
+        for name, fn in fns.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            results[name] = _lc_run(fn, q, k, v, dout)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            fwd_ms = device_ms(lambda: fn(q, k, v), warmup=1, iters=3)
+            bwd_ms = device_ms(lambda: _lc_run(fn, q, k, v, dout), warmup=0, iters=3) - fwd_ms
+            log(f"[mesh] {name} attention, T = {LC_T}, causal {causal}: forward {fwd_ms:.2f} ms, "
+                f"backward {bwd_ms:.2f} ms (CUDA events behind a 5 ms spin: the ring's chunk "
+                f"loop may outlast it), peak {peak:.2f} GiB; the flash bound "
+                f"(4 H T^2 D = {flops / 1e12:.2f} TFLOP at 989 TFLOP/s) {bound:.2f} ms a "
+                f"forward | {card}")
+        pairs = (("ulysses", "flash", results["ulysses"], (ref_out, ref_grads)),
+                 ("ring", "flash", results["ring"], (ref_out, ref_grads)),
+                 ("ring", "ulysses", results["ring"], results["ulysses"]))
+        for a_name, b_name, (ao, ag), (bo, bg) in pairs:
+            out_err = (ao.float() - bo.float()).abs().max().item()
+            grad_err = _bwd_err([g.transpose(1, 2).reshape(-1, LC_T, LC_D) for g in ag],
+                                [g.transpose(1, 2).reshape(-1, LC_T, LC_D) for g in bg])
+            ok = (out_err <= TOL_OUT[torch.bfloat16] and grad_err <= TOL_BWD[torch.bfloat16]
+                  and torch.isfinite(ao).all().item())
+            log(f"[mesh] {a_name} against {b_name} (causal {causal}): out max|d| {out_err:.3e} "
+                f"(limit {TOL_OUT[torch.bfloat16]}), dq/dk/dv {grad_err:.3e} of each slice's "
+                f"max (limit {TOL_BWD[torch.bfloat16]})")
+            if not ok:
+                raise AssertionError(f"{a_name} disagrees with {b_name} at T = {LC_T}")
+        del q, k, v, dout, results, ref_out, ref_grads
+        _free_card()
+
+
+def _mg_gbdt(device, card: str, digest: str | None) -> None:
+    """(d): Higgs-1M with mesh_config (rows over a data axis of size 1: the
+    int64-out launches, the all-reduce and the conversion) bitwise main path
+    2's forest (``digest``; None fits it here); the tree in the int64-out
+    mode beside the one-process mode."""
+    from synapseml_torch import DataFrame as DF
+    from synapseml_torch import parallel as par
+    from synapseml_torch.gbdt import LightGBMClassifier, hist
+
+    X, y = higgs_data(HIGGS_N, HIGGS_TEST, HIGGS_F)
+    train = DF.from_dict({"features": X[:HIGGS_N], "label": y[:HIGGS_N]})
+    est = LightGBMClassifier(histogram_impl="pallas", device=str(device), **HIGGS_PARAMS)
+    if digest is None:
+        digest = forest_digest(est.fit(train).get_booster())
+    est = est.copy({"mesh_config": par.MeshConfig(data=1)})
+    t0 = time.perf_counter()
+    booster = est.fit(train).get_booster()
+    fit_s = time.perf_counter() - t0
+    got = forest_digest(booster)
+    log(f"[mesh] Higgs-1M with mesh_config (data=1): fit {fit_s:.2f} s, forest digest {got}, "
+        f"main path 2's {digest}: bitwise {got == digest}")
+    if got != digest:
+        raise AssertionError("the data-parallel forest differs from the one-process forest")
+
+    # the kernel against its plain version and timed: these launches are
+    # not the main path's, so the counts are put back afterwards
+    counted = (hist.fixed_point_histogram.launches, hist.fixed_point_scales.launches)
+    mesh = par.create_mesh(par.MeshConfig(data=1))
+    rows = hist.RowGroup(mesh.get_group("data"), HIGGS_N)
+    depth, nb, nf, n = 6, 256, HIGGS_F, HIGGS_N
+    shapes = [(2 ** d, nb, nf) for d in range(depth)] + [(2 ** depth, 1, 1)]
+    tot = dict(one=0.0, int=0.0, sum=0.0, one2=0.0, int2=0.0)
+    for width, b, f in shapes:
+        bins, grad, hess, presence, node = _hist_inputs(n, nf, width, nb, torch.uint8, device,
+                                                        seed=width, outside=False)
+        kbins = bins if b > 1 else None
+        args = (kbins, grad, hess, presence, node, width - 1, width, b)
+        # the scale pass over a share of a data-parallel fit's rows (n_total
+        # past this process's rows) against its plain version
+        for n_total in (2 * n, 4 * n):
+            got_s = hist.fixed_point_scales(grad, hess, presence, n_total)
+            want_s = hist.fixed_point_scales_plain(grad, hess, presence, n_total)
+            if not torch.equal(got_s, want_s):
+                raise AssertionError(f"fixed_point_scales(n_total={n_total}) {got_s.tolist()} "
+                                     f"differs from its plain version {want_s.tolist()}")
+        tree = hist.fixed_point_tree(grad, hess, presence, nf, depth, nb, rows)
+        sums = hist.fixed_point_histogram(*args, *tree, int_out=True)
+        plain_sums = hist.fixed_point_histogram_plain(*args, scale=tree.scale, int_out=True)
+        if not torch.equal(sums, plain_sums):
+            raise AssertionError(f"the int64-out mode's sums differ from the plain version's "
+                                 f"at width {width}")
+        del plain_sums
+        want = hist.fixed_point_histogram(*args, *tree)
+        same = torch.equal(hist.fixed_point_convert(rows.all_reduce(sums.clone()), tree.scale),
+                           want)
+        if not same:
+            raise AssertionError(f"int64-out mode + all-reduce + conversion differs at width "
+                                 f"{width}")
+        t = {"one": device_ms(lambda: hist.fixed_point_histogram(*args, *tree)),
+             "int": device_ms(lambda: hist.fixed_point_histogram(*args, *tree, int_out=True)),
+             "sum": device_ms(lambda: hist.fixed_point_convert(rows.all_reduce(sums),
+                                                               tree.scale))}
+        t["one2"] = device_ms(lambda: hist.fixed_point_histogram(*args, *tree))
+        t["int2"] = device_ms(lambda: hist.fixed_point_histogram(*args, *tree, int_out=True))
+        for key in tot:
+            tot[key] += t[key]
+    hist.fixed_point_histogram.launches, hist.fixed_point_scales.launches = counted
+    log(f"[mesh] gbdt_hist one tree at Higgs-1M ({len(shapes)} launches, device time, two "
+        f"turns each): one-process mode {tot['one']:.4f} / {tot['one2']:.4f} ms, int64-out mode "
+        f"{tot['int']:.4f} / {tot['int2']:.4f} ms, the all-reduce over the data group (NCCL, "
+        f"one process) and the conversion {tot['sum']:.4f} ms; at every shape the int64 sums "
+        f"bitwise the plain version's (int_out), summed and converted bitwise the "
+        f"one-process histogram, and the scale pass with n_total 2N and 4N equal to its "
+        f"plain version | {card}")
+
+
+def phase_multi_gpu(device, card: str, digest: str | None = None) -> dict:
+    """Main path 11: the multi-GPU plane on one card, under an NCCL process
+    group of one process (made here on a FileStore, destroyed at the end):
+    (a) checkpoints and resume, (b) the mesh fit and sharded scoring, (c)
+    long context, (d) data-parallel LightGBM against main path 2's forest
+    (``digest``; None fits it in (d)). Returns the port's kernel launches
+    over the path."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    rows = _labelled_texts(FT_ROWS, seed=0)
+    df = DataFrame.from_rows(rows, num_partitions=2)
+    score_df = DataFrame.from_rows([{"text": t} for t in _texts(N_TEXTS, N_PARTS, seed=1)],
+                                   num_partitions=N_PARTS)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    _zero_port_kernel_counts()
+    try:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1, device_id=device)
+        with _InitOnce():
+            ck = _mg_checkpoints(df, device, card, tmp)
+            _mg_mesh(df, score_df, device, card, ck["ref"], ck["cfg"], ck["tok"])
+        del ck
+        _free_card()
+        _mg_long_context(device, card)
+        _mg_gbdt(device, card, digest)
+        counts = _port_kernel_counts()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = _flash_counts()
+    log(f"[mesh] main path 11's launches: flash {launches}, gbdt_hist {counts['gbdt_hist']}, "
+        f"its scale pass {counts['gbdt_hist_scale']}")
+    if min(sum(launches["fwd"].values()), sum(launches["bwd"].values()),
+           counts["gbdt_hist"], counts["gbdt_hist_scale"]) == 0:
+        raise AssertionError(f"a kernel of main path 11 was not launched: {launches}, {counts}")
+    return {"launches": launches["fwd"], "bwd_launches": launches["bwd"],
+            "gbdt_hist": counts["gbdt_hist"], "gbdt_hist_scale": counts["gbdt_hist_scale"]}
+
+
 def main() -> None:
     t0 = time.perf_counter()
 
@@ -6344,13 +6699,16 @@ def main() -> None:
     done("main path 9, LightGBM's surface")
     phase_onnx_opset(device, card)
     done("main path 10, ONNX's whole opset")
+    mesh = phase_multi_gpu(device, card, gbdt["digest"])
+    done("main path 11, the multi-GPU plane at one card")
     # the flash kernels' launches on the paths, each counted from 0 just
     # before it ran: scoring (path 1), fine-tuning through flash and both
     # fitted models' scoring (path 3), bert-tiny f32 through flash on the
     # card, the long-T flash steps in bf16 and in f32, and ViT-B/16
     # fine-tuning through flash (path 5), the checkpoint fit and its model's
     # scoring (path 7), and the MoE encoder's runs (path 8)
-    paths = (train, vit, pretrained, moe, {"launches": tiny["fwd"], "bwd_launches": tiny["bwd"]},
+    paths = (train, vit, pretrained, moe, mesh,
+             {"launches": tiny["fwd"], "bwd_launches": tiny["bwd"]},
              *({"launches": long_t[tag]["launches"]["fwd"],
                 "bwd_launches": long_t[tag]["launches"]["bwd"]} for tag in ("flash", "flash f32")))
     launches = {k: v + sum(p["launches"][k] for p in paths)
@@ -6358,11 +6716,13 @@ def main() -> None:
     launches.update({f"bwd_{k}": sum(p["bwd_launches"][k] for p in paths)
                      for k in ("bf16", "f32")})
     kernels = phase_times(device, card, launches, max_err)
-    # the histogram kernel's launches: main paths 2 and 9, each counted from 0
+    # the histogram kernel's launches: main paths 2, 9 and 11, each counted from 0
     kernels += phase_gbdt_times(device, card,
-                                {"gbdt_hist": gbdt["launches"] + surface["launches"],
+                                {"gbdt_hist": gbdt["launches"] + surface["launches"]
+                                 + mesh["gbdt_hist"],
                                  "gbdt_hist_scale": gbdt["scale_launches"]
-                                 + surface["scale_launches"]}, hist_err)
+                                 + surface["scale_launches"] + mesh["gbdt_hist_scale"]},
+                                hist_err)
     done("times")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -7,12 +7,14 @@ slice, mirroring its layout so each file names its counterpart:
   data/        sharded sources (in memory, and jsonl/csv/npy/image files),
                the prefetching DataLoader, iterator state
   io/          the input-path resolvers and JSONL line parser of the sources
-  parallel/    token-sequence padding (the rest with the multi-GPU slice)
-  ops/         hand-written CUDA kernels (``csrc/``) with plain versions
+  parallel/    the mesh of the process group, partition rules, collectives,
+               checkpoints and resume, the rendezvous, training batchers
+  ops/         hand-written CUDA kernels (``csrc/``) with plain versions;
+               ring and Ulysses attention
   image/       image preprocessing stages on the host (ImageTransformer,
                augmenter, unroll, superpixels)
   models/      BERT, ViT, ResNet and Llama nets, the Flax weight bridge, the
-               single-device trainer (BatchNorm state included),
+               trainer (on a mesh too; BatchNorm state included),
                DeepTextClassifier / DeepTextModel and DeepVisionClassifier /
                DeepVisionModel
   gbdt/        LightGBM-style GBDT training and scoring (every boosting mode,

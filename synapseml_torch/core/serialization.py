@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 __all__ = ["save_stage", "load_stage", "prepare_dir", "save_pytree",
-           "load_pytree", "rebuild_pytree"]
+           "load_pytree", "flatten_pytree", "tree_structure", "rebuild_pytree"]
 
 
 def prepare_dir(path: str, overwrite: bool = True) -> None:
@@ -38,17 +38,29 @@ def _to_numpy(leaf: Any) -> np.ndarray:
     return np.asarray(leaf)
 
 
-def _flatten_pytree(tree: Any, prefix: str = "") -> dict[str, np.ndarray]:
+def _flatten_pytree(tree: Any, prefix: str = "", leaf_fn=_to_numpy) -> dict[str, np.ndarray]:
     out = {}
     if isinstance(tree, dict):
         for k, v in tree.items():
-            out.update(_flatten_pytree(v, f"{prefix}{k}/"))
+            out.update(_flatten_pytree(v, f"{prefix}{k}/", leaf_fn))
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
-            out.update(_flatten_pytree(v, f"{prefix}{i}/"))
+            out.update(_flatten_pytree(v, f"{prefix}{i}/", leaf_fn))
     else:
-        out[prefix.rstrip("/")] = _to_numpy(tree)
+        out[prefix.rstrip("/")] = leaf_fn(tree)
     return out
+
+
+def flatten_pytree(tree: Any, prefix: str = "", leaf_fn=_to_numpy) -> dict[str, Any]:
+    """Slash-joined leaf path -> ``leaf_fn(leaf)``: the one naming scheme of
+    the npz format, shared by the sharded checkpoint writer (which keeps
+    raw leaves with an identity ``leaf_fn``)."""
+    return _flatten_pytree(tree, prefix, leaf_fn)
+
+
+def tree_structure(tree: Any) -> Any:
+    """The structure JSON of :func:`save_pytree` (``state.tree.json``)."""
+    return _tree_structure(tree)
 
 
 def _tree_structure(tree: Any) -> Any:

@@ -33,6 +33,17 @@
 // other device operation: its int64 accumulator and tickets live in a scratch
 // buffer that the caller zeroes once and that each launch leaves zeroed.
 //
+// Rows split over processes (a data-parallel fit). Each process holds some
+// of the rows; the histogram of all of them must be the one-process
+// histogram bit for bit. So every process quantises with the same k: the
+// scale pass takes the one-process row count (n_scale) instead of its own,
+// and the caller reduces the exponents with MIN across the processes, which
+// gives the k of the largest |value| anywhere (k falls as the maximum rises).
+// The level launch then writes the raw int64 sums (sums != NULL) instead of
+// converting them; the caller adds them across the processes (integer adds,
+// in any order) and converts once, float((double)sum * 2^-k), as the kernel
+// does. With sums == NULL and n_scale == n the launch is the one-process one.
+//
 // The level kernel. Grid (segment tiles x row chunks x feature groups), one
 // 1024-thread block an SM. A block's tile is S consecutive (node, bin)
 // segments (whole nodes where they fit) times G features, S * G <= 8192, each
@@ -111,9 +122,10 @@ __device__ __forceinline__ double pow2(int k) {  // exact for -1022 <= k <= 1023
 }
 
 // buf (int32, zeroed by the caller): [0..2] max |value| bit patterns, [3] the
-// ticket, [4..6] the exponents.
+// ticket, [4..6] the exponents for a sum of n_scale values.
 __global__ void gbdt_scale_kernel(const float* __restrict__ g, const float* __restrict__ h,
-                                  const float* __restrict__ p, int n, int* __restrict__ buf) {
+                                  const float* __restrict__ p, int n, int n_scale,
+                                  int* __restrict__ buf) {
   unsigned int mg = 0, mh = 0, mp = 0;
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
     // float bit patterns of non-negative values order as unsigned ints
@@ -146,7 +158,7 @@ __global__ void gbdt_scale_kernel(const float* __restrict__ g, const float* __re
   __syncthreads();
   if (last && threadIdx.x < 3) {
     const unsigned int m = atomicOr(reinterpret_cast<unsigned int*>(buf) + threadIdx.x, 0u);
-    buf[4 + threadIdx.x] = scale_exp(m, n);
+    buf[4 + threadIdx.x] = scale_exp(m, n_scale);
   }
 }
 
@@ -209,7 +221,7 @@ gbdt_hist_kernel(const BinT* __restrict__ bins, const float* __restrict__ g,
                  const int* __restrict__ node, int n, int F, int base, int W, int B, int S,
                  int G, int rows_per_chunk, const int* __restrict__ exps,
                  unsigned long long* __restrict__ acc, unsigned int* __restrict__ tickets,
-                 float* __restrict__ out) {
+                 float* __restrict__ out, long long* __restrict__ sums) {
   extern __shared__ __align__(16) unsigned int sh[];
   Staged* stage = reinterpret_cast<Staged*>(sh + stage_offset(G, S)) + (threadIdx.x >> 5) * 32;
   __shared__ bool last;
@@ -314,7 +326,8 @@ gbdt_hist_kernel(const BinT* __restrict__ bins, const float* __restrict__ g,
   __syncthreads();
   if (!last) return;
 
-  // the last block of this (tile, group): convert, and leave the scratch zeroed
+  // the last block of this (tile, group): convert (or hand over the raw sums),
+  // and leave the scratch zeroed
   __threadfence();
   const double inv_g = pow2(-exps[0]), inv_h = pow2(-exps[1]), inv_p = pow2(-exps[2]);
   const int total = 3 * nf * ns;
@@ -333,6 +346,10 @@ gbdt_hist_kernel(const BinT* __restrict__ bins, const float* __restrict__ g,
       if (at[u] < 0) continue;
       const int c = (i0 + u * kThreads) % 3;
       acc[at[u]] = 0ull;
+      if (sums != nullptr) {
+        sums[at[u]] = v[u];
+        continue;
+      }
       const double inv = c == 0 ? inv_g : c == 1 ? inv_h : inv_p;
       out[at[u]] = __double2float_rn(__ll2double_rn(v[u]) * inv);
     }
@@ -377,7 +394,7 @@ DeviceInfo g_devices[kMaxDevices];
 template <typename BinT>
 cudaError_t launch_hist(const BinT* bins, const float* g, const float* h, const float* p,
                         const int* node, int n, int F, int base, int W, int B, const int* exps,
-                        float* out, unsigned long long* scratch, int device,
+                        float* out, long long* sums, unsigned long long* scratch, int device,
                         cudaStream_t stream) {
   DeviceInfo& info = g_devices[device];
   const int kind = sizeof(BinT) == 1 ? 0 : 1;
@@ -416,7 +433,8 @@ cudaError_t launch_hist(const BinT* bins, const float* g, const float* h, const 
   cfg.numAttrs = 1;
   cudaError_t err = cudaLaunchKernelEx(
       &cfg, gbdt_hist_kernel<BinT>, bins, g, h, p, node, n, F, base, W, B, l.S, l.G,
-      rows_per_chunk, exps, scratch, reinterpret_cast<unsigned int*>(scratch + l.acc_words), out);
+      rows_per_chunk, exps, scratch, reinterpret_cast<unsigned int*>(scratch + l.acc_words), out,
+      sums);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
@@ -431,25 +449,29 @@ extern "C" long long gbdt_hist_scratch_words(int F, int W, int B) {
 }
 
 // The per-tree scale: buf int32 [8], zeroed by the caller; on return (in
-// stream order) buf[4..6] hold the exponents of grad, hess and presence.
+// stream order) buf[4..6] hold the exponents of grad, hess and presence for a
+// sum of n_scale values (n for a one-process fit; the fit's row count when
+// its rows are split over processes).
 extern "C" int gbdt_hist_scales(const float* grad, const float* hess, const float* presence,
-                                int n, int* buf, void* stream_ptr) {
+                                int n, int n_scale, int* buf, void* stream_ptr) {
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
   const int blocks = n < 256 * 1024 ? (int)ceil_div(n > 0 ? n : 1, 256) : 1024;
-  gbdt_scale_kernel<<<blocks, 256, 0, stream>>>(grad, hess, presence, n, buf);
+  gbdt_scale_kernel<<<blocks, 256, 0, stream>>>(grad, hess, presence, n, n_scale, buf);
   return (int)cudaGetLastError();
 }
 
 // bins: [n, F] row-major, uint8 (bin_bytes 1), int32 (bin_bytes 4), or NULL
 // (bin_bytes 0: every row in bin 0; F and B must be 1). exps: int32 [3] from
-// gbdt_hist_scales. out: float32 [W, F, B, 3], every element written.
-// scratch: int64 [scratch_words], zero on entry and left zero. One kernel
-// launch; returns cudaGetLastError() after it (0 = success).
+// gbdt_hist_scales. out: float32 [W, F, B, 3], every element written; or,
+// with sums non-NULL, sums: int64 [W, F, B, 3], the raw fixed-point sums, every
+// element written (out is not touched). scratch: int64 [scratch_words], zero on
+// entry and left zero. One kernel launch; returns cudaGetLastError() after it
+// (0 = success).
 extern "C" int gbdt_level_hist(const void* bins, int bin_bytes, const float* grad,
                                const float* hess, const float* presence, const int* node,
                                int n, int F, int base, int W, int B, const int* exps, float* out,
-                               void* scratch, long long scratch_words, int device,
-                               void* stream_ptr) {
+                               long long* sums, void* scratch, long long scratch_words,
+                               int device, void* stream_ptr) {
   if (device < 0 || device >= kMaxDevices || scratch_words < gbdt_hist_scratch_words(F, W, B))
     return (int)cudaErrorInvalidValue;
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
@@ -457,9 +479,9 @@ extern "C" int gbdt_level_hist(const void* bins, int bin_bytes, const float* gra
   cudaError_t err;
   if (bin_bytes == 4)
     err = launch_hist(static_cast<const int32_t*>(bins), grad, hess, presence, node, n, F, base,
-                      W, B, exps, out, acc, device, stream);
+                      W, B, exps, out, sums, acc, device, stream);
   else
     err = launch_hist(static_cast<const uint8_t*>(bins), grad, hess, presence, node, n, F, base,
-                      W, B, exps, out, acc, device, stream);
+                      W, B, exps, out, sums, acc, device, stream);
   return (int)err;
 }

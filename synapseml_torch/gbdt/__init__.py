@@ -11,8 +11,9 @@ importances, save/load in the JAX package's format; ``TpuBooster`` is its
 JAX name), every boosting mode and sampling option, continued training,
 LightGBM ``model.txt`` both ways (:mod:`.interop`), out-of-core training
 from a ``ShardedSource`` (:mod:`.streaming`) and the classifier, regressor
-and ranker estimators. The fused sweep (``train_boosters_fused``) waits for
-ROADMAP.md queue A item 11, multi-device meshes for item 9.
+and ranker estimators, data-parallel over a mesh's ``data`` axis (``mesh``,
+``mesh_config``). The fused sweep (``train_boosters_fused``) waits for
+ROADMAP.md queue A item 11.
 """
 
 from .binning import BinMapper

@@ -23,8 +23,18 @@ reproduce ``jax.random``'s bits, so the bagging, feature and goss draws
 come from numpy generators seeded by (seed, purpose, iteration) on the
 host, one stream a purpose as the JAX keys are folded, and are copied to
 the device: a fit is the same on the card and on the CPU for one seed, and
-held to the JAX package by distribution. Multi-device meshes wait for
-ROADMAP.md queue A item 9, the fused sweep for item 11.
+held to the JAX package by distribution. The fused sweep waits for
+ROADMAP.md queue A item 11.
+
+``mesh`` (a :class:`~synapseml_torch.parallel.MeshContext`) splits the rows
+over its ``data`` axis, the JAX package's row sharding: every process holds
+the same inputs, bins them, draws the samples and computes the initial
+score on all rows, then keeps its own rows (padded to a multiple of the
+axis size with presence and weight 0; lambdarank splits at query-group
+boundaries instead, so that every group stays on one process) and grows
+the trees from histograms summed over the processes (:class:`.hist.RowGroup`).
+With ``histogram_impl='pallas'`` the forest is the one-process forest bit
+for bit; goss's threshold sorts the gradients gathered from every process.
 
 A :class:`Booster` holds host numpy arrays, so it pickles with no device in
 it; device copies of its trees are cached per (device, iterations) and
@@ -48,7 +58,7 @@ from ..core.instrumentation import InstrumentationMeasures
 from . import objectives as obj
 from . import trees as T
 from .binning import BinMapper
-from .hist import HIST_IMPLS
+from .hist import HIST_IMPLS, RowGroup
 
 __all__ = ["Booster", "TpuBooster", "train_booster", "train_booster_from_source",
            "fold_positive_class_weight", "resolve_device", "device_type"]
@@ -346,15 +356,17 @@ class _Sampler:
 
     def __init__(self, seed: int, n: int, f: int, device, *, bagging_fraction: float,
                  bagging_freq: int, do_bag: bool, feature_fraction: float, k_feat: int,
-                 other_rate: float):
+                 other_rate: float, part: "_RowPart"):
         self.seed = int(seed) % (1 << 64)
         self.n, self.f, self.device = n, f, device
         self.bagging_fraction, self.bagging_freq, self.do_bag = (
             bagging_fraction, bagging_freq, do_bag)
         self.feature_fraction, self.k_feat = feature_fraction, k_feat
         self.other_rate = other_rate
+        # draws are made for all n rows; a data-parallel fit keeps its own
+        self._take = part.take
         self._bag_key, self._bag = None, None
-        self._ones = torch.ones(n, dtype=torch.float32, device=device)
+        self._ones = torch.from_numpy(self._take(np.ones(n, np.float32))).to(device)
         self._all_features = torch.ones(f, dtype=torch.bool, device=device)
 
     def _uniform(self, purpose: int, key: int, size: int) -> np.ndarray:
@@ -367,7 +379,7 @@ class _Sampler:
         key = it - it % self.bagging_freq
         if key != self._bag_key:
             drawn = self._uniform(_BAG, key, self.n) < self.bagging_fraction
-            self._bag = torch.from_numpy(drawn.astype(np.float32)).to(self.device)
+            self._bag = torch.from_numpy(self._take(drawn.astype(np.float32))).to(self.device)
             self._bag_key = key
         return self._bag
 
@@ -383,15 +395,62 @@ class _Sampler:
     def goss_other(self, it: int) -> torch.Tensor:
         """(N,) bool: each row drawn with probability ``other_rate``."""
         drawn = self._uniform(_GOSS, it, self.n) < self.other_rate
-        return torch.from_numpy(drawn).to(self.device)
+        return torch.from_numpy(self._take(drawn, False)).to(self.device)
 
 
-def _check_modes(*, boosting_type, mesh, histogram_impl) -> None:
+class _RowPart:
+    """This process's rows of a fit: all ``n`` without a mesh; over
+    ``mesh``'s ``data`` axis rows ``[lo, hi)`` of the inputs padded to a
+    multiple of the axis size, or (``group_sizes``) of the unpadded rows cut
+    at the query-group boundaries nearest to an even split. ``rows`` is the
+    :class:`.hist.RowGroup` the histograms are summed over (None without a
+    mesh)."""
+
+    def __init__(self, n: int, mesh=None, group_sizes=None):
+        d, r = ((mesh.axis_sizes["data"], mesh.coordinate()["data"]) if mesh is not None
+                else (1, 0))
+        if group_sizes is None:
+            self.pad = (-n) % d
+            per = (n + self.pad) // d
+            self.bounds = [(i * per, (i + 1) * per) for i in range(d)]
+            self.groups = None
+        else:
+            self.pad = 0
+            ends = np.concatenate([[0], np.cumsum(np.asarray(group_sizes, np.int64))])
+            cuts = [0]
+            for i in range(1, d):
+                j = int(np.argmin(np.abs(ends - i * n / d)))
+                cuts.append(max(j, cuts[-1]))
+            cuts.append(len(group_sizes))
+            self.bounds = [(int(ends[a]), int(ends[b])) for a, b in zip(cuts, cuts[1:])]
+            self.groups = (cuts[r], cuts[r + 1])
+        self.lo, self.hi = self.bounds[r]
+        self.rows = (RowGroup(mesh.get_group("data") if mesh.device_mesh is not None else None,
+                              n) if mesh is not None else None)
+
+    def take(self, a: np.ndarray, fill=0) -> np.ndarray:
+        """This process's rows of an (n, ...) host array, padded rows ``fill``."""
+        if self.pad:
+            a = np.concatenate([a, np.full((self.pad,) + a.shape[1:], fill, a.dtype)])
+        return a[self.lo:self.hi]
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Every process's rows of a per-row tensor, in row order."""
+        if self.rows is None or self.rows.group is None:
+            return t
+        import torch.distributed as dist
+
+        most = max(hi - lo for lo, hi in self.bounds)
+        padded = torch.zeros((most,) + tuple(t.shape[1:]), dtype=t.dtype, device=t.device)
+        padded[:t.shape[0]] = t
+        parts = [torch.empty_like(padded) for _ in self.bounds]
+        dist.all_gather(parts, padded, group=self.rows.group)
+        return torch.cat([p[:hi - lo] for p, (lo, hi) in zip(parts, self.bounds)])
+
+
+def _check_modes(*, boosting_type, histogram_impl) -> None:
     if boosting_type not in ("gbdt", "goss", "dart", "rf"):
         raise ValueError(f"boosting_type must be gbdt|goss|dart|rf, got {boosting_type!r}")
-    if mesh is not None:
-        raise NotImplementedError("mesh (multi-device training) is not ported to "
-                                  "synapseml_torch yet: ROADMAP.md queue A item 9")
     if histogram_impl not in HIST_IMPLS:
         raise ValueError(f"histogram_impl must be 'segment', 'onehot' or 'pallas', "
                          f"got {histogram_impl!r}")
@@ -446,7 +505,7 @@ def train_booster(features: np.ndarray, labels: np.ndarray, *,
     top_rate/other_rate semantics) | 'dart' (tree dropout with 1/(k+1)
     normalization) | 'rf' (bagged trees on init-score gradients, averaged
     output) — the reference's boostingType surface."""
-    _check_modes(boosting_type=boosting_type, mesh=mesh, histogram_impl=histogram_impl)
+    _check_modes(boosting_type=boosting_type, histogram_impl=histogram_impl)
     dev = resolve_device(device)
     if measures is None:
         measures = InstrumentationMeasures()
@@ -478,19 +537,31 @@ def train_booster(features: np.ndarray, labels: np.ndarray, *,
         # sign under the log link
         raise ValueError(f"{o.name} objective requires non-negative labels")
     K = o.num_model_out
+    is_rank = o.name == "lambdarank"
+    if is_rank and group_sizes is None:
+        raise ValueError("lambdarank requires group_sizes")
+    from ..parallel.mesh import MeshConfig, create_mesh
+
+    if isinstance(mesh, MeshConfig):
+        mesh = create_mesh(mesh)
+    part = _RowPart(n, mesh, group_sizes if is_rank else None)
 
     with measures.measure("device_transfer"):
-        bins = torch.from_numpy(bins_np).to(dev)
-        yd = torch.from_numpy(y).to(dev)
-        wd = torch.from_numpy(w_np).to(dev)
+        y_all = torch.from_numpy(y).to(dev)
+        bins = torch.from_numpy(part.take(bins_np)).to(dev)
+        yd = torch.from_numpy(part.take(y)).to(dev)
+        # padded rows weigh nothing, so no gradient, hessian or goss draw moves
+        wd = torch.from_numpy(part.take(w_np, 0.0)).to(dev)
+    n_local = bins.shape[0]
 
     # ranking: bind the padded-group lambdas
-    is_rank = o.name == "lambdarank"
     if is_rank:
-        if group_sizes is None:
-            raise ValueError("lambdarank requires group_sizes")
-        gslot, gmax = obj.pad_groups(group_sizes)
-        gslot_d, ngroups = torch.from_numpy(gslot).to(dev), len(group_sizes)
+        local_groups = np.asarray(group_sizes)[part.groups[0]:part.groups[1]]
+        gslot, _ = obj.pad_groups(local_groups)
+        # every process pads its groups to the largest group of all, so the
+        # pair sums run over the one-process shapes
+        gmax = obj.pad_groups(group_sizes)[1]
+        gslot_d, ngroups = torch.from_numpy(gslot).to(dev), len(local_groups)
 
         def grad_hess(scores, yv):
             g, h = obj.lambdarank_grad_hess(scores[:, 0], yv, gslot_d, ngroups, gmax)
@@ -528,10 +599,10 @@ def train_booster(features: np.ndarray, labels: np.ndarray, *,
                              "previous full-weight trees into the mean")
         init = torch.from_numpy(np.asarray(prev.init_score, np.float32).reshape(K)).to(dev)
         base = np.asarray(prev.raw_score(x, device=dev), np.float32).reshape(n, K)
-        scores = torch.from_numpy(base).to(dev)
+        scores = torch.from_numpy(part.take(base)).to(dev)
     else:
-        init = o.init_score(yd).reshape(K).to(torch.float32)
-        scores = init[None, :].repeat(n, 1)
+        init = o.init_score(y_all).reshape(K).to(torch.float32)  # over every row
+        scores = init[None, :].repeat(n_local, 1)
 
     cfg = T.GrowthConfig(max_depth=max_depth, num_leaves=num_leaves,
                          num_bins=mapper.num_bins, lambda_l1=lambda_l1,
@@ -576,7 +647,7 @@ def train_booster(features: np.ndarray, labels: np.ndarray, *,
                                and boosting_type != "goss"),  # goss replaces bagging
                        feature_fraction=feature_fraction,
                        k_feat=max(1, int(round(f * feature_fraction))),
-                       other_rate=other_rate)
+                       other_rate=other_rate, part=part)
     k_top = max(1, int(round(top_rate * n)))
 
     def grow_iteration(it: int, scores) -> tuple:
@@ -588,7 +659,8 @@ def train_booster(features: np.ndarray, labels: np.ndarray, *,
             # keep the top_rate fraction by |grad|, sample other_rate of the
             # rest, amplify the sampled small-gradient rows
             gmag = torch.sum(torch.abs(g), dim=1) * wd
-            thresh = torch.sort(gmag).values[n - k_top]
+            every = part.gather(gmag)  # padded rows are 0
+            thresh = torch.sort(every).values[every.shape[0] - k_top]
             is_top = gmag >= thresh
             sel = (is_top | (~is_top & sampler.goss_other(it))).to(torch.float32)
             amp = (1.0 - top_rate) / max(other_rate, 1e-12)
@@ -599,7 +671,7 @@ def train_booster(features: np.ndarray, labels: np.ndarray, *,
         g = g * w_eff
         h = h * w_eff
         grown = [T.grow_tree(bins, g[:, k].contiguous(), h[:, k].contiguous(), presence, cfg,
-                             fmask) for k in range(K)]
+                             fmask, part.rows) for k in range(K)]
         return tuple(torch.stack([getattr(t, name) for t in grown])
                      for name in T.TreeArrays._fields)
 

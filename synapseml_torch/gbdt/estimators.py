@@ -12,9 +12,11 @@ once. ``model_string`` continues training from a booster or a LightGBM
 model string; ``save_native_model`` writes LightGBM's ``model.txt`` beside
 the booster directory.
 
-Not ported yet, each refused with ``NotImplementedError`` naming its
-ROADMAP.md item: ``mesh_config`` (queue A item 9) and the fused sweep
-``_fit_fused`` (item 11, with ``automl/``).
+``mesh_config`` shards the rows over the ``data`` axis of a mesh of the
+process group (:func:`..parallel.create_mesh`): every process fits the
+same DataFrame and grows the same forest. The fused sweep ``_fit_fused``
+is refused with ``NotImplementedError`` naming ROADMAP.md queue A item 11
+(with ``automl/``).
 """
 
 from __future__ import annotations
@@ -108,8 +110,8 @@ class _LightGBMParams:
     model_string = ComplexParam(
         "model_string", "previous booster (Booster or LightGBM model.txt "
         "string) to continue training from (reference modelString)", default=None)
-    mesh_config = ComplexParam("mesh_config", "mesh to shard rows over "
-                               "(not ported yet: ROADMAP.md queue A item 9)", default=None)
+    mesh_config = ComplexParam("mesh_config", "MeshConfig to shard rows over the "
+                               "mesh data axis (multi-process training)", default=None)
     device = Param("device", "torch device to train and score on: 'cuda' (default), "
                    "'cuda:N' or 'cpu'", default="cuda",
                    converter=TypeConverters.to_string,
@@ -145,10 +147,15 @@ class _LightGBMParams:
         valid = DataFrame([{k: v[mask] for k, v in whole.items()}])
         return train, valid
 
+    def _mesh(self):
+        cfg = self.get("mesh_config")
+        if cfg is None:
+            return None
+        from ..parallel.mesh import create_mesh
+
+        return create_mesh(cfg)
+
     def _train_kwargs(self) -> dict:
-        if self.get("mesh_config") is not None:
-            raise NotImplementedError("mesh_config (multi-device training) is not ported "
-                                      "to synapseml_torch yet: ROADMAP.md queue A item 9")
         return dict(
             num_iterations=self.get("num_iterations"),
             learning_rate=self.get("learning_rate"),
@@ -175,6 +182,7 @@ class _LightGBMParams:
             init_model=self.get("model_string"),
             verbose=self.get("verbosity") > 0,
             device=self.get("device"),
+            mesh=self._mesh(),
         )
 
     def _fit_fused(self, df: DataFrame, configs: list[dict]):

@@ -19,13 +19,21 @@ with one power-of-two scale per channel (see the source's note), so two
 launches on the same inputs give bitwise-equal histograms, and its plain
 version reproduces it bit for bit. ``segment`` and ``onehot`` add floats,
 and on the card ``index_add_`` adds them in a different order every run.
+
+Rows split over the processes of a data-parallel fit (:class:`RowGroup`):
+every process's kernel (or plain version) quantises with the scale of the
+one-process fit (its row count, the exponents reduced with MIN over the
+processes) and hands over the raw int64 sums, which are summed over the
+processes and converted once (:func:`fixed_point_convert`), so the
+histogram is the one-process histogram bit for bit. ``segment`` and
+``onehot`` histograms are summed over the processes as floats.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -34,8 +42,8 @@ from ..ops import _build
 
 __all__ = ["level_histogram", "node_totals", "segment_histogram",
            "fixed_point_histogram", "fixed_point_histogram_plain", "fixed_point_scales",
-           "fixed_point_scales_plain", "fixed_point_tree", "FixedPointTree",
-           "HIST_IMPLS"]
+           "fixed_point_scales_plain", "fixed_point_tree", "fixed_point_convert",
+           "FixedPointTree", "RowGroup", "HIST_IMPLS"]
 
 HIST_IMPLS = ("segment", "onehot", "pallas")
 _ONEHOT_ROW_CHUNK = 4096
@@ -81,24 +89,40 @@ def _onehot_level(bins, data, rel, width, num_bins):
 
 # ---------------- the fixed-point histogram: kernel and plain version ----------------
 
-def _scale_exps(data: torch.Tensor) -> list[int]:
+def _scale_exps(data: torch.Tensor, n_scale: int | None = None) -> list[int]:
     """Per-channel exponent k of the kernel's scale 2^k (``scale_exp`` in
     ``csrc/gbdt_hist.cu``): |value| * 2^k < 2^(61 - bitlen(N)) over all N
-    rows, so no sum of N scaled values leaves int64."""
-    n = data.shape[0]
-    maxabs = data.abs().amax(dim=0).tolist() if n else [0.0, 0.0, 0.0]
+    rows (``n_scale`` rows when given), so no sum of N scaled values leaves
+    int64."""
+    n = data.shape[0] if n_scale is None else int(n_scale)
+    maxabs = data.abs().amax(dim=0).tolist() if data.shape[0] else [0.0, 0.0, 0.0]
     return [min(max(61 - n.bit_length() - math.frexp(m)[1], -1000), 1000) for m in maxabs]
 
 
-def fixed_point_scales_plain(grad, hess, presence) -> torch.Tensor:
+def fixed_point_scales_plain(grad, hess, presence, n_total: int | None = None) -> torch.Tensor:
     """The kernel's per-tree scale in plain PyTorch: (3,) int32 exponents of
-    grad, hess and presence."""
-    exps = _scale_exps(torch.stack([grad, hess, presence], dim=1))
+    grad, hess and presence (for a sum of ``n_total`` values when given)."""
+    exps = _scale_exps(torch.stack([grad, hess, presence], dim=1), n_total)
     return torch.tensor(exps, dtype=torch.int32, device=grad.device)
 
 
+def _pow2(exps: torch.Tensor) -> torch.Tensor:
+    """float64 2^e of int exponents (-1022..1023), built from the bits as
+    the kernel's ``pow2``: exact."""
+    return ((exps.to(torch.int64) + 1023) << 52).view(torch.float64)
+
+
+def fixed_point_convert(sums: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Raw int64 fixed-point sums ``(..., 3)`` to float32 as the kernel
+    converts them: ``float(double(sum) * 2^-k)`` a channel (``scale``: the
+    (3,) int32 exponents k)."""
+    return (sums.to(torch.float64) * _pow2(-scale.to(sums.device).to(torch.int64))
+            ).to(torch.float32)
+
+
 def fixed_point_histogram_plain(bins, grad, hess, presence, node_of_row, base: int,
-                                width: int, num_bins: int, scale=None) -> torch.Tensor:
+                                width: int, num_bins: int, scale=None,
+                                int_out: bool = False) -> torch.Tensor:
     """The kernel's function in plain PyTorch, bit for bit: each channel is
     scaled by 2^k in float64 (exact), rounded half to even to int64, summed
     per (node, feature, bin) with integer adds, and turned back into float32
@@ -107,7 +131,7 @@ def fixed_point_histogram_plain(bins, grad, hess, presence, node_of_row, base: i
     ``bins`` None means one feature whose bin is 0 for every row (per-node
     totals). Bins outside ``[0, num_bins)`` and rows whose node is outside
     ``[base, base + width)`` add nothing. Returns (width, F, num_bins, 3)
-    float32."""
+    float32, or with ``int_out`` the raw int64 sums."""
     n = grad.shape[0]
     nf = 1 if bins is None else bins.shape[1]
     device = grad.device
@@ -124,17 +148,16 @@ def fixed_point_histogram_plain(bins, grad, hess, presence, node_of_row, base: i
         keep = valid & (b >= 0) & (b < num_bins)
         seg = torch.where(keep, rel * num_bins + b, WB)
         acc[f].index_add_(0, seg, q)
-    inv = torch.tensor([2.0 ** -k for k in exps], dtype=torch.float64, device=device)
-    hist = (acc[:, :WB].to(torch.float64) * inv).to(torch.float32)
-    return hist.reshape(nf, width, num_bins, 3).transpose(0, 1).contiguous()
+    sums = acc[:, :WB].reshape(nf, width, num_bins, 3).transpose(0, 1).contiguous()
+    return sums if int_out else fixed_point_convert(sums, torch.tensor(exps))
 
 
 _BIN_BYTES = {torch.uint8: 1, torch.int32: 4}
 _PROTOTYPES = {  # ctypes signatures of csrc/gbdt_hist.cu's entry points
     "gbdt_level_hist": ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
-                        + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3
+                        + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4
                         + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p], ctypes.c_int),
-    "gbdt_hist_scales": ([ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 2,
+    "gbdt_hist_scales": ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2,
                          ctypes.c_int),
     "gbdt_hist_scratch_words": ([ctypes.c_int] * 3, ctypes.c_longlong),
 }
@@ -203,22 +226,28 @@ def _check_kernel_args(bins, grad, hess, presence, node_of_row, base, width, num
                          "histogram slots")
 
 
-def fixed_point_scales(grad, hess, presence) -> torch.Tensor:
+def fixed_point_scales(grad, hess, presence, n_total: int | None = None) -> torch.Tensor:
     """(3,) int32 exponents of the fixed-point scale of grad, hess and
     presence (float32 (N,) each): computed once a tree and passed to every
-    level's :func:`fixed_point_histogram`. CUDA tensors launch the kernel's
-    scale pass (one zero fill and one kernel, no host sync; each launch adds
-    one to ``fixed_point_scales.launches``); CPU tensors take
+    level's :func:`fixed_point_histogram`. ``n_total``: the row count the
+    sums run over when these rows are some of a data-parallel fit's (None:
+    N). CUDA tensors launch the kernel's scale pass (one zero fill and one
+    kernel, no host sync; each launch adds one to
+    ``fixed_point_scales.launches``); CPU tensors take
     :func:`fixed_point_scales_plain`."""
     if grad.device.type == "cpu":
-        return fixed_point_scales_plain(grad, hess, presence)
+        return fixed_point_scales_plain(grad, hess, presence, n_total)
     if grad.device.type != "cuda":
         raise ValueError(f"fixed_point_scales: no kernel for device {grad.device}")
     _check_rows(grad, hess, presence, what="fixed_point_scales")
+    n = grad.shape[0]
+    n_scale = n if n_total is None else int(n_total)
+    if n_scale < n or n_scale >= 2 ** 31:
+        raise ValueError(f"fixed_point_scales: n_total must be in [{n}, 2^31), got {n_scale}")
     with torch.cuda.device(grad.device):
         buf = torch.zeros(8, dtype=torch.int32, device=grad.device)
         err = _kernel("gbdt_hist_scales")(grad.data_ptr(), hess.data_ptr(),
-                                          presence.data_ptr(), grad.shape[0], buf.data_ptr(),
+                                          presence.data_ptr(), n, n_scale, buf.data_ptr(),
                                           torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"gbdt_hist scale kernel launch failed with CUDA error {err}")
@@ -242,8 +271,10 @@ def _hist_scratch(nf: int, width: int, num_bins: int, device) -> torch.Tensor | 
 
 def fixed_point_histogram(bins, grad, hess, presence, node_of_row, base: int,
                           width: int, num_bins: int, scale=None,
-                          scratch=None) -> torch.Tensor:
-    """(width, F, num_bins, 3) float32 level histogram, deterministic.
+                          scratch=None, int_out: bool = False) -> torch.Tensor:
+    """(width, F, num_bins, 3) float32 level histogram, deterministic; with
+    ``int_out`` the raw int64 fixed-point sums (the kernel's mode that skips
+    the float conversion, for a sum over processes).
 
     ``bins`` (N, F) uint8 or int32, or None (per-node totals: one feature,
     every row in bin 0, ``num_bins=1``); ``grad``/``hess``/``presence`` (N,)
@@ -257,7 +288,7 @@ def fixed_point_histogram(bins, grad, hess, presence, node_of_row, base: int,
     one to ``fixed_point_histogram.launches``."""
     if grad.device.type == "cpu":
         return fixed_point_histogram_plain(bins, grad, hess, presence, node_of_row,
-                                           base, width, num_bins, scale)
+                                           base, width, num_bins, scale, int_out)
     if grad.device.type != "cuda":
         raise ValueError(f"fixed_point_histogram: no kernel for device {grad.device}")
     _check_kernel_args(bins, grad, hess, presence, node_of_row, base, width, num_bins, scale)
@@ -271,12 +302,14 @@ def fixed_point_histogram(bins, grad, hess, presence, node_of_row, base: int,
         raise ValueError("fixed_point_histogram: scratch must be a fixed_point_tree "
                          f"scratch on {grad.device}")
     with torch.cuda.device(grad.device):
-        out = torch.empty((width, nf, num_bins, 3), dtype=torch.float32, device=grad.device)
+        out = torch.empty((width, nf, num_bins, 3),
+                          dtype=torch.int64 if int_out else torch.float32, device=grad.device)
         err = _kernel("gbdt_level_hist")(
             None if bins is None else bins.data_ptr(),
             0 if bins is None else _BIN_BYTES[bins.dtype],
             grad.data_ptr(), hess.data_ptr(), presence.data_ptr(), node_of_row.data_ptr(),
-            n, nf, base, width, num_bins, scale.data_ptr(), out.data_ptr(),
+            n, nf, base, width, num_bins, scale.data_ptr(),
+            None if int_out else out.data_ptr(), out.data_ptr() if int_out else None,
             scratch.data_ptr(), scratch.numel(), grad.device.index,
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
@@ -286,6 +319,23 @@ def fixed_point_histogram(bins, grad, hess, presence, node_of_row, base: int,
 
 
 fixed_point_histogram.launches = 0
+
+
+class RowGroup(NamedTuple):
+    """The processes a data-parallel fit splits its rows over: their
+    process group (None for a world of one) and the fit's row count."""
+
+    group: Any
+    n_total: int
+
+    def all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """``t`` reduced in place over the group; returns ``t``."""
+        if self.group is not None:
+            import torch.distributed as dist
+
+            dist.all_reduce(t, op=dist.ReduceOp.MIN if op == "min" else dist.ReduceOp.SUM,
+                            group=self.group)
+        return t
 
 
 class FixedPointTree(NamedTuple):
@@ -298,29 +348,49 @@ class FixedPointTree(NamedTuple):
 
 
 def fixed_point_tree(grad, hess, presence, nf: int, max_depth: int,
-                     num_bins: int) -> FixedPointTree:
+                     num_bins: int, rows: RowGroup | None = None) -> FixedPointTree:
     """The per-tree state of :func:`fixed_point_histogram` for a tree of
     ``max_depth`` levels of histograms over ``nf`` features, then the final
-    level's totals: computed once, before the first level."""
+    level's totals: computed once, before the first level. With ``rows``
+    the scale is the one-process fit's: ``rows.n_total`` rows, the
+    exponents reduced with MIN over the processes."""
     widest = _hist_scratch(nf, 2 ** max(max_depth - 1, 0), num_bins, grad.device)
     totals = _hist_scratch(1, 2 ** max_depth, 1, grad.device)
     if widest is not None and totals.numel() > widest.numel():
         widest = totals
-    return FixedPointTree(fixed_point_scales(grad, hess, presence), widest)
+    if rows is None:
+        return FixedPointTree(fixed_point_scales(grad, hess, presence), widest)
+    scale = fixed_point_scales(grad, hess, presence, rows.n_total).clone()
+    return FixedPointTree(rows.all_reduce(scale, "min"), widest)
 
 
 # ---------------- the level histogram and its backends ----------------
 
+def _fixed_point_summed(bins, grad, hess, presence, node_of_row, base, width, num_bins,
+                        tree: FixedPointTree, rows: RowGroup) -> torch.Tensor:
+    """The fixed-point histogram of every process's rows: this process's
+    raw sums, summed over the group, converted once."""
+    sums = fixed_point_histogram(bins, grad, hess, presence, node_of_row, base, width,
+                                 num_bins, *tree, int_out=True)
+    return fixed_point_convert(rows.all_reduce(sums), tree.scale)
+
+
 def level_histogram(bins, grad, hess, presence, node_of_row, base: int, width: int,
                     num_bins: int, impl: str = "segment",
-                    tree: FixedPointTree | None = None) -> torch.Tensor:
+                    tree: FixedPointTree | None = None,
+                    rows: RowGroup | None = None) -> torch.Tensor:
     """(width, F, num_bins, 3) histograms for the ``width`` nodes of one
     level, channels (grad, hess, count). Rows whose node is outside
     ``[base, base + width)`` (rows resting in already-final leaves) add
     nothing. ``impl``: 'segment', 'onehot' or 'pallas' (the CUDA kernel,
     which takes the tree's :func:`fixed_point_tree`, or computes its scale
-    and scratch itself when ``tree`` is None)."""
+    and scratch itself when ``tree`` is None). ``rows``: these rows are
+    this process's of a data-parallel fit; the histogram is every
+    process's (``tree`` required with 'pallas')."""
     if impl == "pallas":
+        if rows is not None:
+            return _fixed_point_summed(bins, grad, hess, presence, node_of_row, base, width,
+                                       num_bins, tree, rows)
         return fixed_point_histogram(bins, grad, hess, presence, node_of_row,
                                      base, width, num_bins, *(tree or (None, None)))
     if impl not in HIST_IMPLS:
@@ -328,23 +398,29 @@ def level_histogram(bins, grad, hess, presence, node_of_row, base: int, width: i
     valid, rel = _level_rows(node_of_row, base, width)
     data = _level_data(grad, hess, presence, valid)
     backend = _segment_level if impl == "segment" else _onehot_level
-    return backend(bins, data, rel, width, num_bins)
+    out = backend(bins, data, rel, width, num_bins)
+    return rows.all_reduce(out) if rows is not None else out
 
 
 def node_totals(grad, hess, presence, node_of_row, base: int, width: int,
-                impl: str = "segment", tree: FixedPointTree | None = None) -> torch.Tensor:
+                impl: str = "segment", tree: FixedPointTree | None = None,
+                rows: RowGroup | None = None) -> torch.Tensor:
     """(width, 3) per-node (grad, hess, count) totals of the final level.
     The kernel path sums them with the kernel, so that a whole fit is
     deterministic; the others with one ``index_add_``, as the JAX package
-    sums them with ``segment_sum`` whatever the backend. ``tree`` as for
-    :func:`level_histogram`."""
+    sums them with ``segment_sum`` whatever the backend. ``tree`` and
+    ``rows`` as for :func:`level_histogram`."""
     if impl == "pallas":
+        if rows is not None:
+            return _fixed_point_summed(None, grad, hess, presence, node_of_row, base, width,
+                                       1, tree, rows).reshape(width, 3)
         return fixed_point_histogram(None, grad, hess, presence, node_of_row, base, width, 1,
                                      *(tree or (None, None))).reshape(width, 3)
     valid, rel = _level_rows(node_of_row, base, width)
     data = _level_data(grad, hess, presence, valid)
-    return torch.zeros((width, 3), dtype=torch.float32,
-                       device=grad.device).index_add_(0, rel, data)
+    out = torch.zeros((width, 3), dtype=torch.float32,
+                      device=grad.device).index_add_(0, rel, data)
+    return rows.all_reduce(out) if rows is not None else out
 
 
 def segment_histogram(seg, data, num_segments: int) -> torch.Tensor:

@@ -244,11 +244,12 @@ def _categorical_prefixes(hist, gl, hl, cl, cat: _CatTables, cfg: GrowthConfig,
 
 
 def _level_step(bins, grad, hess, presence, st: _GrowState, feat_mask, base: int,
-                width: int, cfg: GrowthConfig, mono, fp, cat: _CatTables | None) -> None:
+                width: int, cfg: GrowthConfig, mono, fp, cat: _CatTables | None,
+                rows=None) -> None:
     """One level: histogram → best splits → budget → tree + row partition."""
     num_thresholds = cfg.num_bins - 1  # the NaN bin is never a left-inclusive cut
     hist = level_histogram(bins, grad, hess, presence, st.node_of_row, base, width,
-                           cfg.num_bins, impl=cfg.hist_impl, tree=fp)
+                           cfg.num_bins, impl=cfg.hist_impl, tree=fp, rows=rows)
     g_tot, h_tot, c_tot, gl, hl, cl = level_cum_tables(hist, num_thresholds)
     if cat is not None:
         gl, hl, cl = gl.clone(), hl.clone(), cl.clone()  # views of the cumsum
@@ -324,10 +325,11 @@ def _level_step(bins, grad, hess, presence, st: _GrowState, feat_mask, base: int
 
 
 def _final_level(grad, hess, presence, st: _GrowState, base: int, width: int,
-                 cfg: GrowthConfig, fp) -> None:
+                 cfg: GrowthConfig, fp, rows=None) -> None:
     """At max depth every active node becomes a leaf (no histogram needed —
     just per-node g/h totals)."""
-    tot = node_totals(grad, hess, presence, st.node_of_row, base, width, cfg.hist_impl, fp)
+    tot = node_totals(grad, hess, presence, st.node_of_row, base, width, cfg.hist_impl, fp,
+                      rows)
     active = tot[:, 2] > 0
     ids = slice(base, base + width)
     value = torch.clamp(_leaf_value(tot[:, 0], tot[:, 1], cfg), st.node_lo[ids], st.node_hi[ids])
@@ -335,23 +337,28 @@ def _final_level(grad, hess, presence, st: _GrowState, base: int, width: int,
     st.cover[ids] = tot[:, 2]
 
 
-def grow_tree(bins, grad, hess, presence, cfg: GrowthConfig, feat_mask) -> TreeArrays:
+def grow_tree(bins, grad, hess, presence, cfg: GrowthConfig, feat_mask,
+              rows=None) -> TreeArrays:
     """Grow one tree. ``bins`` (N, F) uint8 or int32; ``grad``/``hess`` (N,)
     float32 (sample weights already folded in); ``presence`` (N,) float32
     0/1 marks real vs padded rows (drives the count channel); ``feat_mask``
-    (F,) bool."""
+    (F,) bool. ``rows`` (a :class:`.hist.RowGroup`): these are this
+    process's rows of a data-parallel fit; every histogram and node total is
+    summed over the processes, so each grows the same tree."""
     cat_width = cfg.num_bins if cfg.categorical_features else 1
     st = _GrowState(max_nodes(cfg.max_depth), bins.shape[0], cat_width, bins.device)
     cat = _cat_tables(cfg, bins.shape[1], bins.device)
     mono = (torch.tensor(cfg.monotone_constraints, dtype=torch.int32, device=bins.device)
             if any(cfg.monotone_constraints) else None)
     # the kernel path's fixed-point scale and scratch, once a tree
-    fp = (fixed_point_tree(grad, hess, presence, bins.shape[1], cfg.max_depth, cfg.num_bins)
+    fp = (fixed_point_tree(grad, hess, presence, bins.shape[1], cfg.max_depth, cfg.num_bins,
+                           rows)
           if cfg.hist_impl == "pallas" else None)
     for d in range(cfg.max_depth):
         _level_step(bins, grad, hess, presence, st, feat_mask, 2 ** d - 1, 2 ** d, cfg, mono,
-                    fp, cat)
-    _final_level(grad, hess, presence, st, 2 ** cfg.max_depth - 1, 2 ** cfg.max_depth, cfg, fp)
+                    fp, cat, rows)
+    _final_level(grad, hess, presence, st, 2 ** cfg.max_depth - 1, 2 ** cfg.max_depth, cfg, fp,
+                 rows)
     return TreeArrays(st.feature, st.threshold_bin, st.leaf_value, st.gain, st.cover,
                       st.cat_mask)
 

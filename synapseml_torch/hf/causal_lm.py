@@ -27,9 +27,16 @@ the model loads, and the dense path and every engine share them. Callables come 
 ``CompiledCache`` under the JAX package's fn ids (``hf_causal_lm``,
 ``llama_paged_*``) and run eagerly.
 
-Not ported yet, each refused with ``NotImplementedError`` naming its
-``ROADMAP.md`` item: ``mesh_config`` / ``partition_rules`` (9),
-``serving_engine()`` / ``serve_llm`` (10).
+``mesh_config`` (with ``partition_rules``, default the Llama table, checked
+against the weights) runs the dense engine over a mesh of the process
+group: each process decodes its rows of a greedy batch and the rows are
+gathered; a sampled batch is decoded whole on every process (its draws
+come from one stream a batch). The weights stay whole on every process, so
+a table that cuts a weight over an axis of size > 1 (the JAX package
+shards them over the mesh) is refused with ``NotImplementedError`` naming
+ROADMAP.md queue A item 9. The paged engine refuses a mesh, as the JAX
+package's does. ``serving_engine()`` / ``serve_llm`` are
+refused with ``NotImplementedError`` naming ROADMAP.md queue A item 10.
 """
 
 from __future__ import annotations
@@ -132,10 +139,12 @@ class HuggingFaceCausalLM(Transformer):
                  "generation deterministic on a device", default=0,
                  converter=TypeConverters.to_int)
     mesh_config = ComplexParam("mesh_config", "MeshConfig for sharded inference "
-                               "(not ported yet: must stay None)", default=None)
-    partition_rules = ComplexParam("partition_rules", "PartitionRules placing the "
-                                   "params on the mesh (not ported yet: must stay "
-                                   "None)", default=None)
+                               "(a greedy batch's rows split over the data-parallel "
+                               "processes; the dense engine only)", default=None)
+    partition_rules = ComplexParam("partition_rules", "PartitionRules regex table "
+                                   "checked against the weights on the mesh (None = "
+                                   "the default Llama table); one that cuts a weight "
+                                   "is refused (ROADMAP.md queue A item 9)", default=None)
     generation_params_col = Param(
         "generation_params_col", "optional column of per-row dicts of "
         "generate kwargs (max_new_tokens/do_sample/temperature/top_k/top_p/"
@@ -190,8 +199,6 @@ class HuggingFaceCausalLM(Transformer):
     # ---- lazy model/tokenizer ----
     def _model_and_tokenizer(self):
         if self.__dict__.get("_cache_model") is None:
-            if self.get("mesh_config") is not None or self.get("partition_rules") is not None:
-                raise _unported("mesh_config / partition_rules", "9 (multi-GPU)")
             device = resolve_device("HuggingFaceCausalLM", self.get("device"))
             # a checkpoint directory or a preset (the reference's
             # AutoModelForCausalLM.from_pretrained path)
@@ -202,8 +209,32 @@ class HuggingFaceCausalLM(Transformer):
                 params = loaded
             if params is None:
                 params = init_llama_params(cfg, seed=0, device=device)
+            self.__dict__["_mesh"] = self._mesh_for(params)
             self.__dict__["_cache_model"] = (load_llama(cfg, params, device), tok)
         return self.__dict__["_cache_model"]
+
+    def _mesh_for(self, params):
+        """The stage's mesh (None without ``mesh_config``), its rule table
+        (``partition_rules``, default the Llama table) checked against the
+        weights: every sharded dim divides over its axes."""
+        if self.get("mesh_config") is None:
+            return None
+        from ..parallel.mesh import create_mesh
+        from ..parallel.partition import (default_llama_rules, match_partition_rules,
+                                          sharded_leaves, tree_shardings)
+
+        mesh = create_mesh(self.get("mesh_config"))
+        rules = self.get("partition_rules") or default_llama_rules(mesh.config)
+        tree_shardings(mesh, match_partition_rules(rules, dict(params)), dict(params))
+        cut = sharded_leaves(rules, {k: tuple(v.shape) for k, v in dict(params).items()},
+                             mesh.axis_sizes)
+        if cut:
+            name, axes = next(iter(cut.items()))
+            raise NotImplementedError(
+                f"sharding the weights by partition_rules ({len(cut)} leaves cut, {name!r} "
+                f"over {axes}; the dense engine keeps every weight whole) is not ported to "
+                f"synapseml_torch yet: ROADMAP.md queue A item 9")
+        return mesh
 
     _GEN_KEYS = ("max_new_tokens", "eos_id", "do_sample", "temperature",
                  "top_k", "top_p", "seed")
@@ -232,17 +263,29 @@ class HuggingFaceCausalLM(Transformer):
             sampling = eff["do_sample"]
             temperature = float(eff["temperature"]) if sampling else 0.0
             top_k, top_p = eff["top_k"], eff["top_p"]
+            # under a mesh each process decodes its rows greedily and the
+            # rows are gathered; sampled rows draw from one stream a batch,
+            # so every process decodes the whole batch there
+            mesh = self.__dict__.get("_mesh")
+            split = mesh is not None and mesh.data_parallel_size() > 1 and not sampling
 
             def fn(ids, mask, offset):
                 # fold the batch's global row offset into the stream so that
                 # identical prompts in different batches draw different samples
                 rng = fold_in(int(eff["seed"]), int(offset)) if sampling else None
-                return generate(model, torch.from_numpy(ids), eff["max_new_tokens"],
-                                eos_id=eff["eos_id"], prompt_mask=torch.from_numpy(mask),
-                                temperature=temperature,
-                                top_k=None if top_k is None else int(top_k),
-                                top_p=None if top_p is None else float(top_p),
-                                rng=rng).cpu().numpy()
+                if split:
+                    ids, mask = mesh.shard_batch(ids), mesh.shard_batch(mask)
+                out = generate(model, torch.from_numpy(ids), eff["max_new_tokens"],
+                               eos_id=eff["eos_id"], prompt_mask=torch.from_numpy(mask),
+                               temperature=temperature,
+                               top_k=None if top_k is None else int(top_k),
+                               top_p=None if top_p is None else float(top_p),
+                               rng=rng)
+                if split:
+                    from ..parallel.collectives import all_gather_dim
+
+                    out = all_gather_dim(mesh, out, ("data", "fsdp"))
+                return out.cpu().numpy()
             return fn
 
         return cb.get_compiled_cache().get(
@@ -278,6 +321,9 @@ class HuggingFaceCausalLM(Transformer):
             from ..models.paged_engine import PagedDecodeEngine
 
             model, _tok = self._model_and_tokenizer()
+            if self.__dict__.get("_mesh") is not None:
+                raise ValueError("engine='paged' does not support mesh_config yet; "
+                                 "sharded generation rides the dense path")
             sampling = bool(eff["do_sample"])
             slots = self.get("decode_slots") or max(int(self.get("batch_size")), 2)
             draft_layers, drafter = self._resolve_drafter()
@@ -322,6 +368,11 @@ class HuggingFaceCausalLM(Transformer):
             raise ValueError(f"engine must be 'dense' or 'paged', got {engine_kind!r}")
         model, tok = self._model_and_tokenizer()
         B = self.get("batch_size")
+        mesh = self.__dict__.get("_mesh")
+        dp = mesh.data_parallel_size() if mesh is not None else 1
+        if B % dp:
+            raise ValueError(f"batch_size ({B}) must be a multiple of the mesh's "
+                             f"data-parallel size ({dp})")
         bucket = self.get("prompt_bucket")
         bucketer = cb.default_bucketer()
         pcol = self.get("generation_params_col")
@@ -369,6 +420,7 @@ class HuggingFaceCausalLM(Transformer):
                     P = ids.shape[1]
                     outs = []
                     for s, e, row_bucket in bucketer.slices(m, B):
+                        row_bucket = cb.round_up_to_multiple(row_bucket, dp)
                         ib = cb.pad_rows(ids[s:e], row_bucket)
                         mb = cb.pad_rows(mask[s:e], row_bucket, mode="constant", constant=1)
                         fn = self._generate_fn(row_bucket, P, eff)

@@ -17,8 +17,9 @@ Rows go through ``ShapeBucketer.slices`` and ``pad_rows``; padded rows
 keep mask 1 so that their pooled denominators stay nonzero, and are sliced
 off. Each (bucket, seq_len) takes one callable from the process-wide
 ``CompiledCache`` under ``"hf_embedder"``, run eagerly under
-``torch.inference_mode()`` on a module built once a stage. ``mesh_config``
-is refused (ROADMAP.md queue A item 9).
+``torch.inference_mode()`` on a module built once a stage. With
+``mesh_config`` each process embeds its rows of a batch over a mesh of the
+process group and the embeddings are gathered on every process.
 """
 
 from __future__ import annotations
@@ -86,8 +87,9 @@ class HuggingFaceSentenceEmbedder(Transformer):
                           converter=TypeConverters.to_int)
     batch_size = Param("batch_size", "rows per padded batch", default=32,
                        converter=TypeConverters.to_int)
-    mesh_config = ComplexParam("mesh_config", "MeshConfig for sharded embedding "
-                               "(not ported yet: must stay None)", default=None)
+    mesh_config = ComplexParam("mesh_config", "MeshConfig for sharded embedding (a "
+                               "batch's rows split over the data-parallel processes, "
+                               "gathered on every process)", default=None)
     device = Param("device", "torch device: 'cuda' (default), 'cuda:N' or 'cpu'",
                    default="cuda", converter=TypeConverters.to_string,
                    validator=lambda v: device_type(v) in ("cuda", "cpu"))
@@ -105,11 +107,12 @@ class HuggingFaceSentenceEmbedder(Transformer):
     def _setup(self):
         """``(embed_fn, tokenizer)``: the module on its device, built once."""
         if self.__dict__.get("_cache_model") is None:
-            if self.get("mesh_config") is not None:
-                raise NotImplementedError("HuggingFaceSentenceEmbedder: mesh_config is not "
-                                          "ported to synapseml_torch yet: ROADMAP.md queue A "
-                                          "item 9 (multi-GPU)")
             device = resolve_device("HuggingFaceSentenceEmbedder", self.get("device"))
+            mesh = None
+            if self.get("mesh_config") is not None:
+                from ..parallel.mesh import create_mesh
+
+                mesh = create_mesh(self.get("mesh_config"))
             cfg, loaded, tok = resolve_model_source(
                 self.get("model_name"), _ARCHS, self.get("tokenizer"),
                 functools.partial(pretrained_encoder, dtype=torch.float32),
@@ -129,6 +132,8 @@ class HuggingFaceSentenceEmbedder(Transformer):
             cls_pool, normalize = self.get("pooling") == "cls", self.get("normalize")
 
             def embed_fn(ids: np.ndarray, mask: np.ndarray) -> np.ndarray:
+                if mesh is not None:  # this process's rows; gathered below
+                    ids, mask = mesh.shard_batch(ids), mesh.shard_batch(mask)
                 with torch.inference_mode():
                     m = torch.from_numpy(mask).to(device)
                     h = module(torch.from_numpy(ids).to(device), m)  # [B, T, H]
@@ -140,8 +145,13 @@ class HuggingFaceSentenceEmbedder(Transformer):
                     if normalize:
                         pooled = pooled / torch.linalg.vector_norm(
                             pooled, dim=-1, keepdim=True).clamp_min(1e-9)
+                    if mesh is not None:
+                        from ..parallel.collectives import all_gather_dim
+
+                        pooled = all_gather_dim(mesh, pooled, ("data", "fsdp"))
                     return pooled.float().cpu().numpy()
 
+            self.__dict__["_mesh"] = mesh
             self.__dict__["_cache_model"] = (embed_fn, tok)
         return self.__dict__["_cache_model"]
 
@@ -158,6 +168,8 @@ class HuggingFaceSentenceEmbedder(Transformer):
         _embed_fn, tok = self._setup()
         B = self.get("batch_size")
         bucketer = cb.default_bucketer()
+        mesh = self.__dict__.get("_mesh")
+        dp = mesh.data_parallel_size() if mesh is not None else 1
 
         def per_part(p):
             texts = [str(t) for t in p[self.get("input_col")]]
@@ -171,6 +183,7 @@ class HuggingFaceSentenceEmbedder(Transformer):
             mask = np.asarray(enc["attention_mask"], np.int32)
             chunks = []
             for s, e, bucket in bucketer.slices(n, B):
+                bucket = cb.round_up_to_multiple(bucket, dp)  # rows split evenly
                 ib = cb.pad_rows(ids[s:e], bucket)
                 # padded rows keep mask=1 so pooled denominators stay
                 # nonzero; their embeddings are sliced off below

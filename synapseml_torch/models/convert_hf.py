@@ -30,9 +30,8 @@ a checkpoint directory comes through :func:`..tokenizer.from_huggingface`,
 which imports ``transformers`` only when called.
 
 A Mixtral directory (``num_local_experts``) maps to dropless ``scatter``
-MoE layers, as the JAX mapping does. Not ported: ``shard_pretrained_params``,
-the multi-GPU plane (ROADMAP.md queue A item 9), raises
-``NotImplementedError`` naming its item.
+MoE layers, as the JAX mapping does. :func:`shard_pretrained_params`
+places a converted ``state_dict`` on a mesh by the rule table.
 """
 
 from __future__ import annotations
@@ -680,7 +679,16 @@ def pretrained_causal_lm(ckpt_dir: str, **cfg_overrides):
 
 
 def shard_pretrained_params(params, mesh_config, partition_rules=None):
-    """Placing converted weights on a device mesh waits for the multi-GPU
-    plane (``parallel/partition.py``)."""
-    raise NotImplementedError("shard_pretrained_params is not ported to synapseml_torch "
-                              "yet: ROADMAP.md queue A item 9 (multi-GPU)")
+    """Place a converted ``state_dict`` on a mesh of the process group by the
+    declarative rule table (``parallel.partition``): no module init, any
+    tree this module emits. Returns ``(mesh_ctx, placed_params)``, each
+    leaf a ``DTensor`` with its table placement (the tensor itself in a
+    world of one process without a process group); ``partition_rules``
+    defaults to the Llama table (which covers the GPT-2 map's names)."""
+    from ..parallel.mesh import create_mesh
+    from ..parallel.partition import default_llama_rules, shard_tree
+
+    mesh_ctx = create_mesh(mesh_config)
+    rules = (partition_rules if partition_rules is not None
+             else default_llama_rules(mesh=mesh_ctx.config))
+    return mesh_ctx, shard_tree(params, mesh_ctx, rules)

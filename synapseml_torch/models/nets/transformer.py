@@ -68,7 +68,10 @@ class TransformerConfig:
     gated_mlp: bool = False  # SwiGLU when True
     act: str = "gelu"
     norm_eps: float = 1e-6
-    attn_impl: str = "einsum"  # or 'flash' (the CUDA kernel)
+    # 'einsum', 'flash' (the CUDA kernel), or 'ring' / 'ulysses': sequence
+    # parallelism over `seq_axis` of the current mesh (flash without one)
+    attn_impl: str = "einsum"
+    seq_axis: str = "seq"
     use_rope: bool = False
     rope_theta: float = 10000.0
     # learned absolute position embeddings added by the LM wrapper (GPT-2
@@ -219,8 +222,9 @@ class Attention(nn.Module):
 
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
-        if cfg.attn_impl not in ("einsum", "flash"):
-            raise ValueError(f"attn_impl must be 'einsum' or 'flash', got {cfg.attn_impl!r}")
+        if cfg.attn_impl not in ("einsum", "flash", "ring", "ulysses"):
+            raise ValueError(f"attn_impl must be 'einsum', 'flash', 'ring' or 'ulysses', "
+                             f"got {cfg.attn_impl!r}")
         self.cfg = cfg
         H, KV, D = cfg.n_heads, cfg.kv_heads, cfg.head_dim
         pd = cfg.param_dtype
@@ -258,8 +262,30 @@ class Attention(nn.Module):
         # mask takes the einsum path
         mask_is_kv_shaped = (mask is not None and mask.dim() == 4
                              and mask.shape[1] == 1 and mask.shape[2] == 1)
-        if cfg.attn_impl == "flash" and (mask is None or mask_is_kv_shaped):
-            kv_mask = mask[:, 0, 0, :] if mask_is_kv_shaped else None
+        eligible = mask is None or mask_is_kv_shaped
+        kv_mask = mask[:, 0, 0, :] if mask_is_kv_shaped else None
+        impl = cfg.attn_impl
+        if impl in ("ring", "ulysses") and eligible:
+            # the JAX module's dispatch: sequence parallelism only on a mesh
+            # whose seq axis is larger than 1, else the local flash kernel
+            from ...parallel.mesh import current_mesh
+
+            mesh = current_mesh()
+            if mesh is not None and mesh.axis_sizes.get(cfg.seq_axis, 1) > 1:
+                from ...ops import ring_attention_sharded, ulysses_attention_sharded
+
+                # the rows are this process's already: no batch split
+                sharded = ulysses_attention_sharded if impl == "ulysses" \
+                    else ring_attention_sharded
+                return sharded(mesh, q, k, v, kv_mask=kv_mask, causal=cfg.causal,
+                               seq_axis=cfg.seq_axis, batch_axes=())
+            import warnings
+
+            warnings.warn(f"attn_impl={impl!r} requested but no mesh with a "
+                          f"'{cfg.seq_axis}' axis (size>1) is in scope; using the local "
+                          f"flash kernel instead", stacklevel=2)
+            impl = "flash"
+        if impl == "flash" and eligible:
             return flash_attention(q, k, v, kv_mask=kv_mask, causal=cfg.causal)
 
         if cfg.causal:

@@ -31,10 +31,17 @@ dropping it when a param it depends on changes. Scoring runs under
 Both stages run on ``device`` (default ``"cuda"``; a host without a CUDA
 device must ask for ``"cpu"``). ``model_params`` is this package's
 ``state_dict`` as numpy arrays; :func:`..convert_jax.bert_state_dict_from_flax`
-maps a JAX model's Flax tree to it. Not ported yet, each refused with
-``NotImplementedError`` naming its ``ROADMAP.md`` item: training
-checkpoints (``checkpoint_dir``), ``mesh_config`` and ``ring``/``ulysses``
-attention.
+maps a JAX model's Flax tree to it.
+
+``checkpoint_dir`` writes the fit's training checkpoints there
+(``checkpoint_every``, ``checkpoint_keep``; an
+:class:`~synapseml_torch.parallel.AsyncCheckpointer`); ``mesh_config``
+trains over a mesh of the process group (:func:`..parallel.create_mesh`:
+every process fits the same DataFrame and takes its rows of each batch),
+where ``attn_impl='ring'``/``'ulysses'`` shard the tokens over the mesh's
+``seq`` axis (the local flash kernel, with a warning, when it has size 1).
+``DeepTextModel(mesh_config=)`` scores each batch's rows over the
+data-parallel processes and gathers the scores on every process.
 """
 
 from __future__ import annotations
@@ -48,12 +55,14 @@ from ..core import DataFrame, Estimator, Model
 from ..core import batching as cb
 from ..core.device import device_type, resolve_device
 from ..core.params import ComplexParam, Param, TypeConverters
+from ..parallel.mesh import create_mesh
 from .convert_hf import (host_tensor, is_checkpoint_dir, legacy_prenorm_fixup,
                          pretrained_text_classifier, tokenizer_for_checkpoint)
 from .convert_jax import bert_state_dict_from_flax, init_flax_bert_params
 from .nets.bert import BertClassifier, bert_base, bert_tiny
 from .tokenizer import resolve_tokenizer
-from .trainer import Trainer, TrainerConfig, fit_arrays, plan_fit
+from .trainer import (Trainer, TrainerConfig, _fit_with_optional_checkpointing, fit_arrays,
+                      plan_fit)
 
 __all__ = ["DeepTextClassifier", "DeepTextModel"]
 
@@ -75,11 +84,6 @@ def _init_params(cfg, num_classes: int, seed: int) -> dict:
     """The classifier's initial ``state_dict``: the JAX package's
     initialisers, drawn with numpy from ``seed``."""
     return bert_state_dict_from_flax(init_flax_bert_params(cfg, num_classes, seed))
-
-
-def _unported(what: str, item: str, stage: str = "DeepTextClassifier") -> NotImplementedError:
-    return NotImplementedError(f"{stage}: {what} is not ported to "
-                               f"synapseml_torch yet: ROADMAP.md queue A item {item}")
 
 
 class _TextParams:
@@ -117,22 +121,24 @@ class DeepTextClassifier(Estimator, _TextParams):
                        "(horovod backward_passes_per_step analog)", default=1,
                        converter=TypeConverters.to_int)
     seed = Param("seed", "init seed", default=0, converter=TypeConverters.to_int)
-    checkpoint_dir = Param("checkpoint_dir", "directory for training checkpoints "
-                           "(not ported yet: must stay None)", default=None)
+    checkpoint_dir = Param("checkpoint_dir", "when set, write async training "
+                           "checkpoints here; resume through "
+                           "trainer.fit_source(resume_from=)", default=None)
     checkpoint_every = Param("checkpoint_every", "checkpoint every N optimizer "
-                             "steps (0 = only the final state)", default=0,
+                             "steps — the scanned chunk shrinks to N when smaller "
+                             "(0 = only the final state)", default=0,
                              converter=TypeConverters.to_int)
     checkpoint_keep = Param("checkpoint_keep", "retain the most recent K "
                             "checkpoints", default=3,
                             converter=TypeConverters.to_int)
     attn_impl = Param("attn_impl", "attention backend: einsum | flash | ring "
-                      "| ulysses (None = architecture default); ring and "
-                      "ulysses are not ported yet", default=None,
+                      "| ulysses (None = architecture default; ring/ulysses "
+                      "need a mesh with a seq axis > 1; ulysses also needs "
+                      "n_heads divisible by the seq-axis size)", default=None,
                       validator=lambda v: v in (None, "einsum", "flash",
                                                 "ring", "ulysses"))
     tokenizer = ComplexParam("tokenizer", "tokenizer object/config/name", default=None)
-    mesh_config = ComplexParam("mesh_config", "MeshConfig override (not ported yet: "
-                               "must stay None)", default=None)
+    mesh_config = ComplexParam("mesh_config", "MeshConfig override", default=None)
     weight_decay = Param("weight_decay", "adamw weight decay", default=0.01,
                          converter=TypeConverters.to_float)
 
@@ -156,20 +162,11 @@ class DeepTextClassifier(Estimator, _TextParams):
 
         return frozen
 
-    def _refuse_unported(self) -> None:
-        if self.get("checkpoint_dir"):
-            raise _unported("checkpoint_dir", "9 (parallel/checkpoint.py)")
-        if self.get("mesh_config") is not None:
-            raise _unported("mesh_config", "9 (multi-GPU)")
-        if self.get("attn_impl") in ("ring", "ulysses"):
-            raise _unported(f"attn_impl={self.get('attn_impl')!r}", "9 (multi-GPU)")
-
     def _fit_plan(self, df: DataFrame):
         """What the fit runs: ``(trainer, data, fit_arrays keywords, cfg,
         tokenizer)`` for ``df``, the trainer on the stage's device with its
         module and ``TrainerConfig``, the keywords those of the reference
         stage's ``fit_arrays`` call (its default ``scan_chunk``)."""
-        self._refuse_unported()
         device = resolve_device("DeepTextClassifier", self.get("device"))
         ck, num_classes = self.get("checkpoint"), self.get("num_classes")
         if is_checkpoint_dir(ck):
@@ -203,14 +200,18 @@ class DeepTextClassifier(Estimator, _TextParams):
             warmup_steps=max(total // 10, 1), lr_schedule="linear",
             freeze_predicate=self._freeze_predicate(cfg.n_layers),
         )
-        trainer = Trainer(module, tcfg, device=device)
+        mesh = (create_mesh(self.get("mesh_config"))
+                if self.get("mesh_config") is not None else None)
+        trainer = Trainer(module, tcfg, device=device, mesh=mesh)
         kw = dict(batch_size=bs, total_steps=total, seed=self.get("seed"), init_params=init)
         return trainer, data, kw, cfg, tok
 
     def _fit(self, df: DataFrame) -> "DeepTextModel":
         trainer, data, kw, cfg, tok = self._fit_plan(df)
         num_classes = self.get("num_classes")
-        state = fit_arrays(trainer, data, **kw)
+        state = _fit_with_optional_checkpointing(
+            self, lambda ck, every: fit_arrays(trainer, data, checkpointer=ck,
+                                               checkpoint_every=every, **kw))
         trainer.release_graphs()  # the captured steps' memory pools
         model_params = {k: v.detach().cpu().numpy() for k, v in state.params.items()}
         # the arch is always saved, so the model keeps evaluating with the
@@ -238,7 +239,9 @@ class DeepTextModel(Model, _TextParams):
                                 "package's BertClassifier state_dict as numpy "
                                 "arrays (convert_jax maps a Flax tree)")
     mesh_config = ComplexParam("mesh_config", "MeshConfig for sharded inference "
-                               "(not ported yet: must stay None)", default=None)
+                               "(each batch's rows split over the data-parallel "
+                               "processes, the scores gathered on every process)",
+                               default=None)
     arch_config = ComplexParam("arch_config", "TransformerConfig (None = "
                                "resolve checkpoint preset)", default=None)
     tokenizer_config = ComplexParam("tokenizer_config", "tokenizer config dict")
@@ -268,8 +271,6 @@ class DeepTextModel(Model, _TextParams):
     def _get_module(self) -> BertClassifier:
         """The module on its device, built once per stage."""
         if self._module is None:
-            if self.get("mesh_config") is not None:
-                raise _unported("mesh_config", "9 (multi-GPU)", "DeepTextModel")
             tok = resolve_tokenizer(self.get("tokenizer_config"))
             params = self.get("model_params")
             cfg = self.get("arch_config")
@@ -289,22 +290,37 @@ class DeepTextModel(Model, _TextParams):
                      for k, v in params.items()}
             module.load_state_dict(state, assign=True)
             self._tok, self._device = tok, device
+            self._mesh = (create_mesh(self.get("mesh_config"))
+                          if self.get("mesh_config") is not None else None)
             self._module = module.eval()
         return self._module
 
     def _score(self, ids: np.ndarray, mask: np.ndarray) -> np.ndarray:
-        """Softmax scores of one padded batch, as a host array."""
+        """Softmax scores of one padded batch, as a host array. Under a mesh
+        this process scores its rows and the scores of every process's rows
+        are gathered."""
         module = self._get_module()
-        with torch.inference_mode():
+        mesh = self._mesh
+        if mesh is None:
+            with torch.inference_mode():
+                logits = module(torch.from_numpy(ids).to(self._device),
+                                torch.from_numpy(mask).to(self._device))
+                return torch.softmax(logits, dim=-1).cpu().numpy()
+        from ..parallel.collectives import all_gather_dim
+
+        ids, mask = mesh.shard_batch(ids), mesh.shard_batch(mask)
+        with torch.inference_mode(), mesh:
             logits = module(torch.from_numpy(ids).to(self._device),
                             torch.from_numpy(mask).to(self._device))
-            return torch.softmax(logits, dim=-1).cpu().numpy()
+            probs = all_gather_dim(mesh, torch.softmax(logits, dim=-1), ("data", "fsdp"))
+            return probs.cpu().numpy()
 
     def _transform(self, df: DataFrame) -> DataFrame:
         self.require_columns(df, self.get("text_col"))
         self._get_module()
         bs = self.get("batch_size")
         bucketer = cb.default_bucketer()
+        dp = self._mesh.data_parallel_size() if self._mesh is not None else 1
 
         def per_part(part):
             texts = list(part[self.get("text_col")])
@@ -319,6 +335,7 @@ class DeepTextModel(Model, _TextParams):
             mask = np.asarray(enc["attention_mask"])
             probs_chunks = []
             for s, e, bucket in bucketer.slices(len(texts), bs):
+                bucket = cb.round_up_to_multiple(bucket, dp)  # rows split evenly
                 p = self._score(cb.pad_rows(ids[s:e], bucket), cb.pad_rows(mask[s:e], bucket))
                 probs_chunks.append(cb.unpad_rows(p, e - s))
             probs = np.concatenate(probs_chunks, axis=0)

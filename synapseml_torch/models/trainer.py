@@ -1,7 +1,8 @@
-"""Single-device trainer: the counterpart of ``synapseml_tpu/models/trainer.py``.
+"""The trainer: the counterpart of ``synapseml_tpu/models/trainer.py``.
 
 The JAX package jits one train step over a named mesh and scans chunks of
-steps on the device. Here one ``nn.Module`` on one device takes each step
+steps on the device. Here each process holds one ``nn.Module`` on its
+device (one process a card; a mesh of them below) and takes each step
 as the forward and ``loss.backward()`` with the module in ``eval()`` mode
 (dropout stays off, as the JAX step applies the module without a dropout
 rng), then the optimizer of ``_make_optimizer`` (``:214-230`` there),
@@ -37,10 +38,29 @@ calls the module with ``train=True``, whose BatchNorm layers normalise with
 the batch's statistics and update their running statistics in place, and
 ``TrainState.batch_stats`` holds those buffers by ``state_dict`` name: a
 captured chunk updates them on every replay, and nothing is read back to
-the host. Not ported yet, each refused with ``NotImplementedError`` naming its
-``ROADMAP.md`` item: checkpointing (``checkpointer``, ``checkpoint_every``,
-``resume_from``), gang training (``gang``, ``fit_gang_source``), a mesh
-and ``partition_rules``/``zero_shard``.
+the host.
+
+Under a mesh (``Trainer(mesh=)``, a
+:class:`~synapseml_torch.parallel.MeshContext`) each process takes its rows
+of the global batch every process supplies (split over ``data`` x
+``fsdp``), the module computes on whole parameters on every process, the
+loss is this process's share of the global masked mean, and the gradients
+are summed over the data-parallel group, so every process steps the same
+global gradient and the clip's norm is the global one. ``seq`` ranks hold
+the same rows; ring and Ulysses attention shard the tokens inside the
+attention (``models/nets/transformer.py``). ``zero_shard`` (with a
+``partition_rules`` table) cuts the trained leaves, flattened, into one
+span a process of the table's ``zero_axes``: each process keeps the
+moments of its span, updates that span of the parameters, and one
+all-gather makes them whole again. Placing the parameters themselves is
+not ported: a mesh with ``tensor`` > 1, and a rule table that cuts a
+parameter over an axis of size > 1, are refused with
+``NotImplementedError`` naming ROADMAP.md queue A item 9.
+Checkpoints (``fit(checkpointer=, checkpoint_every=)``,
+``fit_source(resume_from=)``) hold the full tree; restore places it
+through :meth:`Trainer.checkpoint_sharding_fn`. Gang training (``gang``,
+``fit_gang_source``) is refused with ``NotImplementedError`` naming
+ROADMAP.md queue A item 9.
 """
 
 from __future__ import annotations
@@ -70,7 +90,6 @@ __all__ = ["TrainerConfig", "Trainer", "TrainState", "NonFiniteLossError",
            "fit_gang_source"]
 
 _MULTI_GPU = "ROADMAP.md queue A item 9 (multi-GPU)"
-_CHECKPOINTS = "ROADMAP.md queue A item 9 (parallel/checkpoint.py)"
 
 
 def _unported(what: str, item: str) -> NotImplementedError:
@@ -97,12 +116,11 @@ class TrainerConfig:
     # aux_loss, averaged over the layers); only consulted when the module's
     # config has moe_experts > 0
     moe_aux_weight: float = 0.01
+    # declarative sharding (parallel.PartitionRules): a table that cuts a
+    # parameter over an axis of size > 1 is refused (queue A item 9);
+    # zero_shard cuts the moments and the update over the table's zero_axes
     partition_rules: Any | None = None
     zero_shard: bool = False
-
-    def __post_init__(self):
-        if self.partition_rules is not None or self.zero_shard:
-            raise _unported("partition_rules / zero_shard", _MULTI_GPU)
 
 
 class NonFiniteLossError(RuntimeError):
@@ -120,14 +138,22 @@ class NonFiniteLossError(RuntimeError):
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
-                       mask: torch.Tensor | None = None) -> torch.Tensor:
+                       mask: torch.Tensor | None = None,
+                       count: torch.Tensor | float | None = None) -> torch.Tensor:
     """Mean negative log-likelihood in float32; with ``mask`` (the loader's
-    ``_valid``) a masked mean over ``max(sum(mask), 1)`` rows."""
+    ``_valid``) a masked mean over ``max(sum(mask), 1)`` rows. ``count``
+    replaces the row count (the mask's sum, or the rows) as the
+    denominator: a data-parallel process's share of the global mean."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
     if mask is not None:
-        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
-    return torch.mean(nll)
+        nll = nll * mask
+        if count is None:
+            count = torch.sum(mask)
+        return torch.sum(nll) / torch.clamp(count, min=1.0)
+    if count is None:
+        return torch.mean(nll)
+    return torch.sum(nll) / count
 
 
 # ---------------------------------------------------------------------------
@@ -192,6 +218,19 @@ class OptState:
     mini_step: int = 0
 
 
+@dataclasses.dataclass
+class _ZeroSpan:
+    """ZeRO's cut of the trained leaves, flattened and padded to ``world``
+    equal spans: the zero axes' process group, this process's span
+    ``[lo, lo + span)``, and the leaves' sizes in order."""
+
+    group: Any
+    world: int
+    lo: int
+    span: int
+    sizes: list[int]
+
+
 class _Optimizer:
     """Global-norm clip then AdamW over the trained leaves, with frozen
     leaves left as they are and ``MultiSteps`` accumulation: the optax chain
@@ -214,11 +253,59 @@ class _Optimizer:
         self.train_idx = [i for i, n in enumerate(self.names)
                           if pred is None or not pred(tuple(n.split(".")))]
         self.schedule = _make_schedule(cfg)
+        # ZeRO (:meth:`shard`): the zero axes' group and this process's span
+        # of the trained leaves flattened; None where every process holds
+        # the whole moments
+        self.zero: _ZeroSpan | None = None
+
+    def shard(self, mesh, params: list[torch.Tensor]) -> None:
+        """ZeRO (``cfg.zero_shard`` with a rule table, on a mesh whose
+        ``zero_axes`` group has more than one process): the trained leaves,
+        flattened into one vector padded to a multiple of the group's size,
+        are cut into equal spans; this process keeps the moments of its span
+        only and updates that span of the parameters."""
+        import torch.distributed as dist
+
+        self.zero = None
+        rules = self.cfg.partition_rules
+        if rules is None or not self.cfg.zero_shard or mesh is None:
+            return
+        group = mesh.process_group(rules.zero_axes)
+        if group is None:
+            return
+        train = [params[i] for i in self.train_idx]
+        if len({p.dtype for p in train}) > 1:
+            raise ValueError("zero_shard needs one dtype over the trained leaves")
+        n, world = sum(p.numel() for p in train), dist.get_world_size(group)
+        span = -(-n // world)
+        self.zero = _ZeroSpan(group, world, dist.get_rank(group) * span, span,
+                              [p.numel() for p in train])
+
+    def local(self, tensors: list[torch.Tensor]) -> torch.Tensor:
+        """This process's ZeRO span of the trained leaves' whole ``tensors``."""
+        z = self.zero
+        flat = torch.cat([t.reshape(-1) for t in tensors])
+        flat = torch.nn.functional.pad(flat, (0, z.span * z.world - flat.numel()))
+        return flat[z.lo:z.lo + z.span]
+
+    def full(self, span: torch.Tensor, like: list[torch.Tensor]) -> list[torch.Tensor]:
+        """Every process's ZeRO span gathered (one all-gather) and cut back
+        into whole leaves shaped as ``like``."""
+        import torch.distributed as dist
+
+        z = self.zero
+        out = torch.empty(z.span * z.world, dtype=span.dtype, device=span.device)
+        dist.all_gather_into_tensor(out, span.contiguous(), group=z.group)
+        pieces = torch.split(out[:sum(z.sizes)], z.sizes)
+        return [t.view_as(ref) for t, ref in zip(pieces, like)]
 
     def init(self, params: list[torch.Tensor]) -> OptState:
         train = [params[i] for i in self.train_idx]
         zeros = lambda: [torch.zeros_like(p) for p in train]  # noqa: E731
-        return OptState(mu=zeros(), nu=zeros(),
+        moments = zeros
+        if self.zero is not None:
+            moments = lambda: [train[0].new_zeros(self.zero.span)]  # noqa: E731
+        return OptState(mu=moments(), nu=moments(),
                         acc=zeros() if self.cfg.grad_accum > 1 else None)
 
     def plan(self, state: OptState, n: int) -> tuple[np.ndarray, list[int]]:
@@ -271,6 +358,9 @@ class _Optimizer:
         torch._foreach_div_(g, torch.where(clip, norm, torch.ones_like(norm)))
         torch._foreach_mul_(g, torch.where(clip, torch.full_like(norm, cfg.grad_clip),
                                            torch.ones_like(norm)))
+        whole = p
+        if self.zero is not None:  # each process updates its span
+            g, p = [self.local(g)], [self.local(p)]
         # scale_by_adam: moments, then bias correction by the new count
         b1, b2 = cfg.b1, cfg.b2
         torch._foreach_mul_(state.mu, b1)
@@ -288,6 +378,9 @@ class _Optimizer:
         torch._foreach_add_(upd, torch._foreach_mul(p, cfg.weight_decay))
         torch._foreach_mul_(upd, scalars[self.NEG_LR])
         torch._foreach_add_(p, upd)
+        if self.zero is not None:  # gather the updated spans into the whole leaves
+            for dst, src in zip(whole, self.full(p[0], whole)):
+                dst.copy_(src)
         if k > 1:
             torch._foreach_mul_(state.acc, 0.0)
 
@@ -319,6 +412,18 @@ def _init_buffers(module: nn.Module, values: dict | None) -> None:
             raise ValueError(f"shape mismatch for {name!r}: given {tuple(v.shape)}, module "
                              f"{tuple(buf.shape)}")
         buf.copy_(v.to(buf.dtype))
+
+
+def _full_tensor(x) -> torch.Tensor:
+    """A restored leaf as a whole CPU tensor: a ``DTensor`` gathered (every
+    process of its mesh joins), an array wrapped."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(x, DTensor):
+        x = x.full_tensor()
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu()
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(x)))
 
 
 def _scalars_on(table: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -477,9 +582,35 @@ class Trainer:
                  loss_fn: Callable[[nn.Module, dict], torch.Tensor] | None = None,
                  *, device: str | torch.device = "cuda", mesh=None,
                  has_batch_stats: bool = False):
-        if mesh is not None:
-            raise _unported("a mesh", _MULTI_GPU)
         self.device = resolve_device("Trainer", device)
+        from ..parallel.mesh import MeshConfig, create_mesh
+
+        if isinstance(mesh, MeshConfig):
+            mesh = create_mesh(mesh)
+        if mesh is not None and mesh.device_mesh is not None \
+                and mesh.device.type != self.device.type:
+            raise ValueError(f"Trainer: a {mesh.device.type} mesh cannot train on "
+                             f"{self.device}")
+        self.mesh = mesh
+        self._dp = mesh.data_parallel_size() if mesh is not None else 1
+        self._dp_group = mesh.process_group(("data", "fsdp")) if mesh is not None else None
+        if has_batch_stats and self._dp > 1:
+            raise _unported("BatchNorm statistics over a data-parallel mesh (batch "
+                            "statistics summed across processes)", _MULTI_GPU)
+        if mesh is not None and mesh.axis_sizes["tensor"] > 1:
+            raise _unported("Tensor parallelism (a mesh with tensor > 1; every process "
+                            "would compute the whole model)", _MULTI_GPU)
+        if mesh is not None and cfg.partition_rules is not None:
+            from ..parallel.partition import sharded_leaves
+
+            cut = sharded_leaves(cfg.partition_rules,
+                                 {n: tuple(p.shape) for n, p in module.named_parameters()},
+                                 mesh.axis_sizes)
+            if cut:
+                name, axes = next(iter(cut.items()))
+                raise _unported(f"Parameter sharding by partition_rules ({len(cut)} leaves "
+                                f"cut, {name!r} over {axes}; the trainer keeps every "
+                                f"parameter whole)", _MULTI_GPU)
         self.module = module.eval()  # dropout stays off, as in the JAX step
         self.cfg = cfg
         self.has_batch_stats = has_batch_stats
@@ -532,8 +663,137 @@ class Trainer:
         self.module = module.to(self.device)
         params = dict(self.module.named_parameters())
         stats = dict(self.module.named_buffers()) if self.has_batch_stats else None
-        return TrainState(params=params, opt_state=self._tx.init(list(params.values())),
-                          batch_stats=stats)
+        self._tx.shard(self.mesh, list(params.values()))
+        state = TrainState(params=params, opt_state=self._tx.init(list(params.values())),
+                           batch_stats=stats)
+        if self.cfg.partition_rules is not None and self.mesh is not None:
+            from ..parallel.partition import emit_shard_metrics
+
+            emit_shard_metrics(params, self._placed_moments(state), self.mesh)
+        return state
+
+    # ---- the mesh and checkpoints ----
+    def _placed_moments(self, state: TrainState) -> dict:
+        """The moments as this process holds them: by ``mu/<name>`` and
+        ``nu/<name>``, or under ZeRO one flat ``DTensor`` a kind (``mu``,
+        ``nu``) sharded over the zero axes."""
+        opt = state.opt_state
+        z = self._tx.zero
+        if z is None:
+            return {f"{kind}/{self._tx.names[i]}": t
+                    for kind, moments in (("mu", opt.mu), ("nu", opt.nu))
+                    for i, t in zip(self._tx.train_idx, moments)}
+        from torch.distributed.tensor import DTensor
+
+        from ..parallel.mesh import P
+
+        axes = tuple(a for a in self.cfg.partition_rules.zero_axes
+                     if self.mesh.axis_sizes.get(a, 1) > 1)
+        pl = self.mesh.placements(P(axes))
+        return {kind: DTensor.from_local(moments[0], self.mesh.device_mesh, pl, run_check=False,
+                                         shape=(z.span * z.world,), stride=(1,))
+                for kind, moments in (("mu", opt.mu), ("nu", opt.nu))}
+
+    def state_tree(self, state: TrainState) -> dict:
+        """The whole train state as a plain tree of full tensors, the tree
+        a checkpoint holds: ``params`` and ``batch_stats`` by ``state_dict``
+        name; ``opt_state`` with ``mu``/``nu`` (and ``acc``) by trained
+        leaf name, ``count`` and ``mini_step``; ``step``. ZeRO's moments
+        are gathered (a collective every process of the mesh joins)."""
+        opt = state.opt_state
+        names = [self._tx.names[i] for i in self._tx.train_idx]
+        params = list(state.params.values())
+        train = [params[i] for i in self._tx.train_idx]
+
+        def moments(ms):
+            whole = ms if self._tx.zero is None else self._tx.full(ms[0], train)
+            return {n: t.detach() for n, t in zip(names, whole)}
+
+        opt_tree = {"mu": moments(opt.mu), "nu": moments(opt.nu),
+                    "count": np.asarray(opt.count, np.int64),
+                    "mini_step": np.asarray(opt.mini_step, np.int64)}
+        if opt.acc is not None:
+            opt_tree["acc"] = {n: a.detach() for n, a in zip(names, opt.acc)}
+        tree = {"params": {k: v.detach() for k, v in state.params.items()},
+                "opt_state": opt_tree, "step": np.asarray(state.step, np.int64)}
+        if state.batch_stats is not None:
+            tree["batch_stats"] = {k: v.detach() for k, v in state.batch_stats.items()}
+        return tree
+
+    def resume_state(self, params: dict, opt_state: dict | None = None, step: int = 0,
+                     batch_stats: dict | None = None) -> TrainState:
+        """A state from restored trees (``restore_checkpoint``'s
+        ``params``/``opt_state``/``step``/``batch_stats``, host arrays or
+        placed ``DTensor``s) without fresh initialisation: the values go
+        into the module's own tensors, the moments are cut as this
+        trainer holds them (its ZeRO span). ``opt_state=None`` starts the optimizer
+        fresh."""
+        full = {k: _full_tensor(v) for k, v in params.items()}
+        stats = ({k: _full_tensor(v) for k, v in batch_stats.items()}
+                 if batch_stats is not None else None)
+        state = self.init_state(init_params=full, init_batch_stats=stats)
+        state.step = int(np.asarray(step))
+        if opt_state is None:
+            return state
+        opt = state.opt_state
+        names = [self._tx.names[i] for i in self._tx.train_idx]
+        for kind in ("mu", "nu"):
+            got = opt_state[kind]
+            if set(got) != set(names):
+                raise ValueError(f"opt_state/{kind}: restored leaves differ from this "
+                                 f"trainer's (missing {sorted(set(names) - set(got))[:8]}, "
+                                 f"extra {sorted(set(got) - set(names))[:8]})")
+            dst = getattr(opt, kind)
+            with torch.no_grad():
+                whole = [_full_tensor(got[n]).to(self.device) for n in names]
+                if self._tx.zero is not None:
+                    dst[0].copy_(self._tx.local(whole))
+                    continue
+                for d, v in zip(dst, whole):
+                    d.copy_(v)
+        if opt.acc is not None and "acc" in opt_state:
+            with torch.no_grad():
+                for a, n in zip(opt.acc, names):
+                    a.copy_(_full_tensor(opt_state["acc"][n]).to(a.device, a.dtype))
+        opt.count = int(np.asarray(opt_state["count"]))
+        opt.mini_step = int(np.asarray(opt_state.get("mini_step", 0)))
+        return state
+
+    def checkpoint_sharding_fn(self):
+        """The path-aware ``sharding_fn`` of ``restore_checkpoint``: each
+        leaf restores onto its rule-table placement on this trainer's mesh
+        (moments with ZeRO when enabled). None without a rule table or a
+        mesh (host arrays)."""
+        from ..parallel import partition as pp
+
+        if self.cfg.partition_rules is None or self.mesh is None:
+            return None
+        return pp.checkpoint_sharding_fn(self.cfg.partition_rules, self.mesh,
+                                         zero=self.cfg.zero_shard)
+
+    def sharding_section(self) -> dict | None:
+        """The ``sharding`` section (rule table and mesh) checkpoints carry."""
+        from ..parallel import partition as pp
+
+        rules = self.cfg.partition_rules
+        if rules is None:
+            return None
+        if rules.mesh is None and self.mesh is not None:
+            rules = dataclasses.replace(rules, mesh=self.mesh.config)
+        return pp.sharding_manifest_section(rules)
+
+    def _mesh_scope(self):
+        import contextlib
+
+        return self.mesh if self.mesh is not None else contextlib.nullcontext()
+
+    def _local_batch(self, batch: dict, stacked: bool = False) -> dict:
+        """This process's rows of a global host batch (all of them without
+        a data-parallel mesh)."""
+        if self._dp == 1:
+            return batch
+        return (self.mesh.shard_stacked_batch(batch) if stacked
+                else self.mesh.shard_batch(batch))
 
     def _model_inputs(self, batch: dict) -> dict:
         drop = {"labels", "label", "mask", "_valid"}
@@ -554,7 +814,16 @@ class Trainer:
             inputs["train"] = True
         logits = self.module(**inputs)
         labels = batch.get("labels", batch.get("label"))
-        loss = cross_entropy_loss(logits, labels, batch.get("_valid"))
+        mask = batch.get("_valid")
+        count = None
+        if self._dp > 1:
+            # this process's share of the global mean: its rows' summed NLL
+            # over the global row count
+            from ..parallel.collectives import all_reduce_
+
+            count = (labels.shape[0] * self._dp if mask is None else
+                     all_reduce_(self.mesh, torch.sum(mask).float().detach(), ("data", "fsdp")))
+        loss = cross_entropy_loss(logits, labels, mask, count)
         if getattr(getattr(self.module, "cfg", None), "moe_experts", 0) > 0:
             aux = []
             for m in self.module.modules():
@@ -562,8 +831,22 @@ class Trainer:
                     aux.append(m.aux_loss)
                     m.aux_loss = None
             if aux:
-                loss = loss + self.cfg.moe_aux_weight * (sum(aux) / len(aux))
+                loss = loss + self.cfg.moe_aux_weight * (sum(aux) / len(aux) / self._dp)
         return loss, logits
+
+    def _sum_grads(self, grads: list[torch.Tensor]) -> None:
+        """Gradients summed in place over the data-parallel group, in one
+        flat all-reduce."""
+        if self._dp_group is None:
+            return
+        import torch.distributed as dist
+
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat, group=self._dp_group)
+        off = 0
+        for g in grads:
+            g.copy_(flat[off:off + g.numel()].view_as(g))
+            off += g.numel()
 
     def _step(self, state: TrainState, batch: dict, scalars: torch.Tensor,
               micro: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -578,22 +861,32 @@ class Trainer:
             p.grad = None
         if self._loss_fn is not None:
             loss = self._loss_fn(self.module, batch)
+            if self._dp > 1:  # equal rows a process: the shares of a mean
+                loss = loss / self._dp
         else:
             loss, _ = self.default_loss(batch)
         loss.backward()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+        loss = loss.detach().float()
         with torch.no_grad():
+            if self._dp_group is not None:
+                from ..parallel.collectives import all_reduce_
+
+                self._sum_grads(grads)
+                loss = all_reduce_(self.mesh, loss.clone(), ("data", "fsdp"))
             grad_norm = _global_norm(grads)
         self._tx.apply(grads, state.opt_state, params, scalars, micro)
-        return loss.detach().float(), grad_norm.float()
+        return loss, grad_norm.float()
 
     def train_step(self, state: TrainState, batch: dict) -> tuple[TrainState, dict]:
         """One step on a host batch: forward, backward, optimizer. ``state``
         is updated in place and returned; ``metrics`` holds the loss and
         the global norm of the raw gradients as 0-d device tensors."""
-        batch = self._to_device(batch)
+        batch = self._to_device(self._local_batch(batch))
         table, micro = self._tx.plan(state.opt_state, 1)
-        loss, grad_norm = self._step(state, batch, _scalars_on(table, self.device)[0], micro[0])
+        with self._mesh_scope():
+            loss, grad_norm = self._step(state, batch, _scalars_on(table, self.device)[0],
+                                         micro[0])
         state.step += 1
         return state, {"loss": loss, "grad_norm": grad_norm}
 
@@ -613,22 +906,24 @@ class Trainer:
         capture; they are real steps), the next captures and replays, the
         later ones replay. A failed capture or replay raises. On the CPU
         the K steps run eagerly through the same step body."""
-        stacked = {k: np.asarray(v) for k, v in stacked_batches.items()}
+        stacked = self._local_batch({k: np.asarray(v) for k, v in stacked_batches.items()},
+                                    stacked=True)
         K = int(next(iter(stacked.values())).shape[0])
         phase = state.opt_state.mini_step
         table, micro = self._tx.plan(state.opt_state, K)
-        if self.device.type != "cuda":
-            metrics = self._eager_chunk(state, stacked, table, micro)
-        else:
-            key = (_shape_key({k: v[0] for k, v in stacked.items()}), K, phase)
-            if key not in self._warm:
-                metrics = self._warm_up(state, stacked, table, micro)
-                self._warm.add(key)
+        with self._mesh_scope():
+            if self.device.type != "cuda":
+                metrics = self._eager_chunk(state, stacked, table, micro)
             else:
-                runner = cb.get_compiled_cache().get(
-                    "train_steps_scan", key, lambda: _ChunkGraph(stacked, self.device),
-                    instance=cb.instance_token(self))
-                metrics = runner(self, state, stacked, table, micro)
+                key = (_shape_key({k: v[0] for k, v in stacked.items()}), K, phase)
+                if key not in self._warm:
+                    metrics = self._warm_up(state, stacked, table, micro)
+                    self._warm.add(key)
+                else:
+                    runner = cb.get_compiled_cache().get(
+                        "train_steps_scan", key, lambda: _ChunkGraph(stacked, self.device),
+                        instance=cb.instance_token(self))
+                    metrics = runner(self, state, stacked, table, micro)
         state.step += K
         return state, metrics
 
@@ -724,15 +1019,23 @@ class Trainer:
         ``log_every`` steps and the last step), where the window's losses
         are read at once, checked by the non-finite guard and the window
         appended to :attr:`metrics`; ``nonfinite_action='raise'`` reads
-        every loss at its step."""
-        if checkpointer is not None or checkpoint_every:
-            raise _unported("checkpointer / checkpoint_every", _CHECKPOINTS)
+        every loss at its step.
+
+        ``checkpointer`` (a :class:`~synapseml_torch.parallel.AsyncCheckpointer`)
+        with ``checkpoint_every``: the whole state (:meth:`state_tree`) is
+        snapshotted every ``checkpoint_every`` steps, at chunk boundaries
+        (``scan_chunk`` is capped at ``checkpoint_every``), and at the end,
+        and written in the checkpointer's background thread."""
         if gang is not None:
             raise _unported("gang training", _MULTI_GPU)
         it = iter(batch_iter)
+        if checkpointer is not None and 0 < checkpoint_every < scan_chunk:
+            # checkpoints fall between dispatches: shrink the chunk to honour them
+            scan_chunk = checkpoint_every
+        ckpt_due = self._ckpt_writer(checkpointer, checkpoint_every)
         if not (callback is not None or skip_fn is not None or scan_chunk <= 1
                 or max_steps <= 1):
-            return self._fit_chunked(state, it, max_steps, scan_chunk, log_every)
+            return self._fit_chunked(state, it, max_steps, scan_chunk, log_every, ckpt_due)
         meter = _ThroughputMeter(self, state.params)
         base = state.step
         eager_guard = self.cfg.nonfinite_action == "raise"
@@ -757,6 +1060,7 @@ class Trainer:
                 flush()
                 state.step += 1
                 self._count_skipped()
+                ckpt_due(state, steps_done)
                 continue
             state, metrics = self.train_step(state, batch)
             meter.observe(batch)
@@ -769,11 +1073,29 @@ class Trainer:
                 flush()
                 self._metrics.append(meter.entry(float(metrics["loss"])))
                 logged_at = steps_done
+            ckpt_due(state, steps_done)
         flush()
+        ckpt_due(state, steps_done, final=True)
         return state
 
+    def _ckpt_writer(self, checkpointer, every: int):
+        """``due(state, steps_done, final=False)``: a snapshot every
+        ``every`` steps and at the end (no-op without a checkpointer)."""
+        last = [0]
+
+        def due(state: TrainState, steps_done: int, final: bool = False) -> None:
+            if checkpointer is None or steps_done <= 0:
+                return
+            if final or (every > 0 and steps_done - last[0] >= every):
+                if final and last[0] == steps_done:
+                    return  # already saved at exactly this step
+                checkpointer.save(self.state_tree(state), step=int(state.step))
+                last[0] = steps_done
+
+        return due
+
     def _fit_chunked(self, state: TrainState, it: Iterator[dict], max_steps: int,
-                     scan_chunk: int, log_every: int = 50) -> TrainState:
+                     scan_chunk: int, log_every: int = 50, ckpt_due=None) -> TrainState:
         """The JAX package's ``_fit_chunked``: a producer thread stacks
         ``scan_chunk`` same-shape batches into a chunk (double-buffered, at
         most two waiting), a shape change flushes the pending batches, and
@@ -860,6 +1182,10 @@ class Trainer:
                 if steps_done - logged_at >= log_every or steps_done >= max_steps:
                     self._metrics.append(meter.entry(float(losses[-1])))
                     logged_at = steps_done
+                if ckpt_due is not None:
+                    ckpt_due(state, steps_done)
+            if ckpt_due is not None:
+                ckpt_due(state, steps_done, final=True)
         finally:
             stop.set()
         return state
@@ -936,6 +1262,47 @@ def plan_fit(n: int, batch_size: int, epochs: int, max_steps: int) -> tuple[int,
     return bs, total
 
 
+def _fit_with_optional_checkpointing(stage, fit_fn):
+    """``fit_fn(checkpointer, every)`` under an
+    :class:`~synapseml_torch.parallel.AsyncCheckpointer` when the stage's
+    ``checkpoint_dir`` is set (``checkpoint_keep``, ``checkpoint_every``),
+    else ``fit_fn(None, 0)``."""
+    ckpt_dir = stage.get("checkpoint_dir")
+    if not ckpt_dir:
+        return fit_fn(None, 0)
+    from ..parallel.checkpoint import AsyncCheckpointer
+
+    with AsyncCheckpointer(ckpt_dir, keep=stage.get("checkpoint_keep")) as ck:
+        return fit_fn(ck, stage.get("checkpoint_every"))
+
+
+class _LoaderCheckpointer:
+    """A checkpointer that adds the loader's iterator state to every
+    snapshot as ``data_iter``, so a restore resumes the batch stream where
+    it stood (one batch is one ``state.step``)."""
+
+    def __init__(self, inner, loader):
+        self._inner = inner
+        self._loader = loader
+
+    def save(self, tree, step: int):
+        snap = self._loader.state_for_batch(int(step))
+        if snap is None:
+            raise RuntimeError(
+                f"loader state for batch {step} is no longer in the snapshot history — the "
+                "checkpoint would lose its data_iter subtree (resume guarantee broken); "
+                "widen state_history")
+        tree = dict(tree)
+        tree["data_iter"] = snap.to_tree()
+        return self._inner.save(tree, step=step)
+
+    def wait(self):
+        return self._inner.wait()
+
+    def close(self):
+        return self._inner.close()
+
+
 def fit_source(trainer: Trainer, source, *, batch_size: int, total_steps: int,
                seed: int, init_params=None, init_batch_stats=None, scan_chunk: int = 8,
                checkpointer=None, checkpoint_every: int = 0,
@@ -959,11 +1326,31 @@ def fit_source(trainer: Trainer, source, *, batch_size: int, total_steps: int,
     step N, ``total_steps - N`` more steps run, and ``data_state`` (an
     ``IteratorState.to_tree()``, or ``'fresh'`` to restart the stream on
     purpose) says where the stream stands, so the batch stream continues
-    as an uninterrupted run's would."""
+    as an uninterrupted run's would.
+
+    With a ``checkpointer`` every snapshot carries the loader's iterator
+    state (``data_iter``). ``resume_from`` (a checkpoint directory)
+    restores its latest VERIFIED step through the trainer's
+    :meth:`Trainer.checkpoint_sharding_fn` and continues the stream from
+    the saved ``data_iter``; a directory without one starts fresh. Under a
+    mesh batches pad to a multiple of the data-parallel size and every
+    process reads the same stream."""
     from ..data import DataLoader, IteratorState
 
-    if checkpointer is not None or checkpoint_every or resume_from is not None:
-        raise _unported("checkpointer / checkpoint_every / resume_from", _CHECKPOINTS)
+    if state is None and resume_from is not None:
+        from ..parallel.checkpoint import latest_verified_step, restore_checkpoint
+
+        last = latest_verified_step(resume_from)
+        if last is not None:
+            tree = restore_checkpoint(resume_from, last,
+                                      sharding_fn=trainer.checkpoint_sharding_fn())
+            state = trainer.resume_state(tree["params"], tree.get("opt_state"),
+                                         step=int(np.asarray(tree["step"])),
+                                         batch_stats=tree.get("batch_stats"))
+            if data_state is None:
+                data_state = tree.get("data_iter")
+    if checkpointer is not None and getattr(checkpointer, "sharding", 0) is None:
+        checkpointer.sharding = trainer.sharding_section()
     done = state.step if state is not None else 0
     remaining = total_steps - done
     if state is not None and remaining <= 0:
@@ -983,15 +1370,21 @@ def fit_source(trainer: Trainer, source, *, batch_size: int, total_steps: int,
     loader = DataLoader(
         source, batch_size, seed=seed, epochs=epochs,
         drop_remainder=drop_remainder, shuffle_rows=shuffle_rows,
-        shuffle_window=shuffle_window, prefetch=prefetch, columns=columns,
-        host_index=host_index, host_count=host_count,
+        shuffle_window=shuffle_window, multiple_of=trainer._dp, prefetch=prefetch,
+        columns=columns, host_index=host_index, host_count=host_count,
+        # the chunked fit's producer runs up to about three chunks ahead of
+        # the checkpointed step: the snapshot ring must outlive that lag
+        state_history=max(64, 3 * max(scan_chunk, 1) + prefetch + 8),
         state=IteratorState.from_tree(data_state) if data_state is not None else None)
     try:
         if state is None:
             state = trainer.init_state(seed=seed, init_params=init_params,
                                        init_batch_stats=init_batch_stats)
+        ck = _LoaderCheckpointer(checkpointer, loader) if checkpointer is not None else None
         return trainer.fit(state, iter(loader), max_steps=remaining,
-                           scan_chunk=scan_chunk, skip_fn=skip_fn, callback=callback)
+                           scan_chunk=scan_chunk, checkpointer=ck,
+                           checkpoint_every=checkpoint_every, skip_fn=skip_fn,
+                           callback=callback)
     finally:
         loader.close()
 

@@ -31,8 +31,11 @@ is this package's ``state_dict`` of parameters as numpy arrays,
 ``arch_spec`` the ``(kind, info)`` a checkpoint directory's fit records,
 from which the model rebuilds its module.
 
-Not ported yet, each refused with ``NotImplementedError`` naming its
-``ROADMAP.md`` item: ``checkpoint_dir`` and ``mesh_config``.
+``checkpoint_dir`` writes the fit's training checkpoints there;
+``mesh_config`` trains over a mesh of the process group (a ResNet's
+BatchNorm statistics over a data-parallel mesh of more than one process
+are refused naming ROADMAP.md queue A item 9) and, on the model, scores
+each batch's rows over the data-parallel processes and gathers the scores.
 """
 
 from __future__ import annotations
@@ -44,12 +47,14 @@ from ..core import DataFrame, Estimator, Model
 from ..core import batching as cb
 from ..core.device import device_type, resolve_device
 from ..core.params import ComplexParam, Param, TypeConverters
+from ..parallel.mesh import create_mesh
 from .convert_hf import host_tensor, is_checkpoint_dir, pretrained_vision
 from .convert_jax import (init_flax_resnet_params, init_flax_vit_params,
                           resnet_state_dict_from_flax, vit_state_dict_from_flax)
 from .nets.resnet import ResNet, resnet18, resnet50, resnet_tiny
 from .nets.vit import ViTClassifier, vit_b16, vit_tiny
-from .trainer import Trainer, TrainerConfig, fit_arrays, plan_fit
+from .trainer import (Trainer, TrainerConfig, _fit_with_optional_checkpointing, fit_arrays,
+                      plan_fit)
 
 __all__ = ["DeepVisionClassifier", "DeepVisionModel"]
 
@@ -61,11 +66,6 @@ _BACKBONES = {
     "resnet18": lambda n: (resnet18(num_classes=n), True),
     "resnet_tiny": lambda n: (resnet_tiny(num_classes=n), True),
 }
-
-
-def _unported(stage: str, what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{stage}: {what} is not ported to synapseml_torch yet: "
-                               f"ROADMAP.md queue A item {item}")
 
 
 def _build_module(backbone: str, num_classes: int, arch_spec=None):
@@ -135,23 +135,15 @@ class DeepVisionClassifier(Estimator, _VisionParams):
     max_steps = Param("max_steps", "hard step cap (-1 = epochs)", default=-1,
                       converter=TypeConverters.to_int)
     seed = Param("seed", "init seed", default=0, converter=TypeConverters.to_int)
-    checkpoint_dir = Param("checkpoint_dir", "directory for training checkpoints "
-                           "(not ported yet: must stay None)", default=None)
+    checkpoint_dir = Param("checkpoint_dir", "when set, write async training "
+                           "checkpoints here", default=None)
     checkpoint_every = Param("checkpoint_every", "checkpoint every N optimizer "
                              "steps (0 = only the final state)", default=0,
                              converter=TypeConverters.to_int)
     checkpoint_keep = Param("checkpoint_keep", "retain the most recent K "
                             "checkpoints", default=3,
                             converter=TypeConverters.to_int)
-    mesh_config = ComplexParam("mesh_config", "MeshConfig override (not ported yet: "
-                               "must stay None)", default=None)
-
-    def _refuse_unported(self) -> None:
-        if self.get("checkpoint_dir"):
-            raise _unported("DeepVisionClassifier", "checkpoint_dir",
-                            "1.3 (parallel/checkpoint.py)")
-        if self.get("mesh_config") is not None:
-            raise _unported("DeepVisionClassifier", "mesh_config", "9 (multi-GPU)")
+    mesh_config = ComplexParam("mesh_config", "MeshConfig override", default=None)
 
     def _fit_plan(self, df: DataFrame):
         """What the fit runs: ``(trainer, data, fit_arrays keywords,
@@ -159,7 +151,6 @@ class DeepVisionClassifier(Estimator, _VisionParams):
         module and ``TrainerConfig``, the keywords those of the reference
         stage's ``fit_arrays`` call (its default ``scan_chunk``), the
         ``arch_spec`` that of a checkpoint directory (else None)."""
-        self._refuse_unported()
         device = resolve_device("DeepVisionClassifier", self.get("device"))
         arch_spec = None
         if is_checkpoint_dir(self.get("backbone")):
@@ -177,7 +168,9 @@ class DeepVisionClassifier(Estimator, _VisionParams):
         trainer = Trainer(module, TrainerConfig(learning_rate=self.get("learning_rate"),
                                                 total_steps=total, lr_schedule="cosine",
                                                 warmup_steps=max(total // 10, 1)),
-                          device=device, has_batch_stats=has_bn)
+                          device=device, has_batch_stats=has_bn,
+                          mesh=(create_mesh(self.get("mesh_config"))
+                                if self.get("mesh_config") is not None else None))
         if arch_spec is None:
             params, stats = _init_variables(module, self.get("seed"))
         else:
@@ -188,7 +181,9 @@ class DeepVisionClassifier(Estimator, _VisionParams):
 
     def _fit(self, df: DataFrame) -> "DeepVisionModel":
         trainer, data, kw, arch_spec = self._fit_plan(df)
-        state = fit_arrays(trainer, data, **kw)
+        state = _fit_with_optional_checkpointing(
+            self, lambda ck, every: fit_arrays(trainer, data, checkpointer=ck,
+                                               checkpoint_every=every, **kw))
         trainer.release_graphs()  # the captured steps' memory pools
         host = lambda tensors: {k: v.detach().cpu().numpy()  # noqa: E731
                                 for k, v in tensors.items()}
@@ -212,7 +207,9 @@ class DeepVisionModel(Model, _VisionParams):
     arch_spec = ComplexParam("arch_spec", "(kind, info) for pretrained-dir fits",
                              default=None)
     mesh_config = ComplexParam("mesh_config", "MeshConfig for sharded inference "
-                               "(not ported yet: must stay None)", default=None)
+                               "(each batch's rows split over the data-parallel "
+                               "processes, the scores gathered on every process)",
+                               default=None)
     train_metrics = ComplexParam("train_metrics", "loss/throughput trace", default=None)
 
     _APPLY_KEYS = frozenset({"model_params", "batch_stats", "arch_spec", "backbone",
@@ -237,8 +234,6 @@ class DeepVisionModel(Model, _VisionParams):
         """The module on its device with the fitted weights and running
         statistics, built once per stage."""
         if self.__dict__.get("_module") is None:
-            if self.get("mesh_config") is not None:
-                raise _unported("DeepVisionModel", "mesh_config", "9 (multi-GPU)")
             device = resolve_device("DeepVisionModel", self.get("device"))
             module, _ = _build_module(self.get("backbone"), self.get("num_classes"),
                                       self.get("arch_spec"))
@@ -248,6 +243,8 @@ class DeepVisionModel(Model, _VisionParams):
             module.load_state_dict({k: host_tensor(v).to(device)
                                     for k, v in state.items()}, assign=True)
             self._device = device
+            self._mesh = (create_mesh(self.get("mesh_config"))
+                          if self.get("mesh_config") is not None else None)
             self._module = module.to(device).eval()
         return self._module
 
@@ -255,12 +252,18 @@ class DeepVisionModel(Model, _VisionParams):
         """The callable of one (bucket, image shape): host images -> softmax
         scores as a host array."""
         def build():
-            module, device = self._get_module(), self._device
+            module, device, mesh = self._get_module(), self._device, self._mesh
 
             def run(x: np.ndarray) -> np.ndarray:
+                if mesh is not None:
+                    x = mesh.shard_batch(x)
                 with torch.inference_mode():
-                    logits = module(x=torch.from_numpy(x).to(device))
-                    return torch.softmax(logits, dim=-1).cpu().numpy()
+                    probs = torch.softmax(module(x=torch.from_numpy(x).to(device)), dim=-1)
+                    if mesh is not None:
+                        from ..parallel.collectives import all_gather_dim
+
+                        probs = all_gather_dim(mesh, probs, ("data", "fsdp"))
+                    return probs.cpu().numpy()
 
             return run
 
@@ -273,6 +276,7 @@ class DeepVisionModel(Model, _VisionParams):
         self._get_module()
         bs = self.get("batch_size")
         bucketer = cb.default_bucketer()
+        dp = self._mesh.data_parallel_size() if self._mesh is not None else 1
 
         def per_part(part):
             imgs = part[self.get("image_col")]
@@ -285,6 +289,7 @@ class DeepVisionModel(Model, _VisionParams):
             x = np.stack(list(imgs)).astype(np.float32)
             chunks = []
             for s, e, bucket in bucketer.slices(len(x), bs):
+                bucket = cb.round_up_to_multiple(bucket, dp)  # rows split evenly
                 p = self._run_for(bucket, x.shape[1:])(cb.pad_rows(x[s:e], bucket))
                 chunks.append(cb.unpad_rows(p, e - s))
             probs = np.concatenate(chunks, axis=0)

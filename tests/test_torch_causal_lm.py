@@ -28,6 +28,7 @@ from synapseml_torch.hf import causal_lm as tcl
 from synapseml_torch.models import convert_jax
 from synapseml_torch.models.nets import llama as tl
 from synapseml_torch.models.tokenizer import HashingTokenizer
+from synapseml_torch.parallel import MeshConfig, default_llama_rules
 from synapseml_tpu.core import DataFrame as JDataFrame
 from synapseml_tpu.hf import causal_lm as jcl
 from synapseml_tpu.models.flax_nets import llama as jl
@@ -205,19 +206,27 @@ def test_params_equal_the_jax_stage():
 
 
 @pytest.mark.parametrize("case,error", [
-    (dict(mesh_config=object()), (NotImplementedError, "queue A item 9")),
-    (dict(partition_rules=object()), (NotImplementedError, "queue A item 9")),
+    # ported: a mesh of one process decodes as no mesh does; the paged engine
+    # refuses a mesh with the JAX stage's error
+    (dict(mesh_config=MeshConfig(data=1)), None),
+    (dict(mesh_config=MeshConfig(data=1), partition_rules=default_llama_rules(),
+          engine="paged"), (ValueError, "does not support mesh_config")),
     # the JAX stage's own errors: a directory without model.safetensors,
     # a tokenizer name that cannot be loaded (local files only: no download)
     (dict(model_name="."), (FileNotFoundError, "no model.safetensors")),
     (dict(tokenizer="meta-llama/Llama-2-7b-hf"), (ValueError, "could not load HuggingFace")),
 ], ids=["mesh_config", "partition_rules", "model_name-dir", "tokenizer-name"])
 def test_unported_params_are_refused_with_their_item(case, error):
-    """What is not ported is refused naming its item; what is ported but
-    cannot load raises the JAX stage's error."""
+    """What cannot load raises the JAX stage's error; the mesh Params, once
+    refused naming item 9, run (the mesh of one process as no mesh)."""
     stage = HuggingFaceCausalLM(**{**_kw(device="cpu"), **case})
+    df = DataFrame.from_dict({"prompt": np.asarray(["a b"], dtype=object)})
+    if error is None:
+        want = _completions(HuggingFaceCausalLM(**_kw(device="cpu")).transform(df))
+        assert _completions(stage.transform(df)) == want
+        return
     with pytest.raises(error[0], match=error[1]):
-        stage.transform(DataFrame.from_dict({"prompt": np.asarray(["a b"], dtype=object)}))
+        stage.transform(df)
 
 
 def test_serving_engine_is_refused_with_its_item():

@@ -180,8 +180,20 @@ def test_empty_directory_is_the_jax_error(tmp_path):
 
 
 def test_shard_pretrained_params_is_refused_with_item_9():
-    with pytest.raises(NotImplementedError, match="queue A item 9"):
-        T.shard_pretrained_params({}, None)
+    """Ported: the JAX function's contract, ``(mesh_ctx, placed)`` by the
+    Llama table, on a mesh of one process (each leaf its own shard); a
+    table that cannot place a leaf raises as the JAX package's does."""
+    from synapseml_torch.parallel import MeshConfig, PartitionRules
+
+    params = {"decoder.layers.0.attn.q.weight": np.arange(12, dtype=np.float32).reshape(4, 3),
+              "decoder.norm.weight": np.ones(3, np.float32)}
+    mesh, placed = T.shard_pretrained_params(params, MeshConfig(data=1))
+    assert mesh.axis_sizes["data"] == 1 and set(placed) == set(params)
+    for k, v in params.items():
+        assert np.array_equal(placed[k].numpy(), v), k
+    with pytest.raises(ValueError, match="rank"):
+        T.shard_pretrained_params(params, MeshConfig(data=1),
+                                  PartitionRules(rules=((r"norm", (None, None)),)))
 
 
 # ------------------------------------------------------------------ families

@@ -183,8 +183,15 @@ def test_params_equal_the_jax_stage_and_unported_ones_are_refused(preset_weights
     assert got.pop("device") == "cuda"
     assert got == _params_of(jemb.HuggingFaceSentenceEmbedder)
     df = pt.DataFrame.from_dict({"text": np.asarray(["a"], dtype=object)})
-    with pytest.raises(NotImplementedError, match="queue A item 9"):
-        HuggingFaceSentenceEmbedder(**_kw(), mesh_config=object(), device="cpu").transform(df)
+    from synapseml_torch.parallel import MeshConfig
+
+    _, sd0 = preset_weights
+    plain = _embeddings(HuggingFaceSentenceEmbedder(**_kw(), model_params=sd0,
+                                                    device="cpu").transform(df))
+    sharded = _embeddings(HuggingFaceSentenceEmbedder(**_kw(), model_params=sd0,
+                                                      mesh_config=MeshConfig(data=1),
+                                                      device="cpu").transform(df))
+    assert np.array_equal(sharded, plain)  # mesh_config, once refused: one process
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             HuggingFaceSentenceEmbedder(**_kw()).transform(df)

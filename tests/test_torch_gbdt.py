@@ -159,11 +159,12 @@ def test_grow_tree_with_the_tree_scale_equals_the_per_level_scale(monkeypatch):
     fmask = torch.ones(X.shape[1], dtype=torch.bool)
     got = trees.grow_tree(bins, grad, hess, presence, cfg, fmask)
 
-    def per_call_level(bins, grad, hess, presence, node, base, width, num_bins, impl, tree):
+    def per_call_level(bins, grad, hess, presence, node, base, width, num_bins, impl, tree,
+                       rows=None):
         return hist.fixed_point_histogram_plain(bins, grad, hess, presence, node, base, width,
                                                 num_bins)
 
-    def per_call_totals(grad, hess, presence, node, base, width, impl, tree):
+    def per_call_totals(grad, hess, presence, node, base, width, impl, tree, rows=None):
         return hist.fixed_point_histogram_plain(None, grad, hess, presence, node, base, width,
                                                 1).reshape(width, 3)
 
@@ -375,19 +376,25 @@ _REFUSED = {
     "lambdarank": dict(objective="lambdarank", group_sizes=np.array([100, 100])),
     "group_sizes": dict(objective="lambdarank", group_sizes=np.array([50, 150])),
     "init_model": dict(init_model="booster"),
-    "mesh": dict(mesh=object()),
+    "mesh": dict(mesh="one process"),
 }
 
 
 @pytest.mark.parametrize("name", sorted(_REFUSED))
 def test_unported_modes_are_refused(name):
     """The modes refused until they were ported now train on the CPU as
-    the JAX booster does; `mesh` is refused naming its ROADMAP.md item."""
+    the JAX booster does; `mesh` (a mesh of one process here; over gloo
+    worlds in test_torch_gbdt_mesh.py) grows the forest of no mesh."""
     X, y = _mode_dataset(n=200)
     kw = dict(_REFUSED[name], num_iterations=3)
     if name == "mesh":
-        with pytest.raises(NotImplementedError, match="queue A item 9"):
-            train_booster(X, y, device="cpu", **kw)
+        from synapseml_torch.parallel import create_mesh
+
+        kw.update(mesh=create_mesh(), histogram_impl="pallas")
+        want = train_booster(X, y, device="cpu", num_iterations=3, histogram_impl="pallas")
+        got = train_booster(X, y, device="cpu", **kw)
+        assert np.array_equal(got.leaf_value, want.leaf_value)
+        assert np.array_equal(got.feature, want.feature)
         return
     if name == "init_model":
         kw["init_model"] = train_booster(X, y, device="cpu", num_iterations=2)
@@ -403,17 +410,21 @@ def test_unported_modes_are_refused(name):
 @pytest.mark.parametrize("param", ["model_string", "mesh_config", "categorical_slot_indexes",
                                    "boosting_type"])
 def test_unported_estimator_params_are_refused(param):
-    """Of the Params refused until they were ported, only mesh_config still
-    is (naming queue A item 9); the others fit."""
+    """The Params refused until they were ported all fit now; mesh_config
+    (a data axis of one process) grows the stage's forest without it."""
+    from synapseml_torch.parallel import MeshConfig
+
     X, y = _mode_dataset(n=200)
     tdf, _ = _frames(X, y)
     value = {"model_string": train_booster(X, y, device="cpu", num_iterations=2),
-             "mesh_config": object(), "categorical_slot_indexes": [1],
+             "mesh_config": MeshConfig(data=1), "categorical_slot_indexes": [1],
              "boosting_type": "dart"}[param]
     est = LightGBMClassifier(device="cpu", num_iterations=2, **{param: value})
     if param == "mesh_config":
-        with pytest.raises(NotImplementedError, match="queue A item 9"):
-            est.fit(tdf)
+        want = LightGBMClassifier(device="cpu", num_iterations=2).fit(tdf).get_booster()
+        got = est.fit(tdf).get_booster()
+        assert np.array_equal(got.feature, want.feature)
+        np.testing.assert_allclose(got.leaf_value, want.leaf_value, atol=1e-6)
         return
     booster = est.fit(tdf).get_booster()
     assert booster.num_iterations == (4 if param == "model_string" else 2)

@@ -56,9 +56,9 @@ class _port_recorder:
     def __enter__(self):
         self.calls, self._grow = [], tbooster.T.grow_tree
 
-        def grow(bins, grad, hess, presence, cfg, feat_mask):
+        def grow(bins, grad, hess, presence, cfg, feat_mask, rows=None):
             self.calls.append(tuple(a.numpy() for a in (presence, feat_mask, grad)))
-            return self._grow(bins, grad, hess, presence, cfg, feat_mask)
+            return self._grow(bins, grad, hess, presence, cfg, feat_mask, rows)
 
         tbooster.T.grow_tree = grow
         return self

@@ -44,7 +44,12 @@ def test_the_scan_covers_the_package():
             "synapseml_torch/image/unroll.py", "synapseml_torch/models/nets/llama.py",
             "synapseml_torch/models/paged_engine.py", "synapseml_torch/models/prefix_cache.py",
             "synapseml_torch/hf/causal_lm.py", "synapseml_torch/hf/embedder.py",
-            "synapseml_torch/models/convert_hf.py", "synapseml_torch/models/tokenizer.py"} <= names
+            "synapseml_torch/models/convert_hf.py", "synapseml_torch/models/tokenizer.py",
+            "synapseml_torch/parallel/mesh.py", "synapseml_torch/parallel/partition.py",
+            "synapseml_torch/parallel/checkpoint.py", "synapseml_torch/parallel/backend.py",
+            "synapseml_torch/parallel/collectives.py", "synapseml_torch/parallel/batching.py",
+            "synapseml_torch/ops/ring_attention.py",
+            "synapseml_torch/ops/ulysses_attention.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())

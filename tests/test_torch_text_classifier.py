@@ -30,6 +30,7 @@ from synapseml_torch.models import convert_jax
 from synapseml_torch.models import text as ttext
 from synapseml_torch.models.nets import bert as tbert
 from synapseml_torch.models.tokenizer import HashingTokenizer
+from synapseml_torch.parallel import MeshConfig
 from synapseml_tpu.core import DataFrame as JDataFrame
 from synapseml_tpu.models import text as jtext
 from synapseml_tpu.models.flax_nets import bert as jbert
@@ -201,20 +202,33 @@ def test_init_has_the_flax_distribution():
     assert all(np.array_equal(got[k], again[k]) for k in got)
 
 
-_REFUSED = {
-    "checkpoint_dir": (dict(checkpoint_dir="/tmp/ck"), "item 9"),
-    "mesh_config": (dict(mesh_config=object()), "item 9"),
-    "ring": (dict(attn_impl="ring"), "item 9"),
-    "ulysses": (dict(attn_impl="ulysses"), "item 9"),
-}
+_PORTED = ("checkpoint_dir", "mesh_config", "ring", "ulysses")
 
 
-@pytest.mark.parametrize("param", sorted(_REFUSED))
-def test_unported_params_are_refused(param):
-    kw, item = _REFUSED[param]
+@pytest.mark.parametrize("param", _PORTED)
+def test_unported_params_are_refused(param, tmp_path):
+    """The Params refused until the multi-GPU plane was ported now fit, each
+    the fit without it bitwise: ``checkpoint_dir`` (which writes the final
+    step), ``mesh_config`` in a world of one, and ``ring``/``ulysses``
+    without a mesh (a warning, then the flash path, as the JAX module
+    dispatches)."""
     df = pt.DataFrame.from_rows(_rows(8))
-    with pytest.raises(NotImplementedError, match=item):
-        ttext.DeepTextClassifier(device="cpu", max_steps=1, **kw).fit(df)
+    base = dict(device="cpu", max_steps=2, batch_size=4)
+    if param in ("ring", "ulysses"):
+        want = ttext.DeepTextClassifier(attn_impl="flash", **base).fit(df)
+        with pytest.warns(UserWarning, match="no mesh"):
+            got = ttext.DeepTextClassifier(attn_impl=param, **base).fit(df)
+    else:
+        want = ttext.DeepTextClassifier(**base).fit(df)
+        kw = ({"checkpoint_dir": str(tmp_path / "ck")} if param == "checkpoint_dir"
+              else {"mesh_config": MeshConfig(data=1)})
+        got = ttext.DeepTextClassifier(**kw, **base).fit(df)
+        if param == "checkpoint_dir":
+            from synapseml_torch.parallel import latest_verified_step
+
+            assert latest_verified_step(str(tmp_path / "ck")) == 2
+    for k, v in want.get("model_params").items():
+        assert np.array_equal(got.get("model_params")[k], v), k
 
 
 def test_local_checkpoint_directory_is_refused(tmp_path):

@@ -366,27 +366,29 @@ def test_nonfinite_count_increments_the_registry_counter():
     assert snap["synapseml_train_last_finite_step"] == 2
 
 
-def test_unported_trainer_options_are_refused():
+def test_unported_trainer_options_are_refused(tmp_path):
+    """Gang training still waits (refused naming item 9); the options of the
+    multi-GPU plane that were refused until it was ported now run: a rule
+    table with ZeRO, a mesh, a checkpointer, resume_from (held to the JAX
+    package in test_torch_trainer_mesh.py and test_torch_checkpoint.py)."""
+    from synapseml_torch import parallel as tp
+
     data = _rows()
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tt.TrainerConfig(partition_rules=object())
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tt.TrainerConfig(zero_shard=True)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tt.Trainer(_Net(), tt.TrainerConfig(), device="cpu", mesh=object())
-    trainer = _trainer()
+    cfg = tt.TrainerConfig(partition_rules=tp.PartitionRules(), zero_shard=True)
+    trainer = tt.Trainer(_Net(), cfg, device="cpu", mesh=tp.create_mesh())
     state = trainer.init_state()
-    for kw in (dict(checkpointer=object()), dict(checkpoint_every=2), dict(gang=object())):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            trainer.fit(state, iter([]), max_steps=1, **kw)
     with pytest.raises(NotImplementedError, match="item 9"):
-        tt.fit_arrays(trainer, data, batch_size=16, total_steps=2, seed=0,
-                      checkpointer=object())
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tt.fit_source(trainer, MemorySource(data), batch_size=16, total_steps=2, seed=0,
-                      resume_from="/nonexistent")
+        trainer.fit(state, iter([]), max_steps=1, gang=object())
     with pytest.raises(NotImplementedError, match="item 9"):
         tt.fit_gang_source(trainer, MemorySource(data))
+    with tp.AsyncCheckpointer(str(tmp_path / "ck"), keep=2) as ck:
+        got = tt.fit_arrays(trainer, data, batch_size=16, total_steps=4, seed=0,
+                            checkpointer=ck, checkpoint_every=2)
+    assert got.step == 4 and tp.latest_verified_step(str(tmp_path / "ck")) == 4
+    assert tp.checkpoint_sharding(str(tmp_path / "ck"))["rules"]["zero_axes"] == ["data", "fsdp"]
+    fresh = tt.fit_source(_trainer(), MemorySource(data), batch_size=16, total_steps=2, seed=0,
+                          resume_from=str(tmp_path / "none"))
+    assert fresh.step == 2
 
 
 def test_trainer_defaults_to_the_card():

@@ -519,19 +519,28 @@ def test_params_match_the_jax_stages():
         assert tparams == jparams, name
 
 
-_REFUSED = {
-    "checkpoint_dir": (dict(checkpoint_dir="/tmp/ck"), "item 1.3"),
-    "mesh_config": (dict(mesh_config=object()), "item 9"),
-}
+_PORTED = ("checkpoint_dir", "mesh_config")
 
 
-@pytest.mark.parametrize("param", sorted(_REFUSED))
-def test_unported_params_are_refused(param):
-    kw, item = _REFUSED[param]
+@pytest.mark.parametrize("param", _PORTED)
+def test_unported_params_are_refused(param, tmp_path):
+    """``checkpoint_dir`` and ``mesh_config`` (refused until the multi-GPU
+    plane was ported) now fit, the fit without them bitwise: the ResNet's
+    BatchNorm path in a world of one, the final step written to the
+    directory."""
+    from synapseml_torch.parallel import MeshConfig, latest_verified_step
+
     data, _ = _resnet_rows()
-    with pytest.raises(NotImplementedError, match=item):
-        tvision.DeepVisionClassifier(device="cpu", max_steps=1, **kw).fit(
-            pt.DataFrame.from_dict(data))
+    df = pt.DataFrame.from_dict(data)
+    want = tvision.DeepVisionClassifier(device="cpu", max_steps=1).fit(df)
+    kw = ({"checkpoint_dir": str(tmp_path / "ck")} if param == "checkpoint_dir"
+          else {"mesh_config": MeshConfig(data=1)})
+    got = tvision.DeepVisionClassifier(device="cpu", max_steps=1, **kw).fit(df)
+    for key in ("model_params", "batch_stats"):
+        for k, v in want.get(key).items():
+            assert np.array_equal(got.get(key)[k], v), (key, k)
+    if param == "checkpoint_dir":
+        assert latest_verified_step(str(tmp_path / "ck")) == 1
 
 
 def test_local_checkpoint_directory_and_arch_spec_are_refused(tmp_path):
@@ -539,8 +548,8 @@ def test_local_checkpoint_directory_and_arch_spec_are_refused(tmp_path):
     error; a model holding an ``arch_spec`` (what a checkpoint directory's
     fit records) rebuilds that architecture and scores as the JAX model
     does (a checkpoint directory's fit is held to the JAX stage in
-    test_torch_convert_hf.py); mesh_config and unknown backbones stay
-    refused."""
+    test_torch_convert_hf.py); mesh_config scores the same in a world of
+    one; unknown backbones stay refused."""
     data, _ = _resnet_rows()
     with pytest.raises(FileNotFoundError, match="no model.safetensors") as want:
         jvision.DeepVisionClassifier(backbone=str(tmp_path)).fit(JDataFrame.from_dict(data))
@@ -561,9 +570,11 @@ def test_local_checkpoint_directory_and_arch_spec_are_refused(tmp_path):
     tscores = tmodel.transform(df).collect_column("scores")
     np.testing.assert_allclose(np.stack(list(tscores)), np.stack(list(jscores)), atol=1e-5)
     assert isinstance(tmodel._get_module(), tvit.ViTClassifier)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tvision.DeepVisionModel(model_params={}, mesh_config=object(),
-                                device="cpu").transform(df)
+    from synapseml_torch.parallel import MeshConfig
+
+    sharded = tmodel.copy({"mesh_config": MeshConfig(data=1)}).transform(df)
+    assert np.array_equal(np.stack(list(sharded.collect_column("scores"))),
+                          np.stack(list(tscores)))
     with pytest.raises(ValueError, match="unknown backbone"):
         tvision.DeepVisionClassifier(device="cpu", backbone="vgg").fit(
             pt.DataFrame.from_dict(data))
