@@ -274,7 +274,28 @@ the kernels are built for sm_90a). Phases, each of which raises on failure:
    (int_out) and the scale pass over 2N and 4N rows (n_total) equal to its
    plain version; one tree in the int64-out mode beside the one-process
    mode;
-16. times: each kernel beside its bound, its plain version and the one
+16. main path 12, HTTP model serving: (a) serve_pipeline on 127.0.0.1:0
+   over BERT-base DeepTextModel through the flash kernel in bf16 (main
+   path 1's stage between ServeTexts and ServeReplies): 512 requests of
+   1-4 texts of 16-300 words from 16 client threads, micro-batched at 10
+   ms, with a /admin/load by path (warmup rows) after 192 replies: every
+   reply 200, no deep_text_model cache miss after the swap, the old
+   pipeline's entries released, every score within main path 1's bf16
+   limits of the stage's transform; /metrics parsed as Prometheus text
+   with the JAX package's series, /trace holding the request's span under
+   its traceparent; a registry publish that times the einsum/flash pair on
+   the card and records no executables, a /admin/load by registry warmed
+   up by JIT; 128 requests in continuous mode; requests/s, p50/p99 and the
+   longest latency across the swap. (b) serve_llm over the paged engine at
+   Llama-2-7B width, 4 of 32 layers, init_llama_params(seed=0), f32: 32
+   prompts of 16-512 tokens with max_new_tokens 16-64 as 8 concurrent
+   streams, each stream's tokens equal to the stage's transform under the
+   margin rule; a short request after a long one finishing first; an
+   X-Deadline-Ms too short for any token: 504, finish_reason deadline,
+   pages freed; /admin/drain with a dead migrate_to: every live stream
+   re-imported locally and ended; then the traffic in bf16 compute:
+   tokens/s and time to first token;
+17. times: each kernel beside its bound, its plain version and the one
    PyTorch call that computes the same function (device time, with the
    host's enqueue hidden behind a spin kernel; the library call's device
    kernels named from the profiler); flash_attention from the projection
@@ -298,6 +319,7 @@ import hashlib
 import importlib.machinery
 import importlib.util
 import io
+import itertools
 import json
 import math
 import os
@@ -313,6 +335,7 @@ import torch
 import torch.nn.functional as F
 
 from synapseml_torch import DataFrame
+from synapseml_torch.core import PipelineModel, Transformer
 from synapseml_torch.core import batching as cb
 from synapseml_torch.image import ImageTransformer
 from synapseml_torch.models.convert_hf import host_tensor
@@ -6658,6 +6681,627 @@ def phase_multi_gpu(device, card: str, digest: str | None = None) -> dict:
             "gbdt_hist": counts["gbdt_hist"], "gbdt_hist_scale": counts["gbdt_hist_scale"]}
 
 
+# ---------------- main path 12: HTTP model serving ----------------
+
+# (a) serve_pipeline over main path 1's stage (BERT-base, bf16, flash)
+SV_REQUESTS, SV_CONTINUOUS, SV_CLIENTS = 512, 128, 16
+SV_SWAP_AFTER = 192      # replies before the mid-traffic /admin/load by path
+SV_INTERVAL_MS = 10      # micro-batch interval
+SV_TUNE_BUCKETS = (8, 32)
+SV_TOL, SV_AGREE = 3e-2, 0.99  # main path 1's bf16 limits: max |dprob|, argmax agreement
+SV_SERIES = ("synapseml_serving_request_duration_ms", "synapseml_serving_requests_total",
+             "synapseml_serving_queue_wait_ms", "synapseml_serving_batch_rows",
+             "synapseml_serving_pipeline_swaps_total", "synapseml_compile_cache_misses_total",
+             "synapseml_compile_cache_hits_total", "synapseml_compile_trace_ms",
+             "synapseml_compile_cache_evictions_total", "synapseml_deploy_warmup_io_ms",
+             "synapseml_deploy_warmup_compile_ms", "synapseml_deploy_executables_traced_total",
+             "synapseml_stage_duration_ms", "synapseml_stage_events_total")
+# (b) serve_llm over the paged engine: Llama-2-7B width, SV_LLM_LAYERS of 32 layers
+SV_LLM_LAYERS, SV_LLM_PROMPTS, SV_LLM_STREAMS = 4, 32, 8
+SV_LLM_WORDS = (15, 511)   # prompt words: 16-512 tokens with the [CLS]
+SV_LLM_NEW = (16, 64)      # max_new_tokens a request
+SV_HTTP_TIMEOUT = 120.0    # every client socket's timeout
+
+
+class ServeTexts(Transformer):
+    """Request rows to one row per text: a body is ``{"texts": [...]}``; a
+    body without text scores one empty text and is answered with an error."""
+
+    def _transform(self, df):
+        def per_part(p):
+            ids, texts, bad = [], [], []
+            for rid, body in zip(p["id"], p["body"]):
+                got = body.get("texts") if isinstance(body, dict) else None
+                ok = isinstance(got, list) and bool(got)
+                for t in (got if ok else [""]):
+                    ids.append(rid)
+                    texts.append(str(t))
+                    bad.append(not ok)
+            return {"id": np.asarray(ids, dtype=object), "text": np.asarray(texts, dtype=object),
+                    "bad": np.asarray(bad, dtype=bool)}
+
+        return df.map_partitions(per_part)
+
+
+class ServeReplies(Transformer):
+    """Scored text rows folded back into one reply a request:
+    ``{"scores": [[p0, p1], ...], "prediction": [...]}``."""
+
+    def _transform(self, df):
+        def per_part(p):
+            groups: dict = {}
+            for i, rid in enumerate(p["id"]):
+                groups.setdefault(rid, []).append(i)
+            reply = np.empty(len(groups), dtype=object)
+            for j, ix in enumerate(groups.values()):
+                reply[j] = ({"error": "body needs 'texts', a non-empty list"} if p["bad"][ix[0]]
+                            else {"scores": [[float(x) for x in p["scores"][i]] for i in ix],
+                                  "prediction": [int(p["prediction"][i]) for i in ix]})
+            return {"id": np.asarray(list(groups), dtype=object), "reply": reply}
+
+        return df.map_partitions(per_part)
+
+
+def _http(base: str, method: str, path: str, body=None, headers=None,
+          timeout: float = SV_HTTP_TIMEOUT) -> tuple[int, dict, bytes]:
+    """One exchange on its own connection, with a socket timeout."""
+    import http.client
+    from urllib.parse import urlsplit
+
+    parts = urlsplit(base)
+    conn = http.client.HTTPConnection(parts.hostname, parts.port, timeout=timeout)
+    try:
+        data = body if isinstance(body, (bytes, type(None))) else json.dumps(body).encode()
+        conn.request(method, path, body=data, headers=dict(headers or {}))
+        resp = conn.getresponse()
+        return resp.status, dict(resp.getheaders()), resp.read()
+    finally:
+        conn.close()
+
+
+def _http_stream(base: str, body: dict, headers=None, on_first=None) -> dict:
+    """A streamed request: its NDJSON records, the seconds to its first
+    chunk and to its end (perf_counter stamps of the client)."""
+    import http.client
+    from urllib.parse import urlsplit
+
+    parts = urlsplit(base)
+    conn = http.client.HTTPConnection(parts.hostname, parts.port, timeout=SV_HTTP_TIMEOUT)
+    t0 = time.perf_counter()
+    try:
+        conn.request("POST", "/", body=json.dumps(body).encode(), headers=dict(headers or {}))
+        resp = conn.getresponse()
+        records, first = [], None
+        if resp.status != 200:
+            return {"status": resp.status, "records": [json.loads(resp.read() or b"null")],
+                    "t0": t0, "first": None, "end": time.perf_counter()}
+        while True:
+            line = resp.readline()
+            if not line:
+                break
+            if first is None:
+                first = time.perf_counter()
+                if on_first is not None:
+                    on_first()
+            records.append(json.loads(line))
+        return {"status": resp.status, "records": records, "t0": t0, "first": first,
+                "end": time.perf_counter()}
+    finally:
+        conn.close()
+
+
+def _run_clients(n_clients: int, jobs: list, fn) -> list:
+    """``fn(job)`` for every job, from ``n_clients`` threads taking jobs in
+    turn; results in job order. A client thread that raises fails the run."""
+    import threading
+
+    out, errors = [None] * len(jobs), []
+    nxt = iter(range(len(jobs)))
+    lock = threading.Lock()
+
+    def client():
+        while True:
+            with lock:
+                i = next(nxt, None)
+            if i is None:
+                return
+            try:
+                out[i] = fn(jobs[i])
+            except Exception as e:  # noqa: BLE001 - reported below
+                errors.append(f"job {i}: {type(e).__name__}: {e}")
+                return
+
+    threads = [threading.Thread(target=client, daemon=True) for _ in range(n_clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"serving clients failed: {errors[:3]}")
+    return out
+
+
+_SV_WORDS = ("the a film plot acting score music scene story actor director great good "
+             "bad awful boring moving long short slow fast funny sad dark bright not very "
+             "really quite well badly never always").split()
+
+
+def _serve_bodies(n: int, seed: int) -> list[dict]:
+    """Request bodies of 1-4 texts of 16-300 words each."""
+    rs = np.random.default_rng(seed)
+    return [{"texts": [" ".join(rs.choice(_SV_WORDS, size=int(rs.integers(16, 301))))
+                       for _ in range(int(rs.integers(1, 5)))]} for _ in range(n)]
+
+
+def _warm_bodies(n: int, seed: int) -> list[dict]:
+    """The swap's warmup rows: one text of 127-300 words each, so that every
+    rung of the warmup pads to 128 tokens, the length a batch of the mix
+    pads to unless all of its texts are shorter. A batch that pads shorter
+    misses once a (rows, length) shape: the warmup drives rungs of rows,
+    not the length ladder."""
+    rs = np.random.default_rng(seed)
+    return [{"texts": [" ".join(rs.choice(_SV_WORDS, size=int(rs.integers(127, 301))))]}
+            for _ in range(n)]
+
+
+class _CacheLog:
+    """A ``CompiledCache`` capture (``set_capture``) that logs every build
+    and every later call of what it built, with its thread and time."""
+
+    def __init__(self):
+        import threading
+
+        self.events: list[tuple] = []  # (t, thread, "build" | "call", key, built_on)
+        self._ident = threading.get_ident
+
+    def wrap(self, key: tuple, built):
+        built_on = self._ident()
+        self.events.append((time.perf_counter(), built_on, "build", key, built_on))
+
+        def call(*args, **kwargs):
+            self.events.append((time.perf_counter(), self._ident(), "call", key, built_on))
+            return built(*args, **kwargs)
+
+        return call
+
+
+def _post_timed(base: str, body) -> dict:
+    t0 = time.perf_counter()
+    status, _, data = _http(base, "POST", "/", body)
+    return {"status": status, "reply": json.loads(data) if data else None, "t0": t0,
+            "end": time.perf_counter()}
+
+
+def _check_scores(results: list, bodies: list, ref: dict, tag: str) -> tuple[float, float]:
+    """Every reply 200 with one score row a text, within main path 1's bf16
+    limits of the stage's transform of the same texts."""
+    bad = [i for i, r in enumerate(results) if r["status"] != 200 or "scores" not in r["reply"]]
+    if bad:
+        raise AssertionError(f"[serve] {tag}: {len(bad)} replies not 200 with scores, first "
+                             f"{results[bad[0]]}")
+    got = np.asarray([s for r in results for s in r["reply"]["scores"]], np.float32)
+    want = np.stack([ref[t] for b in bodies for t in b["texts"]])
+    if got.shape != want.shape or not np.isfinite(got).all():
+        raise AssertionError(f"[serve] {tag}: scores of shape {got.shape}, want {want.shape}")
+    diff = float(np.abs(got - want).max())
+    agree = float(np.mean(got.argmax(-1) == want.argmax(-1)))
+    log(f"[serve] {tag}: {len(results)} replies, {got.shape[0]} texts: max|dprob| against the "
+        f"stage's transform {diff:.3e} (tol {SV_TOL}), argmax agreement {agree:.4f} "
+        f"(want >= {SV_AGREE})")
+    if not (diff <= SV_TOL and agree >= SV_AGREE):
+        raise AssertionError(f"[serve] {tag}: served scores disagree with the transform")
+    return diff, agree
+
+
+def _latency_line(results: list, wall: float, tag: str, card: str) -> dict:
+    lat = np.asarray([(r["end"] - r["t0"]) * 1e3 for r in results])
+    out = {"requests_s": len(results) / wall, "p50_ms": float(np.percentile(lat, 50)),
+           "p99_ms": float(np.percentile(lat, 99)), "max_ms": float(lat.max())}
+    log(f"[serve] {tag}: {len(results)} requests in {wall:.3f} s = {out['requests_s']:.1f} "
+        f"requests/s; latency p50 {out['p50_ms']:.1f} ms, p99 {out['p99_ms']:.1f} ms, max "
+        f"{out['max_ms']:.1f} ms (client clock) | {card}")
+    return out
+
+
+def _check_metrics(base: str) -> None:
+    """``/metrics`` parses as Prometheus text 0.0.4 and carries the JAX
+    package's series."""
+    status, headers, data = _http(base, "GET", "/metrics")
+    if status != 200 or not headers.get("Content-Type", "").startswith("text/plain; version=0.0.4"):
+        raise AssertionError(f"[serve] /metrics answered {status} {headers}")
+    families, samples = {}, 0
+    for line in data.decode().splitlines():
+        if line.startswith("# TYPE "):
+            _, _, name, kind = line.split(" ")
+            families[name] = kind
+        elif line and not line.startswith("#"):
+            name, value = line.rsplit(" ", 1)
+            float(value)
+            base_name = re.sub(r"_(bucket|sum|count)$", "", name.split("{")[0])
+            if name.split("{")[0] not in families and base_name not in families:
+                raise AssertionError(f"[serve] /metrics sample {name} has no TYPE line")
+            samples += 1
+    missing = [s for s in SV_SERIES if s not in families]
+    log(f"[serve] /metrics: {len(families)} families, {samples} samples, Prometheus text 0.0.4; "
+        f"the JAX package's serving, cache, deploy and stage series present: {not missing}")
+    if missing or families["synapseml_serving_request_duration_ms"] != "histogram":
+        raise AssertionError(f"[serve] /metrics lacks {missing}")
+
+
+def _check_trace(base: str) -> None:
+    """A request's ``serving.request`` span joins the trace of the
+    ``traceparent`` it was sent with."""
+    from synapseml_torch.core import observability as obs
+
+    trace_id, parent = "4bf92f3577b34da6a3ce929d0e0e4736", "00f067aa0ba902b7"
+    obs.get_tracer().clear()
+    status, _, _ = _http(base, "POST", "/", _serve_bodies(1, seed=99)[0],
+                         headers={"traceparent": f"00-{trace_id}-{parent}-01"})
+    spans = json.loads(_http(base, "GET", "/trace")[2])
+    served = [s for s in spans if s["name"] == "serving.request" and s["trace_id"] == trace_id]
+    stages = [s["name"] for s in spans if s["name"].startswith("DeepTextModel")]
+    log(f"[serve] /trace: {len(spans)} spans; the request's serving.request span under the "
+        f"sent traceparent: {len(served)} (parent {served[0]['parent_id'] if served else None}, "
+        f"{served[0]['duration_ms'] if served else 0:.2f} ms); stage spans {stages[:2]}")
+    if status != 200 or len(served) != 1 or served[0]["parent_id"] != parent:
+        raise AssertionError("[serve] /trace: the request's span is not under its traceparent")
+
+
+def _serve_text(device, card: str, tmp: str) -> dict:
+    """(a) serve_pipeline: BERT-base DeepTextModel through the flash kernel
+    in bf16 between ServeTexts and ServeReplies, on 127.0.0.1:0."""
+    from synapseml_torch.core.serialization import save_stage
+    from synapseml_torch.io.serving import serve_pipeline
+    from synapseml_torch.registry import ModelRegistry
+
+    cfg = bert_base()
+    t0 = time.perf_counter()
+    params = text_stage._init_params(cfg, 2, 0)
+    tok = HashingTokenizer(vocab_size=cfg.vocab_size)
+    model = DeepTextModel(model_params=params, arch_config=cfg, tokenizer_config=tok.to_config(),
+                          checkpoint="bert-base", num_classes=2, batch_size=32,
+                          max_token_len=128, attn_impl="flash", device=str(device))
+    pipeline = PipelineModel(stages=[ServeTexts(), model, ServeReplies()])
+    bodies = _serve_bodies(SV_REQUESTS + SV_CONTINUOUS, seed=12)
+    texts = sorted({t for b in bodies for t in b["texts"]})
+    ref_df = model.transform(DataFrame.from_dict({"text": np.asarray(texts, dtype=object)}))
+    ref = dict(zip(texts, np.stack(list(ref_df.collect_column("scores")))))
+    save_stage(pipeline, os.path.join(tmp, "v2"))
+    warm = _warm_bodies(4, seed=13)
+    log(f"[serve] (a) BERT-base weights from seed 0, the stage's transform of the "
+        f"{len(texts)} texts of {len(bodies)} requests (the reference) and the pipeline saved "
+        f"for the swap in {time.perf_counter() - t0:.1f} s")
+    cache = cb.get_compiled_cache()
+    cache_log = _CacheLog()
+    cache.set_capture(cache_log)
+    out = {}
+    _zero_flash_counts()
+    srv = serve_pipeline(pipeline, batch_interval_ms=SV_INTERVAL_MS, version="v1")
+    try:
+        old_token = cb.instance_token(model)
+        swap = {}
+        replied = itertools.count(1)  # next() is atomic: one thread sees each count
+
+        def post(body):
+            r = _post_timed(srv.address, body)
+            if next(replied) == SV_SWAP_AFTER:
+                swap["t0"] = time.perf_counter()
+                status, _, data = _http(srv.address, "POST", "/admin/load",
+                                        {"path": os.path.join(tmp, "v2"), "version": "v2",
+                                         "warmup": warm})
+                swap["end"] = time.perf_counter()
+                with cache._lock:
+                    swap["old_entries"] = sum(k[1] == old_token for k in cache._entries)
+                swap["status"], swap["reply"] = status, json.loads(data)
+            return r
+
+        t0 = time.perf_counter()
+        results = _run_clients(SV_CLIENTS, bodies[:SV_REQUESTS], post)
+        wall = time.perf_counter() - t0
+        cache.set_capture(None)
+        if swap.get("status") != 200:
+            raise AssertionError(f"[serve] /admin/load by path failed: {swap}")
+        wu = swap["reply"]["warmup"]
+        across = [r for r in results if r["t0"] < swap["end"] and r["end"] > swap["t0"]]
+        gap = max((r["end"] - r["t0"]) * 1e3 for r in across)
+        # the new pipeline's callables: built by the warmup (the load's
+        # thread, first), then reached by the serve loop
+        new = sorted((e for e in cache_log.events if e[3][0] == "deep_text_model"
+                      and e[3][1] != old_token and e[0] >= swap["t0"]), key=lambda e: e[0])
+        warm_thread = new[0][4] if new else None
+        warmed = {e[3][2] for e in new if e[2] == "build" and e[1] == warm_thread}
+        served = [e for e in new if e[1] != warm_thread]
+        later = sorted({e[3][2] for e in served if e[2] == "build"})
+        log(f"[serve] micro-batch ({SV_INTERVAL_MS} ms), {SV_CLIENTS} clients: /admin/load by "
+            f"path after {SV_SWAP_AFTER} replies: {swap['reply']['load_ms']:.1f} ms, version "
+            f"{swap['reply']['previous']} -> {swap['reply']['version']}, warmup {wu}, shapes "
+            f"(rows, tokens) warmed {sorted(warmed)}; the old pipeline's cache entries after "
+            f"the swap: {swap['old_entries']}; the new pipeline's first scoring call after the "
+            f"swap: {served[0][2] if served else None} of a shape built by "
+            f"{'the warmup' if served and served[0][4] == warm_thread else 'the serve loop'}; "
+            f"later misses at shapes the warmup did not drive: {len(later)} {later}; "
+            f"{len(across)} requests spanned the swap, the longest {gap:.1f} ms | {card}")
+        if swap["old_entries"] or wu["mode"] != "jit" or not warmed or not served \
+                or served[0][2] != "call" or served[0][4] != warm_thread \
+                or set(later) & warmed:
+            raise AssertionError("[serve] the swap left old entries, or the new pipeline missed "
+                                 "on its first request or at a warmed shape")
+        out["micro"] = _latency_line(results, wall, "micro-batch", card)
+        out["micro"]["swap_gap_ms"] = gap
+        out["micro"]["max_dprob"], _ = _check_scores(results, bodies[:SV_REQUESTS], ref,
+                                                     "micro-batch")
+        _check_metrics(srv.address)
+        _check_trace(srv.address)
+        # a registry publish: the einsum/flash search on the card, no executables
+        reg = ModelRegistry(os.path.join(tmp, "store"))
+        t0 = time.perf_counter()
+        pub = reg.publish("bert", srv.pipeline_holder.pipeline,
+                          aot={"rows": warm, "buckets": list(SV_TUNE_BUCKETS)},
+                          autotune={"trials": 3})
+        tune, aot = pub.manifest["autotune"], pub.manifest["aot"]
+        times = tune["timings_ms"]["attn_impl"]
+        faster = min(times, key=lambda c: sum(times[c].values()))
+        log(f"[serve] registry publish in {time.perf_counter() - t0:.1f} s: autotune of attn_impl "
+            f"through the serve-loop warmup, min of 3 host ms a drive by rung: einsum "
+            f"{times['einsum']}, flash {times['flash']} (the faster drive: {faster}); winner "
+            f"{tune['winners']['attn_impl']} (by rung {tune['per_rung']['attn_impl']}; baseline, "
+            f"never pinned on the card: {tune.get('baseline')}); aot mechanism "
+            f"{aot['mechanism']}, {len(aot['entries'])} executables recorded | {card}")
+        if aot["entries"] or aot["mechanism"] is not None or sorted(times) != ["einsum", "flash"] \
+                or tune["winners"]["attn_impl"] != "flash" \
+                or tune.get("baseline") != {"attn_impl": "einsum"}:
+            raise AssertionError("[serve] the publish recorded executables, skipped a backend "
+                                 "or pinned the plain attention")
+        status, _, data = _http(srv.address, "POST", "/admin/load",
+                                {"registry": reg.root, "model": "bert", "ref": "v1",
+                                 "warmup": warm})
+        reply = json.loads(data)
+        wu = reply.get("warmup", {})
+        log(f"[serve] /admin/load by registry: {status}, {reply.get('load_ms')} ms, warmup {wu}")
+        if status != 200 or wu.get("mode") != "jit" or not wu.get("executables_traced") \
+                or wu.get("rows") != 8 + 16 + 32 + 64 + len(warm):
+            raise AssertionError("[serve] the load by registry did not warm up by JIT")
+        served = srv.pipeline_holder.pipeline
+    finally:
+        cache.set_capture(None)
+        srv.stop()
+    # continuous mode (a reply a request) over the registry-loaded pipeline
+    impl = served.get("stages")[1].get("attn_impl")
+    before = sum(_flash_counts()["fwd"].values())
+    srv = serve_pipeline(served, batch_interval_ms=0, version="v3")
+    try:
+        t0 = time.perf_counter()
+        results = _run_clients(SV_CLIENTS, bodies[SV_REQUESTS:],
+                               lambda b: _post_timed(srv.address, b))
+        out["continuous"] = _latency_line(results, time.perf_counter() - t0, "continuous", card)
+        _check_scores(results, bodies[SV_REQUESTS:], ref,
+                      f"continuous, after the registry load (attn_impl {impl})")
+    finally:
+        srv.stop()
+    launched = sum(_flash_counts()["fwd"].values()) - before
+    log(f"[serve] continuous traffic after the registry load: attn_impl {impl}, flash forward "
+        f"launches {launched}")
+    if impl != "flash" or launched == 0:
+        raise AssertionError("[serve] the registry-loaded pipeline did not serve through flash")
+    return out
+
+
+def _llm_prompts(n: int, seed: int) -> list[dict]:
+    rs = np.random.default_rng(seed)
+    return [{"prompt": " ".join(rs.choice(_LLM_WORDS, size=int(rs.integers(*SV_LLM_WORDS) + 1))),
+             "max_new_tokens": int(rs.integers(SV_LLM_NEW[0], SV_LLM_NEW[1] + 1)),
+             "stream": True} for _ in range(n)]
+
+
+def _llm_stage(name: str, sd: dict, device, tok):
+    from synapseml_torch.hf import HuggingFaceCausalLM
+
+    return HuggingFaceCausalLM(model_name=name, model_params=sd, tokenizer=tok.to_config(),
+                               engine="paged", max_new_tokens=SV_LLM_NEW[1],
+                               decode_slots=SV_LLM_STREAMS, batch_size=SV_LLM_STREAMS,
+                               device=str(device))
+
+
+def _llm_traffic(base: str, prompts: list, tag: str, card: str) -> dict:
+    t0 = time.perf_counter()
+    runs = _run_clients(SV_LLM_STREAMS, prompts, lambda b: _http_stream(base, b))
+    wall = time.perf_counter() - t0
+    bad = [r for r in runs if r["status"] != 200 or not r["records"][-1].get("done")]
+    if bad:
+        raise AssertionError(f"[serve] {tag}: {len(bad)} streams did not end, first {bad[0]}")
+    tokens = sum(r["records"][-1]["n_tokens"] for r in runs)
+    ttft = np.asarray([(r["first"] - r["t0"]) * 1e3 for r in runs])
+    out = {"tokens_s": tokens / wall, "ttft_p50_ms": float(np.percentile(ttft, 50)),
+           "ttft_p99_ms": float(np.percentile(ttft, 99)), "wall_s": wall, "tokens": tokens}
+    log(f"[serve] (b) {tag}: {len(runs)} streams, {SV_LLM_STREAMS} at once, {tokens} tokens in "
+        f"{wall:.3f} s = {out['tokens_s']:.1f} tokens/s; time to first token p50 "
+        f"{out['ttft_p50_ms']:.1f} ms, p99 {out['ttft_p99_ms']:.1f} ms (client clock) | {card}")
+    return {"runs": runs, **out}
+
+
+def _llm_ready(base: str, tag: str, card: str) -> None:
+    """Wait until the server's engine is built and warmed (``/admin/stats``
+    reports it), so that the traffic's first tokens do not wait for it."""
+    t0 = time.perf_counter()
+    while json.loads(_http(base, "GET", "/admin/stats")[2]).get("llm") is None:
+        if time.perf_counter() - t0 > 300:
+            raise AssertionError(f"[serve] (b) {tag}: the engine never came up")
+        time.sleep(0.05)
+    log(f"[serve] (b) {tag}: engine built and warmed (every prefill and decode rung) in "
+        f"{time.perf_counter() - t0:.2f} s | {card}")
+
+
+def _llm_pages_free(base: str, tag: str) -> None:
+    for _ in range(500):
+        llm = json.loads(_http(base, "GET", "/admin/stats")[2])["llm"]
+        if llm["active"] == llm["waiting"] == llm["blocks_used"] == 0:
+            return
+        time.sleep(0.02)
+    raise AssertionError(f"[serve] {tag}: pages still held: {llm}")
+
+
+def _serve_llm_path(device, card: str) -> dict:
+    """(b) serve_llm over the paged engine at Llama-2-7B width, SV_LLM_LAYERS
+    layers, weights from init_llama_params(seed=0): f32 traffic held to the
+    stage's transform by the margin rule, the scheduling checks, the drain;
+    then the same traffic in bf16 compute for its rates."""
+    import socket
+    import threading
+
+    from synapseml_torch.core import observability as obs
+    from synapseml_torch.hf import causal_lm as tcl
+    from synapseml_torch.io.serving import serve_llm
+    from synapseml_torch.models.convert_jax import init_llama_params
+    from synapseml_torch.models.nets.llama import llama2_7b
+
+    presets = {"llama2-7b-serve-f32": lambda **kw: llama2_7b(n_layers=SV_LLM_LAYERS,
+                                                              dtype=torch.float32, **kw),
+               "llama2-7b-serve": lambda **kw: llama2_7b(n_layers=SV_LLM_LAYERS, **kw)}
+    tcl._ARCHS.update(presets)
+    tok = HashingTokenizer(vocab_size=32000)
+    out = {}
+    try:
+        sd = init_llama_params(llama2_7b(n_layers=SV_LLM_LAYERS, dtype=torch.float32), seed=0,
+                               device=device)
+        stage = _llm_stage("llama2-7b-serve-f32", sd, device, tok)
+        prompts = _llm_prompts(SV_LLM_PROMPTS, seed=21)
+        t0 = time.perf_counter()
+        ref = _completions(stage.transform(DataFrame.from_dict(
+            {"prompt": np.asarray([p["prompt"] for p in prompts], dtype=object)})))
+        model = stage._model_and_tokenizer()[0]
+        ids = [tok.tokenize(p["prompt"]) for p in prompts]
+        log(f"[serve] (b) Llama-2-7B width, {SV_LLM_LAYERS} layers, f32: prompts of "
+            f"{min(map(len, ids))}-{max(map(len, ids))} tokens, max_new_tokens "
+            f"{min(p['max_new_tokens'] for p in prompts)}-{max(p['max_new_tokens'] for p in prompts)}; "
+            f"the stage's transform (the reference) in {time.perf_counter() - t0:.1f} s")
+        srv = serve_llm(stage, version="f32")
+        try:
+            _llm_ready(srv.address, "f32", card)
+            traffic = _llm_traffic(srv.address, prompts, "f32", card)
+            got = [r["records"][-1]["output_ids"] for r in traffic["runs"]]
+            chunks_ok = all([c["token"] for c in r["records"][:-1]] == r["records"][-1]["output_ids"]
+                            and [c["seq"] for c in r["records"][:-1]]
+                            == list(range(len(r["records"]) - 1)) for r in traffic["runs"])
+            want = [w[:len(g)] for g, w in zip(got, ref)]
+            compared = _margin_rule(got, want, _teacher_margins(model, ids, got),
+                                    _teacher_margins(model, ids, want), "served f32 vs transform")
+            log(f"[serve] (b) f32 streams equal the transform on {compared} tokens under the "
+                f"margin rule; chunk framing (token, seq) consistent: {chunks_ok}")
+            if not chunks_ok or any(len(g) > p["max_new_tokens"] for g, p in zip(got, prompts)):
+                raise AssertionError("[serve] (b) chunk framing or budgets broken")
+            out["f32"] = {k: v for k, v in traffic.items() if k != "runs"}
+            # a short request sent after a long one finishes first
+            long_req = {"prompt": " ".join(["token"] * 511), "max_new_tokens": 64, "stream": True}
+            short_req = {"prompt": " ".join(["page"] * 15), "max_new_tokens": 16, "stream": True}
+            started = threading.Event()
+            res = {}
+            tl = threading.Thread(target=lambda: res.setdefault(
+                "long", _http_stream(srv.address, long_req, on_first=started.set)), daemon=True)
+            tl.start()
+            if not started.wait(60):
+                raise AssertionError("[serve] (b) the long request never started")
+            res["short"] = _http_stream(srv.address, short_req)
+            tl.join(timeout=120)
+            log(f"[serve] (b) a 16-token request sent after the first token of a 512-token one: "
+                f"short ends at {(res['short']['end'] - res['long']['t0']) * 1e3:.1f} ms, long at "
+                f"{(res['long']['end'] - res['long']['t0']) * 1e3:.1f} ms")
+            if not res["short"]["end"] < res["long"]["end"]:
+                raise AssertionError("[serve] (b) the short request waited out the long one")
+            # a deadline too short: 504, finish_reason deadline, pages freed
+            status, _, data = _http(srv.address, "POST", "/", {"prompt": long_req["prompt"],
+                                                               "max_new_tokens": 64},
+                                    headers={"X-Deadline-Ms": "1"})
+            rec = json.loads(data)
+            _llm_pages_free(srv.address, "deadline")
+            log(f"[serve] (b) X-Deadline-Ms 1: {status} {rec}; pages freed")
+            if status != 504 or rec.get("finish_reason") != "deadline":
+                raise AssertionError("[serve] (b) the deadline did not give a 504")
+            # the drain with a dead migrate_to: every stream re-imported locally
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", 0))
+                dead = f"http://127.0.0.1:{s.getsockname()[1]}"
+            key = 'synapseml_llm_migrations_total{outcome="error",reason="drain"}'
+            before = obs.get_registry().snapshot().get(key, 0)
+            drain_prompts = [{**p, "max_new_tokens": SV_LLM_NEW[1]}
+                             for p in prompts[:SV_LLM_STREAMS]]
+            firsts = threading.Barrier(SV_LLM_STREAMS + 1)
+
+            def stream(i):
+                return _http_stream(srv.address, drain_prompts[i],
+                                    headers={"X-Request-Key": f"drain-{i}"},
+                                    on_first=lambda: firsts.wait(60))
+
+            runner = threading.Thread(target=lambda: res.setdefault(
+                "drain", _run_clients(SV_LLM_STREAMS, list(range(SV_LLM_STREAMS)), stream)),
+                daemon=True)
+            runner.start()
+            firsts.wait(60)
+            status, _, data = _http(srv.address, "POST", "/admin/drain",
+                                    {"migrate_to": dead, "timeout_s": 60})
+            runner.join(timeout=120)
+            runs = res.get("drain") or []
+            errors = obs.get_registry().snapshot().get(key, 0) - before
+            got = [r["records"][-1].get("output_ids") for r in runs]
+            ended = len(runs) == SV_LLM_STREAMS and all(r["records"][-1].get("done") for r in runs)
+            log(f"[serve] (b) /admin/drain with a dead migrate_to: {status} {json.loads(data)}; "
+                f"live streams whose handoff failed and were re-imported locally {errors:.0f} "
+                f"of {SV_LLM_STREAMS}; every stream ended: {ended}")
+            if not ended or not 1 <= errors <= SV_LLM_STREAMS:
+                raise AssertionError("[serve] (b) the drain lost a stream or tried no handoff")
+            ids8 = ids[:SV_LLM_STREAMS]
+            want = [w[:len(g)] for g, w in zip(got, ref)]
+            compared = _margin_rule(got, want, _teacher_margins(model, ids8, got),
+                                    _teacher_margins(model, ids8, want), "drained f32 vs transform")
+            _llm_pages_free(srv.address, "drain")
+            out["drain"] = {"reimported": errors, "compared": compared}
+        finally:
+            srv.stop()
+        stage.release()
+        del stage, model
+        _free_card()
+        # bf16 compute: the rates
+        stage = _llm_stage("llama2-7b-serve", sd, device, tok)
+        srv = serve_llm(stage, version="bf16")
+        try:
+            _llm_ready(srv.address, "bf16", card)
+            out["bf16"] = {k: v for k, v in _llm_traffic(srv.address, prompts, "bf16",
+                                                          card).items() if k != "runs"}
+        finally:
+            srv.stop()
+        stage.release()
+        del stage, sd
+    finally:
+        for name in presets:
+            tcl._ARCHS.pop(name, None)
+        _free_card()
+    return out
+
+
+def phase_serving(device, card: str) -> dict:
+    """Main path 12: (a) serve_pipeline with BERT-base through the flash
+    kernel, its hot swaps and endpoints; (b) serve_llm over the paged
+    engine. Returns the flash launches of (a) and (b) and the records."""
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    try:
+        t0 = time.perf_counter()
+        text = _serve_text(device, card, tmp)
+        log(f"[serve] (a) done in {time.perf_counter() - t0:.1f} s")
+        _free_card()
+        counts = _flash_counts()
+        t0 = time.perf_counter()
+        llm = _serve_llm_path(device, card)
+        log(f"[serve] (b) done in {time.perf_counter() - t0:.1f} s")
+        after = _flash_counts()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[serve] main path 12's flash launches: {after} ((a) alone {counts})")
+    if sum(counts["fwd"].values()) == 0:
+        raise AssertionError("main path 12 launched no flash kernel")
+    return {"launches": after["fwd"], "bwd_launches": after["bwd"], "text": text, "llm": llm}
+
+
 def main() -> None:
     t0 = time.perf_counter()
 
@@ -6701,13 +7345,16 @@ def main() -> None:
     done("main path 10, ONNX's whole opset")
     mesh = phase_multi_gpu(device, card, gbdt["digest"])
     done("main path 11, the multi-GPU plane at one card")
+    serving = phase_serving(device, card)
+    done("main path 12, HTTP model serving")
     # the flash kernels' launches on the paths, each counted from 0 just
     # before it ran: scoring (path 1), fine-tuning through flash and both
     # fitted models' scoring (path 3), bert-tiny f32 through flash on the
     # card, the long-T flash steps in bf16 and in f32, and ViT-B/16
     # fine-tuning through flash (path 5), the checkpoint fit and its model's
-    # scoring (path 7), and the MoE encoder's runs (path 8)
-    paths = (train, vit, pretrained, moe, mesh,
+    # scoring (path 7), the MoE encoder's runs (path 8), the mesh fits and
+    # scoring (path 11) and the served requests, swaps and publish (path 12)
+    paths = (train, vit, pretrained, moe, mesh, serving,
              {"launches": tiny["fwd"], "bwd_launches": tiny["bwd"]},
              *({"launches": long_t[tag]["launches"]["fwd"],
                 "bwd_launches": long_t[tag]["launches"]["bwd"]} for tag in ("flash", "flash f32")))

@@ -3,10 +3,17 @@
 The JAX package stays the reference; this package grows beside it slice by
 slice, mirroring its layout so each file names its counterpart:
   core/        DataFrame, params, pipeline API, stage telemetry, bucketing,
-               metrics registry, retry policy, seeded fault injection
+               the callable cache and its provider tier, metrics registry
+               with Prometheus exposition, trace spans with traceparent
+               and Chrome export, retry policy, circuit breaker, deadlines,
+               seeded fault injection
   data/        sharded sources (in memory, and jsonl/csv/npy/image files),
                the prefetching DataLoader, iterator state
-  io/          the input-path resolvers and JSONL line parser of the sources
+  io/          HTTP model serving (serve_pipeline, serve_llm, hot swap by
+               path or registry), the sources' path resolvers and JSONL
+               line parser
+  registry/    content-addressed artifact store, versioned publish/resolve
+               with aliases, the warmup-only AOT contract, autotuning
   parallel/    the mesh of the process group, partition rules, collectives,
                checkpoints and resume, the rendezvous, training batchers
   ops/         hand-written CUDA kernels (``csrc/``) with plain versions;
@@ -25,7 +32,8 @@ slice, mirroring its layout so each file names its counterpart:
                model-zoo client
   hf/          HuggingFaceCausalLM: Llama batch generation through the
                dense KV-cache decode or the paged decode engine
-               (models/paged_engine.py, models/prefix_cache.py)
+               (models/paged_engine.py, models/prefix_cache.py), and its
+               serving engine for serve_llm
 
 It imports torch and numpy, never JAX. Entry points run on the CUDA card
 unless the caller asks for the CPU.

@@ -13,9 +13,17 @@ Counterpart of ``synapseml_tpu/core/batching.py``:
   ``synapseml_compile_trace_ms{fn=...}``. Where the JAX package builds a
   ``jax.jit`` wrapper, the port's builders return a runner whose first call
   captures a CUDA graph (``models/trainer.py``'s scanned step), so that
-  histogram times the capture. The AOT tier of the deploy plane
-  (``install_aot_provider``, ``set_capture``) and ``release_executables``
-  (its hot-swap path) are refused until that plane is ported.
+  histogram times the capture. The deploy plane's second tier is kept
+  as the JAX one is, mechanism-agnostic: ``install_aot_provider`` adds a
+  provider whose ``lookup(fn_id, instance, shape, dtype)`` a miss consults
+  before building (a hit counts in ``aot_hits``, not as a miss), and
+  ``set_capture`` installs a publish-time recorder whose ``wrap(key,
+  built)`` sees every build. The port's registry
+  (``registry/aot.py``) records no executables, so on the card no provider
+  is installed and every miss builds.
+* :func:`release_executables` evicts a replaced pipeline's entries on a
+  hot swap; a batch still running on the old pipeline holds its callable
+  and finishes with it.
 * ``set_default_bucketer`` and ``reset_compiled_cache`` swap the
   process-wide ladder and cache, as the JAX ones do.
 """
@@ -37,8 +45,6 @@ __all__ = ["ShapeBucketer", "default_bucketer", "set_default_bucketer", "pad_row
            "reset_compiled_cache", "instance_token", "invalidate_token",
            "release_executables"]
 
-_AOT = "ROADMAP.md queue A item 10 (the deploy plane's AOT tier)"
-
 _CACHE_METRICS = obs.HandleCache(lambda reg: {
     "hits": reg.counter(
         "synapseml_compile_cache_hits_total",
@@ -49,6 +55,9 @@ _CACHE_METRICS = obs.HandleCache(lambda reg: {
     "evictions": reg.counter(
         "synapseml_compile_cache_evictions_total",
         "CompiledCache LRU evictions", ("fn",)),
+    "aot_hits": reg.counter(
+        "synapseml_compile_cache_aot_hits_total",
+        "CompiledCache misses served by an installed AOT provider", ("fn",)),
     "trace_ms": reg.histogram(
         "synapseml_compile_trace_ms",
         "wall time of the first (tracing/compiling) call of a cache miss",
@@ -246,25 +255,64 @@ class CompiledCache:
         self.capacity = int(capacity)
         self._lock = threading.Lock()
         self._entries: "OrderedDict[tuple, Callable]" = OrderedDict()
+        # the deploy plane's second tier: providers a miss consults before
+        # building, and the publish-time recorder of builds
+        self._aot_providers: list = []
+        self._capture = None
         # local mirrors of the registry counters
         self.hits = 0
         self.misses = 0
         self.evictions = 0
+        self.aot_hits = 0
         self.trace_ms_total = 0.0  # wall time of the misses' first calls
 
     def stats(self) -> dict:
         with self._lock:
             return {"hits": self.hits, "misses": self.misses,
                     "evictions": self.evictions, "size": len(self._entries),
+                    "aot_hits": self.aot_hits,
                     "trace_ms_total": self.trace_ms_total}
 
     def install_aot_provider(self, provider) -> None:
-        raise NotImplementedError(f"the AOT tier of CompiledCache is not ported to "
-                                  f"synapseml_torch yet: {_AOT}")
+        """Add a lookup tier: misses consult ``provider.lookup(fn_id,
+        instance, shape, dtype)`` before building."""
+        with self._lock:
+            if provider not in self._aot_providers:
+                self._aot_providers.append(provider)
+
+    def remove_aot_provider(self, provider) -> None:
+        """Detach a swapped-out artifact's tier (the entries it served stay
+        until they are evicted with their pipeline's tokens)."""
+        with self._lock:
+            try:
+                self._aot_providers.remove(provider)
+            except ValueError:
+                pass
 
     def set_capture(self, capture) -> None:
-        raise NotImplementedError(f"the AOT capture of CompiledCache is not ported to "
-                                  f"synapseml_torch yet: {_AOT}")
+        """Install (or clear, with None) the publish-time recorder: every
+        miss's built callable goes through ``capture.wrap(key, built)``."""
+        with self._lock:
+            self._capture = capture
+
+    def _insert(self, key: tuple, fn: Callable, m: dict) -> None:
+        """Put ``fn`` under ``key`` and evict past ``capacity`` (lock held)."""
+        self._entries[key] = fn
+        while len(self._entries) > self.capacity:
+            evicted_key, _ = self._entries.popitem(last=False)
+            self.evictions += 1
+            # counted against the evicted entry's function: its next call
+            # pays the rebuild
+            m["evictions"].inc(fn=evicted_key[0])
+
+    def _hit_existing(self, key: tuple, fn_id: str, m: dict):
+        """The entry under ``key`` counted as a hit, or None (lock held)."""
+        fn = self._entries.get(key)
+        if fn is not None:
+            self._entries.move_to_end(key)
+            self.hits += 1
+            m["hits"].inc(fn=fn_id)
+        return fn
 
     def miss_count(self, fn_id: str) -> float:
         """Registry-backed miss count of ``fn_id``."""
@@ -279,29 +327,37 @@ class CompiledCache:
         key = (fn_id, instance, tuple(shape), dtype)
         m = _CACHE_METRICS.get()
         with self._lock:
-            fn = self._entries.get(key)
+            fn = self._hit_existing(key, fn_id, m)
             if fn is not None:
-                self._entries.move_to_end(key)
-                self.hits += 1
-                m["hits"].inc(fn=fn_id)
                 return fn
-        fn = self._traced_first_call(build(), fn_id, key)
+            providers = tuple(self._aot_providers)
+            capture = self._capture
+        # the second tier: a provider's hit is ready to run and is not a miss
+        for provider in providers:
+            try:
+                fn = provider.lookup(fn_id, instance, key[2], dtype)
+            except Exception:  # noqa: BLE001 - a broken provider demotes to a build
+                fn = None
+            if fn is not None:
+                with self._lock:
+                    existing = self._hit_existing(key, fn_id, m)
+                    if existing is not None:
+                        return existing
+                    self._insert(key, fn, m)
+                    self.aot_hits += 1
+                    m["aot_hits"].inc(fn=fn_id)
+                return fn
+        built = build()
+        if capture is not None:
+            built = capture.wrap(key, built)
+        fn = self._traced_first_call(built, fn_id, key)
         with self._lock:
-            existing = self._entries.get(key)
-            if existing is not None:  # a concurrent build won
-                self._entries.move_to_end(key)
-                self.hits += 1
-                m["hits"].inc(fn=fn_id)
+            existing = self._hit_existing(key, fn_id, m)  # a concurrent build won
+            if existing is not None:
                 return existing
-            self._entries[key] = fn
+            self._insert(key, fn, m)
             self.misses += 1
             m["misses"].inc(fn=fn_id)
-            while len(self._entries) > self.capacity:
-                evicted_key, _ = self._entries.popitem(last=False)
-                self.evictions += 1
-                # counted against the evicted entry's function: its next
-                # call pays the rebuild
-                m["evictions"].inc(fn=evicted_key[0])
         return fn
 
     def _traced_first_call(self, fn: Callable, fn_id: str, key: tuple) -> Callable:
@@ -380,8 +436,36 @@ def invalidate_token(obj: Any) -> None:
         get_compiled_cache().evict_instance(tok)
 
 
+def stage_tree(stage: Any) -> list:
+    """``stage`` and its nested stages (the ``stages`` Param of a Pipeline
+    or PipelineModel), root first, each once, in order."""
+    seen: set[int] = set()
+    out = []
+
+    def walk(obj):
+        if obj is None or id(obj) in seen:
+            return
+        seen.add(id(obj))
+        out.append(obj)
+        getter = getattr(obj, "get", None)
+        if callable(getter):
+            try:
+                children = getter("stages")
+            except Exception:  # noqa: BLE001 - not every stage has 'stages'
+                return
+            if isinstance(children, (list, tuple)):
+                for child in children:
+                    walk(child)
+
+    walk(stage)
+    return out
+
+
 def release_executables(stage: Any) -> None:
-    """The hot-swap path's release of a replaced pipeline's callables comes
-    with the serving and deploy planes."""
-    raise NotImplementedError("release_executables is not ported to synapseml_torch yet: "
-                              "ROADMAP.md queue A item 10 (serving and deploy)")
+    """Invalidate the tokens of ``stage`` and of its nested stages,
+    evicting their cached callables: the hot-swap path calls it on the
+    replaced pipeline, so that a serving process does not keep one dead
+    model's weights a swap. A caller that already holds a callable keeps
+    running it."""
+    for obj in stage_tree(stage):
+        invalidate_token(obj)

@@ -1,8 +1,11 @@
 """Uniform stage telemetry — the SynapseMLLogging equivalent.
 
 Counterpart of ``StageTelemetry`` in ``synapseml_tpu/core/logging.py``:
-every fit/transform runs inside one tracer span and emits one structured
-JSON log line (uid, class, feature, method, duration). The payload carries
+every fit/transform runs inside one tracer span, lands in the
+``synapseml_stage_duration_ms`` histogram and the
+``synapseml_stage_events_total`` counter (``observability.observe_stage``)
+and emits one structured JSON log line (uid, class, feature, method,
+duration). The payload carries
 no user data, so it needs none of the JAX package's scrubbers; those and
 the telemetry sinks come with the port of the services plane.
 """
@@ -45,7 +48,11 @@ class StageTelemetry:
             try:
                 out = fn(*args, **kwargs)
             except BaseException as e:
-                self._emit(method, (time.perf_counter() - t0) * 1e3, error=e)
+                dt = (time.perf_counter() - t0) * 1e3
+                obs.observe_stage(cls, method, dt, error=True)
+                self._emit(method, dt, error=e)
                 raise
-        self._emit(method, (time.perf_counter() - t0) * 1e3)
+        dt = (time.perf_counter() - t0) * 1e3
+        obs.observe_stage(cls, method, dt)
+        self._emit(method, dt)
         return out

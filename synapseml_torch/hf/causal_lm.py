@@ -35,11 +35,20 @@ come from one stream a batch). The weights stay whole on every process, so
 a table that cuts a weight over an axis of size > 1 (the JAX package
 shards them over the mesh) is refused with ``NotImplementedError`` naming
 ROADMAP.md queue A item 9. The paged engine refuses a mesh, as the JAX
-package's does. ``serving_engine()`` / ``serve_llm`` are
-refused with ``NotImplementedError`` naming ROADMAP.md queue A item 10.
+package's does.
+
+``serving_engine()`` returns a :class:`CausalLMServingEngine`
+(``:333-646`` there), the text adapter ``io.serving.serve_llm`` schedules
+tokens on: request payloads in (prompt or ids, ``max_new_tokens``,
+``stream``), the stage's greedy paged engine between, chunks and terminal
+records out; ``export``/``import_snapshot``/``resume`` carry a live
+sequence across workers as the JAX adapter's JSON does.
 """
 
 from __future__ import annotations
+
+import base64
+import time
 
 import numpy as np
 import torch
@@ -58,11 +67,6 @@ from ..models.nets.transformer import MoEBlock
 __all__ = ["HuggingFaceCausalLM", "default_chat_template", "load_llama"]
 
 _ARCHS = {"llama2-7b": llama2_7b, "llama-tiny": llama_tiny}
-
-
-def _unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"HuggingFaceCausalLM: {what} is not ported to "
-                               f"synapseml_torch yet: ROADMAP.md queue A item {item}")
 
 
 def default_chat_template(messages) -> str:
@@ -348,9 +352,10 @@ class HuggingFaceCausalLM(Transformer):
                         break
         return eng
 
-    def serving_engine(self):
-        raise _unported("serving_engine() / serve_llm (CausalLMServingEngine)",
-                        "10 (io/serving.py)")
+    def serving_engine(self) -> "CausalLMServingEngine":
+        """The text-level adapter ``io.serving.serve_llm`` schedules tokens
+        on (tokenize request -> paged engine -> detokenized chunks)."""
+        return CausalLMServingEngine(self)
 
     def _texts_of(self, p) -> list[str]:
         mc = self.get("messages_col")
@@ -449,3 +454,177 @@ class HuggingFaceCausalLM(Transformer):
                 q[self.get("output_col")] = np.empty(0, dtype=object)
             out_parts.append(q)
         return DataFrame(out_parts)
+
+
+class CausalLMServingEngine:
+    """Text adapter between ``io.serving.serve_llm``'s token scheduler and
+    the stage's shared :class:`~..models.paged_engine.PagedDecodeEngine`:
+    parses request payloads (``{"prompt" | "input_ids", "max_new_tokens",
+    "stream"}``), tokenizes through the stage's tokenizer, and renders
+    per-token chunks and terminal replies (detokenized when the tokenizer
+    can decode, raw token ids otherwise)."""
+
+    def __init__(self, stage: HuggingFaceCausalLM):
+        model, tok = stage._model_and_tokenizer()
+        if stage.__dict__.get("_mesh") is not None:
+            raise ValueError("serve_llm rides the paged engine, which does "
+                             "not support mesh_config yet")
+        self._tok = tok
+        self._decode = getattr(tok, "decode", None)
+        self._max_len = model.cfg.max_len
+        eff = stage._effective_gen_cfg()
+        self._default_max_new = int(eff["max_new_tokens"])
+        self._engine = stage._paged_engine(eff)
+
+    # -- scheduling delegation (the serve_llm protocol) --
+    def admit(self):
+        return self._engine.admit()
+
+    def step(self):
+        return self._engine.step()
+
+    def has_work(self) -> bool:
+        return self._engine.has_work()
+
+    @property
+    def waiting_count(self) -> int:
+        return self._engine.waiting_count
+
+    def warmup(self) -> int:
+        return self._engine.warmup()
+
+    def abort(self, seq, reason: str = "aborted"):
+        return self._engine.abort(seq, reason=reason)
+
+    def abort_all(self, reason: str = "aborted"):
+        return self._engine.abort_all(reason=reason)
+
+    def live_requests(self):
+        return self._engine.live_sequences()
+
+    def release(self) -> None:
+        self._engine.release()
+
+    def stats(self) -> dict:
+        return self._engine.stats()
+
+    # -- request surface --
+    def _prompt_ids(self, payload) -> list:
+        if "input_ids" in payload:
+            return [int(t) for t in payload["input_ids"]]
+        prompt = payload.get("prompt")
+        if not isinstance(prompt, str) or not prompt:
+            raise ValueError("need 'prompt' (non-empty string) or 'input_ids'")
+        # the prompt is kept whole up to the model horizon; the engine caps
+        # max_new to the room left and reports finish_reason 'length'
+        enc = self._tok([prompt], max_len=self._max_len - 1, multiple_of=1)
+        row_ids = np.asarray(enc["input_ids"][0])
+        row_mask = np.asarray(enc["attention_mask"][0])
+        return row_ids[row_mask > 0].tolist()
+
+    def _max_new(self, body: dict, cap: int) -> int:
+        max_new = int(body.get("max_new_tokens", self._default_max_new))
+        return max(1, min(max_new, int(cap)))
+
+    def submit(self, payload, request_id: str, max_new_cap: int = 1024,
+               deadline: float | None = None, journal_key: str | None = None):
+        if not isinstance(payload, dict):
+            raise ValueError("body must be a JSON object with 'prompt' or 'input_ids'")
+        stream = bool(payload.get("stream", False))
+        max_new = self._max_new(payload, max_new_cap)
+        ids = self._prompt_ids(payload)
+        return self._engine.submit(ids, max_new, request_id=request_id, stream=stream,
+                                   deadline=deadline, journal_key=journal_key)
+
+    # -- live migration surface (serve_llm drain / front resubmit) --
+    def export(self, uid: int) -> "dict | None":
+        """JSON-able snapshot of one live sequence (the engine's binary npz
+        payload as base64): the wire form of ``export_sequence``."""
+        snap = self._engine.export_sequence(uid)
+        if snap is None:
+            return None
+        return {"manifest": snap["manifest"],
+                "payload_b64": base64.b64encode(snap["payload"]).decode(),
+                "digests": snap["digests"]}
+
+    def _seed_emitted_text(self, seq) -> None:
+        # the client has the text of every emitted token: prime the
+        # cumulative-decode cursor so the next chunk streams only the delta
+        if self._decode is not None and seq.generated:
+            full = self._decode(list(seq.generated))
+            if not full.endswith("\ufffd"):
+                seq._emitted_text = full
+
+    @staticmethod
+    def _deadline_ms_left(deadline: float | None) -> float | None:
+        return None if deadline is None else (deadline - time.perf_counter()) * 1e3
+
+    def import_snapshot(self, obj, request_id: str, deadline: float | None = None,
+                        journal_key: str | None = None):
+        """Readmit an exported sequence under this worker's exchange: the
+        continuation always streams and keeps the origin's uid."""
+        if not isinstance(obj, dict) or "manifest" not in obj:
+            raise ValueError("__import__ needs a snapshot with 'manifest'")
+        man = dict(obj["manifest"])
+        man["request_id"] = request_id
+        man["stream"] = True
+        if journal_key is not None:
+            man["journal_key"] = journal_key
+        if deadline is not None:
+            man["deadline_ms_left"] = self._deadline_ms_left(deadline)
+        payload = (base64.b64decode(obj["payload_b64"]) if obj.get("payload_b64")
+                   else (obj.get("payload") or b""))
+        seq = self._engine.import_sequence({"manifest": man, "payload": payload,
+                                            "digests": obj.get("digests") or {}})
+        self._seed_emitted_text(seq)
+        return seq
+
+    def resume(self, obj, request_id: str, max_new_cap: int = 1024,
+               deadline: float | None = None, journal_key: str | None = None):
+        """Crash-path resubmit (no KV snapshot survived): re-tokenize the
+        original body and re-prefill over prompt + the tokens already
+        relayed (token-identical under greedy)."""
+        if not isinstance(obj, dict) or not isinstance(obj.get("body"), dict):
+            raise ValueError("__resume__ needs {'body': <original request>, "
+                             "'emitted_ids': [...]}")
+        body = obj["body"]
+        man = {"uid": (int(obj["uid"]) if obj.get("uid") is not None
+                       else hash(request_id) & 0x7FFFFFFF),
+               "prompt_ids": self._prompt_ids(body),
+               "generated": [int(t) for t in obj.get("emitted_ids") or []],
+               "max_new_tokens": self._max_new(body, max_new_cap),
+               "request_id": request_id, "stream": True, "journal_key": journal_key,
+               "tokens_in_pages": 0}
+        if deadline is not None:
+            man["deadline_ms_left"] = self._deadline_ms_left(deadline)
+        seq = self._engine.import_sequence({"manifest": man, "payload": b"", "digests": {}})
+        self._seed_emitted_text(seq)
+        return seq
+
+    def chunk_for(self, event: dict) -> dict:
+        out = {"token": event["token"]}
+        if self._decode is not None:
+            # byte-level BPE pieces may not decode alone: decode the
+            # cumulative ids and stream the text delta, holding back an
+            # incomplete tail until a later token completes it
+            seq = event["seq"]
+            full = self._decode(list(seq.generated))
+            prev = getattr(seq, "_emitted_text", "")
+            if full.endswith("\ufffd"):
+                out["text"] = ""
+            else:
+                out["text"] = full[len(prev):] if full.startswith(prev) else full
+                seq._emitted_text = full
+        return out
+
+    def result_for(self, seq) -> dict:
+        toks = list(seq.generated)
+        if self._engine.eos_id is not None and toks and toks[-1] == self._engine.eos_id:
+            toks = toks[:-1]
+        out = {"done": True, "n_tokens": len(toks), "finish_reason": seq.finish_reason,
+               "output_ids": toks}
+        if self._decode is not None:
+            out["text"] = self._decode(toks)
+        if seq.preemptions:
+            out["preemptions"] = seq.preemptions
+        return out

@@ -1,9 +1,10 @@
-"""Input-path resolution and the JSONL line parser.
+"""Input-path resolution, the JSONL line parser and the writers' temp names.
 
-Counterpart of ``synapseml_tpu/io/files.py:29-56,233-251``, copied as it is
-(``_IMAGE_EXTS``, ``_resolve_paths``, ``resolve_input_paths``,
-``loads_jsonl_line``), so the port's on-disk sources list and parse files
-exactly as the JAX package's do. Images decode through
+Counterpart of ``synapseml_tpu/io/files.py:29-56,233-251,266-270``, copied
+as it is (``_IMAGE_EXTS``, ``_resolve_paths``, ``resolve_input_paths``,
+``loads_jsonl_line``, ``_tmp_path``), so the port's on-disk sources list
+and parse files exactly as the JAX package's do, and the registry's atomic
+writes name their temp files as the JAX package's do. Images decode through
 ``synapseml_torch.image.unroll.decode_image_bytes``.
 """
 
@@ -12,6 +13,7 @@ from __future__ import annotations
 import glob as _glob
 import json as _json
 import os
+import threading as _threading
 
 __all__ = ["resolve_input_paths", "loads_jsonl_line"]
 
@@ -56,3 +58,9 @@ def loads_jsonl_line(line: str | bytes, path: str, lineno: int) -> dict:
         raise ValueError(
             f"{path}:{lineno}: malformed JSONL record ({e.msg} at column "
             f"{e.colno}): {snippet!r}") from e
+
+
+def _tmp_path(path: str) -> str:
+    """Same-directory per-writer temp name (pid + thread id): two threads
+    writing the same destination cannot interleave into one temp file."""
+    return f"{path}.tmp.{os.getpid()}.{_threading.get_ident()}"

@@ -25,8 +25,17 @@ forward and backward kernels.
 ``DeepTextModel`` keeps the JAX stage's per-partition loop (tokenize,
 ``ShapeBucketer.slices``, ``pad_rows``, forward, softmax, ``unpad_rows``),
 and builds its module once per stage — weights moved to the device once —
-dropping it when a param it depends on changes. Scoring runs under
-``torch.inference_mode()``.
+dropping it when a param it depends on changes. Each padded batch shape
+``(bucket, seq_len)`` gets its scoring callable from ``CompiledCache``
+under the JAX stage's fn id ``"deep_text_model"`` and the stage's instance
+token, so a scoring stream takes at most ladder-many misses and a warmed
+stage (a serving hot swap's warmup) takes none at the shapes its warmup
+drove; a change of a param the module depends on invalidates the token.
+The callables run eagerly under ``torch.inference_mode()``.
+``_AUTOTUNE_PARAMS`` declares ``attn_impl`` (einsum or flash) to the
+registry's publish-time search, as the JAX stage does; ``_AUTOTUNE_PLAIN``
+names einsum as the flash kernel's plain version, which the search on the
+card times but never pins.
 
 Both stages run on ``device`` (default ``"cuda"``; a host without a CUDA
 device must ask for ``"cpu"``). ``model_params`` is this package's
@@ -254,6 +263,11 @@ class DeepTextModel(Model, _TextParams):
     _APPLY_KEYS = frozenset({"model_params", "arch_config", "tokenizer_config",
                              "checkpoint", "num_classes", "mesh_config", "attn_impl",
                              "device"})
+    # the registry's publish-time backend search (registry/autotune.py)
+    _AUTOTUNE_PARAMS = {"attn_impl": ("einsum", "flash")}
+    # einsum is the flash kernel's plain version: on the card it is the
+    # search's baseline, never its winner
+    _AUTOTUNE_PLAIN = {"attn_impl": "einsum"}
 
     def __init__(self, **kw):
         super().__init__(**kw)
@@ -261,11 +275,13 @@ class DeepTextModel(Model, _TextParams):
 
     def _post_load(self):
         self._module = None
+        cb.invalidate_token(self)
 
     def set(self, **kw):
         out = super().set(**kw)
         if self._APPLY_KEYS & kw.keys():
             self._module = None  # the built module captured the old values
+            cb.invalidate_token(self)
         return out
 
     def _get_module(self) -> BertClassifier:
@@ -315,6 +331,13 @@ class DeepTextModel(Model, _TextParams):
             probs = all_gather_dim(mesh, torch.softmax(logits, dim=-1), ("data", "fsdp"))
             return probs.cpu().numpy()
 
+    def _score_fn(self, bucket: int, seq_len: int):
+        """The scoring callable of one padded batch shape, from the process
+        cache (the JAX stage's ``run_for``)."""
+        return cb.get_compiled_cache().get(
+            "deep_text_model", (bucket, seq_len), lambda: self._score,
+            instance=cb.instance_token(self), dtype="int32")
+
     def _transform(self, df: DataFrame) -> DataFrame:
         self.require_columns(df, self.get("text_col"))
         self._get_module()
@@ -336,7 +359,8 @@ class DeepTextModel(Model, _TextParams):
             probs_chunks = []
             for s, e, bucket in bucketer.slices(len(texts), bs):
                 bucket = cb.round_up_to_multiple(bucket, dp)  # rows split evenly
-                p = self._score(cb.pad_rows(ids[s:e], bucket), cb.pad_rows(mask[s:e], bucket))
+                p = self._score_fn(bucket, ids.shape[1])(cb.pad_rows(ids[s:e], bucket),
+                                                         cb.pad_rows(mask[s:e], bucket))
                 probs_chunks.append(cb.unpad_rows(p, e - s))
             probs = np.concatenate(probs_chunks, axis=0)
             out = dict(part)

@@ -4,11 +4,13 @@ Both stages generate from the same multi-partition DataFrame with the same
 weights: the JAX stage holds the Flax tree of ``llama-tiny`` in f32 (the
 presets patched to f32 on both sides), the port its bridged state_dict.
 Completions are token-identical, dense and paged, and paged with the prefix
-cache and speculation on. The Params are the JAX
-stage's plus ``device``; each unported one is refused naming its item.
+cache and speculation on, and ``serving_engine()`` serves what the JAX
+stage's serves. The Params are the JAX stage's plus ``device``; each
+unported one is refused naming its item.
 """
 
 import dataclasses
+import json
 
 import flax.linen as nn
 import jax
@@ -229,9 +231,62 @@ def test_unported_params_are_refused_with_their_item(case, error):
         stage.transform(df)
 
 
-def test_serving_engine_is_refused_with_its_item():
-    with pytest.raises(NotImplementedError, match="queue A item 10"):
-        HuggingFaceCausalLM(device="cpu").serving_engine()
+def _serve_engine(engine, payloads):
+    """Submit every payload, then admit and step to the end; per request its
+    chunks' tokens and its terminal record, as serve_llm renders them."""
+    seqs = [engine.submit(p, f"r{i}") for i, p in enumerate(payloads)]
+    chunks = {f"r{i}": [] for i in range(len(payloads))}
+    results = {}
+    while engine.has_work():
+        for ev in engine.admit() + engine.step():
+            rid = ev["seq"].request_id
+            if ev["token"] is not None:
+                chunks[rid].append(engine.chunk_for(ev)["token"])
+            if ev["done"]:
+                results[rid] = engine.result_for(ev["seq"])
+    assert all(s.done for s in seqs)
+    return chunks, results
+
+
+def test_serving_engine_decodes_what_the_jax_engine_decodes(weights):
+    """``serving_engine()`` (serve_llm's adapter) against the JAX stage's on
+    the same payloads: prompts and ids, budgets past and under the stage's,
+    a cap; the same chunk tokens, terminal records (``output_ids``,
+    ``n_tokens``, ``finish_reason``) and bad-payload errors. A sequence
+    exported mid-decode and imported back finishes with the same tokens."""
+    params, sd = weights
+    payloads = [{"prompt": PROMPTS[1], "max_new_tokens": 9},
+                {"prompt": "hello world"},
+                {"input_ids": [5, 6, 7, 8], "max_new_tokens": 40},
+                {"prompt": PROMPTS[4], "max_new_tokens": 3, "stream": True}]
+    jeng = jcl.HuggingFaceCausalLM(**_kw(engine="paged"), model_params=params).serving_engine()
+    teng = HuggingFaceCausalLM(**_kw(engine="paged"), model_params=sd,
+                               device="cpu").serving_engine()
+    want, got = _serve_engine(jeng, payloads), _serve_engine(teng, payloads)
+    assert got == want
+    chunks, results = got
+    assert [results[f"r{i}"]["n_tokens"] for i in range(4)] == [9, 7, 40, 3]
+    assert all(chunks[k] == results[k]["output_ids"] for k in chunks)
+    for bad in ({"prompt": ""}, [1, 2], {"max_new_tokens": 3}):
+        with pytest.raises(ValueError) as jerr:
+            jeng.submit(bad, "bad")
+        with pytest.raises(ValueError) as terr:
+            teng.submit(bad, "bad")
+        assert str(terr.value) == str(jerr.value)
+    # export mid-decode (the drain's handoff) and import back locally
+    seq = teng.submit({"prompt": PROMPTS[1], "max_new_tokens": 9, "stream": True}, "m")
+    teng.admit()
+    teng.step()
+    snap = json.loads(json.dumps(teng.export(seq.uid)))  # the wire form is JSON
+    assert not teng.has_work()
+    back = teng.import_snapshot(snap, "m2")
+    while teng.has_work():
+        teng.admit()
+        teng.step()
+    assert back.stream and back.request_id == "m2"
+    assert teng.result_for(back)["output_ids"] == results["r0"]["output_ids"]
+    teng.release()
+    jeng.release()
 
 
 def test_default_device_is_the_card():

@@ -386,11 +386,59 @@ def test_compiled_cache_matches_jax():
     assert not [k for k in port._entries if k[1] == "i0"]
 
 
-def test_compiled_cache_refuses_the_aot_tier():
-    cache = tcb.CompiledCache()
-    with pytest.raises(NotImplementedError, match="item 10"):
-        cache.install_aot_provider(object())
-    with pytest.raises(NotImplementedError, match="item 10"):
-        cache.set_capture(object())
+class _Provider:
+    """A provider tier serving even-rung shapes; it raises on shape 3 (a
+    broken provider demotes that lookup to a build)."""
+
+    def __init__(self):
+        self.lookups = []
+
+    def lookup(self, fn_id, instance, shape, dtype):
+        self.lookups.append((fn_id, instance, tuple(shape), dtype))
+        if shape[0] == 3:
+            raise RuntimeError("broken blob")
+        return (lambda: ("aot", fn_id, shape)) if shape[0] % 2 == 0 else None
+
+
+class _Capture:
+    def __init__(self):
+        self.keys = []
+
+    def wrap(self, key, built):
+        self.keys.append(key)
+        return built
+
+
+def test_compiled_cache_provider_tier_matches_jax():
+    """The deploy plane's second tier on the port's cache against the JAX
+    cache, on the same keys: a provider hit is served and counted in
+    ``aot_hits`` (not a miss), a provider that returns None or raises
+    demotes to a build, a removed provider is no longer asked, and the
+    capture sees every build (not the provider's hits)."""
+    rs = np.random.default_rng(1)
+    keys = [(f"fn{rs.integers(0, 2)}", (int(rs.integers(1, 6)), 8), f"i{rs.integers(0, 2)}")
+            for _ in range(40)]
+    runs = []
+    for batching in (tcb, jcb):
+        cache, provider, capture = batching.CompiledCache(capacity=4), _Provider(), _Capture()
+        cache.install_aot_provider(provider)
+        cache.install_aot_provider(provider)  # installed once
+        cache.set_capture(capture)
+        first = _drive(cache, keys[:30])
+        cache.remove_aot_provider(provider)
+        cache.set_capture(None)
+        n_lookups = len(provider.lookups)
+        later = _drive(cache, keys[30:])
+        served = cache.get("fn0", (2, 8), lambda: (lambda: "built"), instance="i9")
+        stats = cache.stats()
+        runs.append((first, later, provider.lookups[:n_lookups],
+                     len(provider.lookups) == n_lookups, capture.keys, served(),
+                     {k: stats[k] for k in ("hits", "misses", "evictions", "size", "aot_hits")}))
+    assert runs[0] == runs[1]
+    first, later, lookups, asked_no_more, captured, served, stats = runs[0]
+    assert stats["aot_hits"] > 0 and stats["misses"] == len(first) + len(later) + 1
+    assert asked_no_more and served == "built"  # the provider was removed
+    assert first and all(shape[0] % 2 for _, shape in first)  # even rungs: the provider's
+    assert [(k[0], k[2]) for k in captured] == first  # the capture saw every build
     with pytest.raises(ValueError, match="capacity"):
         tcb.CompiledCache(capacity=0)

@@ -9,7 +9,7 @@
   beside it here.
 * ``core.batching``: ``set_default_bucketer`` swaps the process ladder and
   ``reset_compiled_cache`` the process cache, as the JAX ones do;
-  ``release_executables`` is refused naming its item.
+  ``release_executables`` evicts the entries the JAX function evicts.
 """
 
 import importlib
@@ -87,23 +87,33 @@ def test_deep_text_model_mesh_config_is_refused_with_its_item():
 # item that ports them
 _WAITING_EXPORTS = {
     "core": {"ServiceParam": "12", "StopWatch": "12", "retry_with_timeout": "12", "using": "12",
-             "ClusterInfo": "12", "cluster_info": "12", "CircuitBreaker": "1.6",
-             "Deadline": "1.6", "DeadlineExpired": "1.6", "all_resilience_measures": "1.6",
-             "register_instrumentation": "1.6",
-             "SpanContext": "1.6", "reset_tracer": "1.6", "chrome_trace_events": "1.6",
-             "export_chrome_trace": "1.6"},
+             "ClusterInfo": "12", "cluster_info": "12"},
     "data": {"ElasticStreamSet": "1.2", "ElasticPlan": "1.2"},
     "gbdt": {"train_boosters_fused": "11"},
+    # the HTTP clients, eager readers and writers and Power BI (item 12);
+    # the routing front (item 10's second half)
+    "io": {"HTTPRequest": "12", "HTTPResponse": "12", "HTTPTransformer": "12",
+           "SimpleHTTPTransformer": "12", "JSONInputParser": "12", "JSONOutputParser": "12",
+           "CustomInputParser": "12", "StringOutputParser": "12", "AsyncHTTPClient": "12",
+           "send_with_retries": "12", "read_binary_files": "12", "read_image_files": "12",
+           "read_csv": "12", "write_csv": "12", "read_jsonl": "12", "write_jsonl": "12",
+           "PowerBIWriter": "12", "serve_pipeline_distributed": "10"},
     "models": {"ModelDownloader": "12", "ModelSchema": "12", "CNTKModel": "12",
                "FusedTrainer": "9", "fused_fit_source": "9", "fused_fit_arrays": "9",
                "PipelineTrainer": "9"},
+    # canary rollout (registry/deploy.py): item 10's second half; the
+    # publish-time executable recorder waits for an AOT mechanism, which
+    # the port has none of by design (ROADMAP.md section C)
+    "registry": {"Deployment": "10", "CanaryController": "10", "admin_load": "10",
+                 "AOTCapture": "C"},
     # the gang (elastic training) and the GPipe pipeline: item 9's second half
     "parallel": {"EXIT_PREEMPTED": "9", "EXIT_RESIZE": "9", "ElasticResume": "9",
                  "GangAborted": "9", "GangCoordinator": "9", "GangWorker": "9",
                  "Preempted": "9", "elastic_restore": "9", "run_gang_member": "9",
                  "pipeline_apply": "9", "pipeline_sharded": "9", "stack_stage_params": "9"},
 }
-_SUBPACKAGES = ("core", "data", "gbdt", "hf", "image", "models", "onnx", "ops", "parallel")
+_SUBPACKAGES = ("core", "data", "gbdt", "hf", "image", "io", "models", "onnx", "ops", "parallel",
+                "registry")
 
 
 @pytest.mark.parametrize("sub", _SUBPACKAGES)
@@ -131,7 +141,9 @@ def test_models_and_core_export_the_ported_names():
     for name in ("CompiledCache", "get_compiled_cache", "instance_token", "invalidate_token",
                  "MetricsRegistry", "get_registry", "reset_registry", "Span", "RetryPolicy",
                  "RetryBudget", "resilience_measures", "reset_resilience_measures",
-                 "reset_compiled_cache", "set_default_bucketer"):
+                 "reset_compiled_cache", "set_default_bucketer", "CircuitBreaker", "Deadline",
+                 "SpanContext", "reset_tracer", "chrome_trace_events",
+                 "all_resilience_measures"):
         assert name in core.__all__ and hasattr(core, name), name
 
 
@@ -173,6 +185,33 @@ def test_set_default_bucketer_swaps_the_process_ladder():
     assert fresh is not cache and cb.get_compiled_cache() is fresh
 
 
-def test_release_executables_is_refused_with_its_item():
-    with pytest.raises(NotImplementedError, match="queue A item 10"):
-        cb.release_executables(_embedder())
+def test_release_executables_evicts_what_the_jax_function_evicts():
+    """A pipeline of two stages (one in a nested ``stages`` list), each with
+    a cached entry, and a third stage outside it: the port's
+    ``release_executables`` evicts the entries the JAX function evicts (the
+    pipeline's two), keeps the outsider's, and gives each released stage a
+    fresh token."""
+    from synapseml_torch.core.pipeline import PipelineModel as TPipelineModel
+    from synapseml_tpu.core import batching as jcb
+    from synapseml_tpu.core.pipeline import PipelineModel as JPipelineModel
+
+    def run(batching, pipeline_cls):
+        cache = batching.reset_compiled_cache()
+        try:
+            inner, other, outsider = _embedder(), _embedder(), _embedder()
+            pipe = pipeline_cls(stages=[inner, pipeline_cls(stages=[other])])
+            for i, st in enumerate((inner, other, outsider)):
+                cache.get(f"fn{i}", (8,), lambda: (lambda: None),
+                          instance=batching.instance_token(st))
+            tokens = [batching.instance_token(st) for st in (inner, other, outsider)]
+            batching.release_executables(pipe)
+            kept = sorted(k[0] for k in cache._entries)
+            fresh = [batching.instance_token(st) != t
+                     for st, t in zip((inner, other, outsider), tokens)]
+            return kept, fresh, cache.stats()["evictions"]
+        finally:
+            batching.reset_compiled_cache()
+
+    port = run(cb, TPipelineModel)
+    assert port == run(jcb, JPipelineModel)
+    assert port == (["fn2"], [True, True, False], 2)
