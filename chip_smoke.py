@@ -295,7 +295,35 @@ the kernels are built for sm_90a). Phases, each of which raises on failure:
    pages freed; /admin/drain with a dead migrate_to: every live stream
    re-imported locally and ended; then the traffic in bf16 compute:
    tokens/s and time to first token;
-17. times: each kernel beside its bound, its plain version and the one
+17. main path 13, the offline batch plane through transform_source:
+   (a) path 12's BERT-base stage (bf16, flash) over 8 ShardedSource.jsonl
+   shards of 2048 texts of 16-300 words at batch_rows 256 into a
+   JsonlSink: every score within main path 1's bf16 limits of the stage's
+   in-memory transform, id for id; a scan stopped after the 3rd shard's
+   DONE marker and resumed leaves part files byte-identical to the
+   uninterrupted scan's, each id once; a scan as two hosts (two threads,
+   one sink) gives the one-host rows; deep_text_model cache misses at most
+   the ladder's rungs; the flash forward 12 times a batch of 32; rows/s,
+   peak in-flight bytes and each thread's busy seconds (read, compute,
+   write); (b) LightGBM at benchmarks/bulk_scoring.py's shape: a fit on
+   4096 x 16 rows, 256 iterations through the histogram kernel (one launch
+   a level, one scale pass a tree), then 8 shards of 8192 rows scored
+   streamed (batch_rows 1024) and in memory, bitwise alike id for id; (c)
+   the retrieval build at benchmarks/retrieval_serve.py's shape: 300,000
+   documents hash-embedded (dim 128) through embed_corpus, shards from the
+   parts, a publish to a registry in a temporary directory, resolve and
+   index_model_for; 512 queries at k = 10 in batches of 64, ids and
+   distances bitwise a float64 plain search on the card under the
+   (distance, id) rule; 64 documents logged as committed request-log parts
+   and ingest_deltas: each found at distance 0; compact_index: no answer
+   changes; KNN and ConditionalKNN over 100,000 of the vectors against the
+   plain search; (d) the scorer over 8 shards of 131,072 x 768
+   integer-valued f32 vectors made on the card from seed 0: 4096 queries
+   at k = 10 in batches of 256 through search() (queries/s), the first 256
+   bitwise the float64 plain search, one batch in device time beside its
+   bound and its matmuls, and the (distance, index) top-k beside
+   torch.topk;
+18. times: each kernel beside its bound, its plain version and the one
    PyTorch call that computes the same function (device time, with the
    host's enqueue hidden behind a spin kernel; the library call's device
    kernels named from the profiler); flash_attention from the projection
@@ -303,7 +331,9 @@ the kernels are built for sm_90a). Phases, each of which raises on failure:
    kernel at each shape of one tree and its scale pass, and one call of
    each with its host enqueue; the flash backward at both training shapes
    beside the backward of scaled_dot_product_attention, with its device
-   kernels by name and count and both kernels' registers and spills.
+   kernels by name and count (profiled twice: where a session lost a
+   launch, library_ms is SDPA's backward by CUDA events, never a partial
+   sum) and both kernels' registers and spills.
 
 The line before the last is a JSON object with the kernels' numbers; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or
@@ -328,6 +358,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -570,6 +601,23 @@ def _device_kernels(fn, n=3) -> list[tuple[str, int, float, int, float]]:
             return out
         log(f"[profile] session {attempt + 1} recorded no device kernel; profiling again")
     return []
+
+
+def _whole_kernel_profile(fn, n=10) -> tuple[list, list]:
+    """``_device_kernels`` of ``fn`` in two sessions, and what either lost:
+    a kernel recorded fewer times than its count a call over the ``n``
+    calls, or a name or count a call that the two sessions disagree on
+    (a kernel missing from one), or no kernel at all. The first session's
+    kernels and ``[]`` when nothing was lost."""
+    first, second = _device_kernels(fn, n), _device_kernels(fn, n)
+    lost = [f"{key[:50]}: {rec} of {c * n} launches"
+            for key, c, _, rec, _ in first + second if rec != c * n]
+    if {(key, c) for key, c, *_ in first} != {(key, c) for key, c, *_ in second}:
+        lost.append(f"the two sessions differ: {sorted(k[:50] for k, *_ in first)} against "
+                    f"{sorted(k[:50] for k, *_ in second)}")
+    if not first:
+        lost.append("no kernel recorded")
+    return first, lost
 
 
 def _count_view_call_kernels(device) -> None:
@@ -1148,16 +1196,23 @@ def _bwd_times(device, card: str, launches: dict, max_err: dict) -> list[dict]:
             log(f"[times] flash_bwd {tag} [B*H={BH}, T={Tt}, D={D}]: its device kernels a call "
                 f"(name, count, device ms): "
                 f"{[(key[:60], n, round(t, 4)) for key, n, t, *_ in own]}")
-            sdpa_kernels = _device_kernels(sdpa_bwd, n=10)
-            library_ms = sum(ms for _, _, ms, *_ in sdpa_kernels)
+            sdpa_kernels, lost = _whole_kernel_profile(sdpa_bwd, n=10)
             library_kernels = [key[:80] for key, *_ in sdpa_kernels]
             recorded = [(key[:50], rec, c, round(t, 4), round(raw, 4))
                         for key, c, t, rec, raw in sdpa_kernels]
+            if lost:
+                # a partial sum is no library time: SDPA's backward by CUDA events
+                library_ms = statistics.median([sdpa_ms, sdpa_ms2])
+                how = (f"the profile lost records ({lost}), so library_ms is SDPA's backward "
+                       f"in device time by CUDA events, {library_ms:.4f} ms")
+            else:
+                library_ms = sum(ms for _, _, ms, *_ in sdpa_kernels)
+                how = f"every launch recorded, library_ms is their sum, {library_ms:.4f} ms"
             log(f"[times] flash_bwd {tag} [B*H={BH}, T={Tt}, D={D}]: "
                 f"scaled_dot_product_attention's backward kernels over 10 calls (name, launches "
                 f"recorded, counted a call, ms a call from the mean a launch, ms recorded over "
-                f"10): {recorded}; summed {library_ms:.4f} ms, recorded over 10 "
-                f"{sum(raw for *_, raw in sdpa_kernels):.4f} ms")
+                f"10): {recorded}; recorded over 10 "
+                f"{sum(raw for *_, raw in sdpa_kernels):.4f} ms; {how}")
             elt = torch.finfo(dtype).bits // 8
             # q, k, v, out, dout read and dq, dk, dv written; the mask and LSE
             n_bytes = 8 * BH * Tt * D * elt + 2 * BH * Tt * 4
@@ -7302,6 +7357,542 @@ def phase_serving(device, card: str) -> dict:
     return {"launches": after["fwd"], "bwd_launches": after["bwd"], "text": text, "llm": llm}
 
 
+# ---------------- main path 13: the offline batch plane ----------------
+
+# (a) BERT-base bulk scoring: 8 jsonl shards of 2048 texts of 16-300 words (path 12's)
+BP_SHARDS, BP_SHARD_ROWS, BP_BATCH = 8, 2048, 256
+BP_STOP_AFTER = 3  # shards DONE before the stopped run ends
+BP_COLUMNS = ["id", "scores", "prediction"]
+# (b) LightGBM bulk scoring at benchmarks/bulk_scoring.py:49-56's shape
+BL_SHARDS, BL_SHARD_ROWS, BL_F, BL_TRAIN, BL_BATCH, BL_ITERS = 8, 8192, 16, 4096, 1024, 256
+BL_COLUMNS = ["id", "prediction", "probability"]
+# (c) the retrieval build at benchmarks/retrieval_serve.py:48-54's shape
+RT_DOCS, RT_DIM, RT_FILES, RT_QBATCH, RT_K, RT_FRESH = 300_000, 128, 4, 64, 10, 64
+RT_QUERIES, RT_KNN = 512, 100_000
+# (d) the scorer at a deployed index's size: 8 shards of 131,072 x 768 f32 (3.2 GB)
+SC_SHARDS, SC_ROWS, SC_DIM, SC_QUERIES, SC_QBATCH, SC_CHECK = 8, 131_072, 768, 4096, 256, 256
+F32_SIMT_FLOPS = 67e12  # float32 outside the tensor cores: the scorer's matmul, TF32 off
+
+
+class _Stopped(BaseException):
+    """The end of a stopped scan (quarantine contains Exception, not this)."""
+
+
+class _StopAfterDone(Transformer):
+    """``inner``, until the DONE marker at ``done_path`` exists: then the
+    next batch ends the scan."""
+
+    def __init__(self, inner, done_path: str):
+        super().__init__()
+        self._inner, self._done_path = inner, done_path
+
+    def _transform(self, df):
+        if os.path.exists(self._done_path):
+            raise _Stopped(f"stopped once {os.path.basename(self._done_path)} was written")
+        return self._inner.transform(df)
+
+
+def _timed_scan(stage, source, sink, **kw):
+    """``transform_source`` with the busy seconds of its three threads:
+    shard reads (reader), ``stage.transform`` (the calling thread), chunk
+    writes, part commits and DONE markers (writer)."""
+    from synapseml_torch.scoring import transform_source
+
+    busy = {"read": 0.0, "compute": 0.0, "write": 0.0}
+
+    def timed(fn, key):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                busy[key] += time.perf_counter() - t0
+        return call
+
+    open_writers = sink._open_writers
+
+    def open_timed(shard_index):
+        writers = open_writers(shard_index)
+        for w in writers:
+            w.commit = timed(w.commit, "write")
+        return writers
+
+    source._reader = timed(source._reader, "read")
+    sink._open_writers, sink._write_chunk, sink._mark_done = (
+        open_timed, timed(sink._write_chunk, "write"), timed(sink._mark_done, "write"))
+    stage.transform = timed(stage.transform, "compute")
+    try:
+        report = transform_source(stage, source, sink, **kw)
+    finally:
+        del stage.transform
+    return report, busy
+
+
+def _scan_line(tag: str, report, busy: dict, card: str) -> None:
+    log(f"[batch] {tag}: {report.rows_written} rows in {report.wall_s:.2f} s = "
+        f"{report.rows_per_sec:,.0f} rows/s, {report.batches} batches, {report.rows_padded} "
+        f"padded rows, peak in-flight {report.peak_inflight_bytes / 2**20:.1f} MiB; busy "
+        f"seconds by thread: read {busy['read']:.2f}, compute {busy['compute']:.2f}, write "
+        f"{busy['write']:.2f} | {card}")
+
+
+def _part_bytes(sink) -> bytes:
+    return b"".join(open(p, "rb").read() for p in sink.part_files())
+
+
+def _bp_text(device, card: str, tmp: str) -> dict:
+    """(a) BERT-base DeepTextModel (path 1's stage) over 16,384 texts."""
+    from synapseml_torch.data import ShardedSource
+    from synapseml_torch.scoring import JsonlSink, plan_scan, transform_source
+
+    cfg = bert_base()
+    tok = HashingTokenizer(vocab_size=cfg.vocab_size)
+    model = DeepTextModel(model_params=text_stage._init_params(cfg, 2, 0), arch_config=cfg,
+                          tokenizer_config=tok.to_config(), checkpoint="bert-base",
+                          num_classes=2, batch_size=32, max_token_len=128, attn_impl="flash",
+                          device=str(device))
+    data = os.path.join(tmp, "texts")
+    os.makedirs(data)
+    rs = np.random.default_rng(21)
+    texts = []
+    for s in range(BP_SHARDS):
+        with open(os.path.join(data, f"part-{s:03d}.jsonl"), "w") as f:
+            for _ in range(BP_SHARD_ROWS):
+                texts.append(" ".join(rs.choice(_SV_WORDS, size=int(rs.integers(16, 301)))))
+                f.write(json.dumps({"id": len(texts) - 1, "text": texts[-1]}) + "\n")
+    n = len(texts)
+
+    def source():
+        return ShardedSource.jsonl(os.path.join(data, "*.jsonl"))
+
+    def sink(name):
+        return JsonlSink(os.path.join(tmp, name), columns=BP_COLUMNS)
+
+    kw = dict(batch_rows=BP_BATCH, host_index=0, host_count=1)
+    model.transform(DataFrame.from_dict({"text": np.asarray(texts[:2], dtype=object)}))  # build
+    cache = cb.get_compiled_cache()
+    miss0, fwd0 = cache.miss_count("deep_text_model"), _flash_counts()["fwd"]["bf16"]
+    plan = plan_scan(source(), BP_BATCH, host_index=0, host_count=1)
+    clean = sink("clean")
+    report, busy = _timed_scan(model, source(), clean, **kw)
+    misses = cache.miss_count("deep_text_model") - miss0
+    launched = _flash_counts()["fwd"]["bf16"] - fwd0
+    want = cfg.n_layers * n // 32
+    _scan_line(f"(a) BERT-base bf16 flash, {BP_SHARDS} shards x {BP_SHARD_ROWS} texts at "
+               f"batch_rows {BP_BATCH}", report, busy, card)
+    log(f"[batch] (a) deep_text_model cache misses {misses} (the ladder's rungs up to "
+        f"{BP_BATCH}: {plan.buckets}); flash_fwd bf16 launches {launched} (want 12 a batch of "
+        f"32: {want})")
+    if not (report.complete and report.rows_written == n) or not 0 < misses <= len(plan.buckets) \
+            or launched != want:
+        raise AssertionError("[batch] (a) the scan was incomplete, missed past the ladder or "
+                             "did not run each batch through the flash kernel")
+
+    rows = clean.collect_rows()
+    got = np.asarray([r["scores"] for r in rows], np.float32)
+    t0 = time.perf_counter()
+    ref = model.transform(DataFrame.from_dict({"text": np.asarray(texts, dtype=object)}))
+    mem_s = time.perf_counter() - t0
+    want_scores = np.stack(list(ref.collect_column("scores")))
+    diff = float(np.abs(got - want_scores).max()) if got.shape == want_scores.shape else math.inf
+    agree = float(np.mean(got.argmax(-1) == want_scores.argmax(-1)))
+    log(f"[batch] (a) against the stage's in-memory transform of the {n} rows ({mem_s:.2f} s, "
+        f"{n / mem_s:,.0f} rows/s): ids in order {[r['id'] for r in rows] == list(range(n))}, "
+        f"max|dprob| {diff:.3e} (tol {SV_TOL}), argmax agreement {agree:.4f} (want >= "
+        f"{SV_AGREE})")
+    if [r["id"] for r in rows] != list(range(n)) or not (diff <= SV_TOL and agree >= SV_AGREE):
+        raise AssertionError("[batch] (a) streamed scores disagree with the in-memory transform")
+
+    golden = _part_bytes(clean)
+    stopped = os.path.join(tmp, "stopped")
+    stopper = _StopAfterDone(model, JsonlSink(stopped).done_path(BP_STOP_AFTER - 1))
+    try:
+        transform_source(stopper, source(), sink("stopped"), **kw)
+        raise AssertionError("[batch] (a) the stopped scan ran to its end")
+    except _Stopped:
+        pass
+    done = sorted(JsonlSink(stopped).completed())
+    resumed = transform_source(model, source(), sink("stopped"), **kw)
+    ids = [r["id"] for r in sink("stopped").collect_rows()]
+    same = _part_bytes(sink("stopped")) == golden
+    log(f"[batch] (a) stopped after shard {BP_STOP_AFTER - 1}'s DONE with shards {done} "
+        f"complete; the resumed scan skipped {resumed.shards_skipped} and scored "
+        f"{resumed.shards_done}: part files byte-identical to the uninterrupted scan's {same}, "
+        f"each id once {sorted(ids) == list(range(n)) and len(ids) == n}")
+    if not (BP_STOP_AFTER <= len(done) < BP_SHARDS and resumed.complete and same
+            and resumed.shards_skipped == len(done) and sorted(ids) == list(range(n))):
+        raise AssertionError("[batch] (a) the resumed scan is not the uninterrupted one")
+
+    reports, errors = {}, []
+
+    def host(i):
+        try:
+            reports[i] = transform_source(model, source(), sink("two"), batch_rows=BP_BATCH,
+                                          host_index=i, host_count=2)
+        except BaseException as e:  # noqa: BLE001 - raised below
+            errors.append(e)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=host, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    two_s = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    two_rows = sink("two").collect_rows()
+    log(f"[batch] (a) as two hosts (two threads, one sink): {two_s:.2f} s, shards "
+        f"{reports[0].shards_done} + {reports[1].shards_done}, complete "
+        f"{sink('two').is_complete()}, the one-host rows {two_rows == rows}")
+    if two_rows != rows or not sink("two").is_complete():
+        raise AssertionError("[batch] (a) two hosts did not give the one-host rows")
+    return {"rows_s": report.rows_per_sec, "peak_inflight_bytes": report.peak_inflight_bytes,
+            "busy": busy, "wall_s": report.wall_s, "memory_rows_s": n / mem_s}
+
+
+def _bp_gbdt(device, card: str, tmp: str) -> dict:
+    """(b) LightGBM: a 256-iteration fit through the histogram kernel, then
+    65,536 rows scored streamed and in memory, bitwise alike."""
+    from synapseml_torch.data import ShardedSource
+    from synapseml_torch.gbdt import LightGBMClassifier
+    from synapseml_torch.gbdt.trees import derive_max_depth
+    from synapseml_torch.scoring import JsonlSink
+
+    rs = np.random.default_rng(0)
+    w = rs.normal(size=BL_F)
+    data = os.path.join(tmp, "features")
+    os.makedirs(data)
+    i = 0
+    for s in range(BL_SHARDS):
+        X = rs.normal(size=(BL_SHARD_ROWS, BL_F))
+        with open(os.path.join(data, f"part-{s:03d}.jsonl"), "w") as f:
+            for row in X:
+                f.write(json.dumps({"features": [round(float(v), 5) for v in row], "id": i})
+                        + "\n")
+                i += 1
+    Xt = np.random.default_rng(1).normal(size=(BL_TRAIN, BL_F)).astype(np.float32)
+    y = (Xt @ w > 0).astype(np.int64)
+    est = LightGBMClassifier(num_iterations=BL_ITERS, num_leaves=15, label_col="labels",
+                             histogram_impl="pallas", device=str(device))
+    depth = derive_max_depth(-1, 15)
+    h0 = _hist_counts()
+    t0 = time.perf_counter()
+    model = est.fit(DataFrame([{"features": Xt, "labels": y}]))
+    fit_s = time.perf_counter() - t0
+    levels, scales = (a - b for a, b in zip(_hist_counts(), h0))
+    log(f"[batch] (b) LightGBMClassifier fit {BL_TRAIN} x {BL_F}, {BL_ITERS} iterations, 15 "
+        f"leaves: {fit_s:.2f} s, gbdt_hist launches {levels} (want {BL_ITERS} x {depth + 1}), "
+        f"scale passes {scales} (want {BL_ITERS}) | {card}")
+    if (levels, scales) != (BL_ITERS * (depth + 1), BL_ITERS):
+        raise AssertionError("[batch] (b) the fit did not run through the histogram kernel")
+
+    source = ShardedSource.jsonl(os.path.join(data, "*.jsonl"))
+    out = JsonlSink(os.path.join(tmp, "scored"), columns=BL_COLUMNS)
+    model.transform(DataFrame([source.read_shard(0)]))  # the trees' first copy to the card
+    report, busy = _timed_scan(model, source, out, batch_rows=BL_BATCH, host_index=0,
+                               host_count=1)
+    _scan_line(f"(b) LightGBM, {BL_SHARDS} shards x {BL_SHARD_ROWS} rows at batch_rows "
+               f"{BL_BATCH}", report, busy, card)
+    t0 = time.perf_counter()
+    parts = [source.read_shard(s) for s in range(source.num_shards)]
+    read_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mem = model.transform(DataFrame(parts))
+    mem_s = time.perf_counter() - t0
+    prob = dict(zip(mem.collect_column("id").tolist(),
+                    np.stack(list(mem.collect_column("probability"))).tolist()))
+    pred = dict(zip(mem.collect_column("id").tolist(), mem.collect_column("prediction").tolist()))
+    rows = out.collect_rows()
+    same = len(rows) == i and all(r["probability"] == prob[r["id"]]
+                                  and r["prediction"] == pred[r["id"]] for r in rows)
+    log(f"[batch] (b) in memory: read {read_s:.2f} s, transform {mem_s:.2f} s = "
+        f"{i / mem_s:,.0f} rows/s; streamed {report.rows_per_sec:,.0f} rows/s end to end; "
+        f"the streamed scores bitwise the in-memory ones, id for id: {same}")
+    if not (report.complete and same):
+        raise AssertionError("[batch] (b) streamed scores differ from the in-memory transform")
+    return {"rows_s": report.rows_per_sec, "memory_rows_s": i / mem_s, "fit_s": fit_s}
+
+
+def _plain_search(Q, shards, k: int, device):
+    """Exact float64 search on the card under the (distance, id) rule:
+    ``shards`` is a list of (vectors [N, D], ids [N] increasing). Returns
+    (sqrt distances [Q, k] float64, ids [Q, k]) as numpy."""
+    Qd = torch.as_tensor(np.asarray(Q), device=device).double()
+    dists, ids = [], []
+    for X, sid in shards:
+        sid = torch.as_tensor(np.asarray(sid), device=device)
+        if bool((sid[1:] <= sid[:-1]).any()):
+            raise AssertionError("the plain search needs ids increasing within a shard")
+        Xd = torch.as_tensor(X, device=device).double()
+        d = (Qd * Qd).sum(1, keepdim=True) - 2.0 * Qd @ Xd.T + (Xd * Xd).sum(1)[None, :]
+        order = torch.sort(d, dim=1, stable=True).indices[:, :k]  # ties: the lower position
+        dists.append(d.gather(1, order))
+        ids.append(sid[order])
+        del Xd, d
+    d, i = torch.cat(dists, 1), torch.cat(ids, 1)
+    by_id = torch.argsort(i, dim=1, stable=True)
+    d, i = d.gather(1, by_id), i.gather(1, by_id)
+    order = torch.sort(d, dim=1, stable=True).indices[:, :k]
+    # numpy's sqrt is correctly rounded (torch's float64 sqrt on the CPU is not)
+    return (np.sqrt(np.maximum(d.gather(1, order).cpu().numpy(), 0.0)),
+            i.gather(1, order).cpu().numpy())
+
+
+def _same_search(result, dist, ids) -> bool:
+    return [[m["id"] for m in row] for row in result] == ids.tolist() and \
+        [[m["distance"] for m in row] for row in result] == dist.tolist()
+
+
+def _bp_retrieval(device, card: str, tmp: str) -> dict:
+    """(c) 300,000 hash-embedded documents: embed, shard, publish, search,
+    ingest 64 fresh documents, compact; KNN and ConditionalKNN."""
+    from synapseml_torch.data import ShardedSource
+    from synapseml_torch.nn import KNN, ConditionalKNN
+    from synapseml_torch.registry import ModelRegistry
+    from synapseml_torch.registry.store import atomic_write_bytes
+    from synapseml_torch.retrieval import (HashEmbedder, compact_index, embed_corpus,
+                                           index_model_for, ingest_deltas, publish_index,
+                                           shards_from_parts)
+
+    texts = [f"doc{i} alpha{i % 11} beta{i % 29} gamma{i % 97}" for i in range(RT_DOCS)]
+    corpus = os.path.join(tmp, "corpus")
+    os.makedirs(corpus)
+    per = -(-RT_DOCS // RT_FILES)
+    for f_i in range(RT_FILES):
+        with open(os.path.join(corpus, f"corpus-{f_i:03d}.jsonl"), "w") as f:
+            f.writelines(json.dumps({"id": i, "text": texts[i]}) + "\n"
+                         for i in range(f_i * per, min((f_i + 1) * per, RT_DOCS)))
+    emb = HashEmbedder(dim=RT_DIM)
+    t0 = time.perf_counter()
+    sink, report = embed_corpus(emb, ShardedSource.jsonl(os.path.join(corpus, "*.jsonl")),
+                                os.path.join(tmp, "emb"), host_index=0, host_count=1)
+    embed_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    index_dir = os.path.join(tmp, "index")
+    built = shards_from_parts(sink, index_dir, payload_fn=lambda i: {"text": texts[i]})
+    registry = ModelRegistry(os.path.join(tmp, "store"))
+    publish_index(registry, "docs", index_dir, k=RT_K, query_batch=RT_QBATCH,
+                  device=str(device))
+    v1 = registry.resolve("docs", "latest")
+    model = index_model_for(index_dir, name="docs", k=RT_K, query_batch=RT_QBATCH,
+                            device=str(device))
+    publish_s = time.perf_counter() - t0
+    log(f"[batch] (c) {RT_DOCS} documents embedded (dim {RT_DIM}) through transform_source in "
+        f"{embed_s:.2f} s ({report.rows_per_sec:,.0f} rows/s); {len(built)} shards of "
+        f"{[s.rows for s in built]} rows committed, published and resolved as "
+        f"{v1.version} in {publish_s:.2f} s")
+    shard_data = [(s.vectors(), s.ids()) for s in built]
+    E = np.concatenate([v for v, _ in shard_data])
+    if not np.array_equal(np.concatenate([i for _, i in shard_data]), np.arange(RT_DOCS)):
+        raise AssertionError("[batch] (c) the shards do not hold the documents in id order")
+    rs = np.random.default_rng(3)
+    probe = rs.choice(RT_DOCS, RT_QUERIES // 2, replace=False)
+    novel = [f"query{j} alpha{j % 11} beta{j % 13} delta{j % 5}" for j in range(RT_QUERIES // 2)]
+    Q = np.concatenate([E[probe], emb.embed(novel)])
+    v1.stage.search(Q[:RT_QBATCH])  # the shards to the card
+    t0 = time.perf_counter()
+    got = v1.stage.search(Q)
+    search_s = time.perf_counter() - t0
+    plain_d, plain_i = _plain_search(Q, shard_data, RT_K + 1, device)
+    ties = int(np.sum(plain_d[:, RT_K - 1] == plain_d[:, RT_K]))
+    same = _same_search(got, plain_d[:, :RT_K], plain_i[:, :RT_K]) \
+        and _matches_equal(got, model.search(Q))
+    log(f"[batch] (c) {RT_QUERIES} queries at k = {RT_K} in batches of {RT_QBATCH}: "
+        f"{search_s * 1e3:.1f} ms = {RT_QUERIES / search_s:,.0f} queries/s; ids and distances "
+        f"bitwise the float64 plain search's under the (distance, id) rule, through the "
+        f"registry's stage and index_model_for's: {same} ({ties} queries tie at the k-th "
+        f"distance) | {card}")
+    if not same:
+        raise AssertionError("[batch] (c) the index search differs from the plain search")
+
+    log_dir = os.path.join(tmp, "requests")
+    os.makedirs(log_dir)
+    fresh = [f"fresh{i} novel{i} words{i} only{i} here{i} now{i}" for i in range(RT_FRESH)]
+    half = RT_FRESH // 2
+    for part, chunk in enumerate((fresh[:half], fresh[half:])):
+        name = os.path.join(log_dir, f"part-{part:05d}.jsonl")
+        with open(name, "w") as f:
+            f.writelines(json.dumps({"ts": time.time(), "method": "POST", "path": "/ingest",
+                                     "status": 200, "latency_ms": 1.0, "body": {"doc": t},
+                                     "reply": "ok"}) + "\n" for t in chunk)
+        atomic_write_bytes(name + ".DONE", json.dumps(
+            {"rows": len(chunk), "bytes": os.path.getsize(name), "scrubbed": {}}).encode())
+    t0 = time.perf_counter()
+    ingested = ingest_deltas(registry, "docs", log_dir, HashEmbedder(dim=RT_DIM),
+                             os.path.join(tmp, "ingest"))
+    ingest_s = time.perf_counter() - t0
+    v2 = registry.resolve("docs", "latest")
+    F_ = emb.embed(fresh)
+    hits = v2.stage.search(F_)
+    found = sum(h[0]["distance"] == 0.0 and any(m["id"] == RT_DOCS + i and m["distance"] == 0.0
+                                                for m in h) for i, h in enumerate(hits))
+    log(f"[batch] (c) ingest_deltas of {RT_FRESH} logged documents in 2 committed parts: "
+        f"{ingest_s:.2f} s, {ingested['version']} with delta shards {ingested['delta_shards']}, "
+        f"freshness lag {ingested['freshness_lag_s']:.2f} s; fresh documents found at distance "
+        f"0: {found} of {RT_FRESH}")
+    if found != RT_FRESH:
+        raise AssertionError("[batch] (c) an ingested document is not found at distance 0")
+    QF = np.concatenate([Q, F_])
+    before = v2.stage.search(QF)
+    compacted = compact_index(registry, "docs", os.path.join(tmp, "compact"), threshold=1)
+    v3 = registry.resolve("docs", "latest")
+    after = v3.stage.search(QF)
+    kept = [[(m["id"], m["distance"], m["payload"]) for m in r] for r in before] == \
+        [[(m["id"], m["distance"], m["payload"]) for m in r] for r in after]
+    log(f"[batch] (c) compact_index merged {compacted['merged']} into {compacted['into']} "
+        f"({v3.version}): the search of {len(QF)} queries unchanged {kept}")
+    if not kept:
+        raise AssertionError("[batch] (c) compaction changed the search")
+    del v1, v2, v3, model, before, after
+
+    labels = np.asarray([f"l{i % 7}" for i in range(RT_KNN)])
+    X = E[:RT_KNN]
+    knn = KNN(k=RT_K, device=str(device)).fit(DataFrame.from_dict(
+        {"features": X, "values": np.arange(RT_KNN)}))
+    t0 = time.perf_counter()
+    out = knn.transform(DataFrame.from_dict({"features": Q})).collect_column("output")
+    knn_s = time.perf_counter() - t0
+    pd_, pi = _plain_search(Q, [(X, np.arange(RT_KNN))], RT_K, device)
+    knn_same = [[m["index"] for m in r] for r in out] == pi.tolist() and \
+        [[m["distance"] for m in r] for r in out] == np.float32(pd_).astype(np.float64).tolist()
+    sets = (["l0", "l1"], ["l2"], ["l3", "l4", "l5"], ["l6", "l0"])
+    conds = np.empty(len(Q), dtype=object)
+    conds[:] = [sets[j % len(sets)] for j in range(len(Q))]
+    cknn = ConditionalKNN(k=RT_K, device=str(device)).fit(DataFrame.from_dict(
+        {"features": X, "values": np.arange(RT_KNN), "labels": labels}))
+    cout = cknn.transform(DataFrame.from_dict({"features": Q, "conditioner": conds})) \
+        .collect_column("output")
+    c_same = True
+    for j, allowed in enumerate(sets):
+        rows = np.flatnonzero(np.isin(labels, allowed))
+        qs = np.arange(j, len(Q), len(sets))
+        d_, i_ = _plain_search(Q[qs], [(X[rows], rows)], RT_K, device)
+        c_same &= [[m["index"] for m in cout[q]] for q in qs] == i_.tolist() and \
+            [[m["distance"] for m in cout[q]] for q in qs] == \
+            np.float32(d_).astype(np.float64).tolist() and \
+            all(m["label"] in allowed for q in qs for m in cout[q])
+    log(f"[batch] (c) KNN over {RT_KNN} vectors, {len(Q)} queries: {knn_s * 1e3:.1f} ms, "
+        f"matches the plain search {knn_same}; ConditionalKNN ({len(sets)} label sets): "
+        f"matches the plain search over the allowed rows {c_same}")
+    if not (knn_same and c_same):
+        raise AssertionError("[batch] (c) KNN or ConditionalKNN differ from the plain search")
+    return {"queries_s": RT_QUERIES / search_s, "embed_rows_s": report.rows_per_sec}
+
+
+def _matches_equal(a, b) -> bool:
+    return [[(m["id"], m["distance"], m["payload"]) for m in r] for r in a] == \
+        [[(m["id"], m["distance"], m["payload"]) for m in r] for r in b]
+
+
+def _topk_by_key(dist, k: int):
+    """Columns of the ``k`` smallest of each row by (value, column) from one
+    top-k over int64 keys (order-preserving float bits, then the column): a
+    yardstick for ``scorer.topk_smallest``."""
+    bits = (dist + 0.0).view(torch.int32)
+    key = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).to(torch.int64)
+    key.mul_(1 << 32).add_(torch.arange(dist.shape[1], device=dist.device))
+    return torch.topk(key, k, dim=1, largest=False, sorted=True).indices
+
+
+def _bp_scorer(device, card: str) -> dict:
+    """(d) the scorer over 1,048,576 x 768 integer-valued f32 vectors on the
+    card: 4096 queries, 256 of them against the float64 plain search; one
+    batch in device time beside its bound."""
+    from synapseml_torch.retrieval import VectorIndexModel, scorer
+
+    g = torch.Generator(device=device).manual_seed(0)
+    inline = {f"s{s}": {"vectors": torch.randint(-2, 3, (SC_ROWS, SC_DIM), generator=g,
+                                                 device=device, dtype=torch.int8).float(),
+                        "ids": np.arange(s * SC_ROWS, (s + 1) * SC_ROWS)}
+              for s in range(SC_SHARDS)}
+    model = VectorIndexModel(shard_names=list(inline), dim=SC_DIM, k=RT_K,
+                             query_batch=SC_QBATCH, device=str(device), inline_shards=inline)
+    Q = np.random.default_rng(0).integers(-2, 3, (SC_QUERIES, SC_DIM)).astype(np.float32)
+    model.search(Q[:SC_QBATCH])  # norms on the card, the callables built
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = model.search(Q)
+    search_s = time.perf_counter() - t0
+    shards = [(rec["vectors"], rec["ids"]) for rec in inline.values()]
+    plain_d, plain_i = _plain_search(Q[:SC_CHECK], shards, RT_K + 1, device)
+    ties = int(np.sum(plain_d[:, RT_K - 1] == plain_d[:, RT_K]))
+    same = _same_search(got[:SC_CHECK], plain_d[:, :RT_K], plain_i[:, :RT_K])
+    log(f"[batch] (d) {SC_SHARDS} shards of {SC_ROWS} x {SC_DIM} f32 "
+        f"({SC_SHARDS * SC_ROWS * SC_DIM * 4 / 1e9:.2f} GB on the card), {SC_QUERIES} queries "
+        f"at k = {RT_K} in batches of {SC_QBATCH}: {search_s:.2f} s = "
+        f"{SC_QUERIES / search_s:,.0f} queries/s through search(); the first {SC_CHECK} "
+        f"bitwise the float64 plain search (ids and distances): {same} ({ties} of them tie at "
+        f"the k-th distance) | {card}")
+    if not same:
+        raise AssertionError("[batch] (d) the scorer differs from the plain search")
+
+    entries = [model._shard_data(name) for name in inline]
+    Qb = torch.as_tensor(Q[:SC_QBATCH], device=device)
+    fn = scorer._shard_fn(SC_QBATCH, SC_ROWS, SC_DIM, RT_K, "plain")
+    with torch.inference_mode():
+        dist = [torch.sum(Qb * Qb, 1, keepdim=True) - torch.matmul(2.0 * Qb, X.T) + xs[None, :]
+                for X, xs, _, _ in entries[:1]][0]
+        ms = device_ms(lambda: [fn(Qb, X, xs) for X, xs, _, _ in entries], iters=10)
+        mm_ms = device_ms(lambda: [torch.matmul(2.0 * Qb, X.T) for X, *_ in entries], iters=10)
+        # a shard's top-k three ways, in turns: torch.topk (ties unordered),
+        # the port's, and one top-k over (distance, index) int64 keys
+        same_topk = torch.equal(scorer.topk_smallest(dist, RT_K)[1], _topk_by_key(dist, RT_K))
+        topk_ms, stable_ms, key_ms, stable_ms2, topk_ms2 = (device_ms(f, iters=10) for f in (
+            lambda: torch.topk(dist, RT_K, dim=1, largest=False),
+            lambda: scorer.topk_smallest(dist, RT_K), lambda: _topk_by_key(dist, RT_K),
+            lambda: scorer.topk_smallest(dist, RT_K),
+            lambda: torch.topk(dist, RT_K, dim=1, largest=False)))
+    n_bytes = SC_SHARDS * SC_ROWS * SC_DIM * 4 + SC_QBATCH * SC_DIM * 4
+    flops = 2 * SC_QBATCH * SC_SHARDS * SC_ROWS * SC_DIM
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / F32_SIMT_FLOPS * 1e3
+    bound = max(t_bytes, t_ops)
+    log(f"[batch] (d) one batch of {SC_QBATCH} queries against the {SC_SHARDS} shards: "
+        f"{ms:.3f} ms in device time ({ms / bound:.2f}x its bound {bound:.3f} ms, "
+        f"{'operations' if t_ops >= t_bytes else 'bytes'}: {flops / 1e9:.1f} GFLOP at "
+        f"{F32_SIMT_FLOPS / 1e12:g} TFLOP/s = {t_ops:.3f} ms; {n_bytes / 1e9:.2f} GB at 3.35 TB/s "
+        f"= {t_bytes:.3f} ms); of it the {SC_SHARDS} matmuls {mm_ms:.3f} ms; a shard's "
+        f"top-{RT_K} by (distance, index) {stable_ms:.3f} / {stable_ms2:.3f} ms (one top-k over "
+        f"int64 (distance, index) keys: {key_ms:.3f} ms, the same ids {same_topk}) against "
+        f"torch.topk's {topk_ms:.3f} / {topk_ms2:.3f} ms with ties unordered | {card}")
+    if not same_topk:
+        raise AssertionError("[batch] (d) the top-k differs from the (distance, index) keys'")
+    del model, entries, inline, shards, dist
+    return {"ms": ms, "bound_ms": bound, "queries_s": SC_QUERIES / search_s}
+
+
+def phase_batch_plane(device, card: str) -> dict:
+    """Main path 13, the offline batch plane: (a) BERT-base and (b)
+    LightGBM bulk scoring through transform_source, (c) the retrieval build,
+    search, ingest and compaction with KNN, (d) the scorer at a deployed
+    index's size. Returns the flash and histogram launches of the path."""
+    import tempfile
+
+    _zero_flash_counts()
+    h0 = _hist_counts()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_batch_")
+    out = {}
+    try:
+        for tag, fn in (("a", lambda: _bp_text(device, card, tmp)),
+                        ("b", lambda: _bp_gbdt(device, card, tmp)),
+                        ("c", lambda: _bp_retrieval(device, card, tmp)),
+                        ("d", lambda: _bp_scorer(device, card))):
+            t0 = time.perf_counter()
+            out[tag] = fn()
+            log(f"[batch] ({tag}) done in {time.perf_counter() - t0:.1f} s")
+            _free_card()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    counts = _flash_counts()
+    levels, scales = (a - b for a, b in zip(_hist_counts(), h0))
+    log(f"[batch] main path 13's launches: flash {counts}, gbdt_hist {levels}, its scale pass "
+        f"{scales}")
+    if counts["fwd"]["bf16"] == 0 or levels == 0:
+        raise AssertionError("main path 13 launched no flash or histogram kernel")
+    return {"launches": counts["fwd"], "bwd_launches": counts["bwd"], "gbdt_hist": levels,
+            "gbdt_hist_scale": scales, **out}
+
+
 def main() -> None:
     t0 = time.perf_counter()
 
@@ -7347,14 +7938,17 @@ def main() -> None:
     done("main path 11, the multi-GPU plane at one card")
     serving = phase_serving(device, card)
     done("main path 12, HTTP model serving")
+    batch = phase_batch_plane(device, card)
+    done("main path 13, the offline batch plane")
     # the flash kernels' launches on the paths, each counted from 0 just
     # before it ran: scoring (path 1), fine-tuning through flash and both
     # fitted models' scoring (path 3), bert-tiny f32 through flash on the
     # card, the long-T flash steps in bf16 and in f32, and ViT-B/16
     # fine-tuning through flash (path 5), the checkpoint fit and its model's
     # scoring (path 7), the MoE encoder's runs (path 8), the mesh fits and
-    # scoring (path 11) and the served requests, swaps and publish (path 12)
-    paths = (train, vit, pretrained, moe, mesh, serving,
+    # scoring (path 11), the served requests, swaps and publish (path 12) and
+    # the bulk scans of BERT-base (path 13)
+    paths = (train, vit, pretrained, moe, mesh, serving, batch,
              {"launches": tiny["fwd"], "bwd_launches": tiny["bwd"]},
              *({"launches": long_t[tag]["launches"]["fwd"],
                 "bwd_launches": long_t[tag]["launches"]["bwd"]} for tag in ("flash", "flash f32")))
@@ -7363,12 +7957,13 @@ def main() -> None:
     launches.update({f"bwd_{k}": sum(p["bwd_launches"][k] for p in paths)
                      for k in ("bf16", "f32")})
     kernels = phase_times(device, card, launches, max_err)
-    # the histogram kernel's launches: main paths 2, 9 and 11, each counted from 0
+    # the histogram kernel's launches: main paths 2, 9, 11 and 13, each counted from 0
     kernels += phase_gbdt_times(device, card,
                                 {"gbdt_hist": gbdt["launches"] + surface["launches"]
-                                 + mesh["gbdt_hist"],
+                                 + mesh["gbdt_hist"] + batch["gbdt_hist"],
                                  "gbdt_hist_scale": gbdt["scale_launches"]
-                                 + surface["scale_launches"] + mesh["gbdt_hist_scale"]},
+                                 + surface["scale_launches"] + mesh["gbdt_hist_scale"]
+                                 + batch["gbdt_hist_scale"]},
                                 hist_err)
     done("times")
     log(json.dumps({"kernels": kernels}))

@@ -2,7 +2,8 @@
 
 The JAX package stays the reference; this package grows beside it slice by
 slice, mirroring its layout so each file names its counterpart:
-  core/        DataFrame, params, pipeline API, stage telemetry, bucketing,
+  core/        DataFrame, params, pipeline API, stage telemetry with the log
+               scrubbers, bucketing,
                the callable cache and its provider tier, metrics registry
                with Prometheus exposition, trace spans with traceparent
                and Chrome export, retry policy, circuit breaker, deadlines,
@@ -11,7 +12,12 @@ slice, mirroring its layout so each file names its counterpart:
                the prefetching DataLoader, iterator state
   io/          HTTP model serving (serve_pipeline, serve_llm, hot swap by
                path or registry), the sources' path resolvers and JSONL
-               line parser
+               line parser, the streamed atomic JSONL and .npy writers
+  scoring/     transform_source: out-of-core bulk scoring into exactly-once
+               sharded sinks
+  retrieval/   sharded vector indexes: build, publish, search on the card,
+               continual ingest and compaction
+  nn/          KNN and ConditionalKNN on the retrieval scorer
   registry/    content-addressed artifact store, versioned publish/resolve
                with aliases, the warmup-only AOT contract, autotuning
   parallel/    the mesh of the process group, partition rules, collectives,

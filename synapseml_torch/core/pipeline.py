@@ -5,7 +5,8 @@ Counterpart of ``synapseml_tpu/core/pipeline.py``: the same stage classes,
 slot, and persistence through :mod:`.serialization`. Stages hold device
 state (built modules, weights on the card) only in memory and rebuild it
 lazily after load; saved artifacts carry host-side numpy weights only.
-``Transformer.transform_source`` comes with the port of the scoring plane.
+``Transformer.transform_source`` streams an out-of-core source through the
+stage into a sharded sink (:mod:`synapseml_torch.scoring`).
 """
 
 from __future__ import annotations
@@ -55,6 +56,16 @@ class Transformer(PipelineStage):
 
     def transform(self, df: DataFrame) -> DataFrame:
         return self.log_verb("transform", self._transform, df)
+
+    def transform_source(self, source, sink, **opts):
+        """Bulk-score an out-of-core ``data.ShardedSource`` into an
+        exactly-once sharded sink (``scoring.JsonlSink``/``NpySink``):
+        bucket-ladder batches through this transformer in bounded memory;
+        a kill and resume emits each input row once. Options as
+        :func:`synapseml_torch.scoring.transform_source`."""
+        from ..scoring.runner import transform_source as _transform_source
+
+        return _transform_source(self, source, sink, **opts)
 
     def __call__(self, df: DataFrame) -> DataFrame:
         return self.transform(df)

@@ -195,6 +195,10 @@ def load_stage(path: str):
             with open(target + ".pkl", "rb") as f:
                 value = pickle.load(f)
         stage.set(**{name: value})
+    # where the stage was loaded from: an artifact with sidecar trees beside
+    # metadata.json (retrieval index shards, published through
+    # ``ModelRegistry.publish(extra_tree=...)``) resolves them through it
+    stage._artifact_dir = os.path.abspath(path)
     if hasattr(stage, "_post_load"):
         stage._post_load()
     return stage

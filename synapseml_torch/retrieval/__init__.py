@@ -1,0 +1,61 @@
+"""Retrieval: a sharded vector index with continual ingest.
+
+Counterpart of ``synapseml_tpu/retrieval/``:
+
+* **build**: the embedding backfill is a ``scoring.transform_source`` job;
+  DONE-gated ``NpySink`` parts become immutable :class:`IndexShard`s, and
+  ``publish_index`` rides the registry's content-addressed blob store;
+* **search**: :class:`VectorIndexModel` scores each shard, resident on its
+  device, through the one shared matmul and top-k (:mod:`.scorer`, also
+  the engine of ``nn/knn.py``) on the bucket ladder, and merges the
+  per-shard top-k by ``(distance, id)``;
+* **ingest**: freshly logged documents embed and commit as new delta shards
+  under the next version, with no rebuild; ``compact_index`` folds deltas
+  past a threshold;
+* **observe**: the ``synapseml_retrieval_*`` series (:mod:`.metrics`).
+
+Submodules import lazily (PEP 562): ``nn/knn.py`` pulls only the scorer.
+The serving worker (``retrieval_worker_main``, the JAX package's
+``serve.py``) comes with ``fleet/``, ROADMAP.md queue A item 10.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+__all__ = [
+    "INF", "score_shard", "score_batches",
+    "IndexShard", "SHARD_MANIFEST", "write_shard", "open_shard",
+    "list_shards",
+    "VectorIndexModel",
+    "HashEmbedder", "embed_corpus", "shards_from_parts", "index_model_for",
+    "publish_index", "build_index",
+    "ingest_deltas", "compact_index", "extract_documents",
+    "retrieval_metrics",
+]
+
+_LOCATIONS = {
+    "INF": "scorer", "score_shard": "scorer", "score_batches": "scorer",
+    "IndexShard": "shards", "SHARD_MANIFEST": "shards",
+    "write_shard": "shards", "open_shard": "shards", "list_shards": "shards",
+    "VectorIndexModel": "model",
+    "HashEmbedder": "build", "embed_corpus": "build",
+    "shards_from_parts": "build", "index_model_for": "build",
+    "publish_index": "build", "build_index": "build",
+    "ingest_deltas": "ingest", "compact_index": "ingest",
+    "extract_documents": "ingest",
+    "retrieval_metrics": "metrics",
+}
+
+
+def __getattr__(name: str):
+    submodule = _LOCATIONS.get(name)
+    if submodule is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    value = getattr(importlib.import_module(f".{submodule}", __name__), name)
+    globals()[name] = value  # cache: one import, stable identity
+    return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(__all__))

@@ -433,6 +433,28 @@ def _bwd_split_tf32(q, k, v, mask, out, lse, dout, causal, scale, single=False, 
     return dq * scale, dk * scale, dv
 
 
+@pytest.mark.parametrize("sessions,lost", [
+    ([[("bprop", 1, 0.03, 10, 0.03), ("dq", 1, 0.007, 10, 0.007)]] * 2, []),
+    ([[("bprop", 1, 0.03, 10, 0.03)], [("bprop", 1, 0.03, 9, 0.027)]],
+     ["bprop: 9 of 10 launches"]),
+    ([[("bprop", 1, 0.03, 10, 0.03), ("dq", 1, 0.007, 10, 0.007)],
+      [("bprop", 1, 0.03, 10, 0.03)]], ["the two sessions differ: ['bprop', 'dq'] against "
+                                        "['bprop']"]),
+    ([[], []], ["no kernel recorded"]),
+])
+def test_chip_check_library_time_is_never_a_partial_profile_sum(sessions, lost, monkeypatch):
+    """SDPA's backward time in the chip check's kernels line comes from two
+    profiler sessions of 10 calls (``_whole_kernel_profile``): a kernel with
+    fewer launches recorded than its count a call over the calls, a kernel
+    one session missed, or no kernel at all is a loss, and ``_bwd_times``
+    then takes SDPA's backward by CUDA events instead of the partial sum."""
+    cs = _chip_smoke()
+    calls = iter(sessions)
+    monkeypatch.setattr(cs, "_device_kernels", lambda fn, n=3: next(calls))
+    kernels, got = cs._whole_kernel_profile(lambda: None, n=10)
+    assert kernels == sessions[0] and got == lost
+
+
 def _bwd_case_inputs(BH, T, causal, seed=7):
     """The chip check's inputs at D = 64 (those of the limit test above):
     padding lengths down to 1, four fully masked rows, random dout; the

@@ -106,14 +106,16 @@ _WAITING_EXPORTS = {
     # the port has none of by design (ROADMAP.md section C)
     "registry": {"Deployment": "10", "CanaryController": "10", "admin_load": "10",
                  "AOTCapture": "C"},
+    # the index's serving worker (retrieval/serve.py) goes with fleet/
+    "retrieval": {"retrieval_worker_main": "10"},
     # the gang (elastic training) and the GPipe pipeline: item 9's second half
     "parallel": {"EXIT_PREEMPTED": "9", "EXIT_RESIZE": "9", "ElasticResume": "9",
                  "GangAborted": "9", "GangCoordinator": "9", "GangWorker": "9",
                  "Preempted": "9", "elastic_restore": "9", "run_gang_member": "9",
                  "pipeline_apply": "9", "pipeline_sharded": "9", "stack_stage_params": "9"},
 }
-_SUBPACKAGES = ("core", "data", "gbdt", "hf", "image", "io", "models", "onnx", "ops", "parallel",
-                "registry")
+_SUBPACKAGES = ("core", "data", "gbdt", "hf", "image", "io", "models", "nn", "onnx", "ops",
+                "parallel", "registry", "retrieval", "scoring")
 
 
 @pytest.mark.parametrize("sub", _SUBPACKAGES)
