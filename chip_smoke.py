@@ -323,7 +323,36 @@ the kernels are built for sm_90a). Phases, each of which raises on failure:
    bitwise the float64 plain search, one batch in device time beside its
    bound and its matmuls, and the (distance, index) top-k beside
    torch.topk;
-18. times: each kernel beside its bound, its plain version and the one
+18. main path 14, serving across worker processes on the one card, each
+   worker a fresh interpreter with its own CUDA context: (a) path 12's
+   BERT-base stage (bf16, flash) behind serve_pipeline_distributed with 2
+   workers (micro-batch 10 ms, the front coalescing same-path requests for
+   5 ms), path 12's 512 requests from 16 clients through one in-process
+   server, through the front and through RoutingClient, every reply within
+   path 1's bf16 limits of the stage's transform, id for id, both workers
+   answering; then one worker SIGKILLed after its 64th reply of the same
+   traffic: no request lost, its breaker open, the supervisor's
+   replacement registered and taking traffic; each worker's seconds from
+   its process start to registered and its first request; requests/s,
+   p50/p99 and the requests of 0.9 s or more of each phase; (b) on those
+   workers, v1 and v2 (weights from seeds 0 and 1) published to a
+   registry: Deployment.canary of v2 at 0.25 under traffic, v2's share of
+   the split's draws within 4 sigma and every reply within the bf16 limits
+   of its version's transform, promote putting every worker on v2, a v3
+   whose last stage raises refused by its warmup and, loaded without
+   warmup rows, tripping the CanaryController, whose rollback puts every
+   worker back on v2 and the alias back, no request outside v3's share
+   failing; each load's ms and warmup breakdown, the longest request
+   across each swap; the flash forward's launches counted in the worker
+   processes (each writes its counts at SIGTERM and every 0.25 s), at
+   least 12 a micro-batch each scored; (c) two llm_worker_main processes
+   on path 7's seeded Llama-2-7B-width directory (4 of 32 layers) in f32
+   compute behind a journaled RoutingFront, 16 streams of 24 tokens, one
+   worker SIGKILLed once every stream has a chunk: every stream complete
+   with contiguous seqs and no duplicate chunk, its tokens equal to the
+   survivor's uninterrupted run under the margin rule, the survivor
+   holding no KV page; tokens/s before and after the kill;
+19. times: each kernel beside its bound, its plain version and the one
    PyTorch call that computes the same function (device time, with the
    host's enqueue hidden behind a spin kernel; the library call's device
    kernels named from the profiler); flash_attention from the projection
@@ -6921,10 +6950,13 @@ class _CacheLog:
 
 
 def _post_timed(base: str, body) -> dict:
+    """One request: its status, reply, client-clock stamps, and the worker
+    and version that a routing front says served it."""
     t0 = time.perf_counter()
-    status, _, data = _http(base, "POST", "/", body)
+    status, headers, data = _http(base, "POST", "/", body)
     return {"status": status, "reply": json.loads(data) if data else None, "t0": t0,
-            "end": time.perf_counter()}
+            "end": time.perf_counter(), "pid": headers.get("X-Served-By"),
+            "version": headers.get("X-Served-Version")}
 
 
 def _check_scores(results: list, bodies: list, ref: dict, tag: str) -> tuple[float, float]:
@@ -7893,6 +7925,696 @@ def phase_batch_plane(device, card: str) -> dict:
             "gbdt_hist_scale": scales, **out}
 
 
+# ---------------- main path 14: serving across worker processes on one card ----------------
+
+# (a) path 12's stage behind serve_pipeline_distributed: worker processes on the one card
+DS_WORKERS, DS_INTERVAL_MS, DS_COALESCE_MS = 2, 10, 5
+DS_KILL_AFTER = 64         # the victim's replies in the kill phase before its SIGKILL
+DS_WARM = 4                # requests each worker scores before the timed traffic
+# (b) canary rollout and rollback
+DS_CANARY_WEIGHT, DS_CANARY_REQUESTS = 0.25, 256
+DS_ROLLBACK = {"error_rate_threshold": 0.5, "window": 8, "min_samples": 4, "interval_s": 0.05}
+# (c) journaled LLM streams across decode workers: path 7's Llama-2-7B-width directory
+DS_LLM_STREAMS, DS_LLM_NEW, DS_LLM_PROMPT = 16, 24, (16, 129)
+# each worker's flash launch counts land in this directory (see _count_in_worker)
+DS_COUNTS_ENV, DS_PARENT_ENV = "CHIP_SMOKE_COUNTS_DIR", "CHIP_SMOKE_PARENT_PID"
+
+
+class ServeFails(Transformer):
+    """A last stage that raises on every batch with rows (path 14's broken
+    version v3)."""
+
+    def _transform(self, df):
+        def per_part(p):
+            if len(p["id"]):
+                raise RuntimeError("this version fails every request")
+            return p
+
+        return df.map_partitions(per_part)
+
+
+def _process_age_s() -> float:
+    """Seconds since this process started (/proc/self/stat's start time)."""
+    with open("/proc/self/stat") as f:
+        start_ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+    with open("/proc/uptime") as f:
+        uptime = float(f.read().split()[0])
+    return uptime - start_ticks / os.sysconf("SC_CLK_TCK")
+
+
+def _count_in_worker() -> None:
+    """In a worker process of main path 14 (one that imports this module to
+    unpickle its pipeline, with DS_COUNTS_ENV set by the parent): write the
+    process's flash launch counts, its start time and the time this module
+    was imported to <dir>/<pid>.json every 0.25 s and at SIGTERM (how
+    DistributedServing.stop ends a worker), so that the parent counts the
+    launches made in its workers, a SIGKILLed one's up to its last write."""
+    out = os.environ.get(DS_COUNTS_ENV)
+    if not out or os.environ.get(DS_PARENT_ENV) == str(os.getpid()):
+        return
+    import signal
+
+    path = os.path.join(out, f"{os.getpid()}.json")
+    started, imported = time.time() - _process_age_s(), time.time()
+
+    def write():
+        rec = {"pid": os.getpid(), "started": started, "imported": imported,
+               "fwd": dict(att.flash_attention_fwd.launches)}
+        tmp = f"{path}.{threading.get_ident()}.tmp"  # the timer's and SIGTERM's writes
+        with open(tmp, "w") as f:
+            json.dump(rec, f)
+        os.replace(tmp, path)
+
+    def every():
+        while True:
+            time.sleep(0.25)
+            write()
+
+    def on_term(signum, frame):
+        write()
+        os._exit(0)
+
+    signal.signal(signal.SIGTERM, on_term)
+    threading.Thread(target=every, daemon=True).start()
+    write()
+
+
+_count_in_worker()
+
+
+def _timed_traffic(tag: str, card: str, n_clients: int, jobs: list, fn) -> tuple[list, dict]:
+    """``_run_clients`` with its latency line and the requests that took
+    0.9 s or more (a connect whose SYN a full accept queue dropped waits
+    1 s for the resend)."""
+    t0 = time.perf_counter()
+    results = _run_clients(n_clients, jobs, fn)
+    line = _latency_line(results, time.perf_counter() - t0, tag, card)
+    line["over_900ms"] = sum((r["end"] - r["t0"]) >= 0.9 for r in results)
+    log(f"[dist] {tag}: requests of 0.9 s or more {line['over_900ms']}")
+    return results, line
+
+
+def _worker_counts(out: str) -> dict:
+    counts = {}
+    for name in os.listdir(out):
+        if name.endswith(".json"):
+            with open(os.path.join(out, name)) as f:
+                rec = json.load(f)
+            counts[rec["pid"]] = rec
+    return counts
+
+
+def _worker_series(base: str, name: str) -> float:
+    """One worker's sample of ``name`` (no labels) from its /metrics."""
+    for line in _http(base, "GET", "/metrics")[2].decode().splitlines():
+        if line.startswith(name + " "):
+            return float(line.rsplit(" ", 1)[1])
+    return 0.0
+
+
+class _Pound:
+    """``n`` client threads sending ``bodies`` in turn through ``fn`` until
+    stopped: the requests in flight across a swap."""
+
+    def __init__(self, n: int, bodies: list, fn):
+        self.results, self._stop = [], threading.Event()
+        self._threads = [threading.Thread(target=self._run, args=(k, bodies, fn), daemon=True)
+                         for k in range(n)]
+
+    def _run(self, k, bodies, fn):
+        i = k
+        while not self._stop.is_set():
+            body = bodies[i % len(bodies)]
+            self.results.append({**fn(body), "body": body})
+            i += len(self._threads)
+
+    def __enter__(self):
+        for t in self._threads:
+            t.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        for t in self._threads:
+            t.join(timeout=SV_HTTP_TIMEOUT)
+
+    def across(self, t0: float, end: float) -> tuple[int, float]:
+        """(requests that spanned [t0, end], the longest of them in ms)."""
+        spans = [(r["end"] - r["t0"]) * 1e3 for r in self.results
+                 if r["t0"] < end and r["end"] > t0]
+        return len(spans), max(spans, default=0.0)
+
+
+def _check_versioned(results: list, refs: dict, tag: str) -> dict:
+    """Every reply 200 and within path 1's bf16 limits of its version's
+    in-process transform, id for id; the replies by version."""
+    by = {}
+    for v in refs:
+        rs = [(r, b) for r, b in results if r["version"] == v]
+        if rs:
+            _check_scores([r for r, _ in rs], [b for _, b in rs], refs[v], f"{tag}, {v}")
+        by[v] = len(rs)
+    if sum(by.values()) != len(results):
+        raise AssertionError(f"[dist] {tag}: replies from versions {by}, not only {list(refs)}")
+    return by
+
+
+def _check_spanning(results: list, refs: dict, tag: str) -> int:
+    """Requests in flight across a swap: each 200 with the scores of one of
+    the versions of ``refs``, within path 1's bf16 limits. A reply's
+    X-Served-Version is its worker's registration, which follows the swap
+    by the worker's re-registration: returns the replies whose scores are
+    the other version's."""
+    by, relabeled = {v: [] for v in refs}, 0
+    for r in results:
+        if r["status"] != 200 or "scores" not in r["reply"]:
+            raise AssertionError(f"[dist] {tag}: a reply not 200 with scores: {r}")
+        got = np.asarray(r["reply"]["scores"], np.float32)
+        diff = {v: float(np.abs(got - np.stack([ref[t] for t in r["body"]["texts"]])).max())
+                for v, ref in refs.items()}
+        best = min(diff, key=diff.get)
+        relabeled += best != r["version"]
+        by[best].append(r)
+    for v, rs in by.items():
+        if rs:
+            _check_scores(rs, [r["body"] for r in rs], refs[v], f"{tag}, {v}'s scores")
+    return relabeled
+
+
+def _ds_text(device, card: str, tmp: str) -> dict:
+    """(a) and (b): path 12's stage on DS_WORKERS worker processes behind the
+    routing front, then canary rollouts through registry/deploy.py."""
+    import chip_smoke as this  # the stage classes under a name the workers import
+    from synapseml_torch.io import distributed_serving as tds
+    from synapseml_torch.io.serving import serve_pipeline
+
+    cfg = bert_base()
+    tok = HashingTokenizer(vocab_size=cfg.vocab_size)
+    t0 = time.perf_counter()
+
+    def version(seed: int, last=None):
+        model = DeepTextModel(model_params=text_stage._init_params(cfg, 2, seed), arch_config=cfg,
+                              tokenizer_config=tok.to_config(), checkpoint="bert-base",
+                              num_classes=2, batch_size=32, max_token_len=128, attn_impl="flash",
+                              device=str(device))
+        stages = [this.ServeTexts(), model, this.ServeReplies()]
+        return PipelineModel(stages=stages + ([last] if last is not None else [])), model
+
+    pipe1, model1 = version(0)
+    pipe2, model2 = version(1)
+    bodies = _serve_bodies(SV_REQUESTS, seed=12)  # path 12's traffic
+    texts = sorted({t for b in bodies for t in b["texts"]})
+    refs = {}
+    for tag, model in (("v1", model1), ("v2", model2)):
+        df = model.transform(DataFrame.from_dict({"text": np.asarray(texts, dtype=object)}))
+        refs[tag] = dict(zip(texts, np.stack(list(df.collect_column("scores")))))
+    model2.__dict__["_module"] = None  # v2 lives in the registry and the workers
+    warm = _warm_bodies(4, seed=13)
+    log(f"[dist] (a) BERT-base v1 and v2 (weights from seeds 0 and 1), each version's transform "
+        f"of the {len(texts)} texts of {len(bodies)} requests (the references) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    _zero_flash_counts()
+    out = {}
+    # the single in-process server on the same traffic: the baseline
+    srv = serve_pipeline(pipe1, batch_interval_ms=SV_INTERVAL_MS, version="v1")
+    try:
+        _run_clients(SV_CLIENTS, warm * 4, lambda b: _post_timed(srv.address, b))
+        results, out["single"] = _timed_traffic(
+            "(a) one in-process server, the same traffic", card, SV_CLIENTS, bodies,
+            lambda b: _post_timed(srv.address, b))
+        _check_scores(results, bodies, refs["v1"], "(a) one in-process server")
+    finally:
+        srv.stop()
+    parent_launches = dict(att.flash_attention_fwd.launches)
+    counts_dir = os.path.join(tmp, "counts")
+    os.makedirs(counts_dir)
+    seen: dict[int, float] = {}  # pid -> wall time the registry first listed it
+
+    class TimedRegistry(tds.WorkerRegistry):
+        def workers(self):
+            ws = super().workers()
+            now = time.time()
+            for w in ws:
+                seen.setdefault(w["pid"], now)
+            return ws
+
+    env = {DS_COUNTS_ENV: counts_dir, DS_PARENT_ENV: str(os.getpid())}
+    os.environ.update(env)
+    registry_cls, tds.WorkerRegistry = tds.WorkerRegistry, TimedRegistry
+    try:
+        t0 = time.perf_counter()
+        handle = tds.serve_pipeline_distributed(
+            pipe1, num_workers=DS_WORKERS, batch_interval_ms=DS_INTERVAL_MS,
+            coalesce_window_ms=DS_COALESCE_MS, version="v1", startup_timeout_s=300)
+        started = time.perf_counter() - t0
+    finally:
+        tds.WorkerRegistry = registry_cls
+        for k in env:
+            os.environ.pop(k)
+    try:
+        counts = _worker_counts(counts_dir)
+        spawn = {p.pid: seen[p.pid] - counts[p.pid]["started"] for p in handle.procs}
+        log(f"[dist] (a) serve_pipeline_distributed: {DS_WORKERS} worker processes registered in "
+            f"{started:.2f} s; each worker from its process start to registered (interpreter, "
+            f"imports, unpickling the {os.path.getsize(handle._tmp_file) / 2 ** 20:.0f} MiB "
+            f"pipeline, server start): " + ", ".join(
+                f"{pid}: {s:.2f} s ({counts[pid]['imported'] - counts[pid]['started']:.2f} s to "
+                f"import this module)" for pid, s in spawn.items()) + f" | {card}")
+        table = json.loads(_http(handle.address, "GET", "/routes")[2])
+        firsts = {}
+        for w in table:  # CUDA init, the module's build and the first batch on each worker
+            base = f"http://{w['host']}:{w['port']}"
+            r = _post_timed(base, warm[0])
+            firsts[w["pid"]] = (r["end"] - r["t0"]) * 1e3
+            _run_clients(DS_WARM, warm, lambda b, base=base: _post_timed(base, b))
+        log(f"[dist] (a) each worker's first request (its CUDA context, the module on the card, "
+            f"the first batch): " + ", ".join(f"{p}: {ms:.0f} ms" for p, ms in firsts.items()))
+        # the traffic through the front, then straight to the workers
+        results, out["front"] = _timed_traffic(
+            f"(a) the routing front over {DS_WORKERS} workers", card, SV_CLIENTS, bodies,
+            lambda b: _post_timed(handle.address, b))
+        _check_scores(results, bodies, refs["v1"], "(a) through the front")
+        answered = {p: sum(r["pid"] == str(p) for r in results) for p in spawn}
+        client = tds.RoutingClient(front_address=handle.address, timeout_s=SV_HTTP_TIMEOUT)
+
+        def direct(b):
+            t0 = time.perf_counter()
+            status, data = client.request("/", body=json.dumps(b).encode())
+            return {"status": status, "reply": json.loads(data), "t0": t0,
+                    "end": time.perf_counter()}
+
+        try:
+            via, out["client"] = _timed_traffic(
+                "(a) RoutingClient, straight to the workers (keep-alive)", card, SV_CLIENTS,
+                bodies, direct)
+            _check_scores(via, bodies, refs["v1"], "(a) through RoutingClient")
+        finally:
+            client.close()
+        log(f"[dist] (a) replies by worker through the front: {answered}")
+        if min(answered.values()) == 0:
+            raise AssertionError("[dist] (a) a worker answered no request through the front")
+        # SIGKILL a worker once it has answered DS_KILL_AFTER requests of this phase
+        import signal
+
+        victim = handle.procs[0]
+        endpoint = next(f"{w['host']}:{w['port']}" for w in table if w["pid"] == victim.pid)
+        stats0 = json.loads(_http(handle.address, "GET", "/stats")[2])
+        kill = {}
+        by_victim = itertools.count(1)
+
+        def post(b):
+            r = _post_timed(handle.address, b)
+            if r["pid"] == str(victim.pid) and next(by_victim) == DS_KILL_AFTER:
+                os.kill(victim.pid, signal.SIGKILL)
+                kill["wall"] = time.time()
+            return r
+
+        def watch():  # the victim's breaker opens, the registry lists its replacement
+            while "wall" not in kill:
+                time.sleep(0.002)
+            while time.time() - kill["wall"] < 120:
+                state = handle.front.breaker_states().get(endpoint)
+                if state == "open" and kill.get("breaker") is None:
+                    kill["breaker"] = time.time() - kill["wall"]
+                fresh = [w["pid"] for w in handle.registry.workers()
+                         if w["pid"] not in spawn]
+                if fresh:
+                    kill["rejoined"], kill["pid"] = time.time() - kill["wall"], fresh[0]
+                    return
+                time.sleep(0.005)
+
+        watcher = threading.Thread(target=watch, daemon=True)
+        watcher.start()
+        results, out["kill"] = _timed_traffic(
+            "(a) the same traffic, one worker SIGKILLed in it", card, SV_CLIENTS, bodies, post)
+        _check_scores(results, bodies, refs["v1"], "(a) across the SIGKILL")
+        watcher.join(timeout=150)
+        stats1 = json.loads(_http(handle.address, "GET", "/stats")[2])
+        opened = (stats1["resilience"]["breaker_open_count"]
+                  - stats0["resilience"]["breaker_open_count"])
+        if "pid" not in kill:
+            raise AssertionError(f"[dist] (a) the killed worker never rejoined: {kill}")
+        rejoin = [_post_timed(handle.address, b) for b in bodies[:32]]
+        _check_scores(rejoin, bodies[:32], refs["v1"], "(a) after the rejoin")
+        took = sum(r["pid"] == str(kill["pid"]) for r in rejoin)
+        new_first = min(((r["end"] - r["t0"]) * 1e3 for r in rejoin if r["pid"] == str(kill["pid"])),
+                        default=None)
+        counts = _worker_counts(counts_dir)
+        log(f"[dist] (a) SIGKILL of worker {victim.pid} after its {DS_KILL_AFTER}th reply: "
+            f"{len(results)} of {len(bodies)} requests answered 200 (none dropped); breaker opens "
+            f"{opened} (the watcher saw {endpoint}'s open {kill.get('breaker')} s after the kill, "
+            f"before the supervisor dropped the worker); the replacement "
+            f"{kill['pid']} registered {kill['rejoined']:.2f} s after the kill (process start to "
+            f"registered {seen[kill['pid']] - counts[kill['pid']]['started']:.2f} s) and took "
+            f"{took} of the next 32 requests (its fastest {new_first} ms) | {card}")
+        if opened < 1 or took == 0:
+            raise AssertionError("[dist] (a) the breaker did not open or the replacement took "
+                                 "no traffic")
+        out["kill"].update(rejoin_s=kill["rejoined"], breaker_s=kill.get("breaker"))
+        out["spawn_s"] = spawn
+        out["canary"] = _ds_canary(handle, tmp, card, (pipe1, pipe2), version, refs, bodies,
+                                   warm)
+        batches = {w["pid"]: _worker_series(f"http://{w['host']}:{w['port']}",
+                                            "synapseml_serving_batch_rows_count")
+                   for w in handle.registry.workers()}
+    finally:
+        handle.stop()
+    counts = _worker_counts(counts_dir)
+    launches = {k: parent_launches[k] + sum(c["fwd"].get(k, 0) for c in counts.values())
+                for k in parent_launches}
+    log(f"[dist] flash forward launches counted in the {len(counts)} worker processes: "
+        + ", ".join(f"{pid}: {c['fwd']}" for pid, c in counts.items())
+        + f"; micro-batches scored by the live workers {batches}; in this process {parent_launches}")
+    for pid, n in batches.items():
+        if counts[pid]["fwd"]["bf16"] < 12 * n:
+            raise AssertionError(f"[dist] worker {pid} scored {n:.0f} batches but launched the "
+                                 f"flash kernel {counts[pid]['fwd']['bf16']} times")
+    out["launches"] = launches
+    return out
+
+
+def _ds_canary(handle, tmp: str, card: str, pipes: tuple, make_version, refs: dict,
+               bodies: list, warm: list) -> dict:
+    """(b) canary rollout, promote, and a broken version's canary rolled back
+    by the CanaryController, on (a)'s workers."""
+    import chip_smoke as this
+    from synapseml_torch.registry import Deployment, ModelRegistry
+
+    reg = ModelRegistry(os.path.join(tmp, "deploy_store"))
+    t0 = time.perf_counter()
+    for tag, pipe in zip(("v1", "v2"), pipes):
+        reg.publish("bert", pipe, version=tag)
+    pipe3, model3 = make_version(0, last=this.ServeFails())
+    reg.publish("bert", pipe3, version="v3")
+    reg.pin("bert", "prod", "v1")
+    log(f"[dist] (b) v1, v2 and v3 published in {time.perf_counter() - t0:.1f} s")
+    dep = Deployment(handle, reg, "bert", warmup=warm, timeout_s=SV_HTTP_TIMEOUT)
+    handle.front._split_rng.seed(14)
+    out = {}
+    mix = bodies[:DS_CANARY_REQUESTS]
+    post = lambda b: _post_timed(handle.address, b)  # noqa: E731
+
+    def workers_on():
+        return sorted(json.loads(_http(f"http://{w['host']}:{w['port']}", "GET",
+                                       "/admin/version")[2])["version"]
+                      for w in handle.registry.workers())
+
+    with _Pound(4, mix, post) as pound:
+        t0 = time.perf_counter()
+        dep.canary("v2", weight=DS_CANARY_WEIGHT)
+        end = time.perf_counter()
+    n, gap = pound.across(t0, end)
+    relabeled = _check_spanning(pound.results, refs, "(b) across the canary's swap")
+    log(f"[dist] (b) canary of v2 at {DS_CANARY_WEIGHT}: {(end - t0) * 1e3:.0f} ms, the rollout "
+        f"{dep.last_rollout}; {n} requests spanned it, the longest {gap:.0f} ms, every one of "
+        f"the {len(pound.results)} sent meanwhile 200 ({relabeled} with the scores of the other "
+        f"version than its label) | {card}")
+    if handle.front.traffic_split() != {"v1": 1 - DS_CANARY_WEIGHT, "v2": DS_CANARY_WEIGHT}:
+        raise AssertionError("[dist] (b) the canary set no split")
+    out["canary_swap"] = {"ms": (end - t0) * 1e3, "longest_ms": gap, **dep.last_rollout}
+    groups0 = _route_groups()
+    results = _run_clients(SV_CLIENTS, mix, post)
+    by = _check_versioned(list(zip(results, mix)), refs, "(b) canary traffic")
+    groups = {v: c - groups0.get(v, 0) for v, c in _route_groups().items()}
+    draws = sum(groups.values())
+    share, sigma = groups.get("v2", 0) / draws, math.sqrt(
+        DS_CANARY_WEIGHT * (1 - DS_CANARY_WEIGHT) / draws)
+    log(f"[dist] (b) {len(mix)} requests over the split: replies by version {by} (v2's share "
+        f"{by['v2'] / len(mix):.3f}); the split draws a version once a coalesced group: "
+        f"{draws} groups, by version {groups}, v2's share {share:.3f} against "
+        f"{DS_CANARY_WEIGHT} +- 4 sigma = {4 * sigma:.3f}; every reply within the bf16 limits of "
+        f"its version's transform")
+    if abs(share - DS_CANARY_WEIGHT) > 4 * sigma or not by["v2"]:
+        raise AssertionError("[dist] (b) v2's share of the split's draws is off its weight")
+    with _Pound(4, mix, post) as pound:
+        t0 = time.perf_counter()
+        promoted = dep.promote()
+        end = time.perf_counter()
+    n, gap = pound.across(t0, end)
+    on = workers_on()
+    relabeled = _check_spanning(pound.results, refs, "(b) across the promote")
+    log(f"[dist] (b) promote -> {promoted}: {(end - t0) * 1e3:.0f} ms, the rollout "
+        f"{dep.last_rollout}; workers on {on}, prod -> {reg.alias_target('bert', 'prod')}; "
+        f"{n} requests spanned it, the longest {gap:.0f} ms, every one of the "
+        f"{len(pound.results)} sent meanwhile 200 ({relabeled} with the other version's "
+        f"scores) | {card}")
+    if on != ["v2"] * DS_WORKERS or reg.alias_target("bert", "prod") != "v2":
+        raise AssertionError("[dist] (b) promote did not put every worker on v2")
+    out["promote"] = {"ms": (end - t0) * 1e3, "longest_ms": gap, **dep.last_rollout}
+    # v3 fails every request: its warmup refuses the load and moves nothing
+    t0 = time.perf_counter()
+    try:
+        dep.canary("v3", weight=DS_CANARY_WEIGHT)
+        refused = None
+    except RuntimeError as e:
+        refused = str(e)
+    log(f"[dist] (b) canary of v3 with warmup rows: refused in {(time.perf_counter() - t0) * 1e3:.0f} "
+        f"ms ({refused}); split {handle.front.traffic_split()}, workers on {workers_on()}")
+    if not refused or "409" not in refused or handle.front.traffic_split() is not None \
+            or workers_on() != ["v2"] * DS_WORKERS:
+        raise AssertionError("[dist] (b) the broken version's warmup did not refuse its load")
+    # loaded without warmup rows it goes in: its canary must trip the
+    # controller and roll back
+    bare = Deployment(handle, reg, "bert", timeout_s=SV_HTTP_TIMEOUT)
+    t0 = time.perf_counter()
+    ctl = bare.canary("v3", weight=DS_CANARY_WEIGHT, autorollback=dict(DS_ROLLBACK))
+    swapped = time.perf_counter()
+    sent = []
+    with _Pound(SV_CLIENTS, mix, post) as pound:
+        while not ctl.rolled_back and time.perf_counter() - swapped < 120:
+            time.sleep(0.01)
+        tripped = time.perf_counter()
+        sent = list(pound.results)
+    deadline = time.perf_counter() + 120
+    while workers_on() != ["v2"] * DS_WORKERS and time.perf_counter() < deadline:
+        time.sleep(0.05)
+    back = time.perf_counter()
+    on = workers_on()
+    v3 = [r for r in sent if r["version"] == "v3"]
+    others = [r for r in sent if r["version"] != "v3"]
+    stats = handle.front.version_stats().get("v3", {})
+    log(f"[dist] (b) canary of v3 (its last stage raises): loaded in {(swapped - t0) * 1e3:.0f} "
+        f"ms, the rollout {bare.last_rollout}; the controller tripped after "
+        f"{(tripped - swapped) * 1e3:.0f} ms, {len(sent)} requests, {len(v3)} of them answered "
+        f"by v3 (front's v3 counters {stats.get('ok')} ok, {stats.get('err')} err): "
+        f"{ctl.reason}; every worker back on v2 {(back - tripped) * 1e3:.0f} ms after the trip: "
+        f"{on}; prod -> {reg.alias_target('bert', 'prod')}; requests outside v3 not 200: "
+        f"{sum(r['status'] != 200 for r in others)} | {card}")
+    if not ctl.rolled_back or on != ["v2"] * DS_WORKERS \
+            or reg.alias_target("bert", "prod") != "v2" or not v3 \
+            or any(r["status"] != 500 for r in v3):
+        raise AssertionError("[dist] (b) the broken canary was not rolled back cleanly")
+    _check_versioned([(r, r["body"]) for r in others], {"v2": refs["v2"]},
+                     "(b) outside the broken canary's share")
+    model3.__dict__["_module"] = None
+    out["rollback"] = {"trip_requests": len(sent), "trip_v3": len(v3),
+                       "trip_ms": (tripped - swapped) * 1e3, "back_ms": (back - tripped) * 1e3}
+    return out
+
+
+def _route_groups() -> dict:
+    """The front's coalesced groups released so far, by version (the count
+    of synapseml_route_bucket_occupancy, in this process's registry)."""
+    from synapseml_torch.core import observability as obs
+
+    return {k.split('version="')[1].split('"')[0]: v["count"]
+            for k, v in obs.get_registry().snapshot().items()
+            if k.startswith("synapseml_route_bucket_occupancy{")}
+
+
+def _ds_llm(device, card: str) -> dict:
+    """(c) two llm_worker_main processes, each loading path 7's seeded
+    Llama-2-7B-width directory (4 of 32 layers) computing in f32, behind a
+    journaled RoutingFront; one is SIGKILLed once every stream has a chunk."""
+    import signal
+    import http.client
+
+    from synapseml_torch.core import observability as obs
+    from synapseml_torch.hf.causal_lm import load_llama
+    from synapseml_torch.io import distributed_serving as tds
+    from synapseml_torch.models.convert_hf import pretrained_causal_lm
+
+    ck = _Checkpoints(card)
+    registry = tds.WorkerRegistry()
+    procs, front, model = [], None, None
+    try:
+        d = ck.get("llama", _llama_checkpoint, 31, 2)
+        tok = HashingTokenizer(vocab_size=CK_LLAMA["vocab_size"])
+        rs = np.random.default_rng(14)
+        prompts = [rs.integers(3, CK_LLAMA["vocab_size"], int(rs.integers(*DS_LLM_PROMPT))).tolist()
+                   for _ in range(DS_LLM_STREAMS)]
+        params = {"tokenizer": tok.to_config(), "decode_slots": DS_LLM_STREAMS, "kv_blocks": 512}
+        code = "\n".join([  # the directory's f32 compute, as path 7 loads it for its f32 runs
+            "import functools, torch",
+            "torch.backends.cuda.matmul.allow_tf32 = False",
+            "from synapseml_torch.hf import causal_lm",
+            "causal_lm.pretrained_causal_lm = functools.partial(causal_lm.pretrained_causal_lm, "
+            "dtype=torch.float32)",
+            "from synapseml_torch.io.distributed_serving import llm_worker_main",
+            f"llm_worker_main({d!r}, {registry.address + '/register'!r}, max_new_tokens=64, "
+            f"device={str(device)!r}, stage_params={params!r})"])
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [os.path.dirname(os.path.abspath(__file__)), os.environ.get("PYTHONPATH", "")]))
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, "-c", code], env=env) for _ in range(2)]
+        workers = registry.wait_for(2, timeout_s=300)
+        registered = time.perf_counter() - t0
+        bases = {w["pid"]: f"http://{w['host']}:{w['port']}" for w in workers}
+        for base in bases.values():
+            while json.loads(_http(base, "GET", "/admin/stats")[2]).get("llm") is None:
+                if time.perf_counter() - t0 > 600:
+                    raise AssertionError("[dist] (c) a worker's engine never came up")
+                time.sleep(0.05)
+        ready = time.perf_counter() - t0
+        # the uninterrupted single-worker run: one worker alone, all at once
+        t0 = time.perf_counter()
+        ref = _run_clients(DS_LLM_STREAMS, prompts, lambda p: json.loads(_http(
+            bases[procs[0].pid], "POST", "/", {"input_ids": p, "max_new_tokens": DS_LLM_NEW})[2]))
+        ref = [r["output_ids"] for r in ref]
+        log(f"[dist] (c) 2 llm_worker_main processes on {d} (Llama-2-7B width, "
+            f"{CK_LLAMA_LAYERS} of 32 layers, f32 compute): registered {registered:.1f} s, "
+            f"engines built and warmed {ready:.1f} s after the spawn; one worker alone "
+            f"generated the reference ({DS_LLM_STREAMS} x {DS_LLM_NEW} tokens) in "
+            f"{time.perf_counter() - t0:.1f} s | {card}")
+        front = tds.RoutingFront(registry=registry, timeout_s=SV_HTTP_TIMEOUT, journal=True)
+        key = 'synapseml_llm_resubmits_total{mode="resume"}'
+        resumed0 = obs.get_registry().snapshot().get(key, 0)
+        progress, stamps, ends = [0] * DS_LLM_STREAMS, [], [None] * DS_LLM_STREAMS
+        going = threading.Event()
+        host, port = front.address.split("//")[1].split(":")
+
+        def stream(i):
+            conn = http.client.HTTPConnection(host, int(port), timeout=SV_HTTP_TIMEOUT)
+            try:
+                conn.request("POST", "/", body=json.dumps(
+                    {"input_ids": prompts[i], "max_new_tokens": DS_LLM_NEW,
+                     "stream": True}).encode(), headers={"X-Request-Key": f"dist-{i}"})
+                resp = conn.getresponse()
+                chunks = []
+                for line in iter(resp.readline, b""):
+                    if line.strip():
+                        chunk = json.loads(line)
+                        chunks.append(chunk)
+                        if "token" in chunk and not chunk.get("done"):
+                            stamps.append(time.perf_counter())
+                            progress[i] += 1
+                            if all(progress):
+                                going.set()
+                ends[i] = time.perf_counter()
+                return resp.status, chunks
+            finally:
+                conn.close()
+
+        res = {}
+        runner = threading.Thread(target=lambda: res.setdefault(
+            "runs", _run_clients(DS_LLM_STREAMS, list(range(DS_LLM_STREAMS)), stream)),
+            daemon=True)
+        t0 = time.perf_counter()
+        runner.start()
+        if not going.wait(SV_HTTP_TIMEOUT):
+            raise AssertionError("[dist] (c) the streams never all got a chunk")
+        # the victim: the worker with more live sequences (a stream whose
+        # connect waited for a resent SYN starts late; the other worker's
+        # may all be done by then)
+        live = {p.pid: json.loads(_http(bases[p.pid], "GET", "/admin/stats")[2])["llm"]["active"]
+                for p in procs}
+        victim = max(procs, key=lambda p: live[p.pid])
+        survivor = next(bases[p.pid] for p in procs if p is not victim)
+        os.kill(victim.pid, signal.SIGKILL)
+        t_kill = time.perf_counter()
+        victim.wait(timeout=120)  # reaped once its exit (the CUDA context's teardown) is done
+        exit_s = time.perf_counter() - t_kill
+        runner.join(timeout=300)
+        end = time.perf_counter()
+        runs = res.get("runs") or []
+        got, dups = [], 0
+        for status, chunks in runs:
+            toks = [c for c in chunks if "token" in c and not c.get("done")]
+            seqs = [c["seq"] for c in toks]
+            dups += len(seqs) - len(set(seqs))
+            if status != 200 or seqs != list(range(len(toks))) or not chunks[-1].get("done") \
+                    or "error" in chunks[-1] or chunks[-1]["seq"] != len(toks):
+                raise AssertionError(f"[dist] (c) a stream broke: {status} {chunks[-3:]}")
+            got.append([c["token"] for c in toks])
+        resumed = obs.get_registry().snapshot().get(key, 0) - resumed0
+        _llm_pages_free(survivor, "(c) the survivor")
+        before = sum(s < t_kill for s in stamps)
+        late = sorted(round(e - t_kill, 3) for e in ends if e is not None and e > t_kill)
+        first_after = min((t - t_kill for t in stamps if t > t_kill), default=None)
+        out = {"tokens_s_before": before / (t_kill - t0),
+               "tokens_s_after": (len(stamps) - before) / (end - t_kill),
+               "redispatched": resumed, "registered_s": registered, "ready_s": ready,
+               "late_s": late, "victim_exit_s": exit_s,
+               "first_chunk_after_kill_s": first_after}
+        cfg, sd = pretrained_causal_lm(d, dtype=torch.float32)
+        model = load_llama(cfg, sd, device)
+        del sd
+        compared = _margin_rule(got, ref, _teacher_margins(model, prompts, got),
+                                _teacher_margins(model, prompts, ref),
+                                "(c) across the SIGKILL vs one worker alone")
+        log(f"[dist] (c) {DS_LLM_STREAMS} journaled streams of {DS_LLM_NEW} tokens, worker "
+            f"{victim.pid} SIGKILLed once every stream had a chunk ({before} tokens relayed by "
+            f"then; live sequences by worker {live}): every stream complete, {dups} duplicate chunks, {resumed:.0f} streams "
+            f"re-dispatched to the survivor; tokens equal the uninterrupted run's on {compared} "
+            f"of {sum(map(len, got))} under the margin rule; the survivor holds no KV page; "
+            f"{out['tokens_s_before']:.1f} tokens/s before the kill, "
+            f"{out['tokens_s_after']:.1f} after (client clock); the victim's exit took "
+            f"{exit_s:.2f} s, the first chunk of any stream after the kill came "
+            f"{first_after} s after it; streams ending after the kill, seconds after it: "
+            f"{late} | {card}")
+        if len(runs) != DS_LLM_STREAMS or dups or resumed < 1:
+            raise AssertionError("[dist] (c) streams lost, duplicated or never re-dispatched")
+        return out
+    finally:
+        if front is not None:
+            front.close()
+        registry.close()
+        for p in procs:
+            if p.poll() is None:
+                p.terminate()
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait(timeout=30)
+        del model
+        ck.close()
+        _free_card()
+
+
+def phase_distributed(device, card: str, serving: dict | None = None) -> dict:
+    """Main path 14: (a) BERT-base on worker processes behind the routing
+    front, a worker SIGKILLed and respawned; (b) canary rollout, promote and
+    auto-rollback through registry/deploy.py; (c) journaled LLM streams
+    across two decode workers, one SIGKILLed. Returns the flash forward's
+    launches, the workers' included, and the records; ``serving`` is path
+    12's record, whose single server's numbers are printed beside these."""
+    import tempfile
+
+    _free_card()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    t_path = time.perf_counter()
+    try:
+        t0 = time.perf_counter()
+        text = _ds_text(device, card, tmp)
+        log(f"[dist] (a)-(b) done in {time.perf_counter() - t0:.1f} s")
+        _free_card()
+        t0 = time.perf_counter()
+        llm = _ds_llm(device, card)
+        log(f"[dist] (c) done in {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    micro = (serving or {}).get("text", {}).get("micro")
+    log(f"[dist] main path 14 in {time.perf_counter() - t_path:.1f} s; requests/s (p50, p99 ms): "
+        + ", ".join(f"{k} {text[k]['requests_s']:.1f} ({text[k]['p50_ms']:.0f}, "
+                    f"{text[k]['p99_ms']:.0f})" for k in ("single", "front", "client", "kill"))
+        + (f"; path 12's single server {micro['requests_s']:.1f} ({micro['p50_ms']:.0f}, "
+           f"{micro['p99_ms']:.0f}; its traffic spans a hot swap)" if micro else "")
+        + f" | {card}")
+    return {"launches": text["launches"], "bwd_launches": {"bf16": 0, "f32": 0},
+            "text": text, "llm": llm}
+
+
 def main() -> None:
     t0 = time.perf_counter()
 
@@ -7940,15 +8662,19 @@ def main() -> None:
     done("main path 12, HTTP model serving")
     batch = phase_batch_plane(device, card)
     done("main path 13, the offline batch plane")
+    dist = phase_distributed(device, card, serving)
+    done("main path 14, serving across worker processes")
     # the flash kernels' launches on the paths, each counted from 0 just
     # before it ran: scoring (path 1), fine-tuning through flash and both
     # fitted models' scoring (path 3), bert-tiny f32 through flash on the
     # card, the long-T flash steps in bf16 and in f32, and ViT-B/16
     # fine-tuning through flash (path 5), the checkpoint fit and its model's
     # scoring (path 7), the MoE encoder's runs (path 8), the mesh fits and
-    # scoring (path 11), the served requests, swaps and publish (path 12) and
-    # the bulk scans of BERT-base (path 13)
-    paths = (train, vit, pretrained, moe, mesh, serving, batch,
+    # scoring (path 11), the served requests, swaps and publish (path 12), the
+    # bulk scans of BERT-base (path 13) and the requests, warmups and swaps
+    # served in path 14's worker processes, counted there, with its own
+    # in-process server's
+    paths = (train, vit, pretrained, moe, mesh, serving, batch, dist,
              {"launches": tiny["fwd"], "bwd_launches": tiny["bwd"]},
              *({"launches": long_t[tag]["launches"]["fwd"],
                 "bwd_launches": long_t[tag]["launches"]["bwd"]} for tag in ("flash", "flash f32")))

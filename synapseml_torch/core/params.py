@@ -165,6 +165,29 @@ class Params(metaclass=_ParamsMeta):
                 return setter
         raise AttributeError(f"{type(self).__name__!r} object has no attribute {item!r}")
 
+    # -------- pickling --------
+    # runtime attributes a stage rebuilds on its own device when it next
+    # runs (a built module, its tokenizer and device): dropped from a
+    # pickle, left None in the unpickled stage
+    _TRANSIENT: tuple = ()
+
+    def __getstate__(self) -> dict:
+        """The stage without its runtime state: no ``_cache_*`` entry, no
+        callable-cache token, ``_TRANSIENT`` attributes None. A pickle (a
+        distributed worker's pipeline file) carries the weights once, in
+        ``model_params``, and no object bound to the pickling process's
+        device."""
+        state = {k: v for k, v in self.__dict__.items()
+                 if not k.startswith("_cache_") and k != "_compiled_cache_token"}
+        state.update(dict.fromkeys(self._TRANSIENT))
+        return state
+
+    def __copy__(self) -> "Params":
+        # copy.copy keeps the runtime state (a copy shares the built module)
+        other = type(self).__new__(type(self))
+        other.__dict__.update(self.__dict__)
+        return other
+
     # -------- lifecycle --------
     def copy(self, extra: dict | None = None) -> "Params":
         other = _copy.copy(self)

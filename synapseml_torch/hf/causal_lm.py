@@ -179,6 +179,7 @@ class HuggingFaceCausalLM(Transformer):
                    default="cuda", converter=TypeConverters.to_string,
                    validator=lambda v: device_type(v) in ("cuda", "cpu"))
 
+    _TRANSIENT = ("_mesh",)  # the built model and engines are "_cache_*" entries
     _CACHE_KEYS = frozenset({"model_name", "model_params", "tokenizer",
                              "mesh_config", "partition_rules",
                              "max_new_tokens", "eos_id",

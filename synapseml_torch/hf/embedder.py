@@ -94,6 +94,7 @@ class HuggingFaceSentenceEmbedder(Transformer):
                    default="cuda", converter=TypeConverters.to_string,
                    validator=lambda v: device_type(v) in ("cuda", "cpu"))
 
+    _TRANSIENT = ("_mesh",)  # the built model and engines are "_cache_*" entries
     _CACHE_KEYS = frozenset({"model_name", "model_params", "tokenizer",
                              "mesh_config", "pooling", "normalize", "device"})
 

@@ -2,14 +2,16 @@
 
 Counterpart of ``synapseml_tpu/io/``: :mod:`.serving` (``ServingServer``,
 ``serve_pipeline``, ``serve_llm``, the hot swap and the admin and
-observability endpoints) and, in :mod:`.files`, the port's copies of the
-input-path resolvers, the JSONL line parser and the streamed atomic JSONL
-and ``.npy`` writers that the scoring sinks write through.
+observability endpoints), :mod:`.distributed_serving` (the routing front
+over worker processes, journaled LLM streams, ``RoutingClient`` and
+``serve_pipeline_distributed``) and, in :mod:`.files`, the port's copies of
+the input-path resolvers, the JSONL line parser and the streamed atomic
+JSONL and ``.npy`` writers that the scoring sinks write through.
 The HTTP-on-DataFrame clients, the eager readers and writers and the Power
-BI writer come with ROADMAP.md queue A item 12; ``serve_pipeline_distributed``
-(the routing front) with item 10's second half.
+BI writer come with ROADMAP.md queue A item 12.
 """
 
 from .serving import ServingServer, serve_pipeline
+from .distributed_serving import serve_pipeline_distributed
 
-__all__ = ["ServingServer", "serve_pipeline"]
+__all__ = ["ServingServer", "serve_pipeline", "serve_pipeline_distributed"]

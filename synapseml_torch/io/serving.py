@@ -106,12 +106,16 @@ class PipelineHolder:
     Hot-swap (``POST /admin/load``) loads the replacement side-by-side,
     warms it, then calls :meth:`swap` — one attribute assignment under a
     lock, so in-flight batches finish on the old pipeline and the next
-    batch picks up the new one with zero dropped requests."""
+    batch picks up the new one with zero dropped requests. ``subscribe``
+    registers ``fn(new_version, old_version)`` callbacks fired after every
+    swap (the distributed worker re-registers its new version through
+    one); a callback that raises does not undo the swap."""
 
     def __init__(self, pipeline, version: str | None = None):
         self._lock = threading.Lock()
         self._pipeline = pipeline
         self._version = version
+        self._callbacks: list = []
 
     @property
     def version(self) -> str | None:
@@ -128,11 +132,20 @@ class PipelineHolder:
         with self._lock:
             return self._pipeline, self._version
 
+    def subscribe(self, fn) -> None:
+        """``fn(new_version, old_version)`` after every successful swap."""
+        self._callbacks.append(fn)
+
     def swap(self, pipeline, version: str | None = None) -> str | None:
         with self._lock:
             old = self._version
             self._pipeline = pipeline
             self._version = version
+        for fn in list(self._callbacks):
+            try:
+                fn(version, old)
+            except Exception:  # noqa: BLE001 - a callback must not undo a swap
+                pass
         return old
 
 

@@ -1071,7 +1071,11 @@ class PagedDecodeEngine:
         man = snapshot["manifest"]
         blob = snapshot.get("payload") or b""
         want = (snapshot.get("digests") or {}).get("payload")
-        intact = man.get("model_digest") == self.model_digest()
+        # a crash resume carries no digest: it re-prefills whatever this
+        # engine's digest is, so the digest (a hash over every weight, seconds
+        # at 7B width, on the serve loop) is not computed for it
+        intact = man.get("model_digest") is not None \
+            and man["model_digest"] == self.model_digest()
         if intact and want is not None and hashlib.sha256(blob).hexdigest() != want:
             intact = False  # torn payload: recompute, never decode garbage
         T = int(man.get("tokens_in_pages") or 0)

@@ -268,6 +268,7 @@ class DeepTextModel(Model, _TextParams):
     # einsum is the flash kernel's plain version: on the card it is the
     # search's baseline, never its winner
     _AUTOTUNE_PLAIN = {"attn_impl": "einsum"}
+    _TRANSIENT = ("_module", "_tok", "_device", "_mesh")
 
     def __init__(self, **kw):
         super().__init__(**kw)

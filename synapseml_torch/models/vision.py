@@ -214,6 +214,7 @@ class DeepVisionModel(Model, _VisionParams):
 
     _APPLY_KEYS = frozenset({"model_params", "batch_stats", "arch_spec", "backbone",
                              "num_classes", "mesh_config", "device"})
+    _TRANSIENT = ("_module", "_device", "_mesh")
 
     def __init__(self, **kw):
         super().__init__(**kw)

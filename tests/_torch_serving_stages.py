@@ -6,11 +6,14 @@ A request body is ``{"texts": [...]}`` (one to a few texts) or a string.
 JSON reply per request: ``{"scores": [[...], ...], "prediction": [...]}``,
 or ``{"error": ...}`` for a body with no text. The classes are module-level
 so that ``save_stage``/``load_stage`` (a hot swap by path, a registry
-publish) find them; ``J*`` are the JAX package's twins.
+publish) find them; ``J*`` are the JAX package's twins. The row functions
+live in ``_torch_worker_stages``, whose own ``TextsIn``/``ScoresOut`` a
+distributed worker imports without the JAX package.
 """
 
 import numpy as np
 
+from _torch_worker_stages import _explode, _fold
 from synapseml_torch.core.pipeline import PipelineModel, Transformer
 from synapseml_tpu.core.pipeline import PipelineModel as JPipelineModel
 from synapseml_tpu.core.pipeline import Transformer as JTransformer
@@ -19,42 +22,6 @@ VOCAB = 256
 MAX_TOKENS = 16
 WORDS = ("good great bad awful film plot acting score long short the a of "
          "and was is not very really quite").split()
-
-
-def texts_of(body):
-    if isinstance(body, str) and body:
-        return [body]
-    if isinstance(body, dict) and isinstance(body.get("texts"), list) and body["texts"]:
-        return [str(t) for t in body["texts"]]
-    return None
-
-
-def _explode(p):
-    ids, texts, bad = [], [], []
-    for rid, body in zip(p["id"], p["body"]):
-        got = texts_of(body)
-        for t in got or [""]:
-            ids.append(rid)
-            texts.append(t)
-            bad.append(got is None)
-    return {"id": np.asarray(ids, dtype=object), "text": np.asarray(texts, dtype=object),
-            "bad": np.asarray(bad, dtype=bool)}
-
-
-def _fold(p):
-    groups: dict = {}
-    for i, rid in enumerate(p["id"]):
-        groups.setdefault(rid, []).append(i)
-    replies = []
-    for rid, ix in groups.items():
-        if p["bad"][ix[0]]:
-            replies.append({"error": "body needs 'texts': a non-empty list, or a string"})
-        else:
-            replies.append({"scores": [[float(x) for x in p["scores"][i]] for i in ix],
-                            "prediction": [int(p["prediction"][i]) for i in ix]})
-    reply = np.empty(len(replies), dtype=object)
-    reply[:] = replies
-    return {"id": np.asarray(list(groups), dtype=object), "reply": reply}
 
 
 class TextsIn(Transformer):
@@ -75,6 +42,13 @@ class JTextsIn(JTransformer):
 class JScoresOut(JTransformer):
     def _transform(self, df):
         return df.map_partitions(_fold)
+
+
+class JTextPipeline(JPipelineModel):
+    """The JAX pipeline under a class of this module: the JAX
+    ``serve_pipeline_distributed`` puts the directory of the pipeline's
+    class module on its workers' path, and ``synapseml_tpu/core`` there
+    would shadow the standard library's ``platform``."""
 
 
 def serving_pipelines(seed=0, port_device="cpu"):

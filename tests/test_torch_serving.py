@@ -208,3 +208,25 @@ def test_drain_refuses_new_requests_as_jax(servers):
             break
         threading.Event().wait(0.05)
     assert sorted(r["outcome"] for r in drained.values()) == ["ok", "ok"]
+
+
+def test_pipeline_holder_subscribe_fires_after_every_swap_as_jax():
+    """``fn(new_version, old_version)`` after each swap, in subscription
+    order; a callback that raises undoes nothing and stops no other."""
+    got = []
+    for srv in (jsrv, tsrv):
+        holder, calls = srv.PipelineHolder("p0", "v0"), []
+
+        def boom(new, old):
+            calls.append(("boom", new, old))
+            raise RuntimeError("a bad subscriber")
+
+        holder.subscribe(boom)
+        holder.subscribe(lambda new, old: calls.append(("ok", new, old)))
+        previous = [holder.swap("p1", "v1"), holder.swap("p2", None)]
+        got.append((previous, holder.get(), calls))
+    assert got[0] == got[1]
+    assert got[1] == (["v0", "v1"], ("p2", None),
+                      [("boom", "v1", "v0"), ("ok", "v1", "v0"),
+                       ("boom", None, "v1"), ("ok", None, "v1")])
+

@@ -90,22 +90,25 @@ _WAITING_EXPORTS = {
              "ClusterInfo": "12", "cluster_info": "12"},
     "data": {"ElasticStreamSet": "1.2", "ElasticPlan": "1.2"},
     "gbdt": {"train_boosters_fused": "11"},
-    # the HTTP clients, eager readers and writers and Power BI (item 12);
-    # the routing front (item 10's second half)
+    # the HTTP clients, eager readers and writers and Power BI (item 12)
     "io": {"HTTPRequest": "12", "HTTPResponse": "12", "HTTPTransformer": "12",
            "SimpleHTTPTransformer": "12", "JSONInputParser": "12", "JSONOutputParser": "12",
            "CustomInputParser": "12", "StringOutputParser": "12", "AsyncHTTPClient": "12",
            "send_with_retries": "12", "read_binary_files": "12", "read_image_files": "12",
            "read_csv": "12", "write_csv": "12", "read_jsonl": "12", "write_jsonl": "12",
-           "PowerBIWriter": "12", "serve_pipeline_distributed": "10"},
+           "PowerBIWriter": "12"},
     "models": {"ModelDownloader": "12", "ModelSchema": "12", "CNTKModel": "12",
                "FusedTrainer": "9", "fused_fit_source": "9", "fused_fit_arrays": "9",
                "PipelineTrainer": "9"},
-    # canary rollout (registry/deploy.py): item 10's second half; the
-    # publish-time executable recorder waits for an AOT mechanism, which
+    # the publish-time executable recorder waits for an AOT mechanism, which
     # the port has none of by design (ROADMAP.md section C)
-    "registry": {"Deployment": "10", "CanaryController": "10", "admin_load": "10",
-                 "AOTCapture": "C"},
+    "registry": {"AOTCapture": "C"},
+    # the autoscaler, its worker launchers and multi-model residency: the
+    # fleet slice (item 10); the admission policy and its spec are ported
+    "fleet": {"ResidencyManager": "10", "serve_multi_model": "10", "artifact_nbytes": "10",
+              "FleetAutoscaler": "10", "FleetSignals": "10", "WorkerLauncher": "10",
+              "WorkerHandle": "10", "ThreadWorkerLauncher": "10",
+              "SubprocessWorkerLauncher": "10", "fleet_worker_main": "10"},
     # the index's serving worker (retrieval/serve.py) goes with fleet/
     "retrieval": {"retrieval_worker_main": "10"},
     # the gang (elastic training) and the GPipe pipeline: item 9's second half
@@ -114,8 +117,8 @@ _WAITING_EXPORTS = {
                  "Preempted": "9", "elastic_restore": "9", "run_gang_member": "9",
                  "pipeline_apply": "9", "pipeline_sharded": "9", "stack_stage_params": "9"},
 }
-_SUBPACKAGES = ("core", "data", "gbdt", "hf", "image", "io", "models", "nn", "onnx", "ops",
-                "parallel", "registry", "retrieval", "scoring")
+_SUBPACKAGES = ("core", "data", "fleet", "gbdt", "hf", "image", "io", "models", "nn", "onnx",
+                "ops", "parallel", "registry", "retrieval", "scoring")
 
 
 @pytest.mark.parametrize("sub", _SUBPACKAGES)
