@@ -297,7 +297,7 @@ the kernels are built for sm_90a). Phases, each of which raises on failure:
    tokens/s and time to first token;
 17. main path 13, the offline batch plane through transform_source:
    (a) path 12's BERT-base stage (bf16, flash) over 8 ShardedSource.jsonl
-   shards of 2048 texts of 16-300 words at batch_rows 256 into a
+   shards of 512 texts of 16-300 words at batch_rows 256 into a
    JsonlSink: every score within main path 1's bf16 limits of the stage's
    in-memory transform, id for id; a scan stopped after the 3rd shard's
    DONE marker and resumed leaves part files byte-identical to the
@@ -346,13 +346,49 @@ the kernels are built for sm_90a). Phases, each of which raises on failure:
    across each swap; the flash forward's launches counted in the worker
    processes (each writes its counts at SIGTERM and every 0.25 s), at
    least 12 a micro-batch each scored; (c) two llm_worker_main processes
-   on path 7's seeded Llama-2-7B-width directory (4 of 32 layers) in f32
-   compute behind a journaled RoutingFront, 16 streams of 24 tokens, one
+   on a seeded Llama-2-7B-width directory (path 7's writer, 2 of 32
+   layers) in f32 compute behind a journaled RoutingFront, 16 streams of 24 tokens, one
    worker SIGKILLed once every stream has a chunk: every stream complete
    with contiguous seqs and no duplicate chunk, its tokens equal to the
    survivor's uninterrupted run under the margin rule, the survivor
    holding no KV page; tokens/s before and after the kill;
-19. times: each kernel beside its bound, its plain version and the one
+19. main path 15, the fleet on the one card: (b) serve_multi_model over
+   four BERT-base-width models (4 of 12 layers, weights from seeds
+   100-103, scores more than path 1's bf16 limit apart) published with
+   their warmup rows, a ResidencyManager byte budget of 3.5 artifacts, 9
+   requests by /m/<model> forcing 3 evictions: every reply within path
+   1's bf16 limits of its own model's transform, /admin/stats listing the
+   LRU's resident set after each request, each eviction freeing at least
+   90 % of the model's parameter bytes on the card (memory_allocated after
+   gc.collect()); miss and hit ms, each resident's device and artifact
+   bytes; (c) path 13's published index (300,000 x 128) served by two
+   retrieval_worker_main processes advertising half the shard roster
+   each, behind the routing front's fan-out: 512 queries in requests of 4
+   from 16 keep-alive clients bitwise the in-process search (queries/s,
+   p50/p99), one worker SIGKILLed after 8 requests: replies partial,
+   naming its shards, the survivor's shards bitwise; 64 documents logged
+   through RequestLogger, ingested and republished: the survivor's alias
+   watch re-registers and finds each at distance 0; (d) a RequestLogger
+   (sample_rate 0.5, seed 15) on one in-process server of path 14's
+   BERT-base v1: path 12's traffic from 16 keep-alive clients without it
+   and with it (p50/p99 of each), the committed parts read back by
+   logged_request_source holding exactly the sampled count, each record
+   the reply served, none shed; (a) FleetAutoscaler (1-2 workers, queue
+   target 6, reconcile every 0.25 s) over SubprocessWorkerLauncher
+   workers of that v1 from a registry (micro-batches of at most 4
+   requests), path 12's traffic from 16 RoutingClient clients over
+   keep-alive: the queue signal doubles the fleet, one worker SIGKILLed
+   after 768 replies at two workers is replaced in the same reconcile
+   pass with no request lost, the traffic stops and the newest worker
+   drains and exits 0; every reply within path 1's bf16 limits; each
+   worker's spawn-to-registered seconds, the second worker's first batch,
+   requests/s and p50/p99 at one and at two workers, the replacement's
+   seconds, synapseml_fleet_worker_seconds_total, and the flash forward's
+   launches counted in each worker (the stage classes of this module load
+   with the pipeline and count there), at least 12 a micro-batch served.
+   (a)'s first worker starts up while (c), (b) and (d) run, (c)'s two
+   while (b) runs;
+20. times: each kernel beside its bound, its plain version and the one
    PyTorch call that computes the same function (device time, with the
    host's enqueue hidden behind a spin kernel; the library call's device
    kernels named from the profiler); flash_attention from the projection
@@ -4255,9 +4291,10 @@ def _gpt2_checkpoint(seed: int) -> tuple[dict, dict]:
     return {"model_type": "gpt2", "architectures": ["GPT2LMHeadModel"], **c}, t
 
 
-def _llama_checkpoint(seed: int) -> tuple[dict, dict]:
-    """LlamaForCausalLM at CK_LLAMA (no biases, an untied lm_head), F16."""
-    c, w = CK_LLAMA, _Draw(seed, np.float16)
+def _llama_checkpoint(seed: int, layers: int = CK_LLAMA_LAYERS) -> tuple[dict, dict]:
+    """LlamaForCausalLM at CK_LLAMA with ``layers`` layers (no biases, an
+    untied lm_head), F16."""
+    c, w = {**CK_LLAMA, "num_hidden_layers": layers}, _Draw(seed, np.float16)
     hid, mlp = c["hidden_size"], c["intermediate_size"]
     kv = hid // c["num_attention_heads"] * c["num_key_value_heads"]
     t = {"model.embed_tokens.weight": w.normal(c["vocab_size"], hid)}
@@ -6770,6 +6807,7 @@ def phase_multi_gpu(device, card: str, digest: str | None = None) -> dict:
 # (a) serve_pipeline over main path 1's stage (BERT-base, bf16, flash)
 SV_REQUESTS, SV_CONTINUOUS, SV_CLIENTS = 512, 128, 16
 SV_SWAP_AFTER = 192      # replies before the mid-traffic /admin/load by path
+SV_AFTER_SWAP = 64       # the last requests, sent only once that load has returned
 SV_INTERVAL_MS = 10      # micro-batch interval
 SV_TUNE_BUCKETS = (8, 32)
 SV_TOL, SV_AGREE = 3e-2, 0.99  # main path 1's bf16 limits: max |dprob|, argmax agreement
@@ -7069,21 +7107,31 @@ def _serve_text(device, card: str, tmp: str) -> dict:
         swap = {}
         replied = itertools.count(1)  # next() is atomic: one thread sees each count
 
-        def post(body):
+        swapped = threading.Event()
+
+        def post(job):
+            # the traffic's tail waits for the swap: a load slower than the
+            # rest of the traffic would leave the new pipeline nothing to serve
+            i, body = job
+            if i >= SV_REQUESTS - SV_AFTER_SWAP and not swapped.wait(SV_HTTP_TIMEOUT):
+                raise AssertionError("[serve] the /admin/load did not return")
             r = _post_timed(srv.address, body)
             if next(replied) == SV_SWAP_AFTER:
-                swap["t0"] = time.perf_counter()
-                status, _, data = _http(srv.address, "POST", "/admin/load",
-                                        {"path": os.path.join(tmp, "v2"), "version": "v2",
-                                         "warmup": warm})
-                swap["end"] = time.perf_counter()
-                with cache._lock:
-                    swap["old_entries"] = sum(k[1] == old_token for k in cache._entries)
-                swap["status"], swap["reply"] = status, json.loads(data)
+                try:
+                    swap["t0"] = time.perf_counter()
+                    status, _, data = _http(srv.address, "POST", "/admin/load",
+                                            {"path": os.path.join(tmp, "v2"), "version": "v2",
+                                             "warmup": warm})
+                    swap["end"] = time.perf_counter()
+                    with cache._lock:
+                        swap["old_entries"] = sum(k[1] == old_token for k in cache._entries)
+                    swap["status"], swap["reply"] = status, json.loads(data)
+                finally:
+                    swapped.set()
             return r
 
         t0 = time.perf_counter()
-        results = _run_clients(SV_CLIENTS, bodies[:SV_REQUESTS], post)
+        results = _run_clients(SV_CLIENTS, list(enumerate(bodies[:SV_REQUESTS])), post)
         wall = time.perf_counter() - t0
         cache.set_capture(None)
         if swap.get("status") != 200:
@@ -7092,27 +7140,43 @@ def _serve_text(device, card: str, tmp: str) -> dict:
         across = [r for r in results if r["t0"] < swap["end"] and r["end"] > swap["t0"]]
         gap = max((r["end"] - r["t0"]) * 1e3 for r in across)
         # the new pipeline's callables: built by the warmup (the load's
-        # thread, first), then reached by the serve loop
+        # thread, first), then reached by the serve loop. A batch of the old
+        # pipeline still in flight when the load released its callables
+        # mints the old stage a fresh token and builds under it: that entry
+        # is the old pipeline's, not a miss of the new one
+        reminted = model.__dict__.get(cb._TOKEN_SLOT)
+        old_tokens = {old_token, reminted} - {None}
+        rebuilt = sum(e[2] == "build" and e[3][1] == reminted for e in cache_log.events)
         new = sorted((e for e in cache_log.events if e[3][0] == "deep_text_model"
-                      and e[3][1] != old_token and e[0] >= swap["t0"]), key=lambda e: e[0])
+                      and e[3][1] not in old_tokens and e[0] >= swap["t0"]),
+                     key=lambda e: e[0])
         warm_thread = new[0][4] if new else None
         warmed = {e[3][2] for e in new if e[2] == "build" and e[1] == warm_thread}
         served = [e for e in new if e[1] != warm_thread]
+        # a batch whose texts all pad shorter than the warmup's rows misses
+        # once at its (rows, length): the warmup drives rungs of rows, not
+        # the length ladder. At the shapes it drove, the serve loop builds
+        # nothing: its first call there runs a callable the warmup built
+        at_warmed = [e for e in served if e[3][2] in warmed]
         later = sorted({e[3][2] for e in served if e[2] == "build"})
         log(f"[serve] micro-batch ({SV_INTERVAL_MS} ms), {SV_CLIENTS} clients: /admin/load by "
             f"path after {SV_SWAP_AFTER} replies: {swap['reply']['load_ms']:.1f} ms, version "
             f"{swap['reply']['previous']} -> {swap['reply']['version']}, warmup {wu}, shapes "
             f"(rows, tokens) warmed {sorted(warmed)}; the old pipeline's cache entries after "
             f"the swap: {swap['old_entries']}; the new pipeline's first scoring call after the "
-            f"swap: {served[0][2] if served else None} of a shape built by "
-            f"{'the warmup' if served and served[0][4] == warm_thread else 'the serve loop'}; "
-            f"later misses at shapes the warmup did not drive: {len(later)} {later}; "
+            f"swap: {served[0][2] if served else None} at {served[0][3][2] if served else None}, "
+            f"its first at a warmed shape: {at_warmed[0][2] if at_warmed else None} of a "
+            f"callable built by "
+            f"{'the warmup' if at_warmed and at_warmed[0][4] == warm_thread else 'the serve loop'}; "
+            f"misses after the swap at shapes the warmup did not drive: {len(later)} {later}; "
+            f"{len(served)} scoring calls of the new pipeline; the old "
+            f"pipeline's in-flight batch rebuilt {rebuilt} callables after its release; "
             f"{len(across)} requests spanned the swap, the longest {gap:.1f} ms | {card}")
-        if swap["old_entries"] or wu["mode"] != "jit" or not warmed or not served \
-                or served[0][2] != "call" or served[0][4] != warm_thread \
+        if swap["old_entries"] or wu["mode"] != "jit" or not warmed or not at_warmed \
+                or at_warmed[0][2] != "call" or at_warmed[0][4] != warm_thread \
                 or set(later) & warmed:
             raise AssertionError("[serve] the swap left old entries, or the new pipeline missed "
-                                 "on its first request or at a warmed shape")
+                                 "at a warmed shape or served none")
         out["micro"] = _latency_line(results, wall, "micro-batch", card)
         out["micro"]["swap_gap_ms"] = gap
         out["micro"]["max_dprob"], _ = _check_scores(results, bodies[:SV_REQUESTS], ref,
@@ -7391,8 +7455,8 @@ def phase_serving(device, card: str) -> dict:
 
 # ---------------- main path 13: the offline batch plane ----------------
 
-# (a) BERT-base bulk scoring: 8 jsonl shards of 2048 texts of 16-300 words (path 12's)
-BP_SHARDS, BP_SHARD_ROWS, BP_BATCH = 8, 2048, 256
+# (a) BERT-base bulk scoring: 8 jsonl shards of 512 texts of 16-300 words (path 12's)
+BP_SHARDS, BP_SHARD_ROWS, BP_BATCH = 8, 512, 256
 BP_STOP_AFTER = 3  # shards DONE before the stopped run ends
 BP_COLUMNS = ["id", "scores", "prediction"]
 # (b) LightGBM bulk scoring at benchmarks/bulk_scoring.py:49-56's shape
@@ -7473,7 +7537,7 @@ def _part_bytes(sink) -> bytes:
 
 
 def _bp_text(device, card: str, tmp: str) -> dict:
-    """(a) BERT-base DeepTextModel (path 1's stage) over 16,384 texts."""
+    """(a) BERT-base DeepTextModel (path 1's stage) over 4,096 texts."""
     from synapseml_torch.data import ShardedSource
     from synapseml_torch.scoring import JsonlSink, plan_scan, transform_source
 
@@ -7676,18 +7740,29 @@ def _same_search(result, dist, ids) -> bool:
         [[m["distance"] for m in row] for row in result] == dist.tolist()
 
 
-def _bp_retrieval(device, card: str, tmp: str) -> dict:
-    """(c) 300,000 hash-embedded documents: embed, shard, publish, search,
-    ingest 64 fresh documents, compact; KNN and ConditionalKNN."""
+def _rt_texts() -> list[str]:
+    return [f"doc{i} alpha{i % 11} beta{i % 29} gamma{i % 97}" for i in range(RT_DOCS)]
+
+
+def _rt_queries(emb, texts: list[str], E: np.ndarray | None = None) -> np.ndarray:
+    """Path 13's RT_QUERIES queries: half of them documents (rows of the
+    index's vectors ``E``, or embedded anew), half novel."""
+    rs = np.random.default_rng(3)
+    probe = rs.choice(RT_DOCS, RT_QUERIES // 2, replace=False)
+    novel = [f"query{j} alpha{j % 11} beta{j % 13} delta{j % 5}" for j in range(RT_QUERIES // 2)]
+    docs = E[probe] if E is not None else emb.embed([texts[i] for i in probe])
+    return np.concatenate([docs, emb.embed(novel)])
+
+
+def _rt_publish(device, tmp: str):
+    """Path 13's index: RT_DOCS documents embedded through embed_corpus,
+    shards from the parts, published to a registry under ``tmp``."""
     from synapseml_torch.data import ShardedSource
-    from synapseml_torch.nn import KNN, ConditionalKNN
     from synapseml_torch.registry import ModelRegistry
-    from synapseml_torch.registry.store import atomic_write_bytes
-    from synapseml_torch.retrieval import (HashEmbedder, compact_index, embed_corpus,
-                                           index_model_for, ingest_deltas, publish_index,
+    from synapseml_torch.retrieval import (HashEmbedder, embed_corpus, publish_index,
                                            shards_from_parts)
 
-    texts = [f"doc{i} alpha{i % 11} beta{i % 29} gamma{i % 97}" for i in range(RT_DOCS)]
+    texts = _rt_texts()
     corpus = os.path.join(tmp, "corpus")
     os.makedirs(corpus)
     per = -(-RT_DOCS // RT_FILES)
@@ -7706,22 +7781,30 @@ def _bp_retrieval(device, card: str, tmp: str) -> dict:
     registry = ModelRegistry(os.path.join(tmp, "store"))
     publish_index(registry, "docs", index_dir, k=RT_K, query_batch=RT_QBATCH,
                   device=str(device))
-    v1 = registry.resolve("docs", "latest")
-    model = index_model_for(index_dir, name="docs", k=RT_K, query_batch=RT_QBATCH,
-                            device=str(device))
     publish_s = time.perf_counter() - t0
     log(f"[batch] (c) {RT_DOCS} documents embedded (dim {RT_DIM}) through transform_source in "
         f"{embed_s:.2f} s ({report.rows_per_sec:,.0f} rows/s); {len(built)} shards of "
-        f"{[s.rows for s in built]} rows committed, published and resolved as "
-        f"{v1.version} in {publish_s:.2f} s")
+        f"{[s.rows for s in built]} rows committed and published in {publish_s:.2f} s")
+    return registry, index_dir, texts, emb, built, report
+
+
+def _bp_retrieval(device, card: str, tmp: str) -> dict:
+    """(c) 300,000 hash-embedded documents: embed, shard, publish, search,
+    ingest 64 fresh documents, compact; KNN and ConditionalKNN."""
+    from synapseml_torch.nn import KNN, ConditionalKNN
+    from synapseml_torch.registry.store import atomic_write_bytes
+    from synapseml_torch.retrieval import (HashEmbedder, compact_index, index_model_for,
+                                           ingest_deltas)
+
+    registry, index_dir, texts, emb, built, report = _rt_publish(device, tmp)
+    v1 = registry.resolve("docs", "latest")
+    model = index_model_for(index_dir, name="docs", k=RT_K, query_batch=RT_QBATCH,
+                            device=str(device))
     shard_data = [(s.vectors(), s.ids()) for s in built]
     E = np.concatenate([v for v, _ in shard_data])
     if not np.array_equal(np.concatenate([i for _, i in shard_data]), np.arange(RT_DOCS)):
         raise AssertionError("[batch] (c) the shards do not hold the documents in id order")
-    rs = np.random.default_rng(3)
-    probe = rs.choice(RT_DOCS, RT_QUERIES // 2, replace=False)
-    novel = [f"query{j} alpha{j % 11} beta{j % 13} delta{j % 5}" for j in range(RT_QUERIES // 2)]
-    Q = np.concatenate([E[probe], emb.embed(novel)])
+    Q = _rt_queries(emb, texts, E)
     v1.stage.search(Q[:RT_QBATCH])  # the shards to the card
     t0 = time.perf_counter()
     got = v1.stage.search(Q)
@@ -7897,7 +7980,9 @@ def phase_batch_plane(device, card: str) -> dict:
     """Main path 13, the offline batch plane: (a) BERT-base and (b)
     LightGBM bulk scoring through transform_source, (c) the retrieval build,
     search, ingest and compaction with KNN, (d) the scorer at a deployed
-    index's size. Returns the flash and histogram launches of the path."""
+    index's size. Returns the flash and histogram launches of the path, and
+    (c)'s registry (``index_store``, beside (c)'s request log in a directory
+    the caller removes), which main path 15 serves."""
     import tempfile
 
     _zero_flash_counts()
@@ -7913,6 +7998,10 @@ def phase_batch_plane(device, card: str) -> dict:
             out[tag] = fn()
             log(f"[batch] ({tag}) done in {time.perf_counter() - t0:.1f} s")
             _free_card()
+        kept = tempfile.mkdtemp(prefix="chip_smoke_index_")
+        shutil.move(os.path.join(tmp, "requests"), os.path.join(kept, "requests"))
+        out["index_store"] = shutil.move(os.path.join(tmp, "store"),
+                                         os.path.join(kept, "store"))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     counts = _flash_counts()
@@ -7934,8 +8023,9 @@ DS_WARM = 4                # requests each worker scores before the timed traffi
 # (b) canary rollout and rollback
 DS_CANARY_WEIGHT, DS_CANARY_REQUESTS = 0.25, 256
 DS_ROLLBACK = {"error_rate_threshold": 0.5, "window": 8, "min_samples": 4, "interval_s": 0.05}
-# (c) journaled LLM streams across decode workers: path 7's Llama-2-7B-width directory
-DS_LLM_STREAMS, DS_LLM_NEW, DS_LLM_PROMPT = 16, 24, (16, 129)
+# (c) journaled LLM streams across decode workers: a Llama-2-7B-width directory of
+# DS_LLM_LAYERS of 32 layers (path 7's writer)
+DS_LLM_STREAMS, DS_LLM_NEW, DS_LLM_PROMPT, DS_LLM_LAYERS = 16, 24, (16, 129), 2
 # each worker's flash launch counts land in this directory (see _count_in_worker)
 DS_COUNTS_ENV, DS_PARENT_ENV = "CHIP_SMOKE_COUNTS_DIR", "CHIP_SMOKE_PARENT_PID"
 
@@ -8423,9 +8513,10 @@ def _route_groups() -> dict:
 
 
 def _ds_llm(device, card: str) -> dict:
-    """(c) two llm_worker_main processes, each loading path 7's seeded
-    Llama-2-7B-width directory (4 of 32 layers) computing in f32, behind a
-    journaled RoutingFront; one is SIGKILLed once every stream has a chunk."""
+    """(c) two llm_worker_main processes, each loading a seeded
+    Llama-2-7B-width directory (DS_LLM_LAYERS of 32 layers, path 7's
+    writer) computing in f32, behind a journaled RoutingFront; one is
+    SIGKILLed once every stream has a chunk."""
     import signal
     import http.client
 
@@ -8438,7 +8529,7 @@ def _ds_llm(device, card: str) -> dict:
     registry = tds.WorkerRegistry()
     procs, front, model = [], None, None
     try:
-        d = ck.get("llama", _llama_checkpoint, 31, 2)
+        d = ck.get("llama", lambda seed: _llama_checkpoint(seed, DS_LLM_LAYERS), 31, 2)
         tok = HashingTokenizer(vocab_size=CK_LLAMA["vocab_size"])
         rs = np.random.default_rng(14)
         prompts = [rs.integers(3, CK_LLAMA["vocab_size"], int(rs.integers(*DS_LLM_PROMPT))).tolist()
@@ -8472,7 +8563,7 @@ def _ds_llm(device, card: str) -> dict:
             bases[procs[0].pid], "POST", "/", {"input_ids": p, "max_new_tokens": DS_LLM_NEW})[2]))
         ref = [r["output_ids"] for r in ref]
         log(f"[dist] (c) 2 llm_worker_main processes on {d} (Llama-2-7B width, "
-            f"{CK_LLAMA_LAYERS} of 32 layers, f32 compute): registered {registered:.1f} s, "
+            f"{DS_LLM_LAYERS} of 32 layers, f32 compute): registered {registered:.1f} s, "
             f"engines built and warmed {ready:.1f} s after the spawn; one worker alone "
             f"generated the reference ({DS_LLM_STREAMS} x {DS_LLM_NEW} tokens) in "
             f"{time.perf_counter() - t0:.1f} s | {card}")
@@ -8615,6 +8706,601 @@ def phase_distributed(device, card: str, serving: dict | None = None) -> dict:
             "text": text, "llm": llm}
 
 
+# ---------------- main path 15: the fleet on one card ----------------
+
+# (a) FleetAutoscaler over fresh-interpreter workers of path 14's BERT-base v1.
+# Micro-batches of at most 4 requests: 16 closed-loop clients keep about 12
+# requests queued at one worker (overloaded past 6) and at most about 4 at
+# each of two; a fast host keeps those under 1.5 (underloaded) too, so the
+# scale-down waits for 16 underloaded passes (4 s), longer than the
+# two-worker traffic before the kill (FL_TWO replies): the fleet scales down
+# only once the traffic has stopped.
+FL_SLO = dict(min_workers=1, max_workers=2, target_queue_depth=6.0, scale_down_after=16,
+              up_cooldown_s=0.0, down_cooldown_s=0.0)
+FL_SERVE = {"batch_interval_ms": SV_INTERVAL_MS, "max_batch_rows": 4}
+FL_RECONCILE_S = 0.25
+FL_TWO = 768        # replies at two workers before the SIGKILL
+FL_AFTER = 64       # replies after the replacement's first batch before the traffic stops
+# (b) multi-model residency: BERT-base width at RS_LAYERS of its 12 layers
+RS_MODELS, RS_LAYERS, RS_BUDGET = 4, 4, 3.5  # the byte budget in artifacts
+RS_ORDER = ("m0", "m1", "m2", "m0", "m3", "m1", "m2", "m2", "m3")  # 3 evictions, hits between
+RS_FREED = 0.9      # an eviction frees at least this share of the model's bytes on the card
+# (c) retrieval workers over path 13's index; (d) the request logger
+RT_WORKER_REFRESH_S, RT_FANOUT_Q = 0.5, 4  # the alias watch's poll, queries a request
+RL_RATE, RL_SEED = 0.5, 15
+
+
+class _KeepAlive:
+    """POSTs to ``base`` over a pool of persistent HTTP/1.1 connections,
+    each reused by one request at a time: a new connection a request loses
+    SYNs to a full accept queue of 5 under 16 clients (ROADMAP.md, Next
+    5.9), and the pool outlives the client threads of one traffic run."""
+
+    def __init__(self, base: str):
+        import queue
+        from urllib.parse import urlsplit
+
+        parts = urlsplit(base)
+        self.host, self.port = parts.hostname, parts.port
+        self._idle = queue.LifoQueue()
+
+    def post(self, path: str, body) -> dict:
+        import http.client
+        import queue
+
+        try:
+            conn = self._idle.get_nowait()
+        except queue.Empty:
+            conn = http.client.HTTPConnection(self.host, self.port, timeout=SV_HTTP_TIMEOUT)
+        t0 = time.perf_counter()
+        try:
+            conn.request("POST", path, body=json.dumps(body).encode(),
+                         headers={"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            data = resp.read()
+        except (http.client.HTTPException, OSError):
+            conn.close()
+            raise
+        self._idle.put(conn)
+        return {"status": resp.status, "reply": json.loads(data) if data else None, "t0": t0,
+                "end": time.perf_counter(), "headers": dict(resp.getheaders())}
+
+    def close(self) -> None:
+        while not self._idle.empty():
+            self._idle.get_nowait().close()
+
+
+def _text_refs(model, bodies: list) -> dict:
+    """text -> the stage's in-process scores of it (the bf16 references)."""
+    texts = sorted({t for b in bodies for t in b["texts"]})
+    df = model.transform(DataFrame.from_dict({"text": np.asarray(texts, dtype=object)}))
+    return dict(zip(texts, np.stack(list(df.collect_column("scores")))))
+
+
+def _fl_residency(device, card: str, tmp: str) -> dict:
+    """(b) serve_multi_model over RS_MODELS BERT-base-width models under a
+    byte budget of RS_BUDGET artifacts."""
+    import chip_smoke as this
+    from synapseml_torch import fleet as tfleet
+    from synapseml_torch.registry import ModelRegistry
+
+    cfg = bert_base(n_layers=RS_LAYERS)
+    tok = HashingTokenizer(vocab_size=cfg.vocab_size)
+    reg = ModelRegistry(os.path.join(tmp, "models"))
+    rs = np.random.default_rng(15)
+    bodies = {m: {"texts": [" ".join(rs.choice(_SV_WORDS, size=int(rs.integers(16, 129))))
+                            for _ in range(4)]} for m in sorted(set(RS_ORDER))}
+    warm = _warm_bodies(2, seed=16)
+    refs, t0 = {}, time.perf_counter()
+    for k in range(RS_MODELS):
+        model = DeepTextModel(model_params=text_stage._init_params(cfg, 2, 100 + k),
+                              arch_config=cfg, tokenizer_config=tok.to_config(),
+                              checkpoint="bert-base", num_classes=2, batch_size=32,
+                              max_token_len=128, attn_impl="flash", device=str(device))
+        refs[f"m{k}"] = _text_refs(model, list(bodies.values()))
+        model.__dict__["_module"] = None
+        reg.publish(f"m{k}", PipelineModel(stages=[this.ServeTexts(), model, this.ServeReplies()]),
+                    version="v1", aot={"rows": warm, "buckets": [1]})
+    texts = sorted(refs["m0"])
+    apart = min(float(np.abs(np.stack([refs[a][t] for t in texts])
+                             - np.stack([refs[b][t] for t in texts])).max())
+                for a in refs for b in refs if a < b)
+    log(f"[fleet] (b) {RS_MODELS} BERT-base-width models ({RS_LAYERS} of 12 layers, weights "
+        f"from seeds 100-{99 + RS_MODELS}) published with their warmup rows in "
+        f"{time.perf_counter() - t0:.1f} s; the closest two models' scores differ by "
+        f"{apart:.3f} (max |dprob| over {len(texts)} texts), the bf16 limit is {SV_TOL}")
+    if apart <= SV_TOL:
+        raise AssertionError("[fleet] (b) two models score within the bf16 limit of each other: "
+                             "a wrong model could pass the check")
+    _free_card()
+    per = tfleet.artifact_nbytes(os.path.dirname(reg.resolve("m0").path))
+    freed = []
+
+    class Measured(tfleet.ResidencyManager):
+        """The manager, measuring the card's memory around each eviction."""
+
+        def _teardown(self, model, resident):
+            stage = resident.holder.pipeline.get("stages")[1]
+            nbytes = sum(p.numel() * p.element_size() for p in stage._module.parameters())
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            super()._teardown(model, resident)
+            gc.collect()
+            torch.cuda.synchronize()
+            freed.append((model, nbytes, before - torch.cuda.memory_allocated()))
+
+    res = Measured(reg, byte_budget=int(per * RS_BUDGET))
+    srv = tfleet.serve_multi_model(res, batch_interval_ms=SV_INTERVAL_MS)
+    lru, steps = [], []
+    try:
+        for name in RS_ORDER:
+            hit = name in lru
+            lru = [m for m in lru if m != name] + [name]
+            while len(lru) * per > per * RS_BUDGET:
+                lru.pop(0)
+            t0 = time.perf_counter()
+            status, _, data = _http(srv.address, "POST", f"/m/{name}", bodies[name])
+            ms = (time.perf_counter() - t0) * 1e3
+            r = {"status": status, "reply": json.loads(data), "t0": t0, "end": t0}
+            _check_scores([r], [bodies[name]], refs[name], f"(b) /m/{name}")
+            stats = json.loads(_http(srv.address, "GET", "/admin/stats")[2])
+            if sorted(stats["resident"]) != sorted(lru):
+                raise AssertionError(f"[fleet] (b) after /m/{name} the resident set is "
+                                     f"{sorted(stats['resident'])}, want {sorted(lru)}")
+            steps.append((name, "hit" if hit else "miss", ms))
+        device_bytes = {
+            m: sum(p.numel() * p.element_size() for p in
+                   r.holder.pipeline.get("stages")[1]._module.parameters())
+            for m, r in res._slots.items()}
+        resident = res.resident()
+        evicted = list(freed)  # release_all below tears down the rest
+    finally:
+        res.release_all()
+        srv.stop()
+    miss = [ms for _, kind, ms in steps if kind == "miss"]
+    hit = [ms for _, kind, ms in steps if kind == "hit"]
+    log(f"[fleet] (b) {len(RS_ORDER)} requests of 4 texts by /m/<model> (budget "
+        f"{int(per * RS_BUDGET)} bytes = {RS_BUDGET} artifacts of {per}): "
+        + ", ".join(f"{n} {k} {ms:.0f} ms" for n, k, ms in steps)
+        + f"; miss (load and warmup) median {statistics.median(miss):.0f} ms, hit median "
+        f"{statistics.median(hit):.0f} ms; {len(evicted)} evictions; resident at the end "
+        + ", ".join(f"{m}: {device_bytes[m]} bytes on the card, {resident[m]['nbytes']} "
+                    f"artifact bytes" for m in device_bytes) + f" | {card}")
+    for model, nbytes, dropped in evicted:
+        log(f"[fleet] (b) eviction of {model}: memory_allocated fell by {dropped} bytes after "
+            f"gc.collect(), its parameters {nbytes} bytes on the card "
+            f"({dropped / nbytes:.3f} of them)")
+        if dropped < RS_FREED * nbytes:
+            raise AssertionError(f"[fleet] (b) evicting {model} freed {dropped} of its "
+                                 f"{nbytes} parameter bytes on the card")
+    if len(evicted) < 3:
+        raise AssertionError(f"[fleet] (b) {len(evicted)} evictions, want at least 3")
+    return {"miss_ms": miss, "hit_ms": hit, "evictions": len(evicted), "freed": evicted,
+            "device_bytes": device_bytes, "artifact_bytes": per}
+
+
+def _fl_retrieval(device, card: str, tmp: str, store: str | None, meanwhile) -> dict:
+    """(c) two retrieval_worker_main processes, each advertising half of
+    path 13's shard roster, behind the routing front's fan-out; the
+    workers start up while ``meanwhile()`` runs."""
+    from synapseml_torch.continual import RequestLogger
+    from synapseml_torch.io import distributed_serving as tds
+    from synapseml_torch.registry import ModelRegistry
+    from synapseml_torch.retrieval import HashEmbedder, ingest_deltas
+
+    t0 = time.perf_counter()
+    if store is None:  # path 15 run alone: path 13's index, built anew
+        registry = _rt_publish(device, tmp)[0]
+    else:
+        registry = ModelRegistry(store)
+    texts, emb = _rt_texts(), HashEmbedder(dim=RT_DIM)
+    Q = _rt_queries(emb, texts)
+    stage, version = registry.resolve("docs").stage, registry.resolve_ref("docs", "latest")
+    roster = list(stage.get("shard_names"))
+    want = stage.search(Q)  # path 13's in-process search on the card
+    half = (len(roster) + 1) // 2
+    subsets = [roster[:half], roster[half:]]
+    log(f"[fleet] (c) path 13's index {version} ({len(roster)} shards, "
+        f"{'reused' if store else 'built anew'}) and its in-process search of {len(Q)} queries "
+        f"in {time.perf_counter() - t0:.1f} s")
+    wreg = tds.WorkerRegistry()
+    front = tds.RoutingFront(registry=wreg)
+    reg_url = wreg.address + "/register"
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.dirname(os.path.abspath(__file__)), os.environ.get("PYTHONPATH", "")]))
+    procs = []
+    out = {}
+    client = _KeepAlive(front.address)
+    try:
+        t0 = time.perf_counter()
+        for sub in subsets:
+            code = ("from synapseml_torch.retrieval.serve import retrieval_worker_main; "
+                    f"retrieval_worker_main({registry.root!r}, 'docs', {reg_url!r}, "
+                    f"shards={sub!r}, refresh_s={RT_WORKER_REFRESH_S})")
+            procs.append(subprocess.Popen([sys.executable, "-c", code], env=env))
+        registered = threading.Thread(target=lambda: (wreg.wait_for(2, timeout_s=300), out.update(
+            registered_s=time.perf_counter() - t0)), daemon=True)
+        registered.start()
+        meanwhile()
+        registered.join(timeout=300)
+        if "registered_s" not in out:
+            raise AssertionError("[fleet] (c) the retrieval workers never registered")
+        client.post("/retrieval/docs", {"queries": Q[:2].tolist(), "k": RT_K})  # shards to the card
+        t0 = time.perf_counter()
+        results = _run_clients(SV_CLIENTS, list(range(0, len(Q), RT_FANOUT_Q)), lambda i: (
+            client.post("/retrieval/docs", {"queries": Q[i:i + RT_FANOUT_Q].tolist(),
+                                            "k": RT_K})))
+        wall = time.perf_counter() - t0
+        got = [m for r in results for m in r["reply"]["matches"]]
+        same = all(r["status"] == 200 and not r["reply"]["missing"] for r in results) \
+            and _matches_equal(got, want)
+        out["fanout"] = _latency_line(results, wall, f"(c) the fan-out, {RT_FANOUT_Q} queries "
+                                      f"a request", card)
+        log(f"[fleet] (c) 2 retrieval workers registered {out['registered_s']:.1f} s after "
+            f"their spawn; {len(Q)} queries in requests of {RT_FANOUT_Q} from {SV_CLIENTS} "
+            f"keep-alive clients: {len(Q) / wall:,.0f} queries/s; ids, distances and payloads "
+            f"bitwise the in-process search: {same}")
+        if not same:
+            raise AssertionError("[fleet] (c) the fan-out differs from the in-process search")
+        # SIGKILL a worker once it has answered 8 of the next fan-out requests
+        victim = procs[0]
+        before = {w["pid"]: w for w in wreg.workers()}
+        lost = set(before[victim.pid]["shards"])
+        partial, statuses = [], []
+        for i in range(24):
+            r = client.post("/retrieval/docs", {"queries": Q[:8].tolist(), "k": RT_K})
+            statuses.append(r["status"])
+            if i == 7:
+                victim.kill()
+                victim.wait(timeout=30)
+            hdr = r["headers"].get("X-Retrieval-Partial")
+            if hdr:
+                missing = set(hdr.split(","))
+                kept = [s for s in r["reply"]["shards"] if s not in missing]
+                exact = _matches_equal(r["reply"]["matches"],
+                                       stage.search(Q[:8], shard_names=kept))
+                partial.append((missing, exact))
+        log(f"[fleet] (c) worker {victim.pid} SIGKILLed after 8 fan-out requests: statuses "
+            f"{sorted(set(statuses))}, {len(partial)} of the next 16 replies partial naming "
+            f"{sorted(partial[-1][0]) if partial else None} (the victim's {sorted(lost)}), the "
+            f"survivor's shards bitwise the in-process search over them: "
+            f"{all(e for _, e in partial)}")
+        if set(statuses) != {200} or not partial or not all(
+                m <= lost and e for m, e in partial):
+            raise AssertionError("[fleet] (c) the SIGKILL did not degrade to exact partials")
+        # RT_FRESH documents logged, ingested and republished: the alias watch.
+        # The log is the index's own (path 13's, whose parts it ingested), so
+        # the new parts take the next part numbers and are new to the index
+        log_dir = os.path.join(os.path.dirname(store) if store else tmp, "requests")
+        fresh = [f"fleet{i} fresh{i} words{i} only{i} here{i}" for i in range(RT_FRESH)]
+        with RequestLogger(log_dir, shard_rows=RT_FRESH // 2) as lg:
+            for t in fresh:
+                lg.log(method="POST", path="/ingest/docs", body=json.dumps({"doc": t}).encode(),
+                       reply=b"ok", status=200, latency_ms=1.0)
+            lg.flush()
+        t0 = time.perf_counter()
+        report = ingest_deltas(registry, "docs", log_dir, emb, os.path.join(tmp, "ingest"))
+        survivor = procs[1].pid
+        F_ = emb.embed(fresh)
+        found, deadline = 0, time.perf_counter() + 120
+        while time.perf_counter() < deadline:
+            w = {w["pid"]: w for w in wreg.workers()}.get(survivor, {})
+            if w.get("version") == report["version"]:
+                r = client.post("/retrieval/docs", {"queries": F_.tolist(), "k": 1})
+                found = sum(m[0]["distance"] == 0.0 for m in r["reply"]["matches"])
+                break
+            time.sleep(0.02)
+        out["refresh_s"] = time.perf_counter() - t0
+        log(f"[fleet] (c) {RT_FRESH} documents logged through RequestLogger and ingested as "
+            f"{report['version']}: the survivor re-registered on it {out['refresh_s']:.2f} s "
+            f"after the ingest began (alias watch every {RT_WORKER_REFRESH_S} s); fresh "
+            f"documents found at distance 0: {found} of {RT_FRESH}")
+        if found != RT_FRESH:
+            raise AssertionError("[fleet] (c) the republished documents were not found")
+    finally:
+        client.close()
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+        front.close()
+        wreg.close()
+    return out
+
+
+def _fl_logger(card: str, pipe, refs: dict, bodies: list, tmp: str) -> dict:
+    """(d) a RequestLogger on one ServingServer of (a)'s BERT-base v1: the
+    same traffic without it and with it."""
+    import random
+
+    from synapseml_torch.continual import RequestLogger, logged_request_source
+    from synapseml_torch.io.serving import serve_pipeline
+
+    numbered = [{**b, "n": i} for i, b in enumerate(bodies)]
+    srv = serve_pipeline(pipe, batch_interval_ms=SV_INTERVAL_MS, version="v1")
+    out = {}
+    client = _KeepAlive(srv.address)
+    try:
+        _run_clients(SV_CLIENTS, _warm_bodies(4, seed=13) * 4, lambda b: client.post("/", b))
+        t0 = time.perf_counter()
+        plain = _run_clients(SV_CLIENTS, numbered, lambda b: client.post("/", b))
+        out["without"] = _latency_line(plain, time.perf_counter() - t0,
+                                       "(d) one server, no request logger", card)
+        _check_scores(plain, bodies, refs, "(d) without the logger")
+        lg = RequestLogger(os.path.join(tmp, "log"), sample_rate=RL_RATE, seed=RL_SEED)
+        srv.request_logger = lg
+        t0 = time.perf_counter()
+        logged = _run_clients(SV_CLIENTS, numbered, lambda b: client.post("/", b))
+        out["with"] = _latency_line(logged, time.perf_counter() - t0,
+                                    f"(d) the same server logging at {RL_RATE}", card)
+        _check_scores(logged, bodies, refs, "(d) with the logger")
+        lg.flush()
+        srv.request_logger = None
+        stats = lg.stats()
+        lg.close()
+    finally:
+        client.close()
+        srv.stop()
+    draws = random.Random(RL_SEED)
+    kept = sum(draws.random() < RL_RATE for _ in range(len(numbered)))
+    served = {b["n"]: r["reply"] for b, r in zip(numbered, logged)}
+    source = logged_request_source(os.path.join(tmp, "log"))
+    records = [(body, reply, version) for _, cols in source.iter_shards()
+               for body, reply, version in zip(cols["body"], cols["reply"], cols["version"])]
+    exact = all(v == "v1" and reply == served[body["n"]] for body, reply, version in records
+                for v in [version])
+    log(f"[fleet] (d) RequestLogger at sample_rate {RL_RATE}, seed {RL_SEED}: {len(records)} "
+        f"records in {stats['parts']} committed parts read back by logged_request_source (the "
+        f"seeded sampler keeps {kept} of {len(numbered)}), {stats['dropped']} shed; each record's "
+        f"reply the one served for its body, version v1: {exact}; p50/p99 "
+        f"{out['without']['p50_ms']:.1f}/{out['without']['p99_ms']:.1f} ms without the logger, "
+        f"{out['with']['p50_ms']:.1f}/{out['with']['p99_ms']:.1f} ms with it | {card}")
+    if len(records) != kept or stats["dropped"] or not exact \
+            or len({b["n"] for b, _, _ in records}) != kept:
+        raise AssertionError("[fleet] (d) the logged parts are not the sampled exchanges")
+    out.update(records=len(records), kept=kept)
+    return out
+
+
+def _fl_autoscaler(device, card: str, tmp: str, meanwhile) -> dict:
+    """(a) FleetAutoscaler over SubprocessWorkerLauncher workers of path 14's
+    BERT-base v1, 16 RoutingClient clients; (d) on the same stage. The first
+    worker starts up while ``meanwhile()`` runs."""
+    import signal
+
+    import chip_smoke as this
+    from synapseml_torch import fleet as tfleet
+    from synapseml_torch.io import distributed_serving as tds
+    from synapseml_torch.registry import ModelRegistry
+
+    cfg = bert_base()
+    tok = HashingTokenizer(vocab_size=cfg.vocab_size)
+    t0 = time.perf_counter()
+    model = DeepTextModel(model_params=text_stage._init_params(cfg, 2, 0), arch_config=cfg,
+                          tokenizer_config=tok.to_config(), checkpoint="bert-base",
+                          num_classes=2, batch_size=32, max_token_len=128, attn_impl="flash",
+                          device=str(device))
+    pipe = PipelineModel(stages=[this.ServeTexts(), model, this.ServeReplies()])
+    bodies = _serve_bodies(SV_REQUESTS, seed=12)  # path 12's traffic
+    refs = _text_refs(model, bodies)
+    warm = _warm_bodies(4, seed=13)
+    store = os.path.join(tmp, "fleet_store")
+    ModelRegistry(store).publish("bert", pipe, version="v1")
+    log(f"[fleet] (a) BERT-base v1 (path 14's, weights from seed 0) and its transform of the "
+        f"{len(refs)} texts of path 12's {len(bodies)} requests (the references), published, in "
+        f"{time.perf_counter() - t0:.1f} s")
+    counts_dir = os.path.join(tmp, "fleet_counts")
+    os.makedirs(counts_dir)
+    seen: dict[int, float] = {}  # pid -> monotonic time the registry first listed it
+
+    class TimedRegistry(tds.WorkerRegistry):
+        def workers(self):
+            ws = super().workers()
+            now = time.monotonic()
+            for w in ws:
+                seen.setdefault(w["pid"], now)
+            return ws
+
+    spawned: dict[int, object] = {}
+
+    class Launcher(tfleet.SubprocessWorkerLauncher):
+        def spawn(self, slo):
+            h = super().spawn(slo)
+            spawned[h.pid] = h
+            return h
+
+    wreg = TimedRegistry()
+    front = tds.RoutingFront(registry=wreg)
+    launcher = Launcher(store, wreg, warmup_rows=warm,
+                        env={DS_COUNTS_ENV: counts_dir, DS_PARENT_ENV: str(os.getpid())})
+    slo = tfleet.ModelSLO(model="bert", ref="v1", serve=FL_SERVE, **FL_SLO)
+    asc = tfleet.FleetAutoscaler(tfleet.FleetSpec(models=[slo],
+                                                  reconcile_interval_s=FL_RECONCILE_S),
+                                 launcher, front=front, worker_registry=wreg)
+    passes = []
+    reconcile = asc.reconcile_once
+
+    def traced():
+        events = reconcile()
+        passes.append([e["event"] for e in events])
+        return events
+
+    asc.reconcile_once = traced
+    first: dict[int, float] = {}  # pid -> monotonic time of its first served batch
+    done = threading.Event()
+
+    def note():  # the registry's first listing of each worker, while nothing else polls
+        while not done.wait(0.02):
+            wreg.workers()
+
+    def watch():  # polls only the workers that have served no batch yet
+        while not done.is_set():
+            for w in wreg.workers():
+                try:
+                    if w["pid"] not in first and _worker_series(
+                            f"http://{w['host']}:{w['port']}",
+                            "synapseml_serving_batch_rows_count") > 0:
+                        first[w["pid"]] = time.monotonic()
+                except OSError:
+                    continue  # the SIGKILLed worker, until the autoscaler reaps it
+            time.sleep(0.02)
+
+    watcher = threading.Thread(target=watch, daemon=True)
+    batches = {}
+    try:
+        t0 = time.monotonic()
+        traced()
+        threading.Thread(target=note, daemon=True).start()
+        meanwhile()
+        out = {"logger": _fl_logger(card, pipe, refs, bodies, tmp)}
+        model.__dict__["_module"] = None  # v1 lives in the registry and the workers now
+        _free_card()
+        asc.wait_ready("bert", 1, timeout_s=300)
+        one = next(iter(spawned))
+        log(f"[fleet] (a) worker {one} spawned and registered (its load and warmup included) "
+            f"in {seen[one] - t0:.2f} s, beside (b), (c) and (d)")
+        client = tds.RoutingClient(front_address=front.address, timeout_s=SV_HTTP_TIMEOUT)
+        refresher_stop = threading.Event()
+
+        def refresher():  # the client's table follows the fleet
+            while not refresher_stop.wait(0.1):
+                try:
+                    client.refresh()
+                except OSError:
+                    pass
+
+        def direct(b):  # on the fleet's clock (time.monotonic), not perf_counter's
+            t = time.monotonic()
+            try:
+                status, data = client.request("/", body=json.dumps(b).encode())
+                reply = json.loads(data)
+            except (ConnectionError, OSError, ValueError) as e:
+                status, reply = f"failed: {type(e).__name__}: {e}", None
+            return {"status": status, "reply": reply, "t0": t, "end": time.monotonic()}
+
+        threading.Thread(target=refresher, daemon=True).start()
+        _run_clients(SV_CLIENTS, warm * 4, direct)  # the client's connections to the worker
+        watcher.start()
+        with _Pound(SV_CLIENTS, bodies, direct) as pound:
+            t_traffic = time.monotonic()
+            asc.start()
+
+            def wait_for(cond, what, timeout_s=300):
+                deadline = time.monotonic() + timeout_s
+                while not cond():
+                    if time.monotonic() > deadline:
+                        raise AssertionError(f"[fleet] (a) {what} within {timeout_s} s")
+                    time.sleep(0.01)
+
+            wait_for(lambda: len(first) >= 2, "the second worker served no batch")
+            two = [p for p in spawned if p != one][0]
+            t_two, n_two = time.monotonic(), len(pound.results)
+            wait_for(lambda: len(pound.results) >= n_two + FL_TWO, "no traffic at two workers")
+            victim = spawned[one]
+            for w in wreg.workers():
+                if w["pid"] == one:
+                    batches[one] = _worker_series(f"http://{w['host']}:{w['port']}",
+                                                  "synapseml_serving_batch_rows_count")
+            os.kill(one, signal.SIGKILL)
+            t_kill, n_kill = time.monotonic(), len(pound.results)
+            wait_for(lambda: len(spawned) >= 3, "no replacement spawned")
+            rep = list(spawned)[2]
+            wait_for(lambda: rep in first, "the replacement served no batch")
+            t_rep, n_rep = time.monotonic(), len(pound.results)
+            wait_for(lambda: len(pound.results) >= n_rep + FL_AFTER, "no traffic after rejoin")
+        t_stop = time.monotonic()
+        refresher_stop.set()
+        for w in wreg.workers():
+            batches[w["pid"]] = _worker_series(f"http://{w['host']}:{w['port']}",
+                                               "synapseml_serving_batch_rows_count")
+        results = pound.results
+        _check_scores(results, [r["body"] for r in results], refs,
+                      "(a) through RoutingClient, across the scale-up and the SIGKILL")
+        wait_for(lambda: any("drained" in p for p in passes), "no drained worker", 120)
+        code = spawned[rep].token.wait(timeout=30)
+        t_drained = time.monotonic()
+        newest_drained = spawned[rep].token.poll() == 0 and spawned[two].token.poll() is None
+        kill_pass = next(p for p in passes if "lost" in p)
+        client.close()
+        windows = {"one worker": (t_traffic, t_two), "two workers": (t_two, t_kill)}
+    finally:
+        done.set()
+        asc.stop(drain=True)
+        front.close()
+        wreg.close()
+    counts = _worker_counts(counts_dir)
+    # the client clock: perf_counter stamps; the fleet's: monotonic (both CLOCK_MONOTONIC)
+    for tag, (a, b) in windows.items():  # the replies that completed in each window
+        out[tag] = _latency_line([r for r in results if a < r["end"] <= b], b - a,
+                                 f"(a) at {tag}, the replies completed in the window", card)
+    reg_s = {pid: seen[pid] - h.spawned_at for pid, h in spawned.items() if pid in seen}
+    out.update(registered_s=reg_s, second_first_reply_s=first[two] - t_traffic,
+               replacement_s=seen[rep] - t_kill, replacement_first_s=first[rep] - t_kill,
+               worker_seconds=asc.worker_seconds["bert"], drained_exit=code,
+               requests=len(results))
+    fwd = {pid: c["fwd"]["bf16"] for pid, c in counts.items()}
+    log(f"[fleet] (a) FleetAutoscaler ({FL_SLO}, reconcile every {FL_RECONCILE_S} s, workers "
+        f"{FL_SERVE}) over SubprocessWorkerLauncher: passes with events "
+        f"{[p for p in passes if p]}; each worker's spawn to registered "
+        + ", ".join(f"{p}: {s:.2f} s" for p, s in reg_s.items())
+        + f"; the second worker's first batch {out['second_first_reply_s']:.2f} s after the "
+        f"traffic began; worker {one} SIGKILLed after {n_kill - n_two} replies at two workers, "
+        f"replaced in the pass {kill_pass}, the replacement {rep} registered "
+        f"{out['replacement_s']:.2f} s and served {out['replacement_first_s']:.2f} s after the "
+        f"kill; the traffic stopped {t_stop - t_traffic:.1f} s after it began, {len(results)} "
+        f"requests all 200; the newest worker {rep} drained and exited {code} "
+        f"{t_drained - t_stop:.2f} s later; synapseml_fleet_worker_seconds_total "
+        f"{out['worker_seconds']:.1f}; flash forward launches by worker {fwd}, micro-batches "
+        f"served {batches} | {card}")
+    if "spawn" not in kill_pass or code != 0 or not newest_drained or len(spawned) != 3:
+        raise AssertionError("[fleet] (a) the kill was not replaced in its pass, or the newest "
+                             "worker did not drain cleanly")
+    for pid, n in batches.items():
+        # the victim's counts are its last write, up to 0.25 s before the SIGKILL
+        if fwd.get(pid, 0) <= 0 or (pid != one and fwd[pid] < 12 * n):
+            raise AssertionError(f"[fleet] (a) worker {pid} served {n:.0f} batches but launched "
+                                 f"the flash forward {fwd.get(pid)} times")
+    out["launches"] = {k: sum(c["fwd"].get(k, 0) for c in counts.values())
+                       for k in ("bf16", "f32")}
+    return out
+
+
+def phase_fleet(device, card: str, index_store: str | None = None) -> dict:
+    """Main path 15, the fleet on one card: (a) the autoscaler with (d) the
+    request logger; while its first worker starts, (c) retrieval workers
+    over path 13's index (``index_store``, removed after; built anew when
+    None), and while those start, (b) multi-model residency.
+    Returns the flash forward's launches, the workers' included."""
+    import tempfile
+
+    _free_card()
+    _zero_flash_counts()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    t_path = time.perf_counter()
+    out = {}
+    try:
+        def timed(tag, fn):
+            t0 = time.perf_counter()
+            out[tag] = fn()
+            log(f"[fleet] ({tag}) done in {time.perf_counter() - t0:.1f} s")
+            _free_card()
+
+        # (a)'s first worker starts up while (c) runs, (c)'s two workers while
+        # (b) runs in this process; (d) runs inside (a), on its stage
+        timed("a", lambda: _fl_autoscaler(device, card, tmp, lambda: timed(
+            "c", lambda: _fl_retrieval(device, card, tmp, index_store, lambda: timed(
+                "b", lambda: _fl_residency(device, card, tmp))))))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        if index_store is not None:
+            shutil.rmtree(os.path.dirname(index_store), ignore_errors=True)
+    here = _flash_counts()
+    launches = {k: here["fwd"][k] + out["a"]["launches"][k] for k in here["fwd"]}
+    log(f"[fleet] main path 15 in {time.perf_counter() - t_path:.1f} s; flash forward launches "
+        f"{launches} (this process {here['fwd']}, the fleet's workers {out['a']['launches']})")
+    return {"launches": launches, "bwd_launches": here["bwd"], **out}
+
+
 def main() -> None:
     t0 = time.perf_counter()
 
@@ -8664,6 +9350,8 @@ def main() -> None:
     done("main path 13, the offline batch plane")
     dist = phase_distributed(device, card, serving)
     done("main path 14, serving across worker processes")
+    fleet = phase_fleet(device, card, batch["index_store"])
+    done("main path 15, the fleet")
     # the flash kernels' launches on the paths, each counted from 0 just
     # before it ran: scoring (path 1), fine-tuning through flash and both
     # fitted models' scoring (path 3), bert-tiny f32 through flash on the
@@ -8671,10 +9359,11 @@ def main() -> None:
     # fine-tuning through flash (path 5), the checkpoint fit and its model's
     # scoring (path 7), the MoE encoder's runs (path 8), the mesh fits and
     # scoring (path 11), the served requests, swaps and publish (path 12), the
-    # bulk scans of BERT-base (path 13) and the requests, warmups and swaps
+    # bulk scans of BERT-base (path 13), the requests, warmups and swaps
     # served in path 14's worker processes, counted there, with its own
-    # in-process server's
-    paths = (train, vit, pretrained, moe, mesh, serving, batch, dist,
+    # in-process server's, and path 15's residency loads, logged server and
+    # autoscaled workers (counted in them)
+    paths = (train, vit, pretrained, moe, mesh, serving, batch, dist, fleet,
              {"launches": tiny["fwd"], "bwd_launches": tiny["bwd"]},
              *({"launches": long_t[tag]["launches"]["fwd"],
                 "bwd_launches": long_t[tag]["launches"]["bwd"]} for tag in ("flash", "flash f32")))

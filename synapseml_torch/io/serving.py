@@ -303,10 +303,16 @@ class ServingServer:
         # flight (guarded by _lock)
         self._admitting = 0
         self.started_at = time.monotonic()
+        # set by serve_multi_model: the residency manager /admin/stats reads
+        self.residency = None
         # set by serve_llm: engine-level stats (prefix-cache occupancy /
         # hit-rate, speculation acceptance) surface on /admin/stats so the
         # routing front and autoscaler read them without scraping /metrics
         self.llm_stats_fn = None
+        # continual plane (continual/logger.py): a RequestLogger attached
+        # here records every batched exchange at reply time — sampled,
+        # bounded, shed-before-delay, so serving latency never pays for it
+        self.request_logger = None
         # bounded: a stalled pipeline sheds load with 503s instead of parking
         # unbounded connections (backpressure the round-1 loop lacked)
         self._queue: "queue.Queue[_Exchange]" = queue.Queue(maxsize=max_queue)
@@ -520,7 +526,8 @@ class ServingServer:
     def _admin_stats(self) -> dict:
         """Worker-local load snapshot (``GET /admin/stats``) — the fleet
         autoscaler's queue-depth signal, plus the last swap's warmup
-        breakdown (the zero-cold-start evidence a scale-up must show)."""
+        breakdown (the zero-cold-start evidence a scale-up must show) and
+        the resident model set on multi-model workers."""
         out = {
             **self._admin_version(),
             "queue_depth": self._queue.qsize(),
@@ -529,6 +536,9 @@ class ServingServer:
             "uptime_s": round(time.monotonic() - self.started_at, 3),
             "swap": self.last_swap_report,
         }
+        if self.residency is not None:
+            out["resident"] = self.residency.resident()
+            out["resident_bytes"] = self.residency.resident_bytes()
         if self.llm_stats_fn is not None:
             try:
                 out["llm"] = self.llm_stats_fn()
@@ -905,10 +915,21 @@ class ServingServer:
             found = [(self._pending.get(str(rid)), reply)
                      for rid, reply in zip(ids, replies)]
         n = 0
+        logger = self.request_logger
+        now = time.perf_counter()
+        holder = self.pipeline_holder
+        version = holder.version if holder is not None else None
         for ex, reply in found:
             if ex is not None:
                 ex.respond(reply, status=status)
                 n += 1
+                if logger is not None:
+                    # after respond(): the handler thread is already awake,
+                    # the log call cannot add to its latency
+                    logger.log(method=ex.method, path=ex.path, body=ex.body,
+                               reply=reply, status=status,
+                               latency_ms=(now - ex.enqueued_at) * 1e3,
+                               version=version)
         return n
 
 

@@ -12,11 +12,15 @@ Counterpart of ``synapseml_tpu/retrieval/``:
 * **ingest**: freshly logged documents embed and commit as new delta shards
   under the next version, with no rebuild; ``compact_index`` folds deltas
   past a threshold;
+* **serve**: :func:`retrieval_worker_main` runs byte-budgeted
+  ``ResidencyManager`` holders behind ``/m/<index>``, each advertising its
+  shards; the ``RoutingFront`` fans a query to them and merges the
+  per-shard top-k (missing shards degrade to partial results with
+  ``X-Retrieval-Partial``, never 500s);
 * **observe**: the ``synapseml_retrieval_*`` series (:mod:`.metrics`).
 
-Submodules import lazily (PEP 562): ``nn/knn.py`` pulls only the scorer.
-The serving worker (``retrieval_worker_main``, the JAX package's
-``serve.py``) comes with ``fleet/``, ROADMAP.md queue A item 10.
+Submodules import lazily (PEP 562): ``nn/knn.py`` pulls only the scorer
+without dragging the fleet/registry serve chain into every KNN import.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ __all__ = [
     "HashEmbedder", "embed_corpus", "shards_from_parts", "index_model_for",
     "publish_index", "build_index",
     "ingest_deltas", "compact_index", "extract_documents",
+    "retrieval_worker_main",
     "retrieval_metrics",
 ]
 
@@ -44,6 +49,7 @@ _LOCATIONS = {
     "publish_index": "build", "build_index": "build",
     "ingest_deltas": "ingest", "compact_index": "ingest",
     "extract_documents": "ingest",
+    "retrieval_worker_main": "serve",
     "retrieval_metrics": "metrics",
 }
 

@@ -8,15 +8,18 @@ text-scoring pipeline of ``_torch_serving_stages.serving_pipelines`` (the
 same row functions as that module's adapters, under this module's name);
 ``EchoPid`` echoes each body with the serving process's pid;
 ``VersionTag`` answers with its tag (a registry version of the deploy
-tests); ``Boom`` raises on every batch with rows.
+tests); ``Boom`` raises on every batch with rows. ``BodyToFeatures`` and
+``PredToReply`` frame the fleet tests' MLP (``mlp_pipeline``): the port's
+twins of ``tests/_aot_pipeline.py``'s stages, around an ``ONNXModel`` of
+the same ONNX bytes.
 """
 
 import os
 
 import numpy as np
 
-from synapseml_torch.core.params import Param
-from synapseml_torch.core.pipeline import Transformer
+from synapseml_torch.core.params import Param, TypeConverters
+from synapseml_torch.core.pipeline import PipelineModel, Transformer
 
 
 def texts_of(body):
@@ -102,3 +105,49 @@ class Boom(Transformer):
             return p
 
         return df.map_partitions(per_part)
+
+
+class BodyToFeatures(Transformer):
+    """Parsed request bodies (``{"features": [...]}``) -> a rectangular
+    float32 ``features`` column."""
+
+    din = Param("din", "feature width", default=4, converter=TypeConverters.to_int)
+
+    def _transform(self, df):
+        d = self.get("din")
+
+        def per_part(p):
+            out = dict(p)
+            feats = np.zeros((len(p["body"]), d), np.float32)
+            for i, body in enumerate(p["body"]):
+                if isinstance(body, dict) and "features" in body:
+                    feats[i] = np.asarray(body["features"], np.float32)
+            out["features"] = feats
+            return out
+
+        return df.map_partitions(per_part)
+
+
+class PredToReply(Transformer):
+    """ONNX outputs -> one JSON-able reply dict per request row."""
+
+    def _transform(self, df):
+        def per_part(p):
+            out = dict(p)
+            preds, probs = p["pred"], p["probs"]
+            out["reply"] = np.asarray(
+                [{"pred": int(preds[i]), "probs": [round(float(x), 6) for x in probs[i]]}
+                 for i in range(len(preds))], dtype=object)
+            return out
+
+        return df.map_partitions(per_part)
+
+
+def mlp_pipeline(onnx_bytes: bytes, din: int = 4, device: str = "cpu") -> PipelineModel:
+    """The port's twin of ``_aot_pipeline.build_pipeline`` over the same
+    ONNX bytes (``make_mlp_onnx(...).get("model_payload")``)."""
+    from synapseml_torch.onnx import ONNXModel
+
+    model = ONNXModel(onnx_bytes, feed_dict={"x": "features"}, fetch_dict={"probs": "probs"},
+                      argmax_dict={"probs": "pred"}, mini_batch_size=64, device=device)
+    return PipelineModel(stages=[BodyToFeatures(din=din), model, PredToReply()])

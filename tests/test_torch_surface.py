@@ -103,22 +103,19 @@ _WAITING_EXPORTS = {
     # the publish-time executable recorder waits for an AOT mechanism, which
     # the port has none of by design (ROADMAP.md section C)
     "registry": {"AOTCapture": "C"},
-    # the autoscaler, its worker launchers and multi-model residency: the
-    # fleet slice (item 10); the admission policy and its spec are ported
-    "fleet": {"ResidencyManager": "10", "serve_multi_model": "10", "artifact_nbytes": "10",
-              "FleetAutoscaler": "10", "FleetSignals": "10", "WorkerLauncher": "10",
-              "WorkerHandle": "10", "ThreadWorkerLauncher": "10",
-              "SubprocessWorkerLauncher": "10", "fleet_worker_main": "10"},
-    # the index's serving worker (retrieval/serve.py) goes with fleet/
-    "retrieval": {"retrieval_worker_main": "10"},
+    # the continual loop and its training supervisor: after gang training
+    # (item 9), which the supervisor imports; the request logger is ported
+    "continual": {"ContinualLoop": "9", "ContinualSpec": "9", "LoopAborted": "9",
+                  "TrainAttempt": "9", "TrainSupervisor": "9", "annotate_drift_gauge": "9",
+                  "drift_annotation": "9"},
     # the gang (elastic training) and the GPipe pipeline: item 9's second half
     "parallel": {"EXIT_PREEMPTED": "9", "EXIT_RESIZE": "9", "ElasticResume": "9",
                  "GangAborted": "9", "GangCoordinator": "9", "GangWorker": "9",
                  "Preempted": "9", "elastic_restore": "9", "run_gang_member": "9",
                  "pipeline_apply": "9", "pipeline_sharded": "9", "stack_stage_params": "9"},
 }
-_SUBPACKAGES = ("core", "data", "fleet", "gbdt", "hf", "image", "io", "models", "nn", "onnx",
-                "ops", "parallel", "registry", "retrieval", "scoring")
+_SUBPACKAGES = ("continual", "core", "data", "fleet", "gbdt", "hf", "image", "io", "models",
+                "nn", "onnx", "ops", "parallel", "registry", "retrieval", "scoring")
 
 
 @pytest.mark.parametrize("sub", _SUBPACKAGES)
