@@ -67,13 +67,14 @@ the kernels are built for sm_90a). Phases, each of which raises on failure:
    then with attn_impl='flash' (the same data and seed; first, reported,
    whether _foreach_div and _foreach_mul with a 0-d tensor scalar, as the
    optimizer takes its per-step scalars, equal their Python-float forms
-   bitwise), each three times:
+   bitwise), each as
    the stage's own fit, which runs chunks of 8 steps as CUDA graphs
    (Trainer.train_steps_scan: an eager warm-up chunk, one capture, four
-   replays), then twice the eager per-step loop (the stage's trainer, data
-   and init through fit_arrays with scan_chunk=1). Every step's loss
+   replays), then the eager per-step loop (the stage's trainer, data
+   and init through fit_arrays with scan_chunk=1), and a second time only
+   where the graph fit differs from the first. Every step's loss
    finite, every parameter moved, one capture a fit; each leaf of the
-   graph fit bitwise the eager fit's except where the two eager fits
+   graph fit bitwise the eager fit's except where two eager fits
    already differ (there within 1e-6); the flash fits launch the forward and
    backward kernels 12 times a step each, replayed steps included, and a
    profiled replay names each 96 times; flash's first loss and gradient
@@ -119,9 +120,9 @@ the kernels are built for sm_90a). Phases, each of which raises on failure:
    TrainerConfig(learning_rate=1e-4, total_steps=1000) as
    benchmarks/vit_finetune.py), with attn_impl='flash' and then einsum,
    each as two chunks of 16 steps through Trainer.train_steps_scan (an
-   eager warm-up, then a capture and its replay) and twice as the eager
-   per-step loop: the graph run bitwise the eager one leaf by leaf but
-   where two eager runs differ, the flash kernels 12 times a step forward
+   eager warm-up, then a capture and its replay) and as the eager
+   per-step loop (a second time only where the runs differ): the graph
+   run bitwise the eager one leaf by leaf but where two eager runs differ, the flash kernels 12 times a step forward
    and backward, replayed steps included, step 1's loss and gradient norm
    flash against einsum within 3e-2; the median step in device time (a
    replay of the 16-step graph), samples/s, MFU, peak memory, the busy
@@ -132,8 +133,8 @@ the kernels are built for sm_90a). Phases, each of which raises on failure:
    scaled_dot_product_attention, the plain version and the bound; (c)
    DeepVisionClassifier(backbone='vit_b16') and (backbone='resnet50', the
    BatchNorm path) fitting 16 steps at batch 32 as the stage's graph fit,
-   the ResNet also twice eagerly (parameters and running statistics
-   bitwise but where the two eager fits differ), each fitted model
+   the ResNet also eagerly (parameters and running statistics bitwise
+   but where two eager fits differ, the second fit run only then), each fitted model
    scoring 256 images twice (bitwise, one CompiledCache callable a
    bucket) and 4 in f32 compute on the card and on the CPU within 1e-4;
 10. main path 6, Llama-2-7B batch inference (synapseml_tpu's
@@ -158,7 +159,7 @@ the kernels are built for sm_90a). Phases, each of which raises on failure:
    from seeded numpy weights into a temporary directory removed at the end:
    BERT-base BertForSequenceClassification, ViT-B/16, ResNet-50 in
    microsoft/resnet-* naming and GPT-2 small (tied head) at full size in
-   F32, Llama-2-7B at full width with 4 of its 32 layers in F16 over two
+   F32, Llama-2-7B at full width with 2 of its 32 layers in F16 over two
    shards. (a) every tensor read back bitwise by the package's own reader
    (F32, F16 and I64, across shards), each directory's load timed from the
    disk (host seconds, GB/s), the Llama load's peak host memory; a BF16
@@ -214,7 +215,7 @@ the kernels are built for sm_90a). Phases, each of which raises on failure:
    launch a level and one scale pass a tree, a second fit bitwise, held-out
    NDCG@5 over 1000 groups above a random ranking's, a 20-group slice with
    the same splits on the CPU and the card, fit seconds and peak memory;
-   (b) Higgs-1M, 50 iterations in goss, dart, rf and gbdt with bagging and
+   (b) Higgs-1M, 20 iterations in goss, dart, rf and gbdt with bagging and
    feature_fraction: each fit bitwise a second fit, every tree's sampled
    rows within 4 sigma of their expected fraction (goss's from each
    iteration's gradients, ties at the cut included), exactly k_feat
@@ -327,7 +328,7 @@ the kernels are built for sm_90a). Phases, each of which raises on failure:
    worker a fresh interpreter with its own CUDA context: (a) path 12's
    BERT-base stage (bf16, flash) behind serve_pipeline_distributed with 2
    workers (micro-batch 10 ms, the front coalescing same-path requests for
-   5 ms), path 12's 512 requests from 16 clients through one in-process
+   5 ms), the first 256 of path 12's requests from 16 clients through one in-process
    server, through the front and through RoutingClient, every reply within
    path 1's bf16 limits of the stage's transform, id for id, both workers
    answering; then one worker SIGKILLed after its 64th reply of the same
@@ -388,7 +389,33 @@ the kernels are built for sm_90a). Phases, each of which raises on failure:
    with the pipeline and count there), at least 12 a micro-batch served.
    (a)'s first worker starts up while (c), (b) and (d) run, (c)'s two
    while (b) runs;
-20. times: each kernel beside its bound, its plain version and the one
+20. main path 16, elastic gang training and the continual flywheel at
+   BERT-base's full width (T = 128, batch 32, f32 params, bf16 compute,
+   flash): (a) two gang members, each a fresh interpreter running this
+   script with --gang-member (run_gang_member over MeshConfig(data=1), no
+   process group), 24 steps with a coordinated checkpoint every 8; rank 1
+   SIGKILLed after the step-8 commit, the coordinator names it and rank 0
+   exits EXIT_RESIZE; the survivor resumes (B) beside an uninterrupted
+   member from a copy of the checkpoint (C): per-step losses, params and
+   optimizer state bitwise C's (or, where two C runs differ, within their
+   difference), the stream cursors summing to 2 x resume + (24 - resume),
+   none behind the resume step; alongside, a fresh two-member gang gets a
+   SIGTERM: both exit EXIT_PREEMPTED and the committed step is the sync
+   step and the latest verified one; spawn to first beat, step ms by CUDA
+   events, each commit's ms, the recovery s, the synapseml_train_gang_*
+   series, and 12 forward and 12 backward flash launches a trained step in
+   every member; (b) BERT-base v1 published, pinned prod and served by
+   serve_pipeline_distributed over 2 workers, 240 labelled requests logged
+   by a RequestLogger on the front; ContinualLoop.run_once (fit_source
+   warm-started from prod, 24 steps, a checkpoint every 8, under
+   TrainSupervisor): iteration 1 crashed once mid-fit restarts once, its
+   candidate bitwise an uninterrupted reference iteration's, passes the
+   gate, is canaried on one worker and promoted, both workers replying v2;
+   iteration 2 on poisoned labels fails the gate with prod and a probe's
+   reply bytes unchanged; each iteration's record and seconds by seam.
+   (b)'s fleet, logged traffic and reference iteration run on a thread
+   beside (a) from its members' first beats;
+21. times: each kernel beside its bound, its plain version and the one
    PyTorch call that computes the same function (device time, with the
    host's enqueue hidden behind a spin kernel; the library call's device
    kernels named from the profiler); flash_attention from the projection
@@ -409,6 +436,7 @@ result.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import gc
 import hashlib
 import importlib.machinery
@@ -1619,18 +1647,24 @@ def _eager_fine_tune(df, device, card: str, attn_impl: str, timed: bool = True) 
     return out
 
 
-def _graph_against_eager(graph: dict, eager: dict, eager2: dict, tag: str) -> list[str]:
+def _graph_against_eager(graph: dict, eager: dict, eager2, tag: str) -> list[str]:
     """Each leaf of the graph fit bitwise equal to the eager fit's, except
     the leaves on which two eager fits from one seed already differ (held
-    within TOL_SPREAD); returns those."""
-    spread = [k for k in eager if not np.array_equal(eager[k], eager2[k])]
+    within TOL_SPREAD); returns those. ``eager2`` is the second eager fit's
+    leaves, or a function that fits them, called only where the graph fit
+    differs from the first (where none does, no spread is needed)."""
     off = {k: float(np.abs(graph[k].astype(np.float64) - eager[k]).max())
            for k in eager if not np.array_equal(graph[k], eager[k])}
+    ran = not callable(eager2) or bool(off)
+    if callable(eager2):
+        eager2 = eager2() if off else eager
+    spread = [k for k in eager if not np.array_equal(eager[k], eager2[k])]
     log(f"{tag} graph fit against the eager fit: {len(eager) - len(off)} of {len(eager)} "
         f"parameters bitwise equal; differing {({k: f'{v:.3e}' for k, v in off.items()}) or 'none'}; "
-        f"the leaves on which two eager fits from one seed differ (max |d| within "
-        f"{TOL_SPREAD:g} allowed there): "
-        f"{({k: f'{np.abs(eager[k] - eager2[k]).max():.3e}' for k in spread}) or 'none'}")
+        + (f"the leaves on which two eager fits from one seed differ (max |d| within "
+           f"{TOL_SPREAD:g} allowed there): "
+           f"{({k: f'{np.abs(eager[k] - eager2[k]).max():.3e}' for k in spread}) or 'none'}"
+           if ran else "no second eager fit needed (no leaf differs)"))
     bad = [k for k, v in off.items() if k not in spread or v > TOL_SPREAD]
     if bad:
         raise AssertionError(f"{tag} the graph fit differs from the eager fit on {bad}")
@@ -1711,19 +1745,24 @@ class _InitOnce:
 
 
 def _fine_tune_pair(df, device, card: str, attn_impl: str, n_layers: int) -> dict:
-    """The graph fit (the stage's default), then the eager baseline twice
-    (the second fit shows which leaves two eager fits from one seed already
-    differ on), each from the same seed, data and init: the graph fit
-    against the eager fit leaf by leaf, and the flash launches of each."""
+    """The graph fit (the stage's default), then the eager baseline (and,
+    only where the graph fit differs from it, a second eager fit, which
+    shows which leaves two eager fits from one seed already differ on),
+    each from the same seed, data and init: the graph fit against the eager
+    fit leaf by leaf, and the flash launches of each."""
     graph = _graph_fine_tune(df, device, card, attn_impl)
     _free_card()
     eager = _eager_fine_tune(df, device, card, attn_impl)
     _free_card()
-    eager2 = _eager_fine_tune(df, device, card, attn_impl, timed=False)
-    _free_card()
     tag = f"[train] {attn_impl}:"
-    _graph_against_eager(graph["model"].get("model_params"), eager["params"], eager2["params"],
-                         tag)
+    second = []
+
+    def eager2():
+        second.append(_eager_fine_tune(df, device, card, attn_impl, timed=False))
+        _free_card()
+        return second[0]["params"]
+
+    _graph_against_eager(graph["model"].get("model_params"), eager["params"], eager2, tag)
     d_loss = float(np.abs(graph["losses"] - eager["losses"]).max())
     log(f"{tag} per-step losses of the graph fit against the eager fit: max |d| {d_loss:.3e}")
     n = n_layers * FT_STEPS if attn_impl == "flash" else 0
@@ -1733,7 +1772,8 @@ def _fine_tune_pair(df, device, card: str, attn_impl: str, n_layers: int) -> dic
         f"(want {want}: {n_layers} forward and {n_layers} backward a step, replayed steps "
         f"included); in the profiled replay {graph['prof_flash']} forward and backward "
         f"kernels (want {n_chunk} each)")
-    if not (graph["launches"] == eager["launches"] == eager2["launches"] == want
+    if not (graph["launches"] == eager["launches"] == want
+            and all(e["launches"] == want for e in second)
             and graph["prof_flash"] == (n_chunk, n_chunk)):
         raise AssertionError(f"{tag} flash launched {graph['launches']} / {eager['launches']}"
                              f" / profiled {graph['prof_flash']}, want {want}")
@@ -3236,9 +3276,10 @@ def phase_vit_train(device, card: str) -> dict:
     """Main path 5 (a): ViT-B/16 at full width and depth, weights from
     init_flax_vit_params(seed=0) through the bridge, random images from seed
     0; with attn_impl='flash' (the flash forward and backward kernels at
-    T = 197, no mask) and then with einsum, each as the chunk graph and twice
-    as the eager per-step loop: the graph fit bitwise the eager one leaf by
-    leaf (but where two eager fits differ), the flash kernels 12 times a
+    T = 197, no mask) and then with einsum, each as the chunk graph and as
+    the eager per-step loop (a second time only where they differ): the
+    graph fit bitwise the eager one leaf by leaf (but where two eager fits
+    differ), the flash kernels 12 times a
     step forward and backward, replayed steps included, step 1 of flash
     against einsum."""
     t0 = time.perf_counter()
@@ -3255,9 +3296,15 @@ def phase_vit_train(device, card: str) -> dict:
     for attn_impl in ("flash", "einsum"):
         graph = _vit_graph_fit(init, stacked, device, card, attn_impl, n_params)
         eager = _vit_eager_fit(init, batches, device, attn_impl, n_params, card)
-        eager2 = _vit_eager_fit(init, batches, device, attn_impl, n_params, card, timed=False)
         tag = f"[vision] ViT-B/16 {attn_impl}:"
-        _graph_against_eager(graph["params"], eager["params"], eager2["params"], tag)
+        second = []
+
+        def eager2():
+            second.append(_vit_eager_fit(init, batches, device, attn_impl, n_params, card,
+                                         timed=False))
+            return second[0]["params"]
+
+        _graph_against_eager(graph["params"], eager["params"], eager2, tag)
         d_loss = float(np.abs(graph["losses"] - eager["losses"]).max())
         n = cfg.n_layers * VIT_K * VIT_CHUNKS if attn_impl == "flash" else 0
         want = {"fwd": {"bf16": n, "f32": 0}, "bwd": {"bf16": n, "f32": 0}}
@@ -3266,11 +3313,12 @@ def phase_vit_train(device, card: str) -> dict:
             f"(want {want}); graph vs eager: median step {graph['step_ms']:.3f} vs "
             f"{eager['step_ms']:.3f} ms, busy share of a profiled replay "
             f"{100 * graph['busy']:.1f}% | {card}")
-        if not graph["launches"] == eager["launches"] == eager2["launches"] == want:
+        if not (graph["launches"] == eager["launches"] == want
+                and all(e["launches"] == want for e in second)):
             raise AssertionError(f"{tag} flash launched {graph['launches']} / "
                                  f"{eager['launches']}, want {want}")
         runs[attn_impl] = {"graph": graph, "eager": eager}
-        del eager2
+        del second
     for kind in ("graph", "eager"):
         _check_step1(runs["flash"][kind]["losses"][0], runs["einsum"][kind]["losses"][0],
                      runs["flash"][kind]["grad_norm1"], runs["einsum"][kind]["grad_norm1"],
@@ -3473,9 +3521,10 @@ def phase_vision_stages(device, card: str) -> dict:
     """Main path 5 (c): DeepVisionClassifier(backbone='vit_b16') fits
     STAGE_STEPS steps (einsum, the stage's own attention), and
     DeepVisionClassifier(backbone='resnet50') the same steps through the
-    BatchNorm path: as the stage's graph fit and twice as the eager loop,
-    the graph fit's parameters and running statistics bitwise the eager
-    one's but where two eager fits differ (there within TOL_SPREAD); each
+    BatchNorm path: as the stage's graph fit and as the eager loop (a
+    second time only where they differ), the graph fit's parameters and
+    running statistics bitwise the eager one's but where two eager fits
+    differ (there within TOL_SPREAD); each
     fitted model scores the sum(STAGE_PARTS) images of two partitions."""
     rs = np.random.default_rng(2)
     images = rs.standard_normal((STAGE_ROWS, VIT_HW, VIT_HW, 3), dtype=np.float32)
@@ -3519,15 +3568,16 @@ def phase_vision_stages(device, card: str) -> dict:
                 raise AssertionError(f"DeepVisionClassifier({backbone}) graph fit failed its "
                                      "checks")
             if stats is not None:  # the BatchNorm path against the eager loop
-                eager = []
-                for _ in range(2):
+                def eager_fit(stage=stage):
                     trainer, data, kw, _ = stage._fit_plan(df)
                     state = trainer_mod.fit_arrays(trainer, data, scan_chunk=1, **kw)
-                    eager.append({k: v.detach().cpu().numpy() for k, v in
-                                  {**state.params, **state.batch_stats}.items()})
+                    leaves = {k: v.detach().cpu().numpy() for k, v in
+                              {**state.params, **state.batch_stats}.items()}
                     del trainer, state
                     _free_card()
-                spread = _graph_against_eager({**params, **stats}, eager[0], eager[1],
+                    return leaves
+
+                spread = _graph_against_eager({**params, **stats}, eager_fit(), eager_fit,
                                               f"[vision] {backbone} (parameters and running "
                                               "statistics):")
                 out[f"{backbone}_spread"] = spread
@@ -4060,8 +4110,9 @@ def phase_llm(device, card: str) -> dict:
 # temporary directory removed at the end: BERT-base BertForSequenceClassification,
 # ViT-B/16 ViTForImageClassification, ResNet-50 in microsoft/resnet-* naming,
 # GPT-2 small (tied head) in F32, one file each; Llama-2-7B at full width with
-# its depth cut to CK_LLAMA_LAYERS of 32 layers, F16, in two shards.
-CK_LLAMA_LAYERS = 4
+# its depth cut to CK_LLAMA_LAYERS of 32 layers (4 until main path 16 took
+# the script's time), F16, in two shards.
+CK_LLAMA_LAYERS = 2
 CK_FIT_ROWS, CK_FIT_STEPS = 768, 24     # the BERT-base checkpoint fit: 3 chunks of 8 at batch 32
 CK_SCORE_ROWS = 200                     # texts scored by the fitted model (2 partitions)
 CK_EMBED_ROWS, CK_EMBED_CPU = 512, 16   # texts the embedder embeds; of them on the CPU too
@@ -4161,17 +4212,22 @@ class _Draw:
     def __init__(self, seed: int, dtype=np.float32):
         self.rs, self.dtype = np.random.default_rng(seed), np.dtype(dtype)
 
+    def _cast(self, x: np.ndarray) -> np.ndarray:
+        if self.dtype == np.float16:  # torch's conversion: numpy's rounding, several times faster
+            return torch.from_numpy(x).to(torch.float16).numpy()
+        return x.astype(self.dtype, copy=False)
+
     def normal(self, *shape, std=0.02):
         x = self.rs.standard_normal(shape, dtype=np.float32)
         x *= np.float32(std)
-        return x.astype(self.dtype, copy=False)
+        return self._cast(x)
 
     def linear(self, n_out, n_in, *kernel):
         lim = np.float32(np.sqrt(6.0 / (n_in + n_out)))
         u = self.rs.random((n_out, n_in, *kernel), dtype=np.float32)
         u *= 2 * lim
         u -= lim
-        return u.astype(self.dtype, copy=False)
+        return self._cast(u)
 
     def bias(self, n):
         return self.normal(n, std=0.01)
@@ -4293,7 +4349,14 @@ def _gpt2_checkpoint(seed: int) -> tuple[dict, dict]:
 
 def _llama_checkpoint(seed: int, layers: int = CK_LLAMA_LAYERS) -> tuple[dict, dict]:
     """LlamaForCausalLM at CK_LLAMA with ``layers`` layers (no biases, an
-    untied lm_head), F16."""
+    untied lm_head), F16; the last draw is kept (paths 7 (d) and 14 (c)
+    draw the same one) until ``_llama_drawn.cache_clear()``. Its readers
+    only read it."""
+    return _llama_drawn(seed, layers)
+
+
+@functools.lru_cache(maxsize=1)
+def _llama_drawn(seed: int, layers: int) -> tuple[dict, dict]:
     c, w = {**CK_LLAMA, "num_hidden_layers": layers}, _Draw(seed, np.float16)
     hid, mlp = c["hidden_size"], c["intermediate_size"]
     kv = hid // c["num_attention_heads"] * c["num_key_value_heads"]
@@ -5296,6 +5359,7 @@ MSLR_PARAMS = dict(num_iterations=100, learning_rate=0.1, num_leaves=31, max_bin
                    min_data_in_leaf=50, min_sum_hessian_in_leaf=5.0, eval_at=[1, 3, 5])
 MSLR_NDCG_MARGIN = 0.5  # NDCG@5 over a random ranking's, held out (run 1: 0.869 vs 0.134)
 SURFACE_ITERS = 50
+SURFACE_MODE_ITERS = 20  # (b)'s fits, cut from 50 so that main path 16 fits the script's time
 SURFACE_MODES = {  # (b): Higgs-1M in each sampling mode
     "goss": dict(boosting_type="goss", top_rate=0.2, other_rate=0.1),
     "dart": dict(boosting_type="dart", drop_rate=0.1),
@@ -5433,14 +5497,15 @@ def _root_fraction_ok(booster, n: int, p_of_tree) -> tuple[float, float]:
 
 
 def _surface_modes(device, card: str, grown: _Trees, X, y) -> dict:
-    """(b) Higgs-1M, 50 iterations in each sampling mode, each fit twice."""
+    """(b) Higgs-1M, SURFACE_MODE_ITERS iterations in each sampling mode, each
+    fit twice."""
     from synapseml_torch import DataFrame as DF
     from synapseml_torch.gbdt import LightGBMClassifier
     from synapseml_torch.gbdt import booster as tbooster
 
     n = HIGGS_N
     train = DF.from_dict({"features": X[:n], "label": y[:n]})
-    base = dict(HIGGS_PARAMS, num_iterations=SURFACE_ITERS)
+    base = dict(HIGGS_PARAMS, num_iterations=SURFACE_MODE_ITERS)
     offered = []
     features = tbooster._Sampler.features
 
@@ -8018,6 +8083,7 @@ def phase_batch_plane(device, card: str) -> dict:
 
 # (a) path 12's stage behind serve_pipeline_distributed: worker processes on the one card
 DS_WORKERS, DS_INTERVAL_MS, DS_COALESCE_MS = 2, 10, 5
+DS_REQUESTS = 256          # (a)'s traffic: path 12's first 256 requests (cut from 512 for path 16)
 DS_KILL_AFTER = 64         # the victim's replies in the kill phase before its SIGKILL
 DS_WARM = 4                # requests each worker scores before the timed traffic
 # (b) canary rollout and rollback
@@ -8028,6 +8094,7 @@ DS_ROLLBACK = {"error_rate_threshold": 0.5, "window": 8, "min_samples": 4, "inte
 DS_LLM_STREAMS, DS_LLM_NEW, DS_LLM_PROMPT, DS_LLM_LAYERS = 16, 24, (16, 129), 2
 # each worker's flash launch counts land in this directory (see _count_in_worker)
 DS_COUNTS_ENV, DS_PARENT_ENV = "CHIP_SMOKE_COUNTS_DIR", "CHIP_SMOKE_PARENT_PID"
+_ENV_LOCK = threading.Lock()  # os.environ: set for a spawn on one thread, copied on another
 
 
 class ServeFails(Transformer):
@@ -8212,7 +8279,7 @@ def _ds_text(device, card: str, tmp: str) -> dict:
 
     pipe1, model1 = version(0)
     pipe2, model2 = version(1)
-    bodies = _serve_bodies(SV_REQUESTS, seed=12)  # path 12's traffic
+    bodies = _serve_bodies(SV_REQUESTS, seed=12)[:DS_REQUESTS]  # path 12's traffic
     texts = sorted({t for b in bodies for t in b["texts"]})
     refs = {}
     for tag, model in (("v1", model1), ("v2", model2)):
@@ -8670,6 +8737,7 @@ def _ds_llm(device, card: str) -> dict:
                 p.wait(timeout=30)
         del model
         ck.close()
+        _llama_drawn.cache_clear()  # its last reader
         _free_card()
 
 
@@ -9301,11 +9369,826 @@ def phase_fleet(device, card: str, index_store: str | None = None) -> dict:
     return {"launches": launches, "bwd_launches": here["bwd"], **out}
 
 
-def main() -> None:
+# ---------------- main path 16: elastic gang training and the continual flywheel ----------------
+
+# (a) BERT-base (hidden 768, 12 layers, 12 heads, MLP 3072, vocab 30522; f32
+# params, bf16 compute, flash) in gang members, each a fresh interpreter on
+# the one card running this script with --gang-member: T = 128, batch 32,
+# GG_STEPS steps with a coordinated checkpoint every GG_EVERY
+GG_STEPS, GG_EVERY, GG_ROWS, GG_SHARD = 24, 8, 2048, 128
+GG_BEAT_TIMEOUT_S, GG_GRACE_S = 120.0, 90.0  # far above one commit (3-9 s of writing)
+GG_WAIT_S = 240.0  # the longest wait for a gang's step, commit or exit (each takes < 60 s)
+GG_PACE_MS = 250  # the preempted gang's sleep a step, so that its SIGTERM lands mid-run
+GG_TERM_AT = 3  # the preempted gang: SIGTERM once both members beat this step
+# (b) the flywheel: FW_REQUESTS labelled requests logged in parts of
+# FW_PART_ROWS; each iteration fine-tunes FW_STEPS steps, a checkpoint every
+# FW_EVERY, iteration 1 crashed once at the fit's FW_CRASH_AT-th step
+FW_REQUESTS, FW_PART_ROWS, FW_STEPS, FW_EVERY, FW_CRASH_AT = 240, 30, 24, 8, 12
+FW_PRIOR = 0.8  # P(label 1)
+# v1's head bias: v1 answers 0 with p ~ 0.98, so a fit of FW_STEPS steps
+# that learns the prior beats it at the gate, and one on flipped labels
+# (the poison) falls further behind
+FW_V1_BIAS = (2.0, -2.0)
+FW_SPEC = dict(min_new_rows=50, gate_min_margin=0.02, seed=5, canary_weight=0.5,
+               canary_min_requests=8, canary_timeout_s=180.0, canary={})
+FW_SEAMS = ("watch", "snapshot", "train", "eval", "publish", "canary", "promote")
+
+
+def _gang_trainer_cfg(total: int):
+    return trainer_mod.TrainerConfig(learning_rate=FT_LR, total_steps=total,
+                                     warmup_steps=max(total // 10, 1), lr_schedule="linear",
+                                     nonfinite_action="raise")
+
+
+def _bert_module(cfg):
+    from synapseml_torch.models.nets.bert import BertClassifier
+
+    with torch.device("meta"):
+        module = BertClassifier(cfg, 2)
+    return module.to_empty(device="cpu")
+
+
+def gang_member_main(args: list[str]) -> int:
+    """One gang member of main path 16 (a), run as ``chip_smoke.py
+    --gang-member <driver> <partition> <checkpoint dir> <data dir> <log>
+    <total steps> <pace ms> <hold file> <standby file>``: ``run_gang_member``
+    over BERT-base on ``MeshConfig(data=1)`` (no process group: NCCL refuses
+    two ranks on one card). After step GG_EVERY + 1 it waits while the hold
+    file exists, so that the parent's kill lands after the step-GG_EVERY
+    commit and before the next; a standby member (a relaunch started ahead
+    of the failure) waits in ``trainer_fn``, its CUDA context up, while the
+    standby file exists (``-``: no such wait). Logs each step's loss and
+    wall time, and at its exit the flash launches, the step times by CUDA
+    events and the outcome, one JSON line each."""
+    from synapseml_torch.data import MemorySource
+    from synapseml_torch.parallel import MeshConfig
+    from synapseml_torch.parallel.gang import run_gang_member
+
+    addr, part, ckdir, data_dir, logp = args[:5]
+    total, pace_ms, hold, standby = int(args[5]), float(args[6]), args[7], args[8]
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    device = torch.device("cuda")
+    cfg = dataclasses.replace(bert_base(), attn_impl="flash")
+    with np.load(os.path.join(data_dir, "rows.npz")) as z:
+        rows = {k: z[k] for k in z.files}
+    with np.load(os.path.join(data_dir, "init.npz")) as z:
+        init = {k: z[k] for k in z.files}
+    out = open(logp, "a")
+    rank, starts, ends = [], {}, {}  # step index -> CUDA event at its start / end
+
+    def write(rec):
+        out.write(json.dumps(rec) + "\n")
+        out.flush()
+
+    def trainer_fn(info):
+        rank.append(info["rank"])
+        trainer = trainer_mod.Trainer(_bert_module(cfg), _gang_trainer_cfg(total), device=device,
+                                      mesh=MeshConfig(data=1))
+        torch.zeros(1, device=device)  # the CUDA context, before a standby's wait
+        while os.path.exists(standby):
+            time.sleep(0.02)
+        return trainer
+
+    def event():
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def callback(i, metrics):
+        ends[i] = event()
+        write({"i": i, "t": time.time(), "loss": float(metrics["loss"])})
+        if pace_ms:
+            time.sleep(pace_ms / 1000.0)
+        while i == GG_EVERY and os.path.exists(hold):
+            time.sleep(0.02)
+        starts[i + 1] = event()  # the pacing, the hold and the log write left out
+
+    def on_exit(kind, payload):
+        torch.cuda.synchronize()
+        ms = [starts[i].elapsed_time(ends[i]) for i in sorted(ends) if i in starts]
+        write({"exit": kind, "rank": rank[0], "steps": len(ends),
+               "step": getattr(payload, "step", None), "step_ms": ms,
+               "fwd": dict(att.flash_attention_fwd.launches),
+               "bwd": dict(att.flash_attention_bwd.launches)})
+
+    code = run_gang_member(addr, int(part), trainer_fn=trainer_fn,
+                           source=MemorySource(rows, shard_rows=GG_SHARD), checkpoint_dir=ckdir,
+                           total_steps=total, batch_size=FT_BATCH, seed=0,
+                           checkpoint_every=GG_EVERY, grace_s=GG_GRACE_S, on_exit=on_exit,
+                           init_params=init, shuffle_rows="full", callback=callback)
+    out.close()
+    return code
+
+
+def _gangs_alive(gangs) -> None:
+    """Raise, with the member's output, once a member of ``gangs`` has
+    exited or a coordinator has named a failure: a phase that waits for a
+    step or a commit fails at once instead of at its deadline."""
+    for g in gangs:
+        for rank, proc in enumerate(g.procs):
+            if proc.poll() is not None or g.coord.failure is not None:
+                out = "".join(getattr(proc, "_gang_drain", (None, []))[1])
+                raise AssertionError(f"[gang] (a) gang {g.tag}: rank {rank} exit code "
+                                     f"{proc.returncode}, the coordinator's failure "
+                                     f"{g.coord.failure}, before the phase's step: {out[-3000:]}")
+
+
+class _Gang:
+    """A gang of main path 16 (a): ``world`` members launched through
+    ``launch_gang_processes`` on this script, the commits' wall times seen by
+    a watcher thread."""
+
+    def __init__(self, tmp: str, tag: str, world: int, ckdir: str, total: int, pace_ms: float,
+                 hold: str = "-", base: int = 0, standby: str = "-"):
+        from synapseml_torch.parallel.gang import launch_gang_processes
+
+        self.tag, self.ckdir, self.base, self.logs = tag, ckdir, base, [
+            os.path.join(tmp, f"gang_{tag}_{p}.jsonl") for p in range(world)]
+        with _ENV_LOCK:
+            env = {k: v for k, v in os.environ.items()
+                   if k not in (DS_COUNTS_ENV, DS_PARENT_ENV)}
+        env["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+        self.t0 = time.time()
+        self.procs, self.coord, _ = launch_gang_processes(
+            os.path.abspath(__file__), world, checkpoint_dir=ckdir,
+            worker_args_fn=lambda p, addr: ["--gang-member", addr, str(p), ckdir,
+                                            os.path.join(tmp, "data"), self.logs[p], str(total),
+                                            str(pace_ms), hold, standby],
+            env=env, coordinator_kw=dict(beat_timeout_s=GG_BEAT_TIMEOUT_S, grace_s=GG_GRACE_S,
+                                         poll_s=0.02),
+            rendezvous_timeout_s=300)
+        self.first_beat = None
+        self.commit_t: dict[int, float] = {}
+        self._stop = threading.Event()
+        self._watch = threading.Thread(target=self._watcher, daemon=True)
+        self._watch.start()
+
+    def _watcher(self) -> None:
+        while not self._stop.is_set():
+            now = time.time()
+            if self.first_beat is None and all(
+                    s["last_step"] >= 0 for s in self.coord.status().values()):
+                self.first_beat = now - self.t0
+            for s in list(self.coord.committed_steps):
+                self.commit_t.setdefault(s, now)
+            time.sleep(0.01)
+
+    def finish(self, wait_commit_step=None, timeout_s=300.0):
+        from synapseml_torch.parallel.gang import finish_gang_processes
+
+        try:
+            outs, codes = finish_gang_processes(self.procs, self.coord, timeout_s=timeout_s,
+                                                wait_commit_step=wait_commit_step)
+        finally:
+            self._stop.set()
+            self._watch.join(5)
+        self.outs, self.codes = outs, codes
+        self.records = []
+        for p in self.logs:
+            with open(p) as f:
+                self.records.append([json.loads(line) for line in f])
+        return codes
+
+    def kill(self) -> None:
+        """Stop the members and the coordinator (a failed phase's cleanup)."""
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        self._stop.set()
+        self.coord.close()
+
+    def losses(self) -> list[list[float]]:
+        return [[r["loss"] for r in recs if "loss" in r] for recs in self.records]
+
+    def exits(self) -> list[dict]:
+        return [next((r for r in recs if "exit" in r), None) for recs in self.records]
+
+    def commit_ms(self) -> dict[int, float]:
+        """Each commit's wall time after the last member logged that step."""
+        out = {}
+        for step, t in sorted(self.commit_t.items()):
+            done = [r["t"] for recs in self.records for r in recs
+                    if "loss" in r and r["i"] + 1 + self.base == step]
+            if done:
+                out[step] = (t - max(done)) * 1e3
+        return out
+
+
+def _gang_data(tmp: str, cfg) -> None:
+    """The rows (GG_ROWS labelled texts, tokenized) and the initial params
+    every member loads, written once."""
+    d = os.path.join(tmp, "data")
+    os.makedirs(d)
+    tok = HashingTokenizer(vocab_size=cfg.vocab_size)
+    rows = _labelled_texts(GG_ROWS, seed=16)
+    enc = tok([r["text"] for r in rows], max_len=FT_LEN)
+    np.savez(os.path.join(d, "rows.npz"), input_ids=np.asarray(enc["input_ids"], np.int32),
+             attention_mask=np.asarray(enc["attention_mask"], np.int32),
+             labels=np.asarray([r["label"] for r in rows], np.int32))
+    np.savez(os.path.join(d, "init.npz"), **text_stage._init_params(cfg, 2, 0))
+
+
+def _trees_equal(a: dict, b: dict) -> dict[str, float]:
+    """The leaves of two restored trees that differ, with their max |d|."""
+    from synapseml_torch.core import serialization
+
+    fa = serialization.flatten_pytree(a)
+    fb = serialization.flatten_pytree(b)
+    if set(fa) != set(fb):
+        raise AssertionError(f"trees differ in their leaves: {sorted(set(fa) ^ set(fb))[:6]}")
+    return {k: float(np.abs(np.asarray(fa[k], np.float64) - np.asarray(fb[k], np.float64)).max())
+            for k in fa if not np.array_equal(fa[k], fb[k])}
+
+
+def _within_spread(got: dict, ref: dict, ref2_fn, tag: str) -> float:
+    """``got`` bitwise ``ref``, or, where they differ, the leaves on which
+    ``ref2_fn()`` (a second reference run) differs from ``ref`` held within
+    that difference (path 3's rule). Returns the largest difference."""
+    off = _trees_equal(got, ref)
+    if not off:
+        log(f"{tag}: bitwise equal to the uninterrupted reference, every leaf")
+        return 0.0
+    spread = _trees_equal(ref2_fn(), ref)
+    bad = {k: v for k, v in off.items() if v > spread.get(k, -1.0)}
+    log(f"{tag}: {len(off)} leaves differ from the reference (max |d| {max(off.values()):.3e}); "
+        f"two reference runs differ on {len(spread)} (max {max(spread.values(), default=0):.3e})")
+    if bad:
+        raise AssertionError(f"{tag}: leaves beyond the references' spread: {list(bad)[:6]}")
+    return max(off.values())
+
+
+def _gang_launches(gangs: list, tag: str) -> dict:
+    """The flash launches the members of ``gangs`` counted, held to 12
+    forward and 12 backward a trained step in each member."""
+    fwd = dict.fromkeys(att.flash_attention_fwd.launches, 0)
+    bwd = dict.fromkeys(att.flash_attention_bwd.launches, 0)
+    for g in gangs:
+        for e in g.exits():
+            if e is None:
+                continue  # a SIGKILLed member leaves no exit record
+            f, b = sum(e["fwd"].values()), sum(e["bwd"].values())
+            if f != 12 * e["steps"] or b != 12 * e["steps"] or e["fwd"].get("bf16", 0) != f:
+                raise AssertionError(f"{tag} {g.tag} rank {e['rank']}: {e['steps']} steps with "
+                                     f"flash launches fwd {e['fwd']}, bwd {e['bwd']} (want 12 "
+                                     "bf16 of each a step)")
+            for k in fwd:
+                fwd[k] += e["fwd"].get(k, 0)
+            for k in bwd:
+                bwd[k] += e["bwd"].get(k, 0)
+    return {"fwd": fwd, "bwd": bwd}
+
+
+def _gang_resize(tmp: str, card: str, beaten: threading.Event) -> dict:
+    """(a): phase A (kill and resize) beside the preempted gang P and the
+    standby members of phases B and C, which start their fits at the kill:
+    A's survivor is held behind the step-GG_EVERY commit and writes nothing
+    after it. Sets ``beaten`` once every member of A and P has beaten (at
+    the latest when the phase ends well)."""
+    import concurrent.futures
+
+    ck, p_dir = os.path.join(tmp, "ck"), os.path.join(tmp, "preempt")
+    hold, standby, ref = (os.path.join(tmp, n) for n in ("hold", "standby", "ref"))
+    open(hold, "w").close()
+    open(standby, "w").close()
+    # the four gangs launch at once (each launch waits for its members'
+    # rendezvous): A, P, and B (the survivor's relaunch over the same
+    # directory) and C (one member over a copy of the same checkpoint,
+    # uninterrupted) on standby
+    with concurrent.futures.ThreadPoolExecutor(4) as ex:
+        futures = [
+            ex.submit(_Gang, tmp, "a", 2, ck, GG_STEPS, 0, hold=hold),
+            ex.submit(_Gang, tmp, "p", 2, p_dir, GG_STEPS, GG_PACE_MS),
+            ex.submit(_Gang, tmp, "b", 1, ck, GG_STEPS, 0, base=GG_EVERY, standby=standby),
+            ex.submit(_Gang, tmp, "c", 1, ref, GG_STEPS, 0, base=GG_EVERY, standby=standby)]
+    gangs = [f.result() for f in futures if f.exception() is None]
+    if len(gangs) < len(futures):  # a launch failed: stop the gangs that started
+        for g in gangs:
+            g.kill()
+        next(f for f in futures if f.exception() is not None).result()
+    a, p, b, c = gangs
+    try:
+        out = _gang_phases(tmp, card, a, p, b, c, hold, standby, beaten)
+    except BaseException:  # no member or coordinator outlives a failed phase
+        for g in gangs:
+            g.kill()
+        raise
+    beaten.set()  # should the first beats have gone unseen
+    return out
+
+
+def _gang_phases(tmp: str, card: str, a, p, b, c, hold: str, standby: str,
+                 beaten: threading.Event) -> dict:
+    """``_gang_resize``'s phases and checks over its four launched gangs."""
+    import signal
+
+    from synapseml_torch.parallel import checkpoint as tcp
+    from synapseml_torch.parallel.gang import EXIT_PREEMPTED, EXIT_RESIZE
+
+    ck, p_dir, ref = a.ckdir, p.ckdir, c.ckdir
+    try:
+        deadline = time.monotonic() + GG_WAIT_S
+        while time.monotonic() < deadline and not all(
+                s["last_step"] >= GG_TERM_AT for s in p.coord.status().values()):
+            _gangs_alive((a, p, b, c))
+            if a.first_beat is not None and p.first_beat is not None:
+                beaten.set()
+            time.sleep(0.02)
+        term_t = time.time()
+        p.procs[1].send_signal(signal.SIGTERM)
+        deadline = time.monotonic() + GG_WAIT_S
+        committed = None
+        while committed is None and time.monotonic() < deadline:
+            _gangs_alive((a, b, c))
+            committed = a.coord.wait_commit(step=GG_EVERY, timeout_s=0.5)
+        kill_t = time.time()
+        a.procs[1].send_signal(signal.SIGKILL)
+        failure = a.coord.wait_failure(60.0)
+        resume = tcp.latest_verified_step(ck)
+        shutil.copytree(ck, ref)
+    finally:
+        os.remove(standby)  # B and C restore and train
+        os.remove(hold)  # A's survivor goes on to its verdict
+    codes = a.finish(timeout_s=120)
+    p_codes = p.finish(timeout_s=GG_WAIT_S)
+    log(f"[gang] (a) phase A: 2 members, spawn to first beat {a.first_beat:.2f} s; rank 1 "
+        f"SIGKILLed after the step-{committed} commit: the coordinator's failure {failure}, exit "
+        f"codes {codes}, the last verified step {resume} (world "
+        f"{tcp.checkpoint_world(ck, resume) if resume else None}) | {card}")
+    if committed != GG_EVERY or failure is None or failure[0] != 1 or codes[0] != EXIT_RESIZE \
+            or codes[1] != -signal.SIGKILL or resume != GG_EVERY:
+        b.kill()
+        c.kill()
+        raise AssertionError(f"[gang] (a) the SIGKILLed gang did not resize: {a.outs[0][-2000:]}")
+    sync = [e["step"] for e in p.coord.events() if e["event"] == "sync"]
+    emergency = p.coord.preempt_commit_step
+    verified = tcp.latest_verified_step(p_dir)
+    p_done = max(r["t"] for recs in p.records for r in recs if "loss" in r)
+    log(f"[gang] (a) preemption, beside phase A: SIGTERM to rank 1 once both members beat step "
+        f"{GG_TERM_AT}: exit codes {p_codes}, sync {sync}, committed {emergency}, latest verified "
+        f"{verified}; {p.commit_t.get(emergency, float('nan')) - term_t:.2f} s from the SIGTERM "
+        f"to the commit ({p_done - term_t:.2f} s to the last step); spawn to first beat "
+        f"{p.first_beat:.2f} s | {card}")
+    if p_codes != [EXIT_PREEMPTED] * 2 or sync != [emergency] or verified != emergency \
+            or tcp.checkpoint_world(p_dir, emergency) != 2:
+        b.kill()
+        c.kill()
+        raise AssertionError(f"[gang] (a) the preempted gang did not commit its sync step: "
+                             f"{p.coord.events()} {p.outs[1][-2000:]}")
+    b_codes = b.finish(wait_commit_step=GG_STEPS)
+    c_codes = c.finish(wait_commit_step=GG_STEPS)
+    if b_codes != [0] or c_codes != [0]:
+        raise AssertionError(f"[gang] (a) phase B {b_codes} / C {c_codes}: "
+                             f"{b.outs[0][-2000:]} {c.outs[0][-2000:]}")
+    b_steps = [r for r in b.records[0] if "loss" in r]
+    recovery = b_steps[0]["t"] - kill_t
+    same_losses = b.losses() == c.losses()
+
+    def second_reference():
+        ref2 = os.path.join(tmp, "ref2")  # step `resume` of the original, as C started from
+        shutil.copytree(ck, ref2, ignore=lambda d, names: [
+            n for n in names if n.startswith("step_") and int(n[5:]) > resume])
+        c2 = _Gang(tmp, "c2", 1, ref2, GG_STEPS, 0, base=resume)
+        if c2.finish(wait_commit_step=GG_STEPS) != [0]:
+            raise AssertionError("[gang] (a) the second reference run failed")
+        return tcp.restore_checkpoint(ref2, GG_STEPS)
+
+    worst = _within_spread(tcp.restore_checkpoint(ck, GG_STEPS),
+                           tcp.restore_checkpoint(ref, GG_STEPS), second_reference,
+                           "[gang] (a) phase B's params and optimizer state at the last step")
+    cursors = {}
+    for tree in tcp.restore_host_states(ck, GG_STEPS).values():
+        cursors.update(tree["data_iter"])
+    emitted = {int(k): int(np.asarray(v["batches_emitted"])) for k, v in cursors.items()}
+    want = 2 * resume + (GG_STEPS - resume)
+    log(f"[gang] (a) phase B: 1 survivor resumed from step {resume}, {len(b_steps)} steps, "
+        f"launched on standby beside A (its spawn to first beat {b.first_beat:.2f} s, the wait "
+        f"included), recovery {recovery:.2f} s from the kill to its first step; per-step losses {'bitwise' if same_losses else 'NOT bitwise'} "
+        f"phase C's (uninterrupted, from a copy of the checkpoint); largest difference of the "
+        f"final tree {worst:.3e}; stream cursors {emitted} sum {sum(emitted.values())} (want "
+        f"2 x {resume} + {GG_STEPS - resume} = {want}) | {card}")
+    if not (same_losses or worst) or sorted(emitted) != [0, 1] \
+            or sum(emitted.values()) != want \
+            or not all(resume <= v <= GG_STEPS for v in emitted.values()):
+        raise AssertionError("[gang] (a) the resumed run is not the uninterrupted one")
+    step_ms = [ms for g in (a, b) for e in g.exits() if e for ms in e["step_ms"]]
+    commits = {**{f"A {k}": v for k, v in a.commit_ms().items()},
+               **{f"B {k}": v for k, v in b.commit_ms().items()},
+               **{f"P {k}": v for k, v in p.commit_ms().items()}}
+    log(f"[gang] (a) step ms (per-step loop, CUDA events from a step's start to its end, the "
+        f"first step left out; phase A: 2 members beside the 2 of P, phase B: beside C): median "
+        f"{statistics.median(step_ms):.1f}, min {min(step_ms):.1f}, max {max(step_ms):.1f} over "
+        f"{len(step_ms)}; each commit's ms after its step's last member: "
+        + ", ".join(f"{k}: {v:.0f}" for k, v in commits.items()) + f" | {card}")
+    launches = _gang_launches([a, b, c, p], "[gang] (a)")
+    return {"resume": resume, "recovery_s": recovery, "first_beat_s": a.first_beat,
+            "launches": launches, "worst": worst}
+
+
+def _fw_bodies(n: int, seed: int, flip: bool = False) -> list[dict]:
+    """Labelled requests: one text each whose first word says its label
+    (positive for 1), label 1 with probability FW_PRIOR; ``flip`` poisons
+    the labels."""
+    rs = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        y = int(rs.random() < FW_PRIOR)
+        head = rs.choice(_POSITIVE if y else _NEGATIVE)
+        words = [head] + list(rs.choice(_SV_WORDS, size=int(rs.integers(20, 120))))
+        out.append({"texts": [" ".join(words)], "label": (1 - y) if flip else y})
+    return out
+
+
+def _fw_write_part(logdir: str, idx: int, bodies: list[dict]) -> str:
+    """One committed part in the RequestLogger's layout."""
+    name = f"part-{idx:05d}.jsonl"
+    with open(os.path.join(logdir, name), "w") as f:
+        for b in bodies:
+            f.write(json.dumps({"ts": 0, "method": "POST", "path": "/", "status": 200,
+                                "latency_ms": 1.0, "body": b, "reply": {}}) + "\n")
+    with open(os.path.join(logdir, name + ".DONE"), "w") as f:
+        json.dump({"rows": len(bodies)}, f)
+    return name
+
+
+class _Flywheel:
+    """(b)'s ``row_fn``, ``train_fn`` and ``eval_fn`` over BERT-base."""
+
+    def __init__(self, device, cfg):
+        self.device, self.cfg = device, cfg
+        self.tok = HashingTokenizer(vocab_size=cfg.vocab_size)
+
+    def pipeline(self, params: dict) -> PipelineModel:
+        import chip_smoke as this  # the stage classes under a name the workers import
+
+        model = DeepTextModel(model_params=params, arch_config=self.cfg,
+                              tokenizer_config=self.tok.to_config(), checkpoint="bert-base",
+                              num_classes=2, batch_size=32, max_token_len=FT_LEN,
+                              attn_impl="flash", device=str(self.device))
+        return PipelineModel(stages=[this.ServeTexts(), model, this.ServeReplies()])
+
+    def row_fn(self, record):
+        """A logged request as a training row, padded to FT_LEN tokens."""
+        body = record["body"]
+        enc = self.tok([str(body["texts"][0])], max_len=FT_LEN)
+        ids = np.full(FT_LEN, self.tok.PAD, np.int32)
+        mask = np.zeros(FT_LEN, np.int32)
+        n = enc["input_ids"].shape[1]
+        ids[:n], mask[:n] = enc["input_ids"][0], enc["attention_mask"][0]
+        return {"input_ids": ids, "attention_mask": mask, "labels": np.int32(body["label"])}
+
+    def train_fn(self, ctx, attempt, heartbeat: bool = True):
+        """Warm-started from prod: FW_STEPS steps, a checkpoint every
+        FW_EVERY, resumable. ``heartbeat=False`` (the reference iteration,
+        run beside iteration 1) leaves the fault plane's step hook out."""
+        from synapseml_torch.data import MemorySource
+        from synapseml_torch.parallel import AsyncCheckpointer
+
+        prod = ctx.prod.stage.get("stages")[1].get("model_params")
+        trainer = trainer_mod.Trainer(_bert_module(self.cfg), _gang_trainer_cfg(FW_STEPS),
+                                      device=self.device)
+        with AsyncCheckpointer(ctx.checkpoint_dir, keep=10) as ck:
+            state = trainer_mod.fit_source(
+                trainer, MemorySource(ctx.train_cols, shard_rows=32), batch_size=FT_BATCH,
+                total_steps=FW_STEPS, seed=ctx.spec.seed, init_params=prod, scan_chunk=1,
+                checkpointer=ck, checkpoint_every=FW_EVERY, resume_from=ctx.checkpoint_dir,
+                skip_fn=attempt.skip_fn,
+                callback=(lambda i, m: attempt.heartbeat(i)) if heartbeat else None)
+        params = {k: v.detach().cpu().numpy() for k, v in state.params.items()}
+        del trainer, state
+        _free_card()
+        return self.pipeline(params)
+
+    def eval_fn(self, stage, holdout) -> float:
+        """Mean NLL of the stage's model on the held-out rows."""
+        model = stage.get("stages")[1]
+        ids, mask = holdout["input_ids"], holdout["attention_mask"]
+        probs = np.concatenate([model._score(ids[i:i + 32], mask[i:i + 32])
+                                for i in range(0, len(ids), 32)])
+        y = holdout["labels"].astype(int)
+        return float(-np.log(np.maximum(probs[np.arange(len(y)), y], 1e-12)).mean())
+
+
+def _timed_seams(loop) -> list:
+    """The loop's seams with their start times, appended as they run."""
+    marks = []
+    orig = loop._seam
+
+    def seam(name):
+        if name in FW_SEAMS:
+            marks.append((name, time.perf_counter()))
+        return orig(name)
+
+    loop._seam = seam
+    return marks
+
+
+def _seam_seconds(marks: list, end: float) -> dict:
+    """Seconds of each seam (the next seam's start, or ``end``, closes it);
+    empties ``marks`` for the next iteration."""
+    ends = marks[1:] + [("end", end)]
+    out = {name: round(t1 - t0, 3) for (name, t0), (_, t1) in zip(marks, ends)}
+    marks.clear()
+    return out
+
+
+def _fw_fleet(device, card: str, tmp: str) -> dict:
+    """(b)'s fleet: BERT-base v1 (its head biased, FW_V1_BIAS) published,
+    pinned prod and served by 2 worker processes."""
+    from synapseml_torch.io import distributed_serving as tds
+    from synapseml_torch.registry import ModelRegistry
+
+    cfg = dataclasses.replace(bert_base(), attn_impl="flash")
+    fw = _Flywheel(device, cfg)
     t0 = time.perf_counter()
+    init = text_stage._init_params(cfg, 2, 0)
+    init["classifier.bias"] = np.asarray(FW_V1_BIAS, np.float32)
+    v1 = fw.pipeline(init)
+    reg = ModelRegistry(os.path.join(tmp, "reg"))
+    reg.publish("bert", v1, version="v1")
+    reg.pin("bert", "prod", "v1")
+    counts_dir = os.path.join(tmp, "counts")
+    os.makedirs(counts_dir)
+    env = {DS_COUNTS_ENV: counts_dir, DS_PARENT_ENV: str(os.getpid())}
+    with _ENV_LOCK:  # the gangs copy the environment meanwhile
+        os.environ.update(env)
+    try:
+        handle = tds.serve_pipeline_distributed(v1, num_workers=2, batch_interval_ms=SV_INTERVAL_MS,
+                                                version="v1", startup_timeout_s=300)
+    finally:
+        with _ENV_LOCK:
+            for k in env:
+                os.environ.pop(k)
+    log(f"[flywheel] (b) BERT-base v1 published, pinned prod and served by 2 worker processes in "
+        f"{time.perf_counter() - t0:.1f} s | {card}")
+    return {"fw": fw, "v1": v1, "reg": reg, "handle": handle, "counts_dir": counts_dir,
+            "logdir": os.path.join(tmp, "log"), "ref_log": os.path.join(tmp, "ref_log"),
+            "refs": {}, "logger": None}
+
+
+def _fw_loop(fleet: dict, tmp: str, registry, deployment, state_dir: str, log_dir: str,
+             train_fn):
+    from synapseml_torch import continual as tcont
+
+    fw = fleet["fw"]
+    return tcont.ContinualLoop(tcont.ContinualSpec(model="bert", **FW_SPEC), registry, log_dir,
+                               train_fn, fw.eval_fn, row_fn=fw.row_fn, deployment=deployment,
+                               state_dir=os.path.join(tmp, state_dir))
+
+
+def _fw_reference(fleet: dict, tmp: str, k: int) -> None:
+    """The uninterrupted reference iteration ``k``: the logged parts' copy,
+    its own registry holding v1, no fleet, no fault. Its record, its
+    promoted params (None otherwise) and its seconds, or the exception it
+    raised, go to ``fleet["refs"][k]``."""
+    from synapseml_torch.registry import ModelRegistry
+
+    fw = fleet["fw"]
+    try:
+        r = ModelRegistry(os.path.join(tmp, f"ref_reg{k}"))
+        r.publish("bert", fleet["v1"], version="v1")
+        r.pin("bert", "prod", "v1")
+        t = time.perf_counter()
+        rec = _fw_loop(fleet, tmp, r, None, f"ref_state{k}", fleet["ref_log"],
+                       lambda ctx, att: fw.train_fn(ctx, att, heartbeat=False)).run_once()
+        fleet["refs"][k] = (rec, r.resolve("bert", "prod").stage.get("stages")[1].get(
+            "model_params") if rec["outcome"] == "promoted" else None,
+            time.perf_counter() - t)
+    except BaseException as e:  # noqa: BLE001 - raised by the caller
+        fleet["refs"][k] = (e, None, 0.0)
+
+
+def _fw_reference_params(fleet: dict, k: int) -> dict:
+    rec, params, secs = fleet["refs"][k]
+    if params is None:
+        raise AssertionError(f"[flywheel] (b) reference iteration {k}: {rec}")
+    log(f"[flywheel] (b) reference iteration {k} (no fleet, no fault): {rec['outcome']}, "
+        f"gate {rec.get('gate')}, {secs:.1f} s")
+    return params
+
+
+def _fw_prepare(device, card: str, tmp: str, beaten: threading.Event,
+                abandon: threading.Event) -> dict | None:
+    """(b)'s first half, run beside (a) once ``beaten`` is set (the gang
+    members' start-up is the busiest time of the host): the fleet
+    (``_fw_fleet``), the labelled traffic through its front into a
+    RequestLogger, then the reference iteration 1 over a copy of the logged
+    parts. Stops the fleet if a step fails; None if ``abandon`` was set
+    (a failed (a)) before it began."""
+    from synapseml_torch import continual as tcont
+
+    beaten.wait()
+    if abandon.is_set():
+        return None
+    fleet = _fw_fleet(device, card, tmp)
+    try:
+        handle = fleet["handle"]
+        lg = fleet["logger"] = tcont.RequestLogger(fleet["logdir"], shard_rows=FW_PART_ROWS,
+                                                   seed=0)
+        handle.front.set_request_logger(lg)
+        bodies = _fw_bodies(FW_REQUESTS, seed=16)
+        t1 = time.perf_counter()
+        sent = _run_clients(4, bodies, lambda b: _post_timed(handle.address, b))
+        lg.flush()
+        handle.front.set_request_logger(None)  # the canary's probes are not training data
+        stats = lg.stats()
+        log(f"[flywheel] (b) {len(sent)} labelled requests through the front in "
+            f"{time.perf_counter() - t1:.2f} s, all 200: "
+            f"{all(r['status'] == 200 for r in sent)}; logged {stats['logged']} in "
+            f"{stats['parts']} parts")
+        if stats["logged"] != FW_REQUESTS or any(r["status"] != 200 for r in sent):
+            raise AssertionError("[flywheel] (b) the labelled traffic was not logged whole")
+        shutil.copytree(fleet["logdir"], fleet["ref_log"])
+        # the reference's fit and iteration 1's, deterministic alike
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        _fw_reference(fleet, tmp, 1)
+    except BaseException:
+        _fw_stop(fleet)
+        raise
+    return fleet
+
+
+def _fw_stop(fleet: dict) -> None:
+    """Stop the fleet's workers and close its logger (each idempotent)."""
+    try:
+        fleet["handle"].stop()
+    finally:
+        if fleet["logger"] is not None:
+            fleet["logger"].close()
+
+
+def _flywheel(card: str, tmp: str, fleet: dict) -> dict:
+    """(b)'s second half, after ``_fw_prepare``: serve -> log -> retrain ->
+    canary on BERT-base across the two worker processes of ``fleet``;
+    stops them."""
+    from synapseml_torch.core.faults import FaultSpec, inject_faults
+    from synapseml_torch.registry import Deployment
+
+    reg, handle, logdir = fleet["reg"], fleet["handle"], fleet["logdir"]
+    out: dict = {}
+    try:
+        warm = [{"texts": ["a warm up text of a few words"], "label": 0}]
+        dep = Deployment(handle, reg, "bert", warmup=warm, timeout_s=SV_HTTP_TIMEOUT)
+        promote_s = []
+        orig_promote = dep.promote
+
+        def promote(ref=None):
+            t = time.perf_counter()
+            try:
+                return orig_promote(ref)
+            finally:
+                promote_s.append(time.perf_counter() - t)
+
+        dep.promote = promote
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        loop = _fw_loop(fleet, tmp, reg, dep, "state", logdir, fleet["fw"].train_fn)
+        timer = _timed_seams(loop)
+
+        def workers_on():
+            return sorted(json.loads(_http(f"http://{w['host']}:{w['port']}", "GET",
+                                           "/admin/version")[2])["version"]
+                          for w in handle.registry.workers())
+
+        ref_params = _fw_reference_params(fleet, 1)  # run beside (a)
+        with inject_faults([FaultSpec("crash", match=f"step:{FW_CRASH_AT}", times=1,
+                                      planes=("training",))]) as plan:
+            rec1 = loop.run_once()
+        seams1 = _seam_seconds(timer, time.perf_counter())
+        canary_requests = {v: s.get("ok", 0) + s.get("err", 0)
+                           for v, s in handle.front.version_stats().items()}
+        v2 = rec1.get("version")
+        cand = reg.resolve("bert", v2).stage.get("stages")[1].get("model_params") if v2 else None
+        on = workers_on()
+        log(f"[flywheel] (b) iteration 1: {rec1['outcome']}, trigger {rec1.get('trigger')}, "
+            f"parts {rec1.get('parts')}, quarantined {rec1.get('quarantined')}, train rows "
+            f"{rec1.get('train_rows')}, supervisor {rec1.get('supervisor')}, gate "
+            f"{rec1.get('gate')}, {rec1['duration_s']} s; seconds by seam {seams1}; injected "
+            f"{plan.injected}; requests by version through the canary {canary_requests}; "
+            f"promote {promote_s[0] if promote_s else float('nan'):.2f} s; prod -> "
+            f"{reg.alias_target('bert', 'prod')}, workers on {on} | {card}")
+        if rec1["outcome"] != "promoted" or rec1["supervisor"]["restarts"] != 1 \
+                or reg.alias_target("bert", "prod") != v2 or on != [v2, v2]:
+            raise AssertionError(f"[flywheel] (b) iteration 1 did not restart once and promote: "
+                                 f"{rec1}")
+
+        def second_reference():
+            _fw_reference(fleet, tmp, 2)
+            return {"p": _fw_reference_params(fleet, 2)}
+
+        worst = _within_spread({"p": cand}, {"p": ref_params}, second_reference,
+                               "[flywheel] (b) iteration 1's candidate against the reference "
+                               "iteration's")
+        replies = {_post_timed(handle.address, {"texts": ["great film"]})["version"]
+                   for _ in range(8)}
+        if replies != {v2}:
+            raise AssertionError(f"[flywheel] (b) replies after the promote from {replies}")
+        probe = {"texts": ["a fixed probe of the flywheel, great acting"]}
+        before = _http(handle.address, "POST", "/", probe)[2]
+        # iteration 2: poisoned labels on the parts the split trains on
+        names = [f"part-{i:05d}.jsonl" for i in range(900, 912)]
+        train = [n for n in names if not loop._holdout_part(n)]
+        hold = [n for n in names if loop._holdout_part(n)]
+        for k, n in enumerate(names):
+            _fw_write_part(logdir, int(n[5:10]), _fw_bodies(FW_PART_ROWS, seed=100 + k,
+                                                            flip=n in train))
+        rec2 = loop.run_once()
+        seams2 = _seam_seconds(timer, time.perf_counter())
+        after = _http(handle.address, "POST", "/", probe)[2]
+        log(f"[flywheel] (b) iteration 2 ({len(train)} poisoned parts, {len(hold)} clean "
+            f"held out): {rec2['outcome']}, trigger {rec2.get('trigger')}, parts "
+            f"{rec2.get('parts')}, quarantined {rec2.get('quarantined')}, train rows "
+            f"{rec2.get('train_rows')}, supervisor {rec2.get('supervisor')}, gate "
+            f"{rec2.get('gate')}, {rec2['duration_s']} s; seconds by seam {seams2}; prod -> "
+            f"{reg.alias_target('bert', 'prod')}; the probe's reply bytes unchanged "
+            f"{before == after} | {card}")
+        if rec2["outcome"] != "gate_failed" or reg.alias_target("bert", "prod") != v2 \
+                or before != after or reg.list_versions("bert") != ["v1", v2]:
+            raise AssertionError(f"[flywheel] (b) iteration 2 moved prod: {rec2}")
+        out.update(rec1=rec1, rec2=rec2, worst=worst, promote_s=promote_s[0],
+                   canary_requests=canary_requests)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        _fw_stop(fleet)
+    workers = _worker_counts(fleet["counts_dir"])
+    out["worker_fwd"] = {k: sum(r["fwd"].get(k, 0) for r in workers.values())
+                         for k in att.flash_attention_fwd.launches}
+    return out
+
+
+def phase_gang_flywheel(device, card: str) -> dict:
+    """Main path 16: (a) the elastic gang (kill and resize, preemption) and
+    (b) the continual flywheel, at BERT-base's full width through the flash
+    kernels; (b)'s fleet, logged traffic and reference iteration run on a
+    thread beside (a), from the gang members' first beats. Returns the
+    flash launches: the gang members', the flywheel's in this process and
+    its serving workers'."""
+    import concurrent.futures
+    import tempfile
+
+    from synapseml_torch.core import observability as obs
+
+    _free_card()
+    _zero_flash_counts()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_gang_")
+    t_path = time.perf_counter()
+    fleet = None
+    ex = concurrent.futures.ThreadPoolExecutor(1)
+    beaten, abandon = threading.Event(), threading.Event()
+    prep = ex.submit(_fw_prepare, device, card, tmp, beaten, abandon)
+    try:
+        t0 = time.perf_counter()
+        _gang_data(tmp, bert_base())
+        log(f"[gang] (a) rows ({GG_ROWS} tokenized texts) and the seeded BERT-base init written "
+            f"for the members in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        gang = _gang_resize(tmp, card, beaten)
+        log(f"[gang] (a) done in {time.perf_counter() - t0:.1f} s; the coordinators' series: "
+            + ", ".join(f"{k} {v:g}" for k, v in sorted(obs.get_registry().snapshot().items())
+                        if k.startswith("synapseml_train_gang_")))
+        t0 = time.perf_counter()
+        fleet = prep.result()
+        log(f"[flywheel] (b) its fleet, traffic and reference iteration, beside (a): done "
+            f"{time.perf_counter() - t0:.1f} s after (a)")
+        _free_card()
+        t0 = time.perf_counter()
+        fly = _flywheel(card, tmp, fleet)
+        log(f"[flywheel] (b) done in {time.perf_counter() - t0:.1f} s after (a) and the "
+            "reference iteration")
+    finally:
+        abandon.set()  # after a failed (a), (b)'s preparation does not begin
+        beaten.set()
+        ex.shutdown(wait=True)  # a failed (a) waits for (b)'s preparation to end
+        if fleet is None and prep.exception() is None:
+            fleet = prep.result()
+        if fleet is not None:
+            _fw_stop(fleet)  # idempotent: _flywheel stops it too
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(tmp, ignore_errors=True)
+    here = _flash_counts()
+    launches = {k: here["fwd"][k] + gang["launches"]["fwd"][k] + fly["worker_fwd"][k]
+                for k in here["fwd"]}
+    bwd = {k: here["bwd"][k] + gang["launches"]["bwd"][k] for k in here["bwd"]}
+    log(f"[gang] main path 16 in {time.perf_counter() - t_path:.1f} s; flash launches forward "
+        f"{launches}, backward {bwd} (this process {here}, the gang members' "
+        f"{gang['launches']}, the flywheel's serving workers' forward {fly['worker_fwd']})")
+    return {"launches": launches, "bwd_launches": bwd, "gang": gang, "flywheel": fly}
+
+
+# every thread's stack to standard error this long after the start, should
+# the run still be going: where a run cut at its time limit stood
+STACKS_AFTER_S = 1140
+
+
+def main() -> None:
+    import faulthandler
+
+    t0 = time.perf_counter()
+    faulthandler.dump_traceback_later(STACKS_AFTER_S, exit=False)
 
     def done(phase):
-        log(f"[phase] {phase} done at {time.perf_counter() - t0:.1f} s")
+        line = f"[phase] {phase} done at {time.perf_counter() - t0:.1f} s"
+        log(line)
+        print(line, file=sys.stderr, flush=True)  # the progress beside any error output
 
     card, device = phase_device()
     phase_build()
@@ -9352,6 +10235,8 @@ def main() -> None:
     done("main path 14, serving across worker processes")
     fleet = phase_fleet(device, card, batch["index_store"])
     done("main path 15, the fleet")
+    gang = phase_gang_flywheel(device, card)
+    done("main path 16, elastic gang training and the continual flywheel")
     # the flash kernels' launches on the paths, each counted from 0 just
     # before it ran: scoring (path 1), fine-tuning through flash and both
     # fitted models' scoring (path 3), bert-tiny f32 through flash on the
@@ -9361,9 +10246,10 @@ def main() -> None:
     # scoring (path 11), the served requests, swaps and publish (path 12), the
     # bulk scans of BERT-base (path 13), the requests, warmups and swaps
     # served in path 14's worker processes, counted there, with its own
-    # in-process server's, and path 15's residency loads, logged server and
-    # autoscaled workers (counted in them)
-    paths = (train, vit, pretrained, moe, mesh, serving, batch, dist, fleet,
+    # in-process server's, path 15's residency loads, logged server and
+    # autoscaled workers (counted in them), and path 16's gang members'
+    # steps and the flywheel's fits, gates and serving workers
+    paths = (train, vit, pretrained, moe, mesh, serving, batch, dist, fleet, gang,
              {"launches": tiny["fwd"], "bwd_launches": tiny["bwd"]},
              *({"launches": long_t[tag]["launches"]["fwd"],
                 "bwd_launches": long_t[tag]["launches"]["bwd"]} for tag in ("flash", "flash f32")))
@@ -9381,6 +10267,7 @@ def main() -> None:
                                  + batch["gbdt_hist_scale"]},
                                 hist_err)
     done("times")
+    faulthandler.cancel_dump_traceback_later()
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
@@ -9388,4 +10275,6 @@ def main() -> None:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--gang-member"]:
+        sys.exit(gang_member_main(sys.argv[2:]))
     main()

@@ -14,7 +14,9 @@ batch *k* continues with batch *k+1*: no row replayed, none skipped.
 
 Batches stay numpy arrays on the host: the trainer moves each one to its
 device (the JAX loader's ``place_fn`` has no counterpart). The gang form,
-``ElasticStreamSet``, comes with the multi-GPU slice. Observability: the
+:class:`ElasticStreamSet` (``synapseml_tpu/data/loader.py:405-528``), is
+one member's round robin over the virtual streams an
+:class:`~synapseml_torch.data.state.ElasticPlan` assigns it. Observability: the
 ``synapseml_data_*`` series in the metrics registry (queue depth, wait and
 shard-read histograms, rows and rows/s) and one span per shard read.
 """
@@ -31,9 +33,9 @@ import numpy as np
 from ..core import batching as cb
 from ..core import observability as obs
 from .source import ShardedSource, _n_rows, resolve_host
-from .state import IteratorState, row_order, shard_order
+from .state import ElasticPlan, IteratorState, row_order, shard_order
 
-__all__ = ["DataLoader"]
+__all__ = ["DataLoader", "ElasticStreamSet"]
 
 _END = object()
 
@@ -389,6 +391,102 @@ class DataLoader:
             st.epoch += 1
             st.rows_emitted = 0
         self._put(_END)
+
+
+class ElasticStreamSet:
+    """One gang member's view of an elastic run's batch streams.
+
+    The plan freezes the run as ``orig_world`` virtual streams; this set
+    owns the streams assigned to ``rank`` of ``world`` survivors: one
+    :class:`DataLoader` a stream, pinned to ``host_index=stream_id,
+    host_count=orig_world`` and resumed from that stream's cursor. Each
+    step draws from the least-consumed assigned stream (ties to the lowest
+    stream id): round robin with equal cursors, and, since the choice
+    depends on the checkpointed cursors only, a resume in mid-cycle goes on
+    with the interleaving an uninterrupted run would have had.
+
+    ``state_for_batch(k)``: the per-stream cursors after this member's
+    k-th emitted batch, keyed by stream id (the ``data_iter`` payload a
+    coordinated checkpoint stores a rank, so that
+    ``ElasticPlan.from_host_states`` reunites all N)."""
+
+    def __init__(self, source, batch_size: int, plan: ElasticPlan,
+                 rank: int, world: int, *, prefetch: int = 2,
+                 state_history: int = 64, **loader_kwargs):
+        if not 0 <= int(rank) < int(world):
+            raise ValueError(f"rank {rank} outside world {world}")
+        self.plan = plan
+        self.rank, self.world = int(rank), int(world)
+        self.streams = plan.assignment(world)[self.rank]
+        if not self.streams:
+            raise ValueError(
+                f"rank {rank} of {world} has no virtual streams — the run was launched "
+                f"with orig_world={plan.orig_world} and only that many hosts can be fed; "
+                "clamp world to <= orig_world in the launcher (fit_gang_source rejects "
+                "this earlier with the same guidance)")
+        loader_kwargs.pop("host_index", None)
+        loader_kwargs.pop("host_count", None)
+        self.loaders = []
+        self._counts = []
+        for sid in self.streams:
+            st = IteratorState.from_tree(plan.states[sid])
+            self.loaders.append(DataLoader(
+                source, batch_size, seed=st.seed, state=st, host_index=sid,
+                host_count=plan.orig_world, prefetch=prefetch,
+                state_history=state_history, **loader_kwargs))
+            self._counts.append(st.batches_emitted)
+        self.emitted = 0
+        self._exhausted: set[int] = set()
+        self._snaps: dict[int, dict] = {}
+        self._last_snap: dict | None = None
+        self._history = max(int(state_history), 1)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> dict:
+        # streams need not run dry together (odd shard counts): a dry one
+        # leaves the rotation and the set ends when every stream is dry, so
+        # the longer streams' tails are not dropped
+        while True:
+            live = [j for j in range(len(self.loaders)) if j not in self._exhausted]
+            if not live:
+                raise StopIteration
+            i = min(live, key=lambda j: (self._counts[j], self.streams[j]))
+            try:
+                batch = next(self.loaders[i])
+                break
+            except StopIteration:
+                self._exhausted.add(i)
+        self._counts[i] += 1
+        self.emitted += 1
+
+        def cursor(j, sid):
+            st = self.loaders[j].state_for_batch(self._counts[j])
+            if st is None:  # not stepped yet this run: the plan's cursor
+                return dict(self.plan.states[sid])
+            return st.to_tree()
+
+        if self._last_snap is None:
+            snap = {str(sid): cursor(j, sid) for j, sid in enumerate(self.streams)}
+        else:
+            # only stream i moved: one cursor serialized a step, not N
+            snap = dict(self._last_snap)
+            snap[str(self.streams[i])] = cursor(i, self.streams[i])
+        self._last_snap = snap
+        self._snaps[self.emitted] = snap
+        while len(self._snaps) > self._history:
+            self._snaps.pop(next(iter(self._snaps)))
+        return batch
+
+    def state_for_batch(self, emitted: int) -> dict | None:
+        """Per-stream cursors after this member's ``emitted``-th batch since
+        it started (``{stream_id: IteratorState tree}``)."""
+        return self._snaps.get(int(emitted))
+
+    def close(self) -> None:
+        for ld in self.loaders:
+            ld.close()
 
 
 def _carry(buffers: list[dict], consumed: int, buffered: int

@@ -1,6 +1,6 @@
 """Checkpointable iterator state and the deterministic order functions.
 
-Counterpart of ``synapseml_tpu/data/state.py:28-125``, copied as it is so
+Counterpart of ``synapseml_tpu/data/state.py``, copied as it is so
 the port emits the same batch streams: the stream is a pure function of
 ``(seed, epoch, shard layout, cursor)``. The shard order of an epoch is
 ``shard_order(seed, epoch, ...)``, the row order inside a shard
@@ -9,8 +9,8 @@ those integers). A mid-epoch resume needs only the four cursors of
 :class:`IteratorState`: regenerate the epoch's orders, skip whole shards
 whose row counts fit under ``rows_emitted``, skip the rest inside the
 boundary shard, and continue, with no row replayed or skipped.
-``ElasticPlan`` (the N->M gang redistribution) comes with the multi-GPU
-slice.
+:class:`ElasticPlan` freezes a gang's run as N virtual streams, one cursor
+each, and maps them onto any number of surviving members.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ import dataclasses
 
 import numpy as np
 
-__all__ = ["IteratorState", "shard_order", "row_order"]
+__all__ = ["IteratorState", "ElasticPlan", "shard_order", "row_order"]
 
 
 def shard_order(seed: int, epoch: int, n_shards: int,
@@ -118,3 +118,74 @@ class IteratorState:
                    batches_emitted=int(tree["batches_emitted"]),
                    seed=int(tree["seed"]),
                    shard_counts=counts if counts.size else None)
+
+
+@dataclasses.dataclass
+class ElasticPlan:
+    """N->M redistribution of a gang's per-member batch streams.
+
+    The run is frozen at its first launch as ``orig_world`` *virtual
+    streams*: stream *s* reads the shard slice a static N-member run gives
+    member *s*, and carries its own :class:`IteratorState` cursor (a
+    coordinated checkpoint stores one a stream). Resuming on M survivors
+    hands member *j* the streams ``[j, j+M, j+2M, ...]``; each stream goes
+    on from its cursor, so the rows emitted are the dataset's with none
+    replayed and none skipped, for any N->M."""
+
+    orig_world: int
+    states: list  # one IteratorState tree (``to_tree`` dict) a stream
+
+    def __post_init__(self):
+        if self.orig_world < 1:
+            raise ValueError(f"orig_world must be >= 1, got {self.orig_world}")
+        if len(self.states) != self.orig_world:
+            raise ValueError(
+                f"elastic plan needs one cursor per virtual stream: "
+                f"{len(self.states)} state(s) for orig_world={self.orig_world}")
+
+    @classmethod
+    def fresh(cls, world: int, seed: int) -> "ElasticPlan":
+        return cls(orig_world=int(world),
+                   states=[IteratorState(seed=int(seed)).to_tree() for _ in range(int(world))])
+
+    @classmethod
+    def from_host_states(cls, orig_world: int, host_states: dict,
+                         key: str = "data_iter") -> "ElasticPlan":
+        """The plan from a coordinated checkpoint's per-rank payloads
+        (``parallel.checkpoint.restore_host_states``): each rank stored
+        ``{key: {stream_id: IteratorState tree}}`` for the streams it
+        served. Their union must cover every virtual stream exactly: a gap
+        means a rank's shard is gone, and a cursor beyond ``orig_world``
+        means ``orig_world`` undercounts the run's frozen world (dropping
+        it would skip that stream's rows for good)."""
+        states: dict[int, dict] = {}
+        for tree in host_states.values():
+            cursors = tree.get(key) if isinstance(tree, dict) else None
+            if cursors is None:
+                continue
+            for sid, st in cursors.items():
+                states[int(sid)] = st
+        missing = sorted(set(range(int(orig_world))) - set(states))
+        if missing:
+            raise ValueError(
+                f"elastic resume is missing cursors for virtual stream(s) {missing} "
+                f"(have {sorted(states)}) — the checkpoint does not cover the original "
+                f"world of {orig_world}")
+        extra = sorted(set(states) - set(range(int(orig_world))))
+        if extra:
+            raise ValueError(
+                f"elastic resume found cursors for virtual stream(s) {extra} beyond "
+                f"orig_world={orig_world} — the declared original world undercounts the "
+                f"run's frozen world; resuming would permanently skip those streams' rows")
+        return cls(orig_world=int(orig_world),
+                   states=[states[s] for s in range(int(orig_world))])
+
+    def assignment(self, new_world: int) -> list[list[int]]:
+        """The virtual streams of each of ``new_world`` members: strided,
+        deterministic, every stream on exactly one member. Members beyond
+        ``orig_world`` get none (a gang clamps its world to
+        ``orig_world``)."""
+        m = int(new_world)
+        if m < 1:
+            raise ValueError(f"new_world must be >= 1, got {m}")
+        return [list(range(self.orig_world))[j::m] for j in range(m)]

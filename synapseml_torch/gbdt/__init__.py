@@ -1,7 +1,8 @@
 """Gradient-boosted decision trees on the card (the LightGBM-equivalent engine).
 
-Counterpart of ``synapseml_tpu/gbdt/``: quantile binning on the host, then
-level-wise histogram tree growth on the device, where each level's
+Counterpart of ``synapseml_tpu/gbdt/``: quantile bin boundaries on the host
+(the codes on the card for a fit there), then level-wise histogram tree
+growth on the device, where each level's
 histogram is one launch of the hand-written CUDA kernel
 ``csrc/gbdt_hist.cu`` (``histogram_impl='pallas'``) or plain torch
 (``'segment'``, ``'onehot'``). Ported: ``BinMapper`` (categorical

@@ -1,10 +1,12 @@
 """Feature quantile binning — host-side prep for the on-device histogram trees.
 
 Counterpart of ``BinMapper`` in ``synapseml_tpu/gbdt/binning.py`` (reference
-LightGBM ``BinMapper``/``Dataset`` construction). Numpy only, with the
-numpy per-column path of the JAX package's ``transform``; the JAX package
-takes a native C++ path for float32 input, which it documents as bit-exact
-with this one. Binned codes move to the device once and stay there for the
+LightGBM ``BinMapper``/``Dataset`` construction). Numpy, with the numpy
+per-column path of the JAX package's ``transform``; the JAX package takes a
+native C++ path for float32 input, which it documents as bit-exact with this
+one. ``transform(..., device=<cuda>)`` runs the same float64 comparisons on
+the card (``torch.searchsorted``, numpy's ``side="right"``), bit-exact with
+the host path. Binned codes move to the device once and stay there for the
 whole boosting run.
 
 Missing values (NaN) get their own reserved bin (the last one), mirroring
@@ -48,24 +50,26 @@ class BinMapper:
         return self.max_bin
 
     def fit(self, features: np.ndarray) -> "BinMapper":
-        x = np.asarray(features, dtype=np.float64)
+        x = np.asarray(features)
         if x.ndim != 2:
             raise ValueError(f"features must be 2-D, got shape {x.shape}")
         n, f = x.shape
         if n > self.sample_count:
             rng = np.random.default_rng(self.seed)
             x = x[rng.choice(n, self.sample_count, replace=False)]
+        x = np.asarray(x, dtype=np.float64)  # the sample only
         qs = np.linspace(0.0, 1.0, self.max_bin + 1)[1:-1]
         bounds = np.empty((f, self.max_bin - 1), dtype=np.float64)
         for j in range(f):
             col = x[:, j]
-            col = col[~np.isnan(col)]
+            # sorted once: np.unique's values, and np.quantile's order statistics
+            col = np.sort(col[~np.isnan(col)])
             if col.size == 0:
                 bounds[j] = 0.0
                 continue
             # unique-aware boundaries: few distinct values -> one bin per value,
             # like LightGBM's FindBinWithZeroAsOneBin for low-cardinality features
-            uniq = np.unique(col)
+            uniq = col[np.concatenate(([True], col[1:] != col[:-1]))]
             if uniq.size <= self.max_bin:
                 mids = (uniq[:-1] + uniq[1:]) / 2.0
                 pad = np.full(self.max_bin - 1 - mids.size, np.inf)
@@ -75,18 +79,24 @@ class BinMapper:
         self.boundaries_ = bounds
         return self
 
-    def transform(self, features: np.ndarray) -> np.ndarray:
+    def transform(self, features: np.ndarray, device=None) -> np.ndarray:
         """Rows → bin codes, shape (N, F): uint8 when ``num_bins <= 256``,
-        else int32. Comparisons run in float64 (lossless for float32 input)."""
+        else int32. Comparisons run in float64 (lossless for float32 input):
+        on the host, or on ``device`` when it is a CUDA device."""
         if self.boundaries_ is None:
             raise RuntimeError("BinMapper not fitted")
-        x = np.asarray(features, dtype=np.float64)  # no-op view for f64 input
+        x = np.asarray(features)
+        if x.ndim != 2:
+            raise ValueError(f"features must be 2-D, got shape {x.shape}")
         n, f = x.shape
         if f != self.boundaries_.shape[0]:
             raise ValueError(f"feature count {f} != fitted {self.boundaries_.shape[0]}")
         if self.categorical and not all(0 <= i < f for i in self.categorical):
             raise ValueError(f"categorical indices {sorted(self.categorical)} "
                              f"out of range [0, {f})")
+        if device is not None and str(device).startswith("cuda"):
+            return self._transform_torch(x, device)
+        x = np.asarray(x, dtype=np.float64)  # no-op view for f64 input
         out = np.empty((n, f), dtype=np.int32)
         cat = set(self.categorical)
         for j in range(f):
@@ -104,8 +114,46 @@ class BinMapper:
             return out.astype(np.uint8)
         return out
 
-    def fit_transform(self, features: np.ndarray) -> np.ndarray:
-        return self.fit(features).transform(features)
+    def _transform_torch(self, x: np.ndarray, device, block: int = 1 << 26) -> np.ndarray:
+        """``transform``'s comparisons as torch ops on ``device`` (any device:
+        the tests hold it to the host path on the CPU), in column blocks of
+        about ``block`` elements."""
+        import torch
+
+        n, f = x.shape
+        if x.dtype not in (np.float32, np.float64):
+            x = x.astype(np.float64)
+        xd = torch.from_numpy(np.ascontiguousarray(x)).to(device)
+        bounds = torch.from_numpy(self.boundaries_).to(device)
+        codes = torch.empty((f, n), dtype=torch.int32, device=device)
+        cat = set(self.categorical)
+        step = max(1, block // max(n, 1))
+        for j0 in range(0, f, step):
+            j1 = min(f, j0 + step)
+            cols = xd[:, j0:j1].T.to(torch.float64).contiguous()  # (k, N)
+            out = torch.searchsorted(bounds[j0:j1].contiguous(), cols, right=True,
+                                     out_int32=True)
+            for j in cat & set(range(j0, j1)):
+                col = cols[j - j0]
+                code = torch.floor(col)
+                valid = torch.isfinite(col) & (code >= 0) & (code < self.max_bin)
+                out[j - j0] = torch.where(valid, code, float(self.nan_bin)).to(torch.int32)
+            out[torch.isnan(cols)] = self.nan_bin  # a no-op on categorical columns
+            codes[j0:j1] = out
+        dtype = torch.uint8 if self.num_bins <= 256 else torch.int32
+        result = codes.T.to(dtype).contiguous().cpu().numpy()
+        # boundaries made NaN by infinite values: numpy's search order there
+        # is its own, so those columns take the host path
+        for j in np.flatnonzero(np.isnan(self.boundaries_).any(axis=1)):
+            if j not in cat:
+                col = np.asarray(x[:, j], dtype=np.float64)
+                code = np.searchsorted(self.boundaries_[j], col, side="right")
+                code[np.isnan(col)] = self.nan_bin
+                result[:, j] = code
+        return result
+
+    def fit_transform(self, features: np.ndarray, device=None) -> np.ndarray:
+        return self.fit(features).transform(features, device=device)
 
     def upper_bound_values(self) -> np.ndarray:
         """(F, num_bins) real-valued upper edge per bin — lets a trained booster

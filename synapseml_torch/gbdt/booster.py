@@ -519,7 +519,7 @@ def train_booster(features: np.ndarray, labels: np.ndarray, *,
         raise ValueError(f"categorical_features out of range [0, {f}): {cat_feats}")
     mapper = BinMapper(max_bin=max_bin, seed=seed, categorical=cat_feats)
     with measures.measure("binning"):  # the reference's dataset-prep window
-        bins_np = mapper.fit_transform(x)  # uint8 when the bins fit, else int32
+        bins_np = mapper.fit_transform(x, device=dev)  # uint8 when the bins fit, else int32
     w_np = (np.ones(n, np.float32) if weights is None
             else np.asarray(weights, dtype=np.float32))
     w_np = fold_positive_class_weight(y, w_np, objective=objective,
@@ -622,7 +622,8 @@ def train_booster(features: np.ndarray, labels: np.ndarray, *,
     if is_rank and valid_features is not None and valid_group_sizes is None:
         raise ValueError("lambdarank validation requires valid_group_sizes")
     if has_valid:
-        vbins = torch.from_numpy(mapper.transform(np.asarray(valid_features))).to(dev)
+        vbins = torch.from_numpy(mapper.transform(np.asarray(valid_features),
+                                                  device=dev)).to(dev)
         vy = torch.from_numpy(np.asarray(valid_labels, np.float32)).to(dev)
         if prev is not None:  # warm start: eval continues from prev margins too
             vscores = torch.from_numpy(np.asarray(prev.raw_score(

@@ -266,7 +266,7 @@ def train_booster_streamed(source, *, label_col: str = "label",
             feats = (_feature_matrix(cols, feature_cols) if cols
                      else np.empty((0, n_features), np.float32))
             path = os.path.join(directory, f"binned_{i:05d}.npy")
-            np.save(path, mapper.transform(feats).astype(np.uint16))
+            np.save(path, mapper.transform(feats, device=dev).astype(np.uint16))
             files.append(path)
     spill = _Spill(directory, files, counts)
 

@@ -58,9 +58,10 @@ parameter over an axis of size > 1, are refused with
 ``NotImplementedError`` naming ROADMAP.md queue A item 9.
 Checkpoints (``fit(checkpointer=, checkpoint_every=)``,
 ``fit_source(resume_from=)``) hold the full tree; restore places it
-through :meth:`Trainer.checkpoint_sharding_fn`. Gang training (``gang``,
-``fit_gang_source``) is refused with ``NotImplementedError`` naming
-ROADMAP.md queue A item 9.
+through :meth:`Trainer.checkpoint_sharding_fn`. Gang training
+(``fit(gang=)``, :func:`fit_gang_source`) makes the fit one member of an
+elastic gang (``parallel/gang.py``): a beat a step, the driver's verdicts
+at step boundaries, coordinated shard checkpoints, and N->M resume.
 """
 
 from __future__ import annotations
@@ -1025,22 +1026,32 @@ class Trainer:
         with ``checkpoint_every``: the whole state (:meth:`state_tree`) is
         snapshotted every ``checkpoint_every`` steps, at chunk boundaries
         (``scan_chunk`` is capped at ``checkpoint_every``), and at the end,
-        and written in the checkpointer's background thread."""
-        if gang is not None:
-            raise _unported("gang training", _MULTI_GPU)
+        and written in the checkpointer's background thread.
+
+        ``gang`` (a :class:`~synapseml_torch.parallel.gang.GangWorker`) makes
+        this fit a gang member, on the per-step loop: one beat at the start
+        state's step before the first step and one after each step, and a
+        verdict poll at every step boundary. ``"resize"`` raises
+        :class:`~synapseml_torch.parallel.gang.GangAborted`; ``("sync", S)``
+        trains on to step S, forces a checkpoint, waits for its write, acks
+        and raises :class:`~synapseml_torch.parallel.gang.Preempted` once
+        the driver has committed it (``GangAborted`` when it did not)."""
         it = iter(batch_iter)
         if checkpointer is not None and 0 < checkpoint_every < scan_chunk:
             # checkpoints fall between dispatches: shrink the chunk to honour them
             scan_chunk = checkpoint_every
         ckpt_due = self._ckpt_writer(checkpointer, checkpoint_every)
         if not (callback is not None or skip_fn is not None or scan_chunk <= 1
-                or max_steps <= 1):
+                or max_steps <= 1 or gang is not None):
             return self._fit_chunked(state, it, max_steps, scan_chunk, log_every, ckpt_due)
         meter = _ThroughputMeter(self, state.params)
         base = state.step
         eager_guard = self.cfg.nonfinite_action == "raise"
         pending: list[torch.Tensor] = []  # losses not yet read, ending at state.step
         logged_at = steps_done = 0
+        sync_at: int | None = None
+        if gang is not None:
+            gang.heartbeat(base)  # alive before the first (slow) step
 
         def flush() -> float | None:
             if not pending:
@@ -1061,22 +1072,51 @@ class Trainer:
                 state.step += 1
                 self._count_skipped()
                 ckpt_due(state, steps_done)
-                continue
-            state, metrics = self.train_step(state, batch)
-            meter.observe(batch)
-            pending.append(metrics["loss"])
-            if eager_guard:
-                flush()
-            if callback is not None:
-                callback(i, metrics)
-            if steps_done - logged_at >= log_every or steps_done >= max_steps:
-                flush()
-                self._metrics.append(meter.entry(float(metrics["loss"])))
-                logged_at = steps_done
-            ckpt_due(state, steps_done)
+            else:
+                state, metrics = self.train_step(state, batch)
+                meter.observe(batch)
+                pending.append(metrics["loss"])
+                if eager_guard:
+                    flush()
+                if callback is not None:
+                    callback(i, metrics)
+                if steps_done - logged_at >= log_every or steps_done >= max_steps:
+                    flush()
+                    self._metrics.append(meter.entry(float(metrics["loss"])))
+                    logged_at = steps_done
+                ckpt_due(state, steps_done)
+            if gang is not None:
+                sync_at = self._gang_boundary(gang, state, base + steps_done, steps_done,
+                                              sync_at, checkpointer, ckpt_due)
         flush()
         ckpt_due(state, steps_done, final=True)
         return state
+
+    @staticmethod
+    def _gang_boundary(gang, state: TrainState, step_now: int, steps_done: int,
+                       sync_at: int | None, checkpointer, ckpt_due) -> int | None:
+        """The gang seam after a step: beat, poll the verdict, and at the
+        sync step write this member's part of the emergency checkpoint.
+        Returns the sync step once one is known."""
+        from ..parallel.gang import GangAborted, Preempted
+
+        gang.heartbeat(step_now)
+        if sync_at is None:
+            v = gang.check(step_now)
+            if v == "resize":
+                raise GangAborted("gang verdict: resize — a member failed; exit and resume "
+                                  "from the last committed checkpoint")
+            if isinstance(v, tuple):  # ("sync", S)
+                sync_at = int(v[1])
+        if sync_at is not None and step_now >= sync_at:
+            ckpt_due(state, steps_done, final=True)
+            if checkpointer is not None:
+                checkpointer.wait()
+            if checkpointer is not None and gang.ack_and_wait_commit(step_now):
+                raise Preempted(step_now)
+            raise GangAborted("emergency checkpoint did not commit inside the grace window "
+                              "— resume from the last committed step")
+        return sync_at
 
     def _ckpt_writer(self, checkpointer, every: int):
         """``due(state, steps_done, final=False)``: a snapshot every
@@ -1389,8 +1429,133 @@ def fit_source(trainer: Trainer, source, *, batch_size: int, total_steps: int,
         loader.close()
 
 
-def fit_gang_source(*args, **kwargs):
-    raise _unported("fit_gang_source (elastic gang training)", _MULTI_GPU)
+class _ElasticLoaderCheckpointer:
+    """The gang form of :class:`_LoaderCheckpointer`: every snapshot carries
+    this member's per-stream cursors (``ElasticStreamSet.state_for_batch``,
+    keyed by virtual-stream id), which the coordinated
+    :class:`~synapseml_torch.parallel.AsyncCheckpointer` moves into the
+    rank's payload, so the union of the ranks' shards covers every stream
+    of the :class:`~synapseml_torch.data.ElasticPlan`."""
+
+    def __init__(self, inner, stream, base_step: int):
+        self._inner = inner
+        self._stream = stream
+        self._base = int(base_step)
+
+    def save(self, tree, step: int):
+        snap = self._stream.state_for_batch(int(step) - self._base)
+        if snap is None:
+            raise RuntimeError(
+                f"elastic stream state for batch {int(step) - self._base} (checkpoint step "
+                f"{step}) is no longer in the snapshot history — widen state_history")
+        tree = dict(tree)
+        tree["data_iter"] = snap
+        return self._inner.save(tree, step=step)
+
+    def wait(self):
+        return self._inner.wait()
+
+    def close(self):
+        return self._inner.close()
+
+
+def fit_gang_source(trainer: Trainer, source, *, batch_size: int, total_steps: int, seed: int,
+                    gang, checkpoint_dir: str, rank: int, world: int,
+                    checkpoint_every: int = 10, epochs: int | None = None,
+                    drop_remainder: bool = True, shuffle_rows: str = "full",
+                    shuffle_window: int = 4096, columns: list | None = None,
+                    init_params=None, log_every: int = 50,
+                    callback: Callable[[int, dict], None] | None = None) -> TrainState:
+    """One gang member's preemption-tolerant streaming fit
+    (``synapseml_tpu/models/trainer.py:1093-1225``).
+
+    The run is ``orig_world`` frozen virtual streams (an
+    :class:`~synapseml_torch.data.ElasticPlan`); this member serves the
+    streams the plan assigns ``rank`` of ``world`` and trains with the gang
+    seams live: a beat a step, verdict polls, and a coordinated shard
+    checkpoint every ``checkpoint_every`` steps. The driver commits a step
+    once every rank's ACK has landed and keeps the last K
+    (``GangCoordinator(keep=)``); members never commit or prune. A
+    finite-``epochs`` stream that runs dry before ``total_steps`` stops
+    this rank's ACKs, so nothing after commits (a
+    ``gang_stream_exhausted_early`` warning says so).
+
+    The checkpoint directory decides the start: a committed checkpoint
+    means an N->M elastic resume (the tree reassembled from the N shards
+    through :meth:`Trainer.resume_state`, each virtual stream on from its
+    committed cursor; ``world`` may differ from the writer's); an empty
+    one a fresh start with ``orig_world = world``.
+
+    Raises :class:`~synapseml_torch.parallel.gang.Preempted` (an emergency
+    checkpoint committed: exit ``EXIT_PREEMPTED``) or
+    :class:`~synapseml_torch.parallel.gang.GangAborted` (exit
+    ``EXIT_RESIZE``: resume from the last commit)."""
+    from ..data import ElasticPlan, ElasticStreamSet
+    from ..parallel.checkpoint import AsyncCheckpointer
+    from ..parallel.gang import elastic_restore
+
+    resume = elastic_restore(checkpoint_dir)
+    if resume is not None:
+        if resume.plan is None:
+            raise ValueError(
+                f"checkpoint dir {checkpoint_dir} holds a single-host checkpoint — "
+                "fit_gang_source resumes only coordinated (per-host shard) checkpoints; "
+                "use fit_source(resume_from=)")
+        plan, done, tree = resume.plan, resume.step, resume.tree
+        state = trainer.resume_state(tree["params"], tree.get("opt_state"),
+                                     step=int(np.asarray(tree["step"])),
+                                     batch_stats=tree.get("batch_stats"))
+    else:
+        plan = ElasticPlan.fresh(world, seed)
+        done, state = 0, None
+    if world > plan.orig_world:
+        raise ValueError(
+            f"world={world} exceeds the run's frozen stream count (orig_world="
+            f"{plan.orig_world}): extra hosts would have no virtual stream to serve and "
+            "no shard to ACK, wedging every commit — relaunch the gang with world <= "
+            "orig_world (clamp in the launcher)")
+    remaining = total_steps - done
+    if state is not None and remaining <= 0:
+        return state
+    stream = ElasticStreamSet(
+        source, batch_size, plan, rank, world, epochs=epochs,
+        drop_remainder=drop_remainder, shuffle_rows=shuffle_rows,
+        shuffle_window=shuffle_window, multiple_of=trainer._dp, columns=columns,
+        state_history=max(64, checkpoint_every + 8))
+    ck = AsyncCheckpointer(
+        checkpoint_dir, process_index=rank, process_count=world, coordinated=True,
+        sharding=trainer.sharding_section(),
+        meta={"orig_world": plan.orig_world, "seed": int(seed)},
+        run_id=getattr(gang, "run_id", None))
+    shim = _ElasticLoaderCheckpointer(ck, stream, base_step=done)
+    try:
+        if state is None:
+            state = trainer.init_state(seed=seed, init_params=init_params)
+        out = trainer.fit(state, iter(stream), max_steps=remaining, scan_chunk=1,
+                          log_every=log_every, checkpointer=shim,
+                          checkpoint_every=checkpoint_every, gang=gang, callback=callback)
+    except BaseException:
+        # a Preempted/GangAborted (or crash) exit wins over a pending
+        # background-write error, but the writer thread still goes
+        stream.close()
+        try:
+            ck.close()
+        except Exception:  # noqa: BLE001
+            pass
+        raise
+    # a clean finish: close() raises a failed final shard write
+    stream.close()
+    ck.close()
+    if int(out.step) < total_steps:
+        import json
+        import logging
+
+        logging.getLogger("synapseml_torch.models.trainer").warning(json.dumps({
+            "event": "gang_stream_exhausted_early", "rank": int(rank),
+            "step": int(out.step), "total_steps": int(total_steps),
+            "hint": "commits beyond this rank's last ACK cannot complete; size "
+                    "total_steps to the dataset or use epochs=None"}))
+    return out
 
 
 def fit_arrays(trainer: Trainer, data: dict, *, batch_size: int, total_steps: int,

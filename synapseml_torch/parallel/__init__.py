@@ -1,8 +1,8 @@
 """The multi-GPU plane: mesh, partition rules, collectives, checkpoints.
 
-Counterpart of ``synapseml_tpu/parallel``. The gang (elastic training) and
-the GPipe pipeline modules wait for ROADMAP.md queue A item 9's second
-half.
+Counterpart of ``synapseml_tpu/parallel``, the gang (elastic training,
+:mod:`.gang`) included. The GPipe pipeline module waits for ROADMAP.md
+queue A item 9's ``pipe`` axis.
 """
 
 from .backend import (DistributedBackend, DriverRendezvous, initialize_backend, reset_backend,
@@ -14,6 +14,8 @@ from .checkpoint import (AsyncCheckpointer, CheckpointCorrupt, checkpoint_meta,
                          gc_checkpoints, latest_step, latest_verified_step, restore_checkpoint,
                          restore_host_states, save_checkpoint, save_checkpoint_shard,
                          verify_checkpoint)
+from .gang import (EXIT_PREEMPTED, EXIT_RESIZE, ElasticResume, GangAborted, GangCoordinator,
+                   GangWorker, Preempted, elastic_restore, run_gang_member)
 from .mesh import MeshConfig, MeshContext, P, create_mesh, logical_axis_rules, shard_params
 from .partition import (PartitionRules, apply_manifest_sharding, checkpoint_sharding_fn,
                         default_llama_rules, default_transformer_rules, emit_shard_metrics,
@@ -30,6 +32,8 @@ __all__ = [
     "gc_checkpoints", "latest_step", "latest_verified_step",
     "restore_checkpoint", "restore_host_states", "save_checkpoint",
     "save_checkpoint_shard", "verify_checkpoint",
+    "EXIT_PREEMPTED", "EXIT_RESIZE", "ElasticResume", "GangAborted", "GangCoordinator",
+    "GangWorker", "Preempted", "elastic_restore", "run_gang_member",
     "MeshConfig", "MeshContext", "P", "create_mesh", "logical_axis_rules", "shard_params",
     "PartitionRules", "apply_manifest_sharding", "checkpoint_sharding_fn",
     "default_llama_rules", "default_transformer_rules", "emit_shard_metrics",

@@ -39,8 +39,9 @@ class DriverRendezvous:
     ``{coordinator, rank, world, run_id}``. The coordinator is the rank-0
     worker's host at ``coordinator_port``, where its process group's store
     listens. ``keep_alive=True`` keeps every worker connection open after
-    the reply, by rank in :attr:`conns` (the gang channel of a later
-    slice)."""
+    the reply, by rank in :attr:`conns`: the gang channel, which
+    :meth:`gang` hands to a :class:`~synapseml_torch.parallel.gang.
+    GangCoordinator`."""
 
     def __init__(self, world_size: int, coordinator_port: int = 9377,
                  bind: str = "0.0.0.0", keep_alive: bool = False):
@@ -99,14 +100,30 @@ class DriverRendezvous:
         if self.error:
             raise self.error
 
+    def gang(self, **kwargs):
+        """The bootstrap channel promoted to the gang plane: a started
+        :class:`~synapseml_torch.parallel.gang.GangCoordinator` over the
+        kept-alive worker sockets, ``run_id`` defaulting to this launch's.
+        Call after :meth:`join`; needs ``keep_alive=True``."""
+        if not self.keep_alive:
+            raise RuntimeError("DriverRendezvous(keep_alive=True) is required for a gang channel")
+        if len(self.conns) != self.world_size:
+            raise RuntimeError(f"rendezvous incomplete: {len(self.conns)}/{self.world_size} "
+                               "workers connected")
+        from .gang import GangCoordinator
+
+        kwargs.setdefault("run_id", self.run_id)
+        return GangCoordinator(self.conns, **kwargs).start()
+
 
 def worker_rendezvous(driver_address: str, executor_id: str, partition_id: int,
                       timeout_s: float = 120.0, retry_interval_s: float = 0.25,
-                      policy=None, keep_alive: bool = False):
+                      policy=None, deadline=None, keep_alive: bool = False):
     """Worker side: register with the driver, receive ``{coordinator, rank,
     world, run_id}``. Connects retry with jittered geometric backoff
     (capped at 5 s), every attempt bounded by what is left of
-    ``timeout_s``; retries and expiries count on
+    ``timeout_s`` (or of ``deadline``, a ``core.resilience.Deadline``
+    shared with the caller); retries and expiries count on
     ``resilience_measures("parallel")``, the wall time on
     ``synapseml_rendezvous_duration_ms``. ``keep_alive=True`` returns
     ``(info, socket)`` with the connection still open."""
@@ -117,7 +134,7 @@ def worker_rendezvous(driver_address: str, executor_id: str, partition_id: int,
         t0 = time.perf_counter()
         try:
             return _worker_rendezvous(driver_address, executor_id, partition_id,
-                                      timeout_s, retry_interval_s, policy, keep_alive)
+                                      timeout_s, retry_interval_s, policy, deadline, keep_alive)
         finally:
             obs.get_registry().histogram(
                 "synapseml_rendezvous_duration_ms",
@@ -126,12 +143,12 @@ def worker_rendezvous(driver_address: str, executor_id: str, partition_id: int,
 
 
 def _worker_rendezvous(driver_address, executor_id, partition_id, timeout_s,
-                       retry_interval_s, policy, keep_alive):
-    from ..core.resilience import RetryPolicy, resilience_measures
+                       retry_interval_s, policy, deadline, keep_alive):
+    from ..core.resilience import Deadline, DeadlineExpired, RetryPolicy, resilience_measures
 
     host, port = driver_address.rsplit(":", 1)
     measures = resilience_measures("parallel")
-    end = time.monotonic() + timeout_s
+    deadline = deadline if deadline is not None else Deadline(timeout_s)
     if policy is None:
         backoffs, b = [], retry_interval_s * 1000.0
         while len(backoffs) < 64:
@@ -141,12 +158,13 @@ def _worker_rendezvous(driver_address, executor_id, partition_id, timeout_s,
     last: BaseException | None = None
     attempt = 0
     while True:
-        left = end - time.monotonic()
-        if left <= 0:
+        try:
+            connect_timeout = deadline.cap(timeout_s)
+        except DeadlineExpired:
             measures.count("deadline_expired")
             raise TimeoutError(f"rendezvous with {driver_address} failed: {last}") from last
         try:
-            s = socket.create_connection((host, int(port)), timeout=min(timeout_s, left))
+            s = socket.create_connection((host, int(port)), timeout=connect_timeout)
             try:
                 payload = {"host": socket.gethostname(), "executor_id": executor_id,
                            "partition_id": partition_id}
@@ -172,7 +190,7 @@ def _worker_rendezvous(driver_address, executor_id, partition_id, timeout_s,
             last = e
             wait_s = policy.backoff_ms(attempt) / 1000.0
             attempt += 1
-            if time.monotonic() + wait_s >= end:
+            if not deadline.sleep_allowed(wait_s):
                 measures.count("deadline_expired")
                 raise TimeoutError(f"rendezvous with {driver_address} failed: {last}") from last
             if not policy.acquire_retry():

@@ -244,6 +244,31 @@ def test_bin_mapper_matches_jax(dtype, max_bin):
                                   JBinMapper.from_dict(mapper.to_dict()).upper_bound_values())
 
 
+@pytest.mark.parametrize("max_bin,categorical", [(255, (4,)), (300, (4,)), (15, ())])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64, np.int64])
+def test_bin_mapper_torch_comparisons_match_jax(dtype, max_bin, categorical):
+    """The comparisons a CUDA device runs (torch.searchsorted in float64 over
+    column blocks), here on CPU tensors: the JAX package's codes, with NaN,
+    infinite values (NaN boundaries take the host path), ties at the
+    boundaries and out-of-range category codes."""
+    rs = np.random.default_rng(4)
+    X = np.round(rs.normal(size=(3000, 6)) * 20)  # ties at the quantile boundaries
+    X[:, 3] = rs.integers(0, 4, 3000)  # low cardinality: one bin per value
+    X[:, 4] = rs.integers(-3, 40, 3000)  # categorical where asked, codes out of range
+    if dtype is not np.int64:
+        X[rs.random((3000, 6)) < 0.05] = np.nan
+        X[::11, 2], X[::13, 2] = np.inf, -np.inf
+    X = X.astype(dtype)
+    want = JBinMapper(max_bin=max_bin, sample_count=1000, seed=2,
+                      categorical=categorical).fit_transform(X)
+    mapper = BinMapper(max_bin=max_bin, sample_count=1000, seed=2, categorical=categorical)
+    mapper.fit(X)
+    got = mapper._transform_torch(X, "cpu", block=7000)  # three column blocks of two
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(mapper.transform(X), want)
+
+
 _OBJECTIVES = [("regression", {}), ("regression_l1", {}), ("huber", {"alpha": 0.7}),
                ("poisson", {}), ("quantile", {"alpha": 0.8}), ("gamma", {}), ("mape", {}),
                ("tweedie", {"tweedie_variance_power": 1.3}), ("binary", {}),

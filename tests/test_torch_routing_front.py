@@ -145,6 +145,20 @@ def _call(front, path="/", body=b"{}", headers=None, timeout=10):
         return e.code, json.loads(data) if data else None, dict(e.headers)
 
 
+def _until_served(front, names, deadline_s: float = 10.0) -> bool:
+    """Requests through ``front`` until each worker of ``names`` has answered
+    one, under a deadline: True when all have, every answer a 200."""
+    want, ok = set(names), True
+    deadline = time.monotonic() + deadline_s
+    while want and time.monotonic() < deadline:
+        status, body, _ = _call(front)
+        ok = ok and status == 200
+        want.discard((body or {}).get("worker"))
+        if want:
+            time.sleep(0.05)
+    return ok and not want
+
+
 def _get(front, path):
     with urllib.request.urlopen(front.address + path, timeout=10) as r:
         return r.read()
@@ -229,9 +243,10 @@ def test_time_based_resurrection():
             first = [_call(front)[1]["worker"] for _ in range(4)]
             opened = front._breaker(("127.0.0.1", port)).state
             revived = Stub("revived", port=held.free())
-            time.sleep(0.4)  # past the resurrection window: the half-open probe
+            # past the resurrection window the half-open probe reaches it
+            back = _until_served(front, ["revived"])
             seen = {_call(front)[1]["worker"] for _ in range(8)}
-            return first, opened, sorted(seen), front._breaker(("127.0.0.1", port)).state
+            return first, opened, back, sorted(seen), front._breaker(("127.0.0.1", port)).state
         finally:
             front.close()
             live.stop()
@@ -240,8 +255,8 @@ def test_time_based_resurrection():
             else:
                 held.free()
 
-    first, opened, seen, closed = _both(run)
-    assert first == ["live"] * 4 and opened == "open"
+    first, opened, back, seen, closed = _both(run)
+    assert first == ["live"] * 4 and opened == "open" and back
     assert seen == ["live", "revived"] and closed == "closed"
 
 
@@ -349,20 +364,20 @@ def test_kill_two_of_three_then_resurrect():
                 held.append(_Held(s.port))
             during = [_call(front) for _ in range(12)]
             revived = [Stub(f"w{i}", port=h.free()) for i, h in enumerate(held)]
-            time.sleep(0.4)
+            back = _until_served(front, ["w0", "w1"])
             after = [_call(front) for _ in range(24)]
             opens = json.loads(_get(front, "/stats"))["resilience"]["breaker_open_count"]
             return ([s for s, _, _ in before + during + after],
                     sorted({b["worker"] for _, b, _ in before}),
-                    {b["worker"] for _, b, _ in during}, sorted({b["worker"] for _, b, _ in after}),
-                    opens)
+                    {b["worker"] for _, b, _ in during}, back,
+                    sorted({b["worker"] for _, b, _ in after}), opens)
         finally:
             front.close()
             for s in revived + servers[2:]:
                 s.stop()
 
-    statuses, before, during, after, opens = _both(run)
-    assert statuses == [200] * 48
+    statuses, before, during, back, after, opens = _both(run)
+    assert statuses == [200] * 48 and back
     assert before == after == ["w0", "w1", "w2"] and during == {"w2"} and opens == 2
 
 

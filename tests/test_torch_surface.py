@@ -88,7 +88,6 @@ def test_deep_text_model_mesh_config_is_refused_with_its_item():
 _WAITING_EXPORTS = {
     "core": {"ServiceParam": "12", "StopWatch": "12", "retry_with_timeout": "12", "using": "12",
              "ClusterInfo": "12", "cluster_info": "12"},
-    "data": {"ElasticStreamSet": "1.2", "ElasticPlan": "1.2"},
     "gbdt": {"train_boosters_fused": "11"},
     # the HTTP clients, eager readers and writers and Power BI (item 12)
     "io": {"HTTPRequest": "12", "HTTPResponse": "12", "HTTPTransformer": "12",
@@ -103,16 +102,8 @@ _WAITING_EXPORTS = {
     # the publish-time executable recorder waits for an AOT mechanism, which
     # the port has none of by design (ROADMAP.md section C)
     "registry": {"AOTCapture": "C"},
-    # the continual loop and its training supervisor: after gang training
-    # (item 9), which the supervisor imports; the request logger is ported
-    "continual": {"ContinualLoop": "9", "ContinualSpec": "9", "LoopAborted": "9",
-                  "TrainAttempt": "9", "TrainSupervisor": "9", "annotate_drift_gauge": "9",
-                  "drift_annotation": "9"},
-    # the gang (elastic training) and the GPipe pipeline: item 9's second half
-    "parallel": {"EXIT_PREEMPTED": "9", "EXIT_RESIZE": "9", "ElasticResume": "9",
-                 "GangAborted": "9", "GangCoordinator": "9", "GangWorker": "9",
-                 "Preempted": "9", "elastic_restore": "9", "run_gang_member": "9",
-                 "pipeline_apply": "9", "pipeline_sharded": "9", "stack_stage_params": "9"},
+    # the GPipe pipeline: item 9's pipe axis
+    "parallel": {"pipeline_apply": "9", "pipeline_sharded": "9", "stack_stage_params": "9"},
 }
 _SUBPACKAGES = ("continual", "core", "data", "fleet", "gbdt", "hf", "image", "io", "models",
                 "nn", "onnx", "ops", "parallel", "registry", "retrieval", "scoring")

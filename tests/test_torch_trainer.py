@@ -366,21 +366,46 @@ def test_nonfinite_count_increments_the_registry_counter():
     assert snap["synapseml_train_last_finite_step"] == 2
 
 
+class _BeatGang:
+    """A gang worker that records beats and never returns a verdict."""
+
+    run_id = None
+
+    def __init__(self):
+        self.beats = []
+
+    def heartbeat(self, step):
+        self.beats.append(int(step))
+
+    def check(self, step):
+        return None
+
+
 def test_unported_trainer_options_are_refused(tmp_path):
-    """Gang training still waits (refused naming item 9); the options of the
-    multi-GPU plane that were refused until it was ported now run: a rule
-    table with ZeRO, a mesh, a checkpointer, resume_from (held to the JAX
-    package in test_torch_trainer_mesh.py and test_torch_checkpoint.py)."""
+    """The options that were refused until their slice was ported now run:
+    the gang seam (a beat at the start step, one a step; fit_gang_source
+    writes a coordinated shard at every checkpoint step, which the driver's
+    commit makes restorable), a rule table with ZeRO, a mesh, a
+    checkpointer, resume_from (held to the JAX package in
+    test_torch_gang.py, test_torch_trainer_mesh.py and
+    test_torch_checkpoint.py)."""
     from synapseml_torch import parallel as tp
 
     data = _rows()
     cfg = tt.TrainerConfig(partition_rules=tp.PartitionRules(), zero_shard=True)
     trainer = tt.Trainer(_Net(), cfg, device="cpu", mesh=tp.create_mesh())
     state = trainer.init_state()
-    with pytest.raises(NotImplementedError, match="item 9"):
-        trainer.fit(state, iter([]), max_steps=1, gang=object())
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tt.fit_gang_source(trainer, MemorySource(data))
+    gang = _BeatGang()
+    assert trainer.fit(state, iter([]), max_steps=1, gang=gang).step == 0
+    assert gang.beats == [0]
+    gang, gang_dir = _BeatGang(), str(tmp_path / "gang")
+    got = tt.fit_gang_source(trainer, MemorySource(data), batch_size=16, total_steps=4, seed=0,
+                             gang=gang, checkpoint_dir=gang_dir, rank=0, world=1,
+                             checkpoint_every=2)
+    assert got.step == 4 and gang.beats == [0, 1, 2, 3, 4]
+    assert tp.latest_verified_step(gang_dir) is None  # no driver has committed yet
+    assert tp.commit_checkpoint(gang_dir, 4, 1) is not None
+    assert tp.elastic_restore(gang_dir).step == 4
     with tp.AsyncCheckpointer(str(tmp_path / "ck"), keep=2) as ck:
         got = tt.fit_arrays(trainer, data, batch_size=16, total_steps=4, seed=0,
                             checkpointer=ck, checkpoint_every=2)
